@@ -1,11 +1,13 @@
 """User-facing API: scipy-style ``eigsh``.
 
-PyTorch port of ``primme_tpu/api.py::eigsh`` with the surface of the first
-slice: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
+PyTorch port of ``primme_tpu/api.py::eigsh`` with the surface ported so
+far: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
 and its permutation contract, ``which``/``sigma`` targets, the method
-presets and keyword forwarding, ``v0``, ``return_stats``,
-``raise_for_unconverged`` and the probe-exhaustion error. Arguments of the
-reference that the port does not serve yet raise ``NotImplementedError``.
+presets and keyword forwarding, ``v0``, ``return_stats``, a working
+``dtype`` of f32 or f64 (the operator is wrapped in a ``CastOperator`` when
+it differs from its own), ``raise_for_unconverged`` and the
+probe-exhaustion error. Arguments of the reference that the port does not
+serve yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from . import params as prm
 from .params import PrimmeParams, Target, Method, set_method
-from .operators import aslinearoperator
+from .operators import CastOperator, aslinearoperator
 from .core.solver import solve_eigs
 
 _WHICH_TO_TARGET = {
@@ -36,6 +38,21 @@ class PrimmeError(RuntimeError):
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to primme_tpu_torch "
                                "yet (see ROADMAP.md)")
+
+
+def _working_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """The solver's working dtype from a torch, numpy or named dtype; only
+    f32 and f64 are served."""
+    if dtype is None:
+        return None
+    if not isinstance(dtype, torch.dtype):
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        dtype = getattr(torch, name, None)
+    if dtype in (torch.bfloat16, torch.float16):
+        raise _unported(f"the half-precision basis (dtype={dtype})")
+    if dtype not in (torch.float32, torch.float64):
+        raise _unported(f"a working dtype of {dtype}")
+    return dtype
 
 
 def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
@@ -73,6 +90,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise _unported("return_history")
     if time_breakdown:
         raise _unported("time_breakdown")
+    wd = _working_dtype(dtype)
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
@@ -95,9 +113,6 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise ValueError("expected square operator")
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
-    if dtype is not None and dtype != Aop.dtype:
-        raise _unported("a working dtype other than the operator's "
-                        "(the half-precision basis cast)")
 
     if isinstance(which, str) and which.upper() in _WHICH_TO_TARGET:
         which = which.upper()
@@ -139,6 +154,10 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         if Aop.diagonal() is None:
             raise ValueError("jacobi=True but operator has no diagonal()")
         raise _unported("JacobiPrecond")
+    if wd is not None and wd != Aop.dtype:
+        Aop = CastOperator(Aop, wd)
+        if K is not None:
+            K = CastOperator(K, wd)
 
     meth = method
     if meth is None:
@@ -180,7 +199,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         inner = jdqmr_inner_solve
 
     t0 = time.perf_counter()
-    res = solve_eigs(Aop, p, K=K, v0=v0t, inner_solve=inner, device=device)
+    res = solve_eigs(Aop, p, K=K, v0=v0t, inner_solve=inner, dtype=wd,
+                     device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

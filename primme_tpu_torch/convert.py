@@ -35,13 +35,17 @@ def params_from_jax(p) -> prm.PrimmeParams:
 
 def windowed_from_jax(op, device=None) -> WindowedELLOperator:
     """A ``primme_tpu`` ``WindowedELLOperator`` as the port's, with
-    bit-identical ``scal``/``offs``/``vals`` and the same ``meta``."""
+    bit-identical ``scal``/``offs`` and the same ``meta``. An f32 operator
+    keeps ``vals`` bit for bit; an f64 one (an f32 hi/lo pair in the
+    reference) becomes one f64 ``vals = hi + lo``, the sum the reference's
+    CPU path of ``matmat_ds`` forms. That sum equals the matrix entry to
+    within 2**-48 relative (the tail is rounded to f32), and exactly where
+    the entry is an f32 number."""
+    vals = np.asarray(op.vals)
     if op.vals_lo is not None:
-        raise NotImplementedError(
-            "f64 windowed-ELL (matmat_ds) is not ported yet: ROADMAP "
-            "Queue B item 7")
+        vals = vals.astype(np.float64) + np.asarray(op.vals_lo, np.float64)
     out = WindowedELLOperator(np.asarray(op.scal), np.asarray(op.offs),
-                              np.asarray(op.vals), op.meta)
+                              vals, op.meta)
     return out.to(device) if device is not None else out
 
 

@@ -1182,8 +1182,10 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
     passing = torch.cat([lvalid, win.passes])
     valid = torch.cat([lvalid, act])
     keys = torch.clamp(torch.cat([lkeys, wkeys]), -big / 16, big / 16)
-    keys = keys + torch.where(passing, 0.0, big / 8) \
-        + torch.where(valid, 0.0, big / 4)
+    # tensor operands: two Python scalars would make an f32 result, and
+    # an f64 big / 8 overflows f32
+    keys = keys + torch.where(passing, 0.0, keys.new_tensor(big / 8)) \
+        + torch.where(valid, 0.0, keys.new_tensor(big / 4))
     order = torch.argsort(keys, stable=True)[:ne]
 
     from_locked = order < Lw

@@ -2,12 +2,14 @@
 
 PyTorch port of ``primme_tpu/operators.py``. An operator is an
 ``nn.Module`` holding its arrays as buffers, so ``.to(device)`` moves it,
-with a ``matmat(X)`` on an ``[n, k]`` block. This slice ports the protocol,
+with a ``matmat(X)`` on an ``[n, k]`` block. The port has the protocol,
 :class:`WindowedELLOperator` (the sparse format the chooser picks for a
-band-reducible matrix, applied by a hand-written CUDA kernel) and the
-decision logic of :func:`rcm_banded`. Formats the chooser may pick but the
-port does not have yet raise ``NotImplementedError`` naming the format;
-another format is never substituted.
+band-reducible matrix, applied by a hand-written CUDA kernel in f32 or
+f64), :class:`CastOperator` (a working precision other than the
+operator's) and the decision logic of :func:`rcm_banded`. Formats the
+chooser may pick but the port does not have yet raise
+``NotImplementedError`` naming the format; another format is never
+substituted.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .core.linalg import real_dtype
 from .ops import windowed_ell as WE
 
 
@@ -63,29 +66,31 @@ class WindowedELLOperator(LinearOperator):
     """Band-reducible sparse operator in the windowed-slot ELL format of
     ``ops/windowed_ell.py``; ``matmat`` launches the hand-written Hopper
     kernel on CUDA tensors. Symmetric matrices only (``rmatmat`` aliases
-    ``matmat``). f32 only: the f64 product (the reference's ``matmat_ds``)
-    is not ported yet."""
+    ``matmat``). The operator's dtype is that of ``vals``: f64 values (an
+    f64 matrix) run the kernel's native FP64 entry point, the port of the
+    reference's f32x2 ``matmat_ds``; anything else is stored as f32."""
 
     def __init__(self, scal, offs, vals, meta):
         super().__init__()
+        vals = np.asarray(vals)
+        vdt = np.float64 if vals.dtype == np.float64 else np.float32
         # np.array copies: the buffers never alias (read-only) inputs
         self.register_buffer("scal", torch.from_numpy(np.array(scal, np.int32)))
         self.register_buffer("offs", torch.from_numpy(np.array(offs, np.int32)))
-        self.register_buffer("vals",
-                             torch.from_numpy(np.array(vals, np.float32)))
+        self.register_buffer("vals", torch.from_numpy(np.array(vals, vdt)))
         self.meta = tuple(int(x) for x in meta)   # nrb, S, npad, n, pad, WB
         n = self.meta[3]
         self.shape = (n, n)
-        self.dtype = torch.float32
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
 
     @staticmethod
     def from_scipy(A) -> Optional["WindowedELLOperator"]:
-        if np.dtype(A.dtype) == np.dtype(np.float64):
-            raise NotImplementedError(
-                "f64 windowed-ELL (the reference's f32x2 matmat_ds) is not "
-                "ported yet: ROADMAP Queue B item 7, matmat_ds as a native "
-                "FP64 kernel")
-        packed = WE.pack(A, dtype=np.float32)
+        dt = (np.float64 if np.dtype(A.dtype) == np.dtype(np.float64)
+              else np.float32)
+        packed = WE.pack(A, dtype=dt)
         if packed is None:
             return None
         return WindowedELLOperator(
@@ -94,13 +99,43 @@ class WindowedELLOperator(LinearOperator):
              packed.WB))
 
     def matmat(self, X):
+        # the product runs in the operator's precision, whatever X's
         Y = WE.matmat(self.meta, self.scal, self.offs, self.vals,
-                      X.to(torch.float32).contiguous())
+                      X.to(self.dtype).contiguous())
         return Y.to(X.dtype)
 
     def diagonal(self):
         # the reference returns None here too (no Jacobi on this format)
         return None
+
+
+class CastOperator(LinearOperator):
+    """Run an operator at its own precision while the solver works in
+    another (the reference's ``internalPrecision`` boundary: blocks are
+    cast at the matvec mediation layer)."""
+
+    def __init__(self, op: LinearOperator, dtype: torch.dtype):
+        super().__init__()
+        self.op = op
+        self.dtype = dtype
+        self.shape = op.shape
+
+    def matmat(self, X):
+        return self.op.matmat(X.to(self.op.dtype)).to(self.dtype)
+
+    def rmatmat(self, X):
+        return self.op.rmatmat(X.to(self.op.dtype)).to(self.dtype)
+
+    def matmat_shifted(self, X, shifts):
+        if hasattr(self.op, "matmat_shifted"):
+            return self.op.matmat_shifted(
+                X.to(self.op.dtype), shifts.to(real_dtype(self.op.dtype))
+            ).to(self.dtype)
+        return self.matmat(X)
+
+    def diagonal(self):
+        d = self.op.diagonal()
+        return None if d is None else d.to(self.dtype)
 
 
 def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,

@@ -15,8 +15,13 @@ for row ``r`` of bucket ``b``. Three functions apply it:
   hand-written Hopper kernel (``csrc/windowed_ell.cu``) or raises; on a CPU
   tensor, where no kernel exists, it runs :func:`matmat_reference`.
 
-``LAUNCHES`` counts the wrapper's kernel launches, so a run can show that
-its products went through the kernel.
+Values are f32 or f64. The reference carries f64 as an f32x2 hi/lo pair
+(Mosaic has no 64-bit vectors); here an f64 matrix packs one f64 ``vals``
+array and its product runs the kernel's native FP64 entry point.
+
+``LAUNCHES`` counts the wrapper's kernel launches, and ``KERNEL_LAUNCHES``
+the same launches by entry point, so a run can show that its products went
+through the kernel of its precision.
 """
 
 from __future__ import annotations
@@ -35,19 +40,22 @@ WBLK = 8192          # window block quantum (lanes)
 MAX_WB = 49152       # VMEM guard for the double-buffered window block
 
 LAUNCHES = 0         # kernel launches made by matmat
+# the same launches by entry point of csrc/windowed_ell.cu
+KERNEL_LAUNCHES = {"windowed_ell_spmm_f32": 0, "windowed_ell_spmm_f64": 0}
+_ENTRY = {torch.float32: "windowed_ell_spmm_f32",
+          torch.float64: "windowed_ell_spmm_f64"}
 
 
 class WindowedELL(NamedTuple):
     scal: np.ndarray    # [nrb + nrb*S] i32: window block idx ++ rel bases
     offs: np.ndarray    # [nrb, S, RT, 128] i32 relative offsets
-    vals: np.ndarray    # [nrb, S, RT, 128] f32 (leading/high part)
+    vals: np.ndarray    # [nrb, S, RT, 128] f32 or f64
     nrb: int
     S: int
     npad: int
     n: int
     pad: int
     WB: int             # window width (lanes, multiple of WBLK)
-    vals_lo: Optional[np.ndarray] = None   # f32 tail: f64 = hi + lo
 
 
 def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
@@ -55,11 +63,10 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
     band-reducible enough for the VMEM window budget (caller falls back
     to another format).
 
-    ``dtype=np.float64``: Mosaic has no 64-bit vectors, so double
-    precision is carried as an f32x2 double-single pair (``vals`` = hi,
-    ``vals_lo`` = tail) and the kernel runs compensated (error-free
-    transformation) accumulation — see :func:`matmat`. The VMEM window
-    budget halves (two window buffers stream instead of one)."""
+    ``vals`` has the type ``dtype`` names, f32 or f64; ``scal``, ``offs``
+    and the meta do not depend on it. The acceptance rules are the
+    reference's, f64's halved window included, so that both packages take
+    the same matrices."""
     import scipy.sparse as sp
 
     C = sp.coo_matrix(A)
@@ -71,9 +78,8 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
     npad = nrb * RB
     r = C.row.astype(np.int64)
     c = C.col.astype(np.int64)
-    v = C.data.astype(np.float32)
-    vlo = (C.data.astype(np.float64)
-           - v.astype(np.float64)).astype(np.float32) if f64 else None
+    vdt = np.float64 if f64 else np.float32
+    v = C.data.astype(vdt)
     d = c - r
     dmin = int(d.min())
     binid = (d - dmin) // BINW
@@ -82,7 +88,6 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
 
     order = np.lexsort((c, binid, r))
     r2, c2, v2 = r[order], c[order], v[order]
-    vlo2 = vlo[order] if f64 else None
     b2, g2 = bucket[order], binid[order]
     grp = r2 * nb + g2
     new = np.ones(len(grp), bool)
@@ -126,15 +131,11 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
             bases[bkt][~used[bkt]] = first
 
     offs = np.zeros((nrb, S, RB), np.int32)
-    vals = np.zeros((nrb, S, RB), np.float32)
+    vals = np.zeros((nrb, S, RB), vdt)
     off_rel = c2 - bases[b2, slot] - (rloc // 128) * 128
     assert off_rel.min() >= 0 and off_rel.max() < WREL
     offs[b2, slot, rloc] = off_rel
     vals[b2, slot, rloc] = v2
-    vals_lo = None
-    if f64:
-        vals_lo = np.zeros((nrb, S, RB), np.float32)
-        vals_lo[b2, slot, rloc] = vlo2
     basesp = bases + pad
     # Each bucket reads TWO ADJACENT aligned window blocks of width WB
     # (BlockSpec index maps are in block-width units, so per-bucket
@@ -144,6 +145,10 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
     bmax = basesp.max(axis=1) + WREL
     span = int((bmax - bmin).max())
     WB = -(-span // WBLK) * WBLK
+    # The halved f64 limit is the reference's: its f64 kernel streams two
+    # f32 window buffers through VMEM. The card has no such budget, but
+    # the limit stays until a measurement re-decides it (ROADMAP Queue
+    # A 7), so that both packages accept and reject the same matrices.
     if WB > (MAX_WB // 2 if f64 else MAX_WB):
         return None        # band too wide for the VMEM window
     wblk = bmin // WB
@@ -153,9 +158,7 @@ def pack(A, dtype=np.float32) -> Optional[WindowedELL]:
     return WindowedELL(scal=scal,
                        offs=offs.reshape(nrb, S, RT, 128),
                        vals=vals.reshape(nrb, S, RT, 128),
-                       nrb=nrb, S=S, npad=npad, n=n, pad=pad, WB=WB,
-                       vals_lo=(vals_lo.reshape(nrb, S, RT, 128)
-                                if f64 else None))
+                       nrb=nrb, S=S, npad=npad, n=n, pad=pad, WB=WB)
 
 
 def _check_meta(meta, scal, offs, vals):
@@ -171,10 +174,11 @@ def _check_meta(meta, scal, offs, vals):
 
 
 def matmat_reference(meta, scal, offs, vals, X):
-    """Plain PyTorch ``Y = A X`` for an ``[n, k]`` f32 block: the gather
-    the kernel performs, slot by slot in the same order, with columns
-    outside ``[0, n)`` (parked padding slots) contributing nothing. The
-    f32 counterpart of the JAX package's CPU path of ``matmat_ds``."""
+    """Plain PyTorch ``Y = A X`` for an ``[n, k]`` block, in the type of
+    ``vals`` (f32 or f64): the gather the kernel performs, slot by slot in
+    the same order, with columns outside ``[0, n)`` (parked padding slots)
+    contributing nothing. The counterpart of the JAX package's CPU path of
+    ``matmat_ds``."""
     nrb, S, npad, n, pad, WB = (int(x) for x in meta)
     _check_meta(meta, scal, offs, vals)
     k = X.shape[1]
@@ -185,8 +189,8 @@ def matmat_reference(meta, scal, offs, vals, X):
     base = scal[:nrb, None] * WB + rel * 128 - pad                 # [nrb, S]
     offs = offs.reshape(nrb, S, RB)
     vals = vals.reshape(nrb, S, RB)
-    Xf = X.to(torch.float32)
-    y = torch.zeros((nrb, RB, k), dtype=torch.float32, device=dev)
+    Xf = X.to(vals.dtype)
+    y = torch.zeros((nrb, RB, k), dtype=vals.dtype, device=dev)
     for s in range(S):
         c = base[:, s, None] + rowoff[None, :] + offs[:, s]       # [nrb, RB]
         inb = (c >= 0) & (c < n)
@@ -196,10 +200,10 @@ def matmat_reference(meta, scal, offs, vals, X):
     return y.reshape(npad, k)[:n]
 
 
-def _spmm_fn():
+def _spmm_fn(entry):
     from . import build
     lib = build.load("windowed_ell")
-    fn = lib.windowed_ell_spmm_f32
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         # scal, offs, vals, X, Y; nrb, S, n, pad, WB, k; stream
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
@@ -209,10 +213,10 @@ def _spmm_fn():
 
 
 def matmat(meta, scal, offs, vals, X):
-    """``Y = A X`` for an ``[n, k]`` f32 block. CUDA tensors: the
-    hand-written kernel of ``csrc/windowed_ell.cu``, launched on the
-    current stream (raises on a bad argument or a refused launch). CPU
-    tensors: :func:`matmat_reference`."""
+    """``Y = A X`` for an ``[n, k]`` block of the type of ``vals`` (f32 or
+    f64). CUDA tensors: the hand-written kernel of ``csrc/windowed_ell.cu``
+    for that type, launched on the current stream (raises on a bad
+    argument or a refused launch). CPU tensors: :func:`matmat_reference`."""
     global LAUNCHES
     if X.device.type == "cpu":
         return matmat_reference(meta, scal, offs, vals, X)
@@ -222,8 +226,11 @@ def matmat(meta, scal, offs, vals, X):
     _check_meta(meta, scal, offs, vals)
     if X.ndim != 2 or X.shape[0] != n:
         raise ValueError(f"X shape {tuple(X.shape)} is not [{n}, k]")
+    if vals.dtype not in _ENTRY:
+        raise TypeError(f"vals has dtype {vals.dtype}, expected float32 "
+                        "or float64")
     for name, t, dt in (("scal", scal, torch.int32), ("offs", offs, torch.int32),
-                        ("vals", vals, torch.float32), ("X", X, torch.float32)):
+                        ("vals", vals, vals.dtype), ("X", X, vals.dtype)):
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
         if t.dtype != dt:
@@ -231,15 +238,17 @@ def matmat(meta, scal, offs, vals, X):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     k = X.shape[1]
-    Y = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
     if k == 0:
         return Y
-    fn = _spmm_fn()
+    entry = _ENTRY[X.dtype]
+    fn = _spmm_fn(entry)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(scal.data_ptr(), offs.data_ptr(), vals.data_ptr(),
                 X.data_ptr(), Y.data_ptr(), nrb, S, n, pad, WB, k, stream)
     if rc != 0:
-        raise RuntimeError(f"windowed_ell_spmm_f32 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    KERNEL_LAUNCHES[entry] += 1
     return Y

@@ -1,6 +1,8 @@
 """Carry-over from the JAX package (primme_tpu_torch/convert.py) and the
 port's package boundary. Conversions are exact: arrays bit-identical,
-dataclass fields equal."""
+dataclass fields equal; an f64 windowed operator's f32 (hi, lo) pair
+becomes one f64 array equal to hi + lo, which is the matrix entry within
+2**-48 relative and exactly where the entry is an f32 number."""
 
 import dataclasses
 import os
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 from primme_tpu import params as jp
 from primme_tpu.operators import WindowedELLOperator as JWindowed
 from primme_tpu_torch import params as tp
+from primme_tpu_torch.operators import WindowedELLOperator
 from primme_tpu_torch.convert import (block_from_numpy, params_from_jax,
                                       windowed_from_jax)
 
@@ -46,11 +49,37 @@ def test_windowed_from_jax_is_bit_identical():
     assert np.abs(y - yref).max() <= 1e-5 * np.abs(yref).max()
 
 
-def test_windowed_from_jax_rejects_f64():
-    jop = JWindowed.from_scipy(_band(3000, 700, 2, np.float64))
+@pytest.mark.parametrize("case", ["band3000", "lap16_f32_entries"])
+def test_windowed_from_jax_f64(case):
+    if case == "band3000":
+        A = _band(3000, 700, 2, np.float64)
+    else:
+        from test_torch_problems import laplacian27_permuted
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        A = laplacian27_permuted(16)[0].astype(np.float64)
+        perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+        A = A[perm][:, perm].tocsr()
+    jop = JWindowed.from_scipy(A)
     assert jop.vals_lo is not None
-    with pytest.raises(NotImplementedError, match="matmat_ds"):
-        windowed_from_jax(jop)
+    top = windowed_from_jax(jop)
+    assert top.meta == jop.meta and top.dtype == torch.float64
+    for name in ("scal", "offs"):
+        a = np.asarray(getattr(jop, name))
+        assert a.tobytes() == getattr(top, name).numpy().tobytes(), name
+    hilo = np.asarray(jop.vals, np.float64) + np.asarray(jop.vals_lo,
+                                                         np.float64)
+    assert np.array_equal(top.vals.numpy(), hilo)
+    # the same positions as the port's own f64 pack of the matrix
+    own = WindowedELLOperator.from_scipy(A).vals.numpy()
+    if case == "band3000":
+        assert np.all(np.abs(own - hilo) <= 2.0 ** -48 * np.abs(own))
+    else:                                     # entries 26 and -1
+        assert np.array_equal(own, hilo)
+    n = A.shape[0]
+    X = np.random.default_rng(0).normal(size=(n, 2))
+    y = top.matmat(torch.as_tensor(X)).numpy()
+    yref = A @ X
+    assert np.abs(y - yref).max() <= 5e-14 * np.abs(yref).max()
 
 
 @pytest.mark.parametrize("method", ["JDQMR_ETol", "GD_Olsen_plusK",
