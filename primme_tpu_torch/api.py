@@ -75,9 +75,10 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
           **primme_kwargs):
     """Find ``k`` eigenvalues/eigenvectors of the Hermitian operator ``A``
     (the reference's ``eigsh``, scipy calling convention with the PRIMME
-    extensions). ``device`` is where the solve runs: ``"cuda"`` when a
-    card is present and ``device`` is None, else ``"cpu"``. Returns numpy
-    arrays, like the reference."""
+    extensions). ``device`` is where the solve runs: the card
+    (``"cuda"``) when it is None, which raises if there is no card; a
+    solve on the CPU asks for ``device="cpu"``. Returns numpy arrays,
+    like the reference."""
     if mode != "normal":
         raise ValueError(f"only mode='normal' is supported (got {mode!r})")
     for name, val in (("M (generalized problems)", M),
@@ -92,7 +93,12 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise _unported("time_breakdown")
     wd = _working_dtype(dtype)
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "eigsh solves on the card unless asked otherwise, and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" "
+                "to solve on the CPU")
+        device = "cuda"
     device = torch.device(device)
 
     perm = None

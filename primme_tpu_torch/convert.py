@@ -34,13 +34,14 @@ def params_from_jax(p) -> prm.PrimmeParams:
 
 
 def windowed_from_jax(op, device=None) -> WindowedELLOperator:
-    """A ``primme_tpu`` ``WindowedELLOperator`` as the port's, with
-    bit-identical ``scal``/``offs`` and the same ``meta``. An f32 operator
-    keeps ``vals`` bit for bit; an f64 one (an f32 hi/lo pair in the
-    reference) becomes one f64 ``vals = hi + lo``, the sum the reference's
-    CPU path of ``matmat_ds`` forms. That sum equals the matrix entry to
-    within 2**-48 relative (the tail is rounded to f32), and exactly where
-    the entry is an f32 number."""
+    """A ``primme_tpu`` ``WindowedELLOperator`` as the port's: its packed
+    arrays go through the port's constructor, which compacts them, and
+    ``meta`` stays. An f32 operator gives the compact arrays that the
+    port's own packing of the same matrix gives, bit for bit; an f64 one
+    (an f32 hi/lo pair in the reference) compacts one f64 ``vals = hi +
+    lo``, the sum the reference's CPU path of ``matmat_ds`` forms. That
+    sum equals the matrix entry to within 2**-48 relative (the tail is
+    rounded to f32), and exactly where the entry is an f32 number."""
     vals = np.asarray(op.vals)
     if op.vals_lo is not None:
         vals = vals.astype(np.float64) + np.asarray(op.vals_lo, np.float64)

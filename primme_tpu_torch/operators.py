@@ -63,22 +63,24 @@ class LinearOperator(nn.Module):
 
 
 class WindowedELLOperator(LinearOperator):
-    """Band-reducible sparse operator in the windowed-slot ELL format of
-    ``ops/windowed_ell.py``; ``matmat`` launches the hand-written Hopper
-    kernel on CUDA tensors. Symmetric matrices only (``rmatmat`` aliases
-    ``matmat``). The operator's dtype is that of ``vals``: f64 values (an
-    f64 matrix) run the kernel's native FP64 entry point, the port of the
-    reference's f32x2 ``matmat_ds``; anything else is stored as f32."""
+    """Band-reducible sparse operator, chosen and packed in the
+    windowed-slot ELL format of ``ops/windowed_ell.py`` and held as its
+    compact warp-sliced layout (``WE.compact``: no padding slots);
+    ``matmat`` launches the hand-written Hopper kernel on CUDA tensors.
+    Symmetric matrices only (``rmatmat`` aliases ``matmat``). The
+    operator's dtype is that of ``vals``: f64 values (an f64 matrix) run
+    the kernel's native FP64 entry point, the port of the reference's
+    f32x2 ``matmat_ds``; anything else is stored as f32. ``meta`` is the
+    packed layout's, as the reference's operator has it."""
 
     def __init__(self, scal, offs, vals, meta):
         super().__init__()
         vals = np.asarray(vals)
         vdt = np.float64 if vals.dtype == np.float64 else np.float32
-        # np.array copies: the buffers never alias (read-only) inputs
-        self.register_buffer("scal", torch.from_numpy(np.array(scal, np.int32)))
-        self.register_buffer("offs", torch.from_numpy(np.array(offs, np.int32)))
-        self.register_buffer("vals", torch.from_numpy(np.array(vals, vdt)))
         self.meta = tuple(int(x) for x in meta)   # nrb, S, npad, n, pad, WB
+        lay = WE.compact(scal, offs, vals.astype(vdt, copy=False), self.meta)
+        for name in lay._fields:
+            self.register_buffer(name, torch.from_numpy(getattr(lay, name)))
         n = self.meta[3]
         self.shape = (n, n)
 
@@ -100,7 +102,7 @@ class WindowedELLOperator(LinearOperator):
 
     def matmat(self, X):
         # the product runs in the operator's precision, whatever X's
-        Y = WE.matmat(self.meta, self.scal, self.offs, self.vals,
+        Y = WE.matmat(self.slice_ptr, self.rowlen, self.cols, self.vals,
                       X.to(self.dtype).contiguous())
         return Y.to(X.dtype)
 

@@ -8,9 +8,15 @@ slot's column is
 
     c = scal[b]*WB + scal[nrb + b*S + s]*128 + 128*(r // 128) + offs[b, s, r] - pad
 
-for row ``r`` of bucket ``b``. Three functions apply it:
+for row ``r`` of bucket ``b``. Most slots of a bucket are padding (S is the
+worst row of each diagonal bin, summed over the bins), so the card never
+reads this layout: :func:`compact` turns it into a warp-sliced ELL layout
+without padding slots (:class:`SlicedELL`), which keeps the rows in the
+packed order and each row's non-zero slots in slot order with their
+absolute columns. Two functions apply it:
 
-* :func:`matmat_reference` — plain PyTorch gather with the same formula;
+* :func:`matmat_reference` — plain PyTorch, the same terms summed in the
+  same order as the kernel;
 * :func:`matmat` — the kernel wrapper: on a CUDA tensor it launches the
   hand-written Hopper kernel (``csrc/windowed_ell.cu``) or raises; on a CPU
   tensor, where no kernel exists, it runs :func:`matmat_reference`.
@@ -38,6 +44,7 @@ WREL = BINW + 256    # per-slot relative offset range
 RT = RB // 128
 WBLK = 8192          # window block quantum (lanes)
 MAX_WB = 49152       # VMEM guard for the double-buffered window block
+SLICE = 32           # rows per slice of the compact layout: one warp
 
 LAUNCHES = 0         # kernel launches made by matmat
 # the same launches by entry point of csrc/windowed_ell.cu
@@ -173,63 +180,118 @@ def _check_meta(meta, scal, offs, vals):
                              f"{(nrb, S, RT, 128)}")
 
 
-def matmat_reference(meta, scal, offs, vals, X):
-    """Plain PyTorch ``Y = A X`` for an ``[n, k]`` block, in the type of
-    ``vals`` (f32 or f64): the gather the kernel performs, slot by slot in
-    the same order, with columns outside ``[0, n)`` (parked padding slots)
-    contributing nothing. The counterpart of the JAX package's CPU path of
-    ``matmat_ds``."""
+class SlicedELL(NamedTuple):
+    """The packed operator without its padding slots, as the kernel reads
+    it. Slice ``i`` holds rows ``32i .. 32i+31`` (one warp, one row per
+    lane) and stores its entries slot-major: entry ``j`` of row ``32i + l``
+    lies at ``slice_ptr[i] + 32*j + l``, for ``j < rowlen[row]``. A slice
+    spans ``32 * width`` entries, ``width`` being its longest row; shorter
+    rows leave padding entries (column 0, value 0) that nothing reads."""
+    slice_ptr: np.ndarray   # [ceil(n/32) + 1] i64, first entry of each slice
+    rowlen: np.ndarray      # [n] i32
+    cols: np.ndarray        # [E] i32, absolute columns in [0, n)
+    vals: np.ndarray        # [E] f32 or f64
+
+
+def compact(scal, offs, vals, meta) -> SlicedELL:
+    """The :class:`SlicedELL` layout of a packed operator. A row's entries
+    are its slots with a non-zero value, in slot order; the zero-valued
+    slots are the padding (parked padding slots may point outside
+    ``[0, n)``, every kept column is checked to lie inside). Vectorised:
+    each entry's rank in its row is a cumulative sum over the slots."""
     nrb, S, npad, n, pad, WB = (int(x) for x in meta)
+    scal, offs, vals = np.asarray(scal), np.asarray(offs), np.asarray(vals)
     _check_meta(meta, scal, offs, vals)
-    k = X.shape[1]
+    keep = (vals != 0).reshape(nrb, S, RB)
+    rank = np.cumsum(keep, axis=1,                     # 1 + rank in the row
+                     dtype=np.int16 if S < 2 ** 15 else np.int32)
+    nsl = -(-n // SLICE)
+    rowlen = rank[:, -1, :].reshape(-1)[:nsl * SLICE]  # rows >= n hold none
+    width = rowlen.reshape(nsl, SLICE).max(axis=1).astype(np.int64)
+    slice_ptr = np.zeros(nsl + 1, np.int64)
+    np.cumsum(SLICE * width, out=slice_ptr[1:])
+    # kept slots by flat index into [nrb, S, RB]; RB = 2**10
+    idx = np.flatnonzero(keep)
+    bs, r = idx >> 10, idx & (RB - 1)                  # b*S + s, row in bucket
+    row = (bs // S) * RB + r
+    base = (scal[:nrb].astype(np.int64)[:, None] * WB - pad
+            + 128 * scal[nrb:].reshape(nrb, S).astype(np.int64)).reshape(-1)
+    col = base[bs] + (r & ~127) + offs.reshape(-1)[idx]
+    if len(col) and (col.min() < 0 or col.max() >= n or row.max() >= n):
+        raise ValueError("a non-zero slot lies outside the matrix")
+    pos = (slice_ptr[row >> 5] + SLICE * (rank.reshape(-1)[idx] - 1)
+           + (row & (SLICE - 1)))
+    E = int(slice_ptr[-1])
+    cols = np.zeros(E, np.int32)
+    cvals = np.zeros(E, vals.dtype)
+    cols[pos] = col
+    cvals[pos] = vals.reshape(-1)[idx]
+    return SlicedELL(slice_ptr, rowlen[:n].astype(np.int32), cols, cvals)
+
+
+def _check_layout(slice_ptr, rowlen, cols, vals):
+    n = rowlen.shape[0]
+    if rowlen.ndim != 1 or tuple(slice_ptr.shape) != (-(-n // SLICE) + 1,):
+        raise ValueError(f"slice_ptr shape {tuple(slice_ptr.shape)} != "
+                         f"({-(-n // SLICE) + 1},) for {n} rows")
+    if cols.ndim != 1 or tuple(cols.shape) != tuple(vals.shape):
+        raise ValueError(f"cols shape {tuple(cols.shape)} and vals shape "
+                         f"{tuple(vals.shape)} differ")
+
+
+def matmat_reference(slice_ptr, rowlen, cols, vals, X):
+    """Plain PyTorch ``Y = A X`` for an ``[n, k]`` block, in the type of
+    ``vals`` (f32 or f64): slot ``j`` at a time, rows with ``j < rowlen``
+    add ``v * X[col]`` as the kernel does, in the same order. The
+    counterpart of the JAX package's CPU path of ``matmat_ds``."""
+    _check_layout(slice_ptr, rowlen, cols, vals)
+    n, k = rowlen.shape[0], X.shape[1]
     dev = X.device
-    scal = scal.to(torch.int64)
-    rel = scal[nrb:].reshape(nrb, S)
-    rowoff = 128 * (torch.arange(RB, device=dev) // 128)          # [RB]
-    base = scal[:nrb, None] * WB + rel * 128 - pad                 # [nrb, S]
-    offs = offs.reshape(nrb, S, RB)
-    vals = vals.reshape(nrb, S, RB)
     Xf = X.to(vals.dtype)
-    y = torch.zeros((nrb, RB, k), dtype=vals.dtype, device=dev)
-    for s in range(S):
-        c = base[:, s, None] + rowoff[None, :] + offs[:, s]       # [nrb, RB]
-        inb = (c >= 0) & (c < n)
-        v = torch.where(inb, vals[:, s], 0.0)
-        g = Xf[c.clamp(0, n - 1)]                                  # [nrb, RB, k]
-        y = y + v[:, :, None] * g
-    return y.reshape(npad, k)[:n]
+    rows = torch.arange(n, device=dev)
+    first = slice_ptr[rows // SLICE] + rows % SLICE    # entry 0 of each row
+    y = torch.zeros((n, k), dtype=vals.dtype, device=dev)
+    for j in range(int(rowlen.max()) if n else 0):
+        on = rowlen > j
+        e = torch.where(on, first + SLICE * j, 0)
+        term = vals[e, None] * Xf[cols[e]]
+        y = torch.where(on[:, None], y + term, y)
+    return y
 
 
 def _spmm_fn(entry):
+    """The C entry point ``entry`` of ``csrc/windowed_ell.cu``."""
     from . import build
-    lib = build.load("windowed_ell")
-    fn = getattr(lib, entry)
+    fn = getattr(build.load("windowed_ell"), entry)
     if fn.argtypes is None:
-        # scal, offs, vals, X, Y; nrb, S, n, pad, WB, k; stream
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        # slice_ptr, rowlen, cols, vals, X, Y; n, k; stream
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def matmat(meta, scal, offs, vals, X):
+def matmat(slice_ptr, rowlen, cols, vals, X):
     """``Y = A X`` for an ``[n, k]`` block of the type of ``vals`` (f32 or
-    f64). CUDA tensors: the hand-written kernel of ``csrc/windowed_ell.cu``
-    for that type, launched on the current stream (raises on a bad
-    argument or a refused launch). CPU tensors: :func:`matmat_reference`."""
+    f64) on the :class:`SlicedELL` arrays. CUDA tensors: the hand-written
+    kernel of ``csrc/windowed_ell.cu`` for that type, launched on the
+    current stream (raises on a bad argument or a refused launch). CPU
+    tensors: :func:`matmat_reference`."""
     global LAUNCHES
     if X.device.type == "cpu":
-        return matmat_reference(meta, scal, offs, vals, X)
+        return matmat_reference(slice_ptr, rowlen, cols, vals, X)
     if X.device.type != "cuda":
         raise ValueError(f"windowed-ELL matmat: unsupported device {X.device}")
-    nrb, S, npad, n, pad, WB = (int(x) for x in meta)
-    _check_meta(meta, scal, offs, vals)
+    _check_layout(slice_ptr, rowlen, cols, vals)
+    n = rowlen.shape[0]
     if X.ndim != 2 or X.shape[0] != n:
         raise ValueError(f"X shape {tuple(X.shape)} is not [{n}, k]")
     if vals.dtype not in _ENTRY:
         raise TypeError(f"vals has dtype {vals.dtype}, expected float32 "
                         "or float64")
-    for name, t, dt in (("scal", scal, torch.int32), ("offs", offs, torch.int32),
+    for name, t, dt in (("slice_ptr", slice_ptr, torch.int64),
+                        ("rowlen", rowlen, torch.int32),
+                        ("cols", cols, torch.int32),
                         ("vals", vals, vals.dtype), ("X", X, vals.dtype)):
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
@@ -237,16 +299,19 @@ def matmat(meta, scal, offs, vals, X):
             raise TypeError(f"{name} has dtype {t.dtype}, expected {dt}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    for name, t in (("cols", cols), ("vals", vals)):
+        if t.data_ptr() % 16:       # the kernel copies them in bulk
+            raise ValueError(f"{name} is not 16-byte aligned")
     k = X.shape[1]
     Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
-    if k == 0:
+    if Y.numel() == 0:
         return Y
     entry = _ENTRY[X.dtype]
     fn = _spmm_fn(entry)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(scal.data_ptr(), offs.data_ptr(), vals.data_ptr(),
-                X.data_ptr(), Y.data_ptr(), nrb, S, n, pad, WB, k, stream)
+        rc = fn(slice_ptr.data_ptr(), rowlen.data_ptr(), cols.data_ptr(),
+                vals.data_ptr(), X.data_ptr(), Y.data_ptr(), n, k, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1

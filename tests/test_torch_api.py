@@ -68,6 +68,18 @@ def test_eigsh_refuses_unported_arguments(kwargs):
                   maxMatvecs=50, raise_for_unconverged=False, **kwargs)
 
 
+def test_eigsh_without_device_needs_a_card(monkeypatch):
+    # an entry point of the port runs on the card unless asked otherwise
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ptt.eigsh(_windowed_case(), k=2, which="SA", maxMatvecs=50,
+                  raise_for_unconverged=False)
+    w = ptt.eigsh(_windowed_case(), k=2, which="SA", maxMatvecs=50,
+                  raise_for_unconverged=False, device="cpu",
+                  return_eigenvectors=False)
+    assert w.shape == (2,) and np.all(np.isfinite(w))
+
+
 def test_eigsh_default_method_on_cpu_finds_smallest():
     # GD_Olsen_plusK (the default preset) through the same format
     A, ev = laplacian27_permuted(16)

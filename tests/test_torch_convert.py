@@ -1,8 +1,10 @@
 """Carry-over from the JAX package (primme_tpu_torch/convert.py) and the
 port's package boundary. Conversions are exact: arrays bit-identical,
-dataclass fields equal; an f64 windowed operator's f32 (hi, lo) pair
-becomes one f64 array equal to hi + lo, which is the matrix entry within
-2**-48 relative and exactly where the entry is an f32 number."""
+dataclass fields equal; a windowed operator carried over holds the same
+compact arrays as the port's own packing of the matrix, and an f64 one's
+f32 (hi, lo) pair becomes one f64 array equal to hi + lo, which is the
+matrix entry within 2**-48 relative and exactly where the entry is an f32
+number."""
 
 import dataclasses
 import os
@@ -20,6 +22,7 @@ from primme_tpu import params as jp
 from primme_tpu.operators import WindowedELLOperator as JWindowed
 from primme_tpu_torch import params as tp
 from primme_tpu_torch.operators import WindowedELLOperator
+from primme_tpu_torch.ops import windowed_ell as WE
 from primme_tpu_torch.convert import (block_from_numpy, params_from_jax,
                                       windowed_from_jax)
 
@@ -34,15 +37,23 @@ def _band(n, bw, seed, dtype):
     return A.astype(dtype)
 
 
+_LAYOUT = ("slice_ptr", "rowlen", "cols", "vals")
+
+
 def test_windowed_from_jax_is_bit_identical():
-    jop = JWindowed.from_scipy(_band(3000, 700, 2, np.float32))
+    A = _band(3000, 700, 2, np.float32)
+    jop = JWindowed.from_scipy(A)
     top = windowed_from_jax(jop)
-    assert top.meta == jop.meta and top.shape == jop.shape
-    for name in ("scal", "offs", "vals"):
-        a = np.asarray(getattr(jop, name))
-        b = getattr(top, name).numpy()
+    own = WindowedELLOperator.from_scipy(A)
+    assert top.meta == jop.meta == own.meta and top.shape == jop.shape
+    assert [name for name, _ in top.named_buffers()] == list(_LAYOUT)
+    lay = WE.compact(np.asarray(jop.scal), np.asarray(jop.offs),
+                     np.asarray(jop.vals), jop.meta)
+    for name in _LAYOUT:
+        a, b = getattr(own, name).numpy(), getattr(top, name).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes(), name
+        assert getattr(lay, name).tobytes() == b.tobytes(), name
     X = np.random.default_rng(0).normal(size=(3000, 2)).astype(np.float32)
     y = top.matmat(torch.as_tensor(X)).numpy()
     yref = _band(3000, 700, 2, np.float64) @ X.astype(np.float64)
@@ -63,14 +74,18 @@ def test_windowed_from_jax_f64(case):
     assert jop.vals_lo is not None
     top = windowed_from_jax(jop)
     assert top.meta == jop.meta and top.dtype == torch.float64
-    for name in ("scal", "offs"):
-        a = np.asarray(getattr(jop, name))
-        assert a.tobytes() == getattr(top, name).numpy().tobytes(), name
     hilo = np.asarray(jop.vals, np.float64) + np.asarray(jop.vals_lo,
                                                          np.float64)
-    assert np.array_equal(top.vals.numpy(), hilo)
+    lay = WE.compact(np.asarray(jop.scal), np.asarray(jop.offs), hilo,
+                     jop.meta)
+    for name in _LAYOUT:
+        assert getattr(lay, name).tobytes() == \
+            getattr(top, name).numpy().tobytes(), name
     # the same positions as the port's own f64 pack of the matrix
-    own = WindowedELLOperator.from_scipy(A).vals.numpy()
+    own_op = WindowedELLOperator.from_scipy(A)
+    for name in ("slice_ptr", "rowlen", "cols"):
+        assert torch.equal(getattr(own_op, name), getattr(top, name)), name
+    own, hilo = own_op.vals.numpy(), top.vals.numpy()
     if case == "band3000":
         assert np.all(np.abs(own - hilo) <= 2.0 ** -48 * np.abs(own))
     else:                                     # entries 26 and -1

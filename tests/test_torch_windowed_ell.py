@@ -1,5 +1,6 @@
 """The port's windowed-slot ELL SpMM (primme_tpu_torch/ops/windowed_ell.py)
-against the JAX package's (primme_tpu/ops/pallas_windowed.py) and scipy.
+against the JAX package's (primme_tpu/ops/pallas_windowed.py) and scipy;
+``test_torch_sliced_ell.py`` holds the compact layout's own tests.
 
 Tolerances: ``pack`` is copied from the reference, so its arrays must be
 equal; in f64 the reference splits each value into an f32 pair (hi, lo),
@@ -27,39 +28,11 @@ from primme_tpu_torch.ops import windowed_ell as WE
 from primme_tpu_torch.operators import (CastOperator, LinearOperator,
                                         WindowedELLOperator, rcm_banded)
 from test_torch_problems import laplacian27_permuted
+from test_torch_sliced_ell import (REL, apply_ref, band_matrix, layout_arrays,
+                                   rel_err)
 
-REL = 1e-5
 REL64_JAX = 1e-14
 REL64_SCIPY = 5e-14
-
-
-def _band_matrix(n, bw, seed=0, density=8):
-    rng = np.random.default_rng(seed)
-    rows, cols, vals = [], [], []
-    for _ in range(density):
-        d = int(rng.integers(-bw, bw + 1))
-        m = n - abs(d)
-        rows.append(np.arange(m) + max(0, -d))
-        cols.append(np.arange(m) + max(0, d))
-        vals.append(rng.normal(size=m))
-    A = sp.coo_matrix((np.concatenate(vals),
-                       (np.concatenate(rows), np.concatenate(cols))),
-                      shape=(n, n)).tocsr()
-    A.sum_duplicates()
-    return A
-
-
-def _rel_err(y, yref):
-    return np.abs(y - yref).max() / max(np.abs(yref).max(), 1e-30)
-
-
-def _apply_ref(packed, X):
-    meta = (packed.nrb, packed.S, packed.npad, packed.n, packed.pad,
-            packed.WB)
-    return WE.matmat_reference(meta, torch.as_tensor(packed.scal),
-                               torch.as_tensor(packed.offs),
-                               torch.as_tensor(packed.vals),
-                               torch.as_tensor(X)).numpy()
 
 
 @pytest.mark.parametrize("case", ["band3000", "band2200_edges",
@@ -68,13 +41,13 @@ def _apply_ref(packed, X):
 def test_pack_matches_reference(case):
     dtype = np.float64 if case.endswith("_f64") else np.float32
     if case == "band3000":
-        A = _band_matrix(3000, bw=700, seed=2)
+        A = band_matrix(3000, bw=700, seed=2)
     elif case == "band2200_edges":
-        A = _band_matrix(2200, bw=900, seed=5, density=12)
+        A = band_matrix(2200, bw=900, seed=5, density=12)
     elif case == "band2048":
-        A = _band_matrix(2048, bw=300, seed=7)
+        A = band_matrix(2048, bw=300, seed=7)
     elif case == "band3000_f64":
-        A = _band_matrix(3000, bw=700, seed=11)
+        A = band_matrix(3000, bw=700, seed=11)
     else:
         A = laplacian27_permuted(16)[0].astype(dtype)
         from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -117,7 +90,7 @@ def test_pack_rejects_what_reference_rejects():
 def test_matmat_reference_matches_pallas_interpret(k):
     # the JAX kernel runs in interpret mode on the CPU (~2-3 s per call)
     n = 2048
-    A = _band_matrix(n, bw=300, seed=7).astype(np.float32)
+    A = band_matrix(n, bw=300, seed=7).astype(np.float32)
     packed = PW.pack(A)
     X = np.random.default_rng(k).normal(size=(n, k)).astype(np.float32)
     yj = np.asarray(PW.matmat(packed.nrb, packed.S, packed.npad, packed.n,
@@ -126,9 +99,9 @@ def test_matmat_reference_matches_pallas_interpret(k):
                               jnp.asarray(packed.offs),
                               jnp.asarray(packed.vals),
                               jnp.asarray(X, jnp.float32)))
-    yt = _apply_ref(WE.pack(A), X)
+    yt = apply_ref(WE.pack(A), X)
     assert yt.dtype == np.float32 and yt.shape == (n, k)
-    assert _rel_err(yt, yj) < REL
+    assert rel_err(yt, yj) < REL
 
 
 @pytest.mark.parametrize("case", ["lap16_permuted", "band_edges"])
@@ -140,19 +113,19 @@ def test_matmat_reference_matches_scipy(case):
         assert op.meta[1] == 64                      # S
         A = Ap[perm][:, perm]
     else:
-        A = _band_matrix(2200, bw=900, seed=5, density=12).astype(np.float32)
+        A = band_matrix(2200, bw=900, seed=5, density=12).astype(np.float32)
         op = WindowedELLOperator.from_scipy(A)
         assert op is not None
     n = A.shape[0]
     X = np.random.default_rng(6).normal(size=(n, 3)).astype(np.float32)
     y = op.matmat(torch.as_tensor(X)).numpy()
     yref = A.astype(np.float64) @ X.astype(np.float64)
-    assert _rel_err(y, yref) < REL
+    assert rel_err(y, yref) < REL
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_matmat_counts_no_launch_on_cpu(dtype):
-    A = _band_matrix(2048, bw=300, seed=7).astype(dtype)
+    A = band_matrix(2048, bw=300, seed=7).astype(dtype)
     op = WindowedELLOperator.from_scipy(A)
     before, by_kernel = WE.LAUNCHES, dict(WE.KERNEL_LAUNCHES)
     op.matmat(torch.ones((2048, 2), dtype=op.dtype))
@@ -162,30 +135,29 @@ def test_matmat_counts_no_launch_on_cpu(dtype):
 @pytest.mark.parametrize("k", [1, 3, 8])
 def test_f64_matmat_reference_matches_jax_and_scipy(k):
     n = 3000
-    A = _band_matrix(n, bw=700, seed=11)
+    A = band_matrix(n, bw=700, seed=11)
     jop = JO.WindowedELLOperator.from_scipy(A)
     op = WindowedELLOperator.from_scipy(A)
     assert op.dtype == torch.float64 and op.vals.dtype == torch.float64
     assert op.meta == jop.meta
     X = np.random.default_rng(12 + k).normal(size=(n, k))
-    y = WE.matmat_reference(op.meta, op.scal, op.offs, op.vals,
-                            torch.as_tensor(X)).numpy()
+    y = WE.matmat_reference(*layout_arrays(op), torch.as_tensor(X)).numpy()
     assert y.dtype == np.float64 and y.shape == (n, k)
     yj = np.asarray(jax.jit(jop.matmat)(jnp.asarray(X)))   # matmat_ds, CPU
-    assert _rel_err(y, yj) <= REL64_JAX
-    assert _rel_err(y, A @ X) <= REL64_SCIPY
+    assert rel_err(y, yj) <= REL64_JAX
+    assert rel_err(y, A @ X) <= REL64_SCIPY
 
 
 def test_f64_operator_on_f32_block_computes_in_f64():
     # the operator's precision decides the product, not the block's: an
     # f32 block comes back f32, rounded from the f64 product
     n = 3000
-    A = _band_matrix(n, bw=700, seed=11)
+    A = band_matrix(n, bw=700, seed=11)
     op = WindowedELLOperator.from_scipy(A)
     X = np.random.default_rng(4).normal(size=(n, 2)).astype(np.float32)
     y = op.matmat(torch.as_tensor(X))
     assert y.dtype == torch.float32
-    y64 = WE.matmat_reference(op.meta, op.scal, op.offs, op.vals,
+    y64 = WE.matmat_reference(*layout_arrays(op),
                               torch.as_tensor(X.astype(np.float64)))
     assert torch.equal(y, y64.to(torch.float32))
     # an f32 product of the same block would be ~1e-7 off, not 2**-24
@@ -199,7 +171,7 @@ def test_rcm_banded_selects_windowed_for_f64():
     from primme_tpu.operators import rcm_banded as jrcm
 
     n = 8192
-    A = _band_matrix(n, bw=600, seed=13, density=6)
+    A = band_matrix(n, bw=600, seed=13, density=6)
     A = ((A + A.T) * 0.5).tocsr().astype(np.float64)
     p = np.random.default_rng(14).permutation(n)
     Ap = A[p][:, p]
@@ -210,7 +182,7 @@ def test_rcm_banded_selects_windowed_for_f64():
     assert np.array_equal(perm, jperm) and op.meta == jop.meta
     X = np.random.default_rng(15).normal(size=(n, 2))
     y = op.matmat(torch.as_tensor(X[perm])).numpy()
-    assert _rel_err(y, (Ap @ X)[perm]) <= REL64_SCIPY
+    assert rel_err(y, (Ap @ X)[perm]) <= REL64_SCIPY
 
 
 class _Jacobi(LinearOperator):
@@ -241,7 +213,7 @@ def test_cast_operator_matches_reference(op_dtype, work_dtype):
     rng = np.random.default_rng(21)
     X = rng.normal(size=(n, 3)).astype(work_dtype)
     tw = getattr(torch, np.dtype(work_dtype).name)
-    A = _band_matrix(n, bw=700, seed=11).astype(op_dtype)
+    A = band_matrix(n, bw=700, seed=11).astype(op_dtype)
     jc = JO.CastOperator(JO.WindowedELLOperator.from_scipy(A), work_dtype)
     tc = CastOperator(WindowedELLOperator.from_scipy(A), tw)
     assert tc.dtype == tw and tc.shape == jc.shape and tc.diagonal() is None
@@ -251,7 +223,7 @@ def test_cast_operator_matches_reference(op_dtype, work_dtype):
         y = getattr(tc, fn)(Xt).numpy()
         yj = np.asarray(getattr(jc, fn)(jnp.asarray(X)))
         assert y.dtype == yj.dtype == work_dtype
-        assert _rel_err(y, yj) <= tol, fn
+        assert rel_err(y, yj) <= tol, fn
     shifts = np.array([0.5, -1.0, 2.0])
     y = tc.matmat_shifted(Xt, torch.as_tensor(shifts, dtype=tw)).numpy()
     assert np.array_equal(y, tc.matmat(Xt).numpy())   # no shifted apply
@@ -268,50 +240,17 @@ def test_cast_operator_matches_reference(op_dtype, work_dtype):
     yj = np.asarray(jk.matmat_shifted(jnp.asarray(X),
                                       jnp.asarray(shifts, work_dtype)))
     assert y.dtype == yj.dtype == work_dtype
-    assert _rel_err(y, yj) <= tol
+    assert rel_err(y, yj) <= tol
 
 
 def test_wrapper_rejects_bad_arguments():
-    A = _band_matrix(2048, bw=300, seed=7).astype(np.float32)
+    A = band_matrix(2048, bw=300, seed=7).astype(np.float32)
     op = WindowedELLOperator.from_scipy(A)
     with pytest.raises(ValueError, match="shape"):
-        WE.matmat(op.meta, op.scal, op.offs, op.vals[:, :1], torch.ones(2048, 1))
+        WE.matmat(op.slice_ptr, op.rowlen, op.cols, op.vals[:-1],
+                  torch.ones(2048, 1))
+    with pytest.raises(ValueError, match="shape"):
+        WE.matmat(op.slice_ptr[:-1], op.rowlen, op.cols, op.vals,
+                  torch.ones(2048, 1))
 
 
-@pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
-    A = _band_matrix(3000, bw=700, seed=2).astype(np.float32)
-    op = WindowedELLOperator.from_scipy(A).to("cuda")
-    for k in (1, 2, 3, 8, 11):
-        X = torch.randn((3000, k), device="cuda")
-        before = WE.LAUNCHES
-        y = WE.matmat(op.meta, op.scal, op.offs, op.vals, X)
-        torch.cuda.synchronize()
-        assert WE.LAUNCHES == before + 1
-        yref = WE.matmat_reference(op.meta, op.scal, op.offs, op.vals, X)
-        assert float((y - yref).abs().max()) <= REL * float(yref.abs().max())
-
-
-@pytest.mark.cuda
-def test_f64_kernel_matches_reference_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
-    A = _band_matrix(3000, bw=700, seed=11)
-    op = WindowedELLOperator.from_scipy(A).to("cuda")
-    assert op.dtype == torch.float64
-    for k in (1, 2, 3, 8, 11):
-        X = torch.randn((3000, k), device="cuda", dtype=torch.float64)
-        before = dict(WE.KERNEL_LAUNCHES)
-        y = WE.matmat(op.meta, op.scal, op.offs, op.vals, X)
-        torch.cuda.synchronize()
-        assert WE.KERNEL_LAUNCHES == {
-            **before, "windowed_ell_spmm_f64":
-            before["windowed_ell_spmm_f64"] + 1}
-        yref = WE.matmat_reference(op.meta, op.scal, op.offs, op.vals, X)
-        # the same f64 sums in the same order; fma rounds once per term
-        assert float((y - yref).abs().max()) \
-            <= 1e-13 * float(yref.abs().max())
-    with pytest.raises(TypeError, match="dtype"):
-        WE.matmat(op.meta, op.scal, op.offs, op.vals, X.to(torch.float32))
