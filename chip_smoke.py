@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``primme_tpu_torch``) on one card.
 
-Drives the port's two sparse paths once at full size: ``eigsh`` on the
-64^3 27-point Laplacian (n = 262,144, 6.86M nonzeros) in random node
+Drives the port's paths once at full size. The sparse paths: ``eigsh`` on
+the 64^3 27-point Laplacian (n = 262,144, 6.86M nonzeros) in random node
 order, k=10 smallest, JDQMR_ETol with block 2, basis 24, restart 14, with
 the spectrum-verification probe on; first in f32 at tol 1e-5, then on the
 same matrix in f64 at tol 1e-10. The format chooser packs the matrix into
 the windowed-slot ELL layout and every product goes through the
 hand-written kernel of ``primme_tpu_torch/csrc/windowed_ell.cu`` on the
 operator's compact warp-sliced layout (no padding slots): its f32 entry
-point for the f32 solve, its native FP64 one for the f64 solve.
+point for the f32 solve, its native FP64 one for the f64 solve. Then
+``bench.py``'s headline: the 7-point Laplacian ``Stencil3DOperator`` on
+the 64^3 grid with the shift-aware ``JacobiPrecond``, the same settings in
+f32 at tol 1e-5, through ``solve_eigs``; every product runs
+``csrc/stencil3d.cu`` and every preconditioner apply ``csrc/jacobi.cu``.
+Last, ``__graft_entry__.entry``'s GD_Olsen_plusK + Jacobi on the 16^3
+stencil, run to convergence.
 
 Phases, each printing its own lines; any failed check raises:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them;
-2. build: compiles both entry points from the checkout's source;
+2. build: compiles ``windowed_ell.cu``, ``stencil3d.cu`` and ``jacobi.cu``
+   from the checkout's sources, one ``nvcc`` each, all started together;
 3. f32 layout and kernel: ``pack`` and ``compact`` of the permuted
    matrix timed apart and equal to the operator's arrays; the entry count
    E <= 1.1 nnz and the operator's device bytes <= 1.1 nnz (4 + 4) + 8n.
@@ -42,7 +49,31 @@ Phases, each printing its own lines; any failed check raises:
 6. f64 solve: only FP64 launches, at least one per two matvecs;
    eigenvalues within 1e-8 of the closed form, every true residual (the
    f64 plain version) <= 1.5e-10 * ||A||, probe verified and not
-   exhausted, matvec count within 2x of the JAX reference's 1876.
+   exhausted, matvec count within 2x of the JAX reference's 1876;
+7. stencil kernel against its plain version on the 64^3 grid at k in
+   {1, 2, 4, 8}, f32 and f64: max |diff| <= 1e-6 (f32) and 1e-15 (f64)
+   * max|y|, and whether it is bit for bit; the kernel's time with the
+   spin and without, the plain version's, the bound (X read and Y
+   written once over 3.35 TB/s) and the share; ``library_ms``, a
+   depthwise ``conv3d`` over the same memory (cuDNN, TF32 off; timed
+   only, its max |diff| printed);
+8. Jacobi kernel against its plain version at the same widths and types,
+   the shifted entry (one shift equal to a diagonal entry, so the eps
+   clamp fires) and the unshifted one: bit for bit; the times of phase 7,
+   no library call;
+9. the headline: ``bench.py``'s configuration through ``solve_eigs``, one
+   untimed solve and then the minimum of 3 timed ones, each printed;
+   ``bench.py``'s ``ok`` (max resnorm <= 1.5e-5 * anorm_estimate,
+   eigenvalues within 1e-4 of the closed form), every true residual (the
+   stencil's plain version) <= 1.5e-5 * ||A||, probe verified and not
+   exhausted, matvecs within 2x of the JAX reference's 1710, stencil
+   launches >= matvecs / 2, Jacobi launches > 0, no windowed-ELL launch;
+   the peak device memory and the share of the solve time the two
+   kernels account for (launches x their k=2 time);
+10. GD_Olsen_plusK + Jacobi on the 16^3 stencil, k=4, tol 1e-4:
+    eigenvalues within 1e-4 of the closed form, probe verified, matvecs
+    within 2x of the JAX reference's 494, Jacobi launches > 0 (the Olsen
+    correction of ``gd_correction``).
 
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves; the last is
@@ -50,6 +81,7 @@ a JSON record of the kernels and the solves; the last is
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import statistics
@@ -64,6 +96,13 @@ REF_MATVECS = 1385   # the JAX reference's matvecs at GRID (CPU run)
 # eigsh on the f64 matrix (its f64 windowed operator) on the CPU
 REF_MATVECS_F64 = 1876
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+# the JAX reference's counts for bench.py's configuration (64^3 stencil +
+# Jacobi, JDQMR_ETol; solve_eigs on the CPU, x64 off as bench.py runs)
+REF_HEADLINE_MATVECS = 1710
+REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
+GD_GRID = 16
+REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
+KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi")
 
 
 def laplacian27(m, seed):
@@ -157,10 +196,11 @@ def solve(ptt, A, seed, tol=1e-5):
                      device="cuda")
 
 
-def reset_counts(WE):
-    WE.LAUNCHES = 0
-    for name in WE.KERNEL_LAUNCHES:
-        WE.KERNEL_LAUNCHES[name] = 0
+def reset_counts(*mods):
+    for mod in mods:
+        mod.LAUNCHES = 0
+        for name in mod.KERNEL_LAUNCHES:
+            mod.KERNEL_LAUNCHES[name] = 0
 
 
 def layout_phase(WE, op, Ap, dtype, tag):
@@ -274,16 +314,20 @@ def run_solve(ptt, WE, A, op, perm, ev, seed, tol, ev_tol, ref_mv, entry,
     import numpy as np
     import torch
 
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+
     dev = op.device
     torch.cuda.synchronize()
     before_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(WE)
+    reset_counts(WE, ST, JK)
     t0 = time.perf_counter()
     w, V, st = solve(ptt, A, seed, tol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(WE.KERNEL_LAUNCHES)
+    launches = {**WE.KERNEL_LAUNCHES, **ST.KERNEL_LAUNCHES,
+                **JK.KERNEL_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     mv = st["num_matvecs"]
     err_ev = float(np.abs(np.sort(w) - ev[:10]).max())
@@ -300,7 +344,7 @@ def run_solve(ptt, WE, A, op, perm, ev, seed, tol, ev_tol, ref_mv, entry,
           f"{st['num_probe_rounds']}  outer {st['num_outer_iterations']}  "
           f"inner {st['num_inner_iterations']}  restarts {st['num_restarts']}"
           f"  resets {st['num_resets']}", flush=True)
-    print(f"[{tag}] kernel launches {launches}  max|eval-analytic| "
+    print(f"[{tag}] kernel launches {WE.KERNEL_LAUNCHES}  max|eval-analytic| "
           f"{err_ev:.3e}  max residual {res:.3e} (limit "
           f"{1.5 * tol * anorm:.3e})  probe verified {st['probe_verified']} "
           f"exhausted {st['probe_exhausted']}", flush=True)
@@ -325,6 +369,295 @@ def run_solve(ptt, WE, A, op, perm, ev, seed, tol, ev_tol, ref_mv, entry,
             "peak_bytes": peak, "bytes_before": before_bytes}
 
 
+def stencil_eigenvalues(m, k):
+    """The k smallest eigenvalues of the 7-point Dirichlet Laplacian on an
+    m^3 grid in closed form (``bench.py``'s), and its norm (the largest)."""
+    import numpy as np
+
+    ax = 2 - 2 * np.cos(np.pi * np.arange(1, m + 1) / (m + 1))
+    lam = np.sort((ax[:, None, None] + ax[None, :, None]
+                   + ax[None, None, :]).ravel())
+    return lam[:k], float(3 * ax.max())
+
+
+def _bitwise(a, b):
+    """a and b equal element for element, NaN for NaN."""
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def _times(kernel, plain, bound_ms, library=None):
+    """The kernel's median time with and without the spin, the plain
+    version's (with the spin: it reads nothing back to the host) and the
+    library call's, beside the bound."""
+    out = {"ms": median_ms(kernel), "nospin_ms": median_ms(kernel, spin=False),
+           "plain_ms": median_ms(plain), "bound_ms": bound_ms,
+           "library_ms": median_ms(library) if library is not None else None}
+    out["bound_share"] = bound_ms / out["ms"]
+    return out
+
+
+def _print_times(tag, k, err, limit, bit, t, extra=""):
+    print(f"[{tag}] k={k} max|y-yref|={err:.3e} (limit {limit:.3e}; bit for "
+          f"bit {bit}) kernel {t['ms']:.4f} ms (without the spin "
+          f"{t['nospin_ms']:.4f})  plain {t['plain_ms']:.4f} ms  bound "
+          f"{t['bound_ms']:.4f} ms (bytes; share {t['bound_share']:.3f})"
+          + extra, flush=True)
+
+
+def stencil_phase(ST, dev, gen, grid=GRID, scale=1.0):
+    """The stencil kernel against its plain version on the ``grid``^3 grid at
+    k in {1, 2, 4, 8}, f32 and f64 (max |diff| <= 1e-6 / 1e-15 * max|y|),
+    timed beside its bound and a depthwise ``conv3d`` over the same memory
+    (``library_ms``; cuDNN with TF32 off, as the package sets it)."""
+    import torch
+    import torch.nn.functional as F
+
+    check(not torch.backends.cudnn.allow_tf32,
+          "cuDNN would run the conv3d yardstick in TF32")
+    n = grid ** 3
+    out = {}
+    for dtype, rel in ((torch.float32, 1e-6), (torch.float64, 1e-15)):
+        name = "stencil3d_f32" if dtype == torch.float32 else "stencil3d_f64"
+        size = torch.finfo(dtype).bits // 8
+        w = torch.zeros((3, 3, 3), dtype=dtype)
+        w[1, 1, 1] = 6.0
+        for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[c] = -1.0
+        per_k = {}
+        for k in (1, 2, 4, 8):
+            X = torch.randn((n, k), generator=gen, dtype=dtype).to(dev)
+            y = ST.matmat(X, grid, grid, grid, scale)
+            yref = ST.matmat_reference(X, grid, grid, grid, scale)
+            # the same memory as a (1, k, nx, ny, nz) channels-last-3d input
+            Xc = X.view(1, grid, grid, grid, k).permute(0, 4, 1, 2, 3)
+            wk = (scale * w).expand(k, 1, 3, 3, 3).contiguous().to(dev)
+
+            def conv():
+                return F.conv3d(Xc, wk, padding=1, groups=k)
+
+            ylib = conv().permute(0, 2, 3, 4, 1).reshape(n, k)
+            torch.cuda.synchronize()
+            err = float((y - yref).abs().max())
+            ymax = float(yref.abs().max())
+            bit = _bitwise(y, yref)
+            lib_err = float((ylib - yref).abs().max())
+            t = _times(lambda: ST.matmat(X, grid, grid, grid, scale),
+                       lambda: ST.matmat_reference(X, grid, grid, grid, scale),
+                       1e3 * 2 * n * k * size / HBM_BYTES_PER_S, conv)
+            per_k[k] = {"max_abs_err": err, "ymax": ymax, "bitwise": bit,
+                        "library_call": "conv3d depthwise (cuDNN)",
+                        "library_max_abs_err": lib_err, **t}
+            _print_times(name, k, err, rel * ymax, bit, t,
+                         f"  library (depthwise conv3d) {t['library_ms']:.4f}"
+                         f" ms (max|diff| {lib_err:.3e})")
+            check(err <= rel * ymax,
+                  f"{name}: kernel disagrees with its plain version at k={k}")
+        out[name] = per_k
+    return out
+
+
+def jacobi_phase(JK, dev, gen, grid=GRID):
+    """Both Jacobi entry points against their plain versions at k in
+    {1, 2, 4, 8}, f32 and f64, bit for bit: ``d`` spans [1, 11], the first
+    shift equals ``d`` of the middle row (the eps clamp fires there), the
+    others lie in [0, 1] (the smallest Ritz values of the headline)."""
+    import torch
+
+    n = grid ** 3
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        size = torch.finfo(dtype).bits // 8
+        d = (1.0 + 10.0 * torch.rand(n, generator=gen, dtype=dtype)).to(dev)
+        res = {"jacobi_shifted_" + suffix: {}, "jacobi_" + suffix: {}}
+        for k in (1, 2, 4, 8):
+            X = torch.randn((n, k), generator=gen, dtype=dtype).to(dev)
+            s = torch.rand(k, generator=gen, dtype=dtype).to(dev)
+            s[0] = d[n // 2]
+            eps = 1e-10
+            pairs = (
+                ("jacobi_shifted_" + suffix,
+                 lambda: JK.shifted(X, d, s, eps),
+                 lambda: JK.shifted_reference(X, d, s, eps), k),
+                ("jacobi_" + suffix, lambda: JK.unshifted(X, d, eps),
+                 lambda: JK.unshifted_reference(X, d, eps), 0))
+            for name, kern, plain, nsig in pairs:
+                y, yref = kern(), plain()
+                torch.cuda.synchronize()
+                err = float((y - yref).abs().max())
+                bit = _bitwise(y, yref)
+                t = _times(kern, plain, 1e3 * (2 * n * k + n + nsig) * size
+                           / HBM_BYTES_PER_S)
+                res[name][k] = {"max_abs_err": err, "bitwise": bit, **t}
+                _print_times(name, k, err, 0.0, bit, t)
+                check(bit, f"{name}: kernel differs from its plain version "
+                      f"at k={k}")
+            check(bool(torch.isfinite(y).all()), "jacobi: non-finite output")
+        out.update(res)
+    return out
+
+
+def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
+                   timed=3):
+    """``bench.py``'s solve through the port's ``solve_eigs``: one untimed
+    solve, then ``timed`` timed ones (each ends in a device sync); every
+    solve gated. Returns the record and the launches of the first timed
+    solve."""
+    import numpy as np
+    import torch
+    from primme_tpu_torch.core.inner import jdqmr_inner_solve
+    from primme_tpu_torch.core.solver import solve_eigs
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    n = grid ** 3
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    K = ptt.JacobiPrecond(A.diagonal())
+    p = ptt.PrimmeParams(n=n, num_evals=10, eps=1e-5, max_basis_size=24,
+                         max_block_size=2, min_restart_size=14,
+                         max_matvecs=16000, locking=0)
+    p = ptt.set_method(ptt.Method.JDQMR_ETol, p, has_precond=True)
+    v0 = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 2)),
+                         dtype=torch.float32).to(dev)
+    lam, anorm = stencil_eigenvalues(grid, 10)
+    runs = []
+    for i in range(1 + timed):
+        tag = "headline" + (" untimed" if i == 0 else f" timed {i}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            before_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(WE, ST, JK)
+        t0 = time.perf_counter()
+        res = solve_eigs(A, p, K=K, v0=v0, dtype=torch.float32,
+                         inner_solve=jdqmr_inner_solve)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**ST.KERNEL_LAUNCHES, **JK.KERNEL_LAUNCHES,
+                    **WE.KERNEL_LAUNCHES}
+        st = res.stats
+        evals = res.evals.cpu().numpy()
+        err = float(np.abs(np.sort(evals) - lam).max())
+        max_res = float(res.resnorms.max())
+        ok = max_res <= 1.5e-5 * st.anorm_estimate and err <= 1e-4
+        X = res.evecs.to(torch.float64)
+        R = (ST.matmat_reference(X, grid, grid, grid)
+             - X * res.evals.to(torch.float64)[None, :])
+        true_res = float(torch.linalg.vector_norm(R, dim=0).max())
+        run = {"wall_s": wall, "num_matvecs": st.num_matvecs,
+               "num_probe_matvecs": st.num_probe_matvecs,
+               "num_probe_rounds": st.num_probe_rounds,
+               "num_preconds": st.num_preconds,
+               "num_outer_iterations": st.num_outer_iterations,
+               "num_inner_iterations": st.num_inner_iterations,
+               "eval_err": err, "max_resnorm": max_res,
+               "resnorm_tol": 1.5e-5 * st.anorm_estimate,
+               "anorm_estimate": st.anorm_estimate,
+               "max_true_residual": true_res, "ok": ok,
+               "probe_verified": st.probe_verified,
+               "probe_exhausted": st.probe_exhausted,
+               "launches": launches}
+        if dev.type == "cuda":
+            run["peak_bytes"] = torch.cuda.max_memory_allocated()
+            run["bytes_before"] = before_bytes
+        runs.append(run)
+        print(f"[{tag}] solve {wall:.4f} s  num_matvecs {st.num_matvecs} "
+              f"(reference {ref_mv})  num_probe_matvecs "
+              f"{st.num_probe_matvecs}  num_probe_rounds "
+              f"{st.num_probe_rounds} (reference {REF_HEADLINE_PROBE})  "
+              f"outer {st.num_outer_iterations}  inner "
+              f"{st.num_inner_iterations}  preconds {st.num_preconds}",
+              flush=True)
+        print(f"[{tag}] ok {ok}: max resnorm {max_res:.3e} (limit "
+              f"{1.5e-5 * st.anorm_estimate:.3e}, anorm_estimate "
+              f"{st.anorm_estimate:.4f})  max|eval-analytic| {err:.3e}  "
+              f"max true residual {true_res:.3e} (limit "
+              f"{1.5e-5 * anorm:.3e})  probe verified {st.probe_verified} "
+              f"exhausted {st.probe_exhausted}  launches {launches}"
+              + (f"  peak device memory {run['peak_bytes']} B "
+                 f"({before_bytes} B before)" if dev.type == "cuda" else ""),
+              flush=True)
+        mv = st.num_matvecs
+        check(ok, f"{tag}: bench.py's correctness gate failed")
+        check(true_res <= 1.5e-5 * anorm,
+              f"{tag}: true residual {true_res:.3e} > 1.5e-5*||A||")
+        check(st.probe_verified == 1 and st.probe_exhausted == 0,
+              f"{tag}: spectrum verification did not complete")
+        check(ref_mv / 2 <= mv <= 2 * ref_mv,
+              f"{tag}: {mv} matvecs, not within 2x of the reference's "
+              f"{ref_mv}")
+        if dev.type == "cuda":
+            check(launches["stencil3d_f32"] >= mv / 2,
+                  f"{tag}: only {launches['stencil3d_f32']} stencil launches "
+                  f"for {mv} matvecs")
+            check(launches["jacobi_shifted_f32"] > 0,
+                  f"{tag}: no shifted Jacobi launch")
+            check(not any(WE.KERNEL_LAUNCHES.values()),
+                  f"{tag}: a windowed-ELL kernel served the stencil")
+    timed_walls = [r["wall_s"] for r in runs[1:]]
+    print(f"[headline] timed solves {timed_walls} s: min "
+          f"{min(timed_walls):.4f} s", flush=True)
+    return {"solves": runs, "timed_s": timed_walls,
+            "wall_s": min(timed_walls), "n": n}, runs[1]["launches"]
+
+
+def gdk_phase(ptt, dev, grid=GD_GRID, ref_mv=REF_GD_MATVECS):
+    """``__graft_entry__.entry``'s method, GD_Olsen_plusK with Jacobi on the
+    ``grid``^3 stencil (k=4, tol 1e-4), run to convergence."""
+    import numpy as np
+    import torch
+    from primme_tpu_torch.core.solver import solve_eigs
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    n = grid ** 3
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    K = ptt.JacobiPrecond(A.diagonal())
+    p = ptt.set_method(ptt.Method.GD_Olsen_plusK,
+                       ptt.PrimmeParams(n=n, num_evals=4, eps=1e-4),
+                       has_precond=True)
+    v0 = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 1)),
+                         dtype=torch.float32).to(dev)
+    reset_counts(WE, ST, JK)
+    t0 = time.perf_counter()
+    res = solve_eigs(A, p, K=K, v0=v0, dtype=torch.float32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**ST.KERNEL_LAUNCHES, **JK.KERNEL_LAUNCHES}
+    st = res.stats
+    lam, _ = stencil_eigenvalues(grid, 4)
+    err = float(np.abs(np.sort(res.evals.cpu().numpy()) - lam).max())
+    mv = st.num_matvecs
+    print(f"[gdk] GD_Olsen_plusK + Jacobi {grid}^3: solve {wall:.4f} s  "
+          f"num_matvecs {mv} (reference {ref_mv})  num_probe_matvecs "
+          f"{st.num_probe_matvecs}  num_probe_rounds {st.num_probe_rounds}  "
+          f"preconds {st.num_preconds}  max|eval-analytic| {err:.3e}  probe "
+          f"verified {st.probe_verified}  launches {launches}", flush=True)
+    check(err <= 1e-4, f"gdk: eigenvalue error {err:.3e} > 1e-4")
+    check(st.probe_verified == 1 and st.probe_exhausted == 0,
+          "gdk: spectrum verification did not complete")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"gdk: {mv} matvecs, not within 2x of the reference's {ref_mv}")
+    if dev.type == "cuda":
+        check(launches["stencil3d_f32"] >= mv / 2 and
+              launches["jacobi_shifted_f32"] > 0,
+              f"gdk: the kernels did not serve the solve: {launches}")
+    return {"wall_s": wall, "num_matvecs": mv, "eval_err": err,
+            "num_probe_matvecs": st.num_probe_matvecs,
+            "num_probe_rounds": st.num_probe_rounds,
+            "num_preconds": st.num_preconds, "launches": launches}
+
+
 def kernel_record(name, replaces, launches, per_k, layout):
     k2 = per_k[2]
     return {"name": name, "route": "cuda",
@@ -339,6 +672,32 @@ def kernel_record(name, replaces, launches, per_k, layout):
                 "ms", "nospin_ms", "plain_ms", "library_ms", "library_call",
                 "bound_ms", "bound_share", "max_abs_err")}
                 for k, v in per_k.items()}}
+
+
+def main_path_record(name, source, replaces, launches, per_entry, others):
+    """The record of a kernel of the headline's path (its f32 entry point,
+    at k=2) with its other entry points' numbers under ``entries``;
+    ``launches`` holds every entry point's count from the headline solve."""
+    keys = ("ms", "nospin_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_share", "max_abs_err")
+
+    def by_k(per_k):
+        return {str(k): {key: v[key] for key in keys + ("bitwise",)}
+                for k, v in per_k.items()}
+
+    k2 = per_entry[name][2]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in per_entry[name].values()),
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"], "bound_by": "bytes",
+            "library_ms": k2["library_ms"], "bound_share": k2["bound_share"],
+            "library_call": k2.get("library_call"),
+            "per_k": by_k(per_entry[name]),
+            "entries": {other: {"replaces": rep, "launches": launches[other],
+                                "per_k": by_k(per_entry[other])}
+                        for other, rep in others.items()}}
 
 
 def check(cond, msg):
@@ -360,6 +719,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import primme_tpu_torch as ptt
     from primme_tpu_torch.ops import build
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
     from primme_tpu_torch.ops import windowed_ell as WE
 
     # --- 1. device ------------------------------------------------------
@@ -376,17 +737,24 @@ def main():
           flush=True)
 
     # --- 2. build ---------------------------------------------------------
-    lib = build.library_path("windowed_ell")
-    if os.path.exists(lib):
-        os.remove(lib)          # always build from the checkout's sources
+    # always from the checkout's sources: one nvcc per source, all at once
+    for src in KERNEL_SOURCES:
+        if os.path.exists(build.library_path(src)):
+            os.remove(build.library_path(src))
     t0 = time.perf_counter()
-    handle = build.load("windowed_ell")
-    entries = list(WE.KERNEL_LAUNCHES)
-    for entry in entries:
-        getattr(handle, entry)  # raises AttributeError if it is missing
-    print(f"[build] windowed_ell.cu -> {os.path.relpath(lib)} in "
-          f"{time.perf_counter() - t0:.2f} s; entry points {entries}",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        handles = dict(zip(KERNEL_SOURCES, pool.map(build.load,
+                                                    KERNEL_SOURCES)))
+    for src, mod in (("windowed_ell", WE), ("stencil3d", ST),
+                     ("jacobi", JK)):
+        entries = list(mod.KERNEL_LAUNCHES)
+        for entry in entries:
+            getattr(handles[src], entry)  # AttributeError if it is missing
+        print(f"[build] {src}.cu -> "
+              f"{os.path.relpath(build.library_path(src))}; entry points "
+              f"{entries}", flush=True)
+    print(f"[build] {len(KERNEL_SOURCES)} sources in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # --- 3. f32 layout and kernel against its plain version -------------
     A, ev = laplacian27(GRID, args.seed)
@@ -431,14 +799,47 @@ def main():
                         tol=1e-10, ev_tol=1e-8, ref_mv=REF_MATVECS_F64,
                         entry="windowed_ell_spmm_f64", tag="solve64")
 
+    # --- 7. stencil kernel against its plain version --------------------
+    sten = stencil_phase(ST, dev, gen)
+
+    # --- 8. Jacobi kernels against their plain versions -------------------
+    jac = jacobi_phase(JK, dev, gen)
+
+    # --- 9. the headline: bench.py's configuration ----------------------
+    headline, hl_launches = headline_phase(ptt, dev)
+    first = headline["solves"][1]["wall_s"]       # the first timed solve
+    kernel_ms = {entry: hl_launches[entry] * per[2]["ms"] for entry, per in
+                 (("stencil3d_f32", sten["stencil3d_f32"]),
+                  ("jacobi_shifted_f32", jac["jacobi_shifted_f32"]))}
+    headline["kernel_share"] = {entry: ms / (1e3 * first)
+                                for entry, ms in kernel_ms.items()}
+    print(f"[headline] first timed solve {first:.4f} s; launches x k=2 "
+          "time: " + "; ".join(
+              f"{entry} {hl_launches[entry]} x -> {ms:.2f} ms "
+              f"({headline['kernel_share'][entry]:.4f} of the solve)"
+              for entry, ms in kernel_ms.items()), flush=True)
+
+    # --- 10. GD_Olsen_plusK + Jacobi (__graft_entry__.entry's method) ----
+    gdk = gdk_phase(ptt, dev)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
                       solve32["launches"], per_k, layout32),
         kernel_record("windowed_ell_spmm_f64",
                       "primme_tpu/ops/pallas_windowed.py:363",
-                      solve64["launches"], per_k64, layout64)],
+                      solve64["launches"], per_k64, layout64),
+        main_path_record("stencil3d_f32", "primme_tpu_torch/csrc/stencil3d.cu",
+                         "primme_tpu/operators.py:379", hl_launches, sten,
+                         {"stencil3d_f64": "primme_tpu/operators.py:379"}),
+        main_path_record("jacobi_shifted_f32",
+                         "primme_tpu_torch/csrc/jacobi.cu",
+                         "primme_tpu/operators.py:484", hl_launches, jac,
+                         {"jacobi_shifted_f64": "primme_tpu/operators.py:484",
+                          "jacobi_f32": "primme_tpu/operators.py:481",
+                          "jacobi_f64": "primme_tpu/operators.py:481"})],
         "solve": {**solve32, "f64": solve64},
+        "headline": headline, "gdk": gdk,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ far: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
 and its permutation contract, ``which``/``sigma`` targets, the method
 presets and keyword forwarding, ``v0``, ``return_stats``, a working
 ``dtype`` of f32 or f64 (the operator is wrapped in a ``CastOperator`` when
-it differs from its own), ``raise_for_unconverged`` and the
+it differs from its own), the Jacobi preconditioner (``jacobi=True``, or
+an ``OPinv`` that is a port operator), ``raise_for_unconverged`` and the
 probe-exhaustion error. Arguments of the reference that the port does not
 serve yet raise ``NotImplementedError``.
 """
@@ -21,7 +22,8 @@ import torch
 
 from . import params as prm
 from .params import PrimmeParams, Target, Method, set_method
-from .operators import CastOperator, aslinearoperator
+from .operators import (CastOperator, JacobiPrecond, aslinearoperator,
+                        default_device)
 from .core.solver import solve_eigs
 
 _WHICH_TO_TARGET = {
@@ -92,14 +94,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     if time_breakdown:
         raise _unported("time_breakdown")
     wd = _working_dtype(dtype)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "eigsh solves on the card unless asked otherwise, and "
-                "torch.cuda.is_available() is False; pass device=\"cpu\" "
-                "to solve on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = default_device(device, "eigsh")
 
     perm = None
     import scipy.sparse as _sp
@@ -157,9 +152,10 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     if OPinv is not None:
         K = aslinearoperator(OPinv).to(device)
     elif jacobi:
-        if Aop.diagonal() is None:
+        d = Aop.diagonal()
+        if d is None:
             raise ValueError("jacobi=True but operator has no diagonal()")
-        raise _unported("JacobiPrecond")
+        K = JacobiPrecond(d)           # on the operator's device
     if wd is not None and wd != Aop.dtype:
         Aop = CastOperator(Aop, wd)
         if K is not None:

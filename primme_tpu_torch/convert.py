@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import params as prm
-from .operators import WindowedELLOperator
+from .operators import JacobiPrecond, Stencil3DOperator, WindowedELLOperator
 
 
 def params_from_jax(p) -> prm.PrimmeParams:
@@ -47,6 +47,21 @@ def windowed_from_jax(op, device=None) -> WindowedELLOperator:
         vals = vals.astype(np.float64) + np.asarray(op.vals_lo, np.float64)
     out = WindowedELLOperator(np.asarray(op.scal), np.asarray(op.offs),
                               vals, op.meta)
+    return out.to(device) if device is not None else out
+
+
+def stencil_from_jax(op, device=None) -> Stencil3DOperator:
+    """A ``primme_tpu`` ``Stencil3DOperator`` as the port's: the same grid,
+    scale and dtype. ``device`` follows the port's rule (None: the card)."""
+    return Stencil3DOperator(op.nx, op.ny, op.nz,
+                             dtype=getattr(torch, np.dtype(op.dtype).name),
+                             scale=op._scale, device=device)
+
+
+def jacobi_from_jax(K, device=None) -> JacobiPrecond:
+    """A ``primme_tpu`` ``JacobiPrecond`` as the port's: its diagonal as
+    numpy, ``eps`` and ``use_shifts``."""
+    out = JacobiPrecond(np.asarray(K.d), eps=K.eps, use_shifts=K.use_shifts)
     return out.to(device) if device is not None else out
 
 

@@ -2,14 +2,17 @@
 
 PyTorch port of ``primme_tpu/operators.py``. An operator is an
 ``nn.Module`` holding its arrays as buffers, so ``.to(device)`` moves it,
-with a ``matmat(X)`` on an ``[n, k]`` block. The port has the protocol,
-:class:`WindowedELLOperator` (the sparse format the chooser picks for a
-band-reducible matrix, applied by a hand-written CUDA kernel in f32 or
-f64), :class:`CastOperator` (a working precision other than the
-operator's) and the decision logic of :func:`rcm_banded`. Formats the
-chooser may pick but the port does not have yet raise
-``NotImplementedError`` naming the format; another format is never
-substituted.
+with a ``matmat(X)`` on an ``[n, k]`` block; one that holds no array
+(:class:`Stencil3DOperator`) states its device. The port has the protocol,
+:class:`Stencil3DOperator` and :class:`JacobiPrecond` (``bench.py``'s
+headline operator and preconditioner, each applied by a hand-written CUDA
+kernel), :class:`WindowedELLOperator` (the sparse format the chooser picks
+for a band-reducible matrix, applied by a hand-written CUDA kernel in f32
+or f64), :class:`DenseOperator`, :class:`DiagonalOperator`,
+:class:`CastOperator` (a working precision other than the operator's) and
+the decision logic of :func:`rcm_banded`. Formats the chooser may pick but
+the port does not have yet raise ``NotImplementedError`` naming the
+format; another format is never substituted.
 """
 
 from __future__ import annotations
@@ -21,7 +24,23 @@ import torch
 from torch import nn
 
 from .core.linalg import real_dtype
+from .ops import jacobi as JK
+from .ops import stencil3d as ST
 from .ops import windowed_ell as WE
+
+
+def default_device(device: Any, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card, and raises
+    when there is none: the port runs on the card unless the caller asks
+    for the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on the card unless asked otherwise, and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" "
+                "to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def _todo(fmt: str) -> NotImplementedError:
@@ -32,7 +51,8 @@ def _todo(fmt: str) -> NotImplementedError:
 
 class LinearOperator(nn.Module):
     """Square operator with a block apply. Subclasses keep their arrays as
-    buffers and set ``shape`` and ``dtype``."""
+    buffers and set ``shape`` and ``dtype``; one that holds no array keeps
+    an empty buffer on its device, which ``.to(device)`` moves."""
 
     shape: Tuple[int, int]
     dtype: torch.dtype
@@ -59,7 +79,147 @@ class LinearOperator(nn.Module):
     def device(self) -> torch.device:
         for b in self.buffers():
             return b.device
-        return torch.device("cpu")
+        raise TypeError(f"{type(self).__name__} holds no array and states "
+                        "no device")
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A tensor as it is; a numpy array (or what converts to one) copied
+    into a CPU tensor of its dtype."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.array(a))
+
+
+def _kernel_block(X: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """X in ``dtype`` as the stencil and Jacobi kernels take it: its rows
+    may lie apart (a column slice of the basis needs no copy), its columns
+    must be adjacent."""
+    X = X.to(dtype)
+    if X.shape[1] > 1 and X.stride(1) != 1:
+        X = X.contiguous()
+    return X
+
+
+class DenseOperator(LinearOperator):
+    """Explicit (dense) matrix operator: one ``torch.matmul`` per apply
+    (a plain product, as the reference leaves it to XLA; TF32 is off)."""
+
+    def __init__(self, A):
+        super().__init__()
+        A = _as_tensor(A)
+        if A.ndim != 2:
+            raise ValueError("expected a 2-D operator")
+        self.register_buffer("A", A)
+        self.shape = tuple(A.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.A.dtype
+
+    def matmat(self, X):
+        return self.A @ X.to(self.dtype)
+
+    def rmatmat(self, X):
+        return self.A.mH @ X.to(self.dtype)
+
+    def diagonal(self):
+        return torch.diagonal(self.A)
+
+
+class DiagonalOperator(LinearOperator):
+    """Diagonal matrix: an elementwise scale of each row of the block."""
+
+    def __init__(self, d):
+        super().__init__()
+        d = _as_tensor(d)
+        self.register_buffer("d", d)
+        self.shape = (d.shape[0], d.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.d.dtype
+
+    def matmat(self, X):
+        return self.d[:, None] * X
+
+    def rmatmat(self, X):
+        return self.d.conj()[:, None] * X
+
+    def diagonal(self):
+        return self.d
+
+
+class Stencil3DOperator(LinearOperator):
+    """7-point 3-D Laplacian on an ``nx*ny*nz`` grid with Dirichlet edges,
+    scaled by ``scale``: ``bench.py``'s headline operator. Rows are grid
+    points in the reference's order, row ``(i*ny + j)*nz + l``. ``matmat``
+    runs the hand-written kernel of ``csrc/stencil3d.cu`` on the card (the
+    plain version on the CPU) in the operator's dtype and returns that
+    dtype, as the reference does; ``rmatmat`` is the same product.
+
+    The operator holds no array, so it states its device with an empty
+    buffer: None means the card, and raises when there is none;
+    ``device="cpu"`` runs on the CPU; ``.to(device)`` moves it."""
+
+    def __init__(self, nx: int, ny: int, nz: int,
+                 dtype: torch.dtype = torch.float32, scale: float = 1.0,
+                 device: Any = None):
+        super().__init__()
+        self.nx, self.ny, self.nz = int(nx), int(ny), int(nz)
+        self.scale = float(scale)
+        self.dtype = dtype
+        if self.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(f"a stencil of dtype {self.dtype} "
+                                      "(f32 and f64 only)")
+        n = self.nx * self.ny * self.nz
+        self.shape = (n, n)
+        self.register_buffer("_anchor", torch.empty(
+            0, dtype=dtype, device=default_device(device, "Stencil3DOperator")),
+            persistent=False)
+
+    def matmat(self, X):
+        return ST.matmat(_kernel_block(X, self.dtype), self.nx, self.ny,
+                         self.nz, self.scale)
+
+    def diagonal(self):
+        return torch.full((self.shape[0],), 6.0 * self.scale,
+                          dtype=self.dtype, device=self.device)
+
+
+class JacobiPrecond(LinearOperator):
+    """Shift-aware Jacobi preconditioner, ``X -> X / (diag(A) - sigma)``
+    (the reference's ``JacobiPrecond``). ``matmat`` applies
+    ``safe_inv(d) * X``, ``matmat_shifted`` divides column ``j`` by
+    ``d - shifts[j]`` (or is ``matmat`` when ``use_shifts`` is False); a
+    denominator under ``eps`` in magnitude becomes ``eps``. Both run the
+    hand-written kernel of ``csrc/jacobi.cu`` on the card (the plain
+    version on the CPU), each rounding as the reference writes it."""
+
+    def __init__(self, diag, eps: float = 1e-10, use_shifts: bool = True):
+        super().__init__()
+        # contiguous, as the kernel takes it (a DenseOperator's diagonal is
+        # a strided view)
+        d = _as_tensor(diag).contiguous()
+        self.register_buffer("d", d)
+        self.eps = float(eps)
+        self.use_shifts = bool(use_shifts)
+        self.shape = (d.shape[0], d.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.d.dtype
+
+    def matmat(self, X):
+        return JK.unshifted(_kernel_block(X, self.dtype), self.d, self.eps)
+
+    def matmat_shifted(self, X, shifts):
+        """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])``."""
+        if not self.use_shifts:
+            return self.matmat(X)
+        return JK.shifted(_kernel_block(X, self.dtype), self.d,
+                          shifts.to(device=self.d.device, dtype=self.dtype),
+                          self.eps)
 
 
 class WindowedELLOperator(LinearOperator):
@@ -142,28 +302,37 @@ class CastOperator(LinearOperator):
 
 def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,
                   shifts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Uniform preconditioner application; identity if ``K is None``.
-    ``shifts`` is unused until a shifted preconditioner (the reference's
-    ``JacobiPrecond.matmat_shifted``) is ported."""
+    """Uniform preconditioner application; identity if ``K is None``. A
+    preconditioner with ``matmat_shifted`` gets the per-column ``shifts``
+    when they are given (the reference's mediation of
+    ``applyPreconditioner_Sprimme``)."""
     if K is None:
         return X
+    if shifts is not None and hasattr(K, "matmat_shifted"):
+        return K.matmat_shifted(X, shifts)
     return K.matmat(X)
 
 
 def aslinearoperator(A: Any) -> LinearOperator:
-    """Pass a port :class:`LinearOperator` through. The reference's other
-    branches (dense arrays, scipy sparse outside :func:`rcm_banded`,
-    scipy ``LinearOperator``) are not ported yet and raise."""
+    """Coerce a port :class:`LinearOperator` (passed through), a numpy or
+    torch 2-D array (a :class:`DenseOperator`) or a scipy sparse matrix of
+    at most 8192 rows and columns and 256 MB dense (densified, as the
+    reference does). The reference's other branches (a larger scipy sparse
+    matrix becomes an ``ELLOperator``, a scipy ``LinearOperator`` a
+    ``FunctionOperator``) are not ported yet and raise, naming themselves."""
     if isinstance(A, LinearOperator):
         return A
     import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
 
     if sp.issparse(A):
         nr, mc = A.shape
         if max(nr, mc) <= 8192 and nr * mc * A.dtype.itemsize <= (256 << 20):
-            raise _todo("DenseOperator (small sparse input densified)")
+            return DenseOperator(A.toarray())
         raise _todo("ELLOperator (general sparse input)")
-    raise _todo(f"an operator for {type(A).__name__} input")
+    if isinstance(A, spla.LinearOperator):
+        raise _todo("FunctionOperator (scipy LinearOperator input)")
+    return DenseOperator(A)
 
 
 def _dia_ell_accepts(A, max_diags: int = 256, min_fill: float = 0.25,

@@ -49,12 +49,19 @@ def test_chooser_picks_windowed_like_the_reference():
 
 
 def test_aslinearoperator_passes_port_operators_only():
+    # a port operator passes through; small dense and sparse inputs become
+    # a DenseOperator (test_torch_dense_ops.py); the unported branches
+    # raise, naming themselves
+    import scipy.sparse.linalg as spla
+
     op, _ = rcm_banded(_windowed_case())
     assert aslinearoperator(op) is op
-    with pytest.raises(NotImplementedError, match="DenseOperator"):
-        aslinearoperator(_lap1d(100))
-    with pytest.raises(NotImplementedError):
-        aslinearoperator(np.eye(4))
+    assert isinstance(aslinearoperator(_lap1d(100)), ptt.DenseOperator)
+    assert isinstance(aslinearoperator(np.eye(4)), ptt.DenseOperator)
+    with pytest.raises(NotImplementedError, match="ELLOperator"):
+        aslinearoperator(_lap1d(9000))
+    with pytest.raises(NotImplementedError, match="FunctionOperator"):
+        aslinearoperator(spla.aslinearoperator(np.eye(4)))
 
 
 @pytest.mark.parametrize("kwargs", [

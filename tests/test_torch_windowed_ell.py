@@ -25,8 +25,9 @@ import jax.numpy as jnp
 from primme_tpu import operators as JO
 from primme_tpu.ops import pallas_windowed as PW
 from primme_tpu_torch.ops import windowed_ell as WE
-from primme_tpu_torch.operators import (CastOperator, LinearOperator,
-                                        WindowedELLOperator, rcm_banded)
+from primme_tpu_torch.operators import (CastOperator, DiagonalOperator,
+                                        JacobiPrecond, WindowedELLOperator,
+                                        rcm_banded)
 from test_torch_problems import laplacian27_permuted
 from test_torch_sliced_ell import (REL, apply_ref, band_matrix, layout_arrays,
                                    rel_err)
@@ -185,27 +186,6 @@ def test_rcm_banded_selects_windowed_for_f64():
     assert rel_err(y, (Ap @ X)[perm]) <= REL64_SCIPY
 
 
-class _Jacobi(LinearOperator):
-    """X / (d - shift), the reference's JacobiPrecond away from its eps
-    guard: an operator with ``diagonal`` and ``matmat_shifted`` to hold
-    :class:`CastOperator`'s other branches against the reference's."""
-
-    def __init__(self, d):
-        super().__init__()
-        self.register_buffer("d", torch.as_tensor(d))
-        self.shape = (len(d), len(d))
-        self.dtype = self.d.dtype
-
-    def matmat(self, X):
-        return X / self.d[:, None]
-
-    def diagonal(self):
-        return self.d
-
-    def matmat_shifted(self, X, shifts):
-        return X / (self.d[:, None] - shifts[None, :])
-
-
 @pytest.mark.parametrize("op_dtype,work_dtype", [
     (np.float64, np.float32), (np.float32, np.float64)])
 def test_cast_operator_matches_reference(op_dtype, work_dtype):
@@ -227,14 +207,15 @@ def test_cast_operator_matches_reference(op_dtype, work_dtype):
     shifts = np.array([0.5, -1.0, 2.0])
     y = tc.matmat_shifted(Xt, torch.as_tensor(shifts, dtype=tw)).numpy()
     assert np.array_equal(y, tc.matmat(Xt).numpy())   # no shifted apply
-    # the diagonal against a reference operator that has one (its
-    # JacobiPrecond does not), the shifted apply against JacobiPrecond
+    # the diagonal against the reference's over an operator that has one
+    # (JacobiPrecond has none), the shifted apply against JacobiPrecond
     d = (rng.uniform(3.0, 5.0, n)).astype(op_dtype)
-    jd = JO.CastOperator(JO.DenseOperator(np.diag(d[:200])), work_dtype)
-    tk = CastOperator(_Jacobi(d), tw)
-    assert tk.diagonal().dtype == tw
-    assert np.array_equal(tk.diagonal().numpy()[:200],
-                          np.asarray(jd.diagonal()))
+    jd = JO.CastOperator(JO.DiagonalOperator(jnp.asarray(d)), work_dtype)
+    td = CastOperator(DiagonalOperator(d), tw)
+    assert td.diagonal().dtype == tw
+    assert np.array_equal(td.diagonal().numpy(), np.asarray(jd.diagonal()))
+    tk = CastOperator(JacobiPrecond(d), tw)
+    assert tk.diagonal() is None
     jk = JO.CastOperator(JO.JacobiPrecond(jnp.asarray(d)), work_dtype)
     y = tk.matmat_shifted(Xt, torch.as_tensor(shifts, dtype=tw)).numpy()
     yj = np.asarray(jk.matmat_shifted(jnp.asarray(X),
