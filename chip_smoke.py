@@ -50,17 +50,24 @@ Phases, each printing its own lines; any failed check raises:
    eigenvalues within 1e-8 of the closed form, every true residual (the
    f64 plain version) <= 1.5e-10 * ||A||, probe verified and not
    exhausted, matvec count within 2x of the JAX reference's 1876;
-7. stencil kernel against its plain version on the 64^3 grid at k in
-   {1, 2, 4, 8}, f32 and f64: max |diff| <= 1e-6 (f32) and 1e-15 (f64)
-   * max|y|, and whether it is bit for bit; the kernel's time with the
-   spin and without, the plain version's, the bound (X read and Y
-   written once over 3.35 TB/s) and the share; ``library_ms``, a
-   depthwise ``conv3d`` over the same memory (cuDNN, TF32 off; timed
-   only, its max |diff| printed);
-8. Jacobi kernel against its plain version at the same widths and types,
+7. stencil kernel against its plain version, f32 and f64, at every shape
+   of ``KERNEL_SHAPES``: the 64^3 grid at k in {1, 2, 4, 8}, 128^3 and
+   256^3 at k in {2, 8}, and at 64^3 a k=2 column slice of a [n, 24]
+   block at column offset 1 (rows 24 apart, 4 bytes off 8: the kernel's
+   scalar path, as the solve's basis slices may be): bit for bit (NaN for
+   NaN); the launch plan (columns a point, load width, the stencil's
+   tile and grid); the kernel's time with the spin and without, the plain
+   version's, the bound (X read and Y written once over 3.35 TB/s) and
+   the share; ``library_ms``, a depthwise ``conv3d`` over the same memory
+   (cuDNN, TF32 off; timed only, its max |diff| printed); ``copy_ms``,
+   torch's copy of X into a preallocated Y (the same bytes in one launch:
+   the launch-and-bytes floor; a yardstick the port never calls);
+8. Jacobi kernel against its plain version at the same shapes and types,
    the shifted entry (one shift equal to a diagonal entry, so the eps
-   clamp fires) and the unshifted one: bit for bit; the times of phase 7,
-   no library call;
+   clamp fires) and the unshifted one: bit for bit; the times of phase 7
+   with ``copy_ms``; no library call (``library_ms`` null: no single
+   PyTorch call computes ``X / guard(d - sigma)``, the eps guard is part of
+   the function);
 9. the headline: ``bench.py``'s configuration through ``solve_eigs``, one
    untimed solve and then the minimum of 3 timed ones, each printed;
    ``bench.py``'s ``ok`` (max resnorm <= 1.5e-5 * anorm_estimate,
@@ -68,8 +75,9 @@ Phases, each printing its own lines; any failed check raises:
    stencil's plain version) <= 1.5e-5 * ||A||, probe verified and not
    exhausted, matvecs within 2x of the JAX reference's 1710, stencil
    launches >= matvecs / 2, Jacobi launches > 0, no windowed-ELL launch;
-   the peak device memory and the share of the solve time the two
-   kernels account for (launches x their k=2 time);
+   the share of each kernel's launches that took the vector path; the
+   peak device memory and the share of the solve time the two kernels
+   account for (launches x their k=2 time);
 10. GD_Olsen_plusK + Jacobi on the 16^3 stencil, k=4, tol 1e-4:
     eigenvalues within 1e-4 of the closed form, probe verified, matvecs
     within 2x of the JAX reference's 494, Jacobi launches > 0 (the Olsen
@@ -96,6 +104,7 @@ REF_MATVECS = 1385   # the JAX reference's matvecs at GRID (CPU run)
 # eigsh on the f64 matrix (its f64 windowed operator) on the CPU
 REF_MATVECS_F64 = 1876
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+L2_BYTES = 50e6             # H100 SXM L2 (the same data sheet)
 # the JAX reference's counts for bench.py's configuration (64^3 stencil +
 # Jacobi, JDQMR_ETol; solve_eigs on the CPU, x64 off as bench.py runs)
 REF_HEADLINE_MATVECS = 1710
@@ -103,6 +112,13 @@ REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
 GD_GRID = 16
 REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
 KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi")
+# phases 7-8: (grid side, k, column offset in a SLICE_WIDTH-wide block or
+# None for a contiguous [n, k] block)
+KERNEL_SHAPES = ([(GRID, k, None) for k in (1, 2, 4, 8)]
+                 + [(side, k, None) for side in (128, 256) for k in (2, 8)]
+                 + [(GRID, 2, 1)])
+SLICE_WIDTH = 24
+HEADLINE_SHAPE = f"{GRID}^3 k=2"    # the shape the record's top level reads
 
 
 def laplacian27(m, seed):
@@ -199,8 +215,10 @@ def solve(ptt, A, seed, tol=1e-5):
 def reset_counts(*mods):
     for mod in mods:
         mod.LAUNCHES = 0
-        for name in mod.KERNEL_LAUNCHES:
-            mod.KERNEL_LAUNCHES[name] = 0
+        for counts in (mod.KERNEL_LAUNCHES,
+                       getattr(mod, "VECTOR_LAUNCHES", {})):
+            for name in counts:
+                counts[name] = 0
 
 
 def layout_phase(WE, op, Ap, dtype, tag):
@@ -388,38 +406,64 @@ def _bitwise(a, b):
                 and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
 
 
-def _times(kernel, plain, bound_ms, library=None):
+def _times(kernel, plain, nbytes, copy, library=None):
     """The kernel's median time with and without the spin, the plain
-    version's (with the spin: it reads nothing back to the host) and the
-    library call's, beside the bound."""
+    version's (with the spin: it reads nothing back to the host), torch's
+    copy of the same bytes and the library call's, beside the bound: the
+    ``nbytes`` the function moves over the device memory's rate. Where they
+    fit in L2, the repeated calls of ``median_ms`` find them there, so the
+    share is not one of a device-memory bound (``l2_resident``)."""
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     out = {"ms": median_ms(kernel), "nospin_ms": median_ms(kernel, spin=False),
-           "plain_ms": median_ms(plain), "bound_ms": bound_ms,
+           "plain_ms": median_ms(plain), "copy_ms": median_ms(copy),
+           "bound_ms": bound_ms, "l2_resident": nbytes <= L2_BYTES,
            "library_ms": median_ms(library) if library is not None else None}
     out["bound_share"] = bound_ms / out["ms"]
     return out
 
 
-def _print_times(tag, k, err, limit, bit, t, extra=""):
-    print(f"[{tag}] k={k} max|y-yref|={err:.3e} (limit {limit:.3e}; bit for "
-          f"bit {bit}) kernel {t['ms']:.4f} ms (without the spin "
-          f"{t['nospin_ms']:.4f})  plain {t['plain_ms']:.4f} ms  bound "
-          f"{t['bound_ms']:.4f} ms (bytes; share {t['bound_share']:.3f})"
-          + extra, flush=True)
+def _print_times(tag, shape, err, bit, t, plan, extra=""):
+    print(f"[{tag}] {shape} max|y-yref|={err:.3e} bit for bit {bit}; plan "
+          f"kc={plan.kc} vw={plan.vw} ({'vector' if plan.vw > 1 else 'scalar'}"
+          f" path)" + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}"
+                       if hasattr(plan, "grid") else f" blocks {plan.blocks}")
+          + f"; kernel {t['ms']:.5f} ms (without the "
+          f"spin {t['nospin_ms']:.5f})  plain {t['plain_ms']:.5f} ms  copy "
+          f"{t['copy_ms']:.5f} ms  bound {t['bound_ms']:.5f} ms (bytes; share "
+          f"{t['bound_share']:.3f}"
+          + (", L2-resident" if t["l2_resident"] else "") + ")" + extra,
+          flush=True)
 
 
-def stencil_phase(ST, dev, gen, grid=GRID, scale=1.0):
-    """The stencil kernel against its plain version on the ``grid``^3 grid at
-    k in {1, 2, 4, 8}, f32 and f64 (max |diff| <= 1e-6 / 1e-15 * max|y|),
-    timed beside its bound and a depthwise ``conv3d`` over the same memory
+def shape_label(side, k, off):
+    return f"{side}^3 k={k}" + (f" slice+{off} of {SLICE_WIDTH}"
+                                if off is not None else "")
+
+
+def kernel_block(side, k, off, dtype, dev, gen):
+    """A random [side^3, k] block on the card: contiguous, or columns
+    [off, off + k) of a SLICE_WIDTH-wide one."""
+    import torch
+
+    n = side ** 3
+    if off is None:
+        return torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
+    W = torch.randn((n, SLICE_WIDTH), generator=gen, dtype=dtype, device=dev)
+    return W[:, off:off + k]
+
+
+def stencil_phase(ST, dev, gen, scale=1.0):
+    """The stencil kernel against its plain version at every shape of
+    ``KERNEL_SHAPES``, f32 and f64, bit for bit; timed beside its bound,
+    torch's copy of X and a depthwise ``conv3d`` over the same memory
     (``library_ms``; cuDNN with TF32 off, as the package sets it)."""
     import torch
     import torch.nn.functional as F
 
     check(not torch.backends.cudnn.allow_tf32,
           "cuDNN would run the conv3d yardstick in TF32")
-    n = grid ** 3
     out = {}
-    for dtype, rel in ((torch.float32, 1e-6), (torch.float64, 1e-15)):
+    for dtype in (torch.float32, torch.float64):
         name = "stencil3d_f32" if dtype == torch.float32 else "stencil3d_f64"
         size = torch.finfo(dtype).bits // 8
         w = torch.zeros((3, 3, 3), dtype=dtype)
@@ -427,58 +471,67 @@ def stencil_phase(ST, dev, gen, grid=GRID, scale=1.0):
         for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
                   (1, 1, 2)):
             w[c] = -1.0
-        per_k = {}
-        for k in (1, 2, 4, 8):
-            X = torch.randn((n, k), generator=gen, dtype=dtype).to(dev)
-            y = ST.matmat(X, grid, grid, grid, scale)
-            yref = ST.matmat_reference(X, grid, grid, grid, scale)
+        per_shape = {}
+        for side, k, off in KERNEL_SHAPES:
+            n, label = side ** 3, shape_label(side, k, off)
+            X = kernel_block(side, k, off, dtype, dev, gen)
+            grid = (side, side, side)
+            y = ST.matmat(X, *grid, scale)
+            yref = ST.matmat_reference(X, *grid, scale)
             # the same memory as a (1, k, nx, ny, nz) channels-last-3d input
-            Xc = X.view(1, grid, grid, grid, k).permute(0, 4, 1, 2, 3)
+            Xc = X.view(1, side, side, side, k).permute(0, 4, 1, 2, 3)
             wk = (scale * w).expand(k, 1, 3, 3, 3).contiguous().to(dev)
 
             def conv():
                 return F.conv3d(Xc, wk, padding=1, groups=k)
 
             ylib = conv().permute(0, 2, 3, 4, 1).reshape(n, k)
+            Yc = torch.empty((n, k), dtype=dtype, device=dev)
             torch.cuda.synchronize()
             err = float((y - yref).abs().max())
-            ymax = float(yref.abs().max())
             bit = _bitwise(y, yref)
             lib_err = float((ylib - yref).abs().max())
-            t = _times(lambda: ST.matmat(X, grid, grid, grid, scale),
-                       lambda: ST.matmat_reference(X, grid, grid, grid, scale),
-                       1e3 * 2 * n * k * size / HBM_BYTES_PER_S, conv)
-            per_k[k] = {"max_abs_err": err, "ymax": ymax, "bitwise": bit,
-                        "library_call": "conv3d depthwise (cuDNN)",
-                        "library_max_abs_err": lib_err, **t}
-            _print_times(name, k, err, rel * ymax, bit, t,
-                         f"  library (depthwise conv3d) {t['library_ms']:.4f}"
+            plan = ST.card_plan(X, *grid)
+            t = _times(lambda: ST.matmat(X, *grid, scale),
+                       lambda: ST.matmat_reference(X, *grid, scale),
+                       2 * n * k * size, lambda: Yc.copy_(X), conv)
+            per_shape[label] = {"max_abs_err": err, "bitwise": bit,
+                                "vector_path": plan.vw > 1,
+                                "plan": plan._asdict(),
+                                "library_call": "conv3d depthwise (cuDNN)",
+                                "library_max_abs_err": lib_err, **t}
+            _print_times(name, label, err, bit, t, plan,
+                         f"  library (depthwise conv3d) {t['library_ms']:.5f}"
                          f" ms (max|diff| {lib_err:.3e})")
-            check(err <= rel * ymax,
-                  f"{name}: kernel disagrees with its plain version at k={k}")
-        out[name] = per_k
+            check(bit, f"{name}: kernel differs from its plain version at "
+                  f"{label}")
+            del X, y, yref, ylib, Xc, Yc
+        out[name] = per_shape
     return out
 
 
-def jacobi_phase(JK, dev, gen, grid=GRID):
-    """Both Jacobi entry points against their plain versions at k in
-    {1, 2, 4, 8}, f32 and f64, bit for bit: ``d`` spans [1, 11], the first
-    shift equals ``d`` of the middle row (the eps clamp fires there), the
-    others lie in [0, 1] (the smallest Ritz values of the headline)."""
+def jacobi_phase(JK, dev, gen):
+    """Both Jacobi entry points against their plain versions at every shape
+    of ``KERNEL_SHAPES``, f32 and f64, bit for bit: ``d`` spans [1, 11],
+    the first shift equals ``d`` of the middle row (the eps clamp fires
+    there), the others lie in [0, 1] (the smallest Ritz values of the
+    headline)."""
     import torch
 
-    n = grid ** 3
     out = {}
     for dtype in (torch.float32, torch.float64):
         suffix = "f32" if dtype == torch.float32 else "f64"
         size = torch.finfo(dtype).bits // 8
-        d = (1.0 + 10.0 * torch.rand(n, generator=gen, dtype=dtype)).to(dev)
         res = {"jacobi_shifted_" + suffix: {}, "jacobi_" + suffix: {}}
-        for k in (1, 2, 4, 8):
-            X = torch.randn((n, k), generator=gen, dtype=dtype).to(dev)
-            s = torch.rand(k, generator=gen, dtype=dtype).to(dev)
+        for side, k, off in KERNEL_SHAPES:
+            n, label = side ** 3, shape_label(side, k, off)
+            d = 1.0 + 10.0 * torch.rand(n, generator=gen, dtype=dtype,
+                                        device=dev)
+            X = kernel_block(side, k, off, dtype, dev, gen)
+            s = torch.rand(k, generator=gen, dtype=dtype, device=dev)
             s[0] = d[n // 2]
             eps = 1e-10
+            Yc = torch.empty((n, k), dtype=dtype, device=dev)
             pairs = (
                 ("jacobi_shifted_" + suffix,
                  lambda: JK.shifted(X, d, s, eps),
@@ -490,13 +543,18 @@ def jacobi_phase(JK, dev, gen, grid=GRID):
                 torch.cuda.synchronize()
                 err = float((y - yref).abs().max())
                 bit = _bitwise(y, yref)
-                t = _times(kern, plain, 1e3 * (2 * n * k + n + nsig) * size
-                           / HBM_BYTES_PER_S)
-                res[name][k] = {"max_abs_err": err, "bitwise": bit, **t}
-                _print_times(name, k, err, 0.0, bit, t)
+                plan = JK.card_plan(X)
+                t = _times(kern, plain, (2 * n * k + n + nsig) * size,
+                           lambda: Yc.copy_(X))
+                res[name][label] = {"max_abs_err": err, "bitwise": bit,
+                                    "vector_path": plan.vw > 1,
+                                    "plan": plan._asdict(), **t}
+                _print_times(name, label, err, bit, t, plan)
                 check(bit, f"{name}: kernel differs from its plain version "
-                      f"at k={k}")
-            check(bool(torch.isfinite(y).all()), "jacobi: non-finite output")
+                      f"at {label}")
+                check(bool(torch.isfinite(y).all()),
+                      f"{name}: non-finite output at {label}")
+            del X, d, y, yref, Yc
         out.update(res)
     return out
 
@@ -542,6 +600,7 @@ def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
         wall = time.perf_counter() - t0
         launches = {**ST.KERNEL_LAUNCHES, **JK.KERNEL_LAUNCHES,
                     **WE.KERNEL_LAUNCHES}
+        vector = {**ST.VECTOR_LAUNCHES, **JK.VECTOR_LAUNCHES}
         st = res.stats
         evals = res.evals.cpu().numpy()
         err = float(np.abs(np.sort(evals) - lam).max())
@@ -563,7 +622,7 @@ def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
                "max_true_residual": true_res, "ok": ok,
                "probe_verified": st.probe_verified,
                "probe_exhausted": st.probe_exhausted,
-               "launches": launches}
+               "launches": launches, "vector_launches": vector}
         if dev.type == "cuda":
             run["peak_bytes"] = torch.cuda.max_memory_allocated()
             run["bytes_before"] = before_bytes
@@ -584,6 +643,10 @@ def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
               + (f"  peak device memory {run['peak_bytes']} B "
                  f"({before_bytes} B before)" if dev.type == "cuda" else ""),
               flush=True)
+        print(f"[{tag}] vector-path launches: " + "; ".join(
+            f"{e} {vector[e]} of {launches[e]} "
+            f"({vector[e] / max(launches[e], 1):.3f})"
+            for e in ("stencil3d_f32", "jacobi_shifted_f32")), flush=True)
         mv = st.num_matvecs
         check(ok, f"{tag}: bench.py's correctness gate failed")
         check(true_res <= 1.5e-5 * anorm,
@@ -605,7 +668,7 @@ def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
     print(f"[headline] timed solves {timed_walls} s: min "
           f"{min(timed_walls):.4f} s", flush=True)
     return {"solves": runs, "timed_s": timed_walls,
-            "wall_s": min(timed_walls), "n": n}, runs[1]["launches"]
+            "wall_s": min(timed_walls), "n": n}, runs[1]
 
 
 def gdk_phase(ptt, dev, grid=GD_GRID, ref_mv=REF_GD_MATVECS):
@@ -674,29 +737,36 @@ def kernel_record(name, replaces, launches, per_k, layout):
                 for k, v in per_k.items()}}
 
 
-def main_path_record(name, source, replaces, launches, per_entry, others):
+def main_path_record(name, source, replaces, run, per_entry, others):
     """The record of a kernel of the headline's path (its f32 entry point,
-    at k=2) with its other entry points' numbers under ``entries``;
-    ``launches`` holds every entry point's count from the headline solve."""
-    keys = ("ms", "nospin_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_share", "max_abs_err")
+    at ``HEADLINE_SHAPE``) with its other entry points' numbers under
+    ``entries``; ``run`` is the headline solve whose counts (every entry
+    point's launches, and those that took the vector path) it reads."""
+    keys = ("ms", "nospin_ms", "plain_ms", "copy_ms", "library_ms",
+            "bound_ms", "bound_share", "max_abs_err", "bitwise",
+            "vector_path", "plan")
 
-    def by_k(per_k):
-        return {str(k): {key: v[key] for key in keys + ("bitwise",)}
-                for k, v in per_k.items()}
+    def by_shape(per_shape):
+        return {label: {key: v[key] for key in keys}
+                for label, v in per_shape.items()}
 
-    k2 = per_entry[name][2]
+    top = per_entry[name][HEADLINE_SHAPE]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": run["launches"][name],
+            "vector_launches": run["vector_launches"][name],
             "max_abs_err": max(v["max_abs_err"]
                                for v in per_entry[name].values()),
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-            "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-            "library_ms": k2["library_ms"], "bound_share": k2["bound_share"],
-            "library_call": k2.get("library_call"),
-            "per_k": by_k(per_entry[name]),
-            "entries": {other: {"replaces": rep, "launches": launches[other],
-                                "per_k": by_k(per_entry[other])}
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "copy_ms": top["copy_ms"],
+            "bound_share": top["bound_share"],
+            "library_call": top.get("library_call"),
+            "shapes": by_shape(per_entry[name]),
+            "entries": {other: {"replaces": rep,
+                                "launches": run["launches"][other],
+                                "vector_launches":
+                                    run["vector_launches"][other],
+                                "shapes": by_shape(per_entry[other])}
                         for other, rep in others.items()}}
 
 
@@ -800,21 +870,25 @@ def main():
                         entry="windowed_ell_spmm_f64", tag="solve64")
 
     # --- 7. stencil kernel against its plain version --------------------
-    sten = stencil_phase(ST, dev, gen)
+    # inputs made on the card (256^3 at k=8 in f64 is 1 GB a block)
+    cgen = torch.Generator(device=dev).manual_seed(args.seed)
+    sten = stencil_phase(ST, dev, cgen)
 
     # --- 8. Jacobi kernels against their plain versions -------------------
-    jac = jacobi_phase(JK, dev, gen)
+    jac = jacobi_phase(JK, dev, cgen)
 
     # --- 9. the headline: bench.py's configuration ----------------------
-    headline, hl_launches = headline_phase(ptt, dev)
+    headline, hl_run = headline_phase(ptt, dev)
+    hl_launches = hl_run["launches"]
     first = headline["solves"][1]["wall_s"]       # the first timed solve
-    kernel_ms = {entry: hl_launches[entry] * per[2]["ms"] for entry, per in
+    kernel_ms = {entry: hl_launches[entry] * per[HEADLINE_SHAPE]["ms"]
+                 for entry, per in
                  (("stencil3d_f32", sten["stencil3d_f32"]),
                   ("jacobi_shifted_f32", jac["jacobi_shifted_f32"]))}
     headline["kernel_share"] = {entry: ms / (1e3 * first)
                                 for entry, ms in kernel_ms.items()}
-    print(f"[headline] first timed solve {first:.4f} s; launches x k=2 "
-          "time: " + "; ".join(
+    print(f"[headline] first timed solve {first:.4f} s; launches x "
+          f"{HEADLINE_SHAPE} time: " + "; ".join(
               f"{entry} {hl_launches[entry]} x -> {ms:.2f} ms "
               f"({headline['kernel_share'][entry]:.4f} of the solve)"
               for entry, ms in kernel_ms.items()), flush=True)
@@ -830,11 +904,11 @@ def main():
                       "primme_tpu/ops/pallas_windowed.py:363",
                       solve64["launches"], per_k64, layout64),
         main_path_record("stencil3d_f32", "primme_tpu_torch/csrc/stencil3d.cu",
-                         "primme_tpu/operators.py:379", hl_launches, sten,
+                         "primme_tpu/operators.py:379", hl_run, sten,
                          {"stencil3d_f64": "primme_tpu/operators.py:379"}),
         main_path_record("jacobi_shifted_f32",
                          "primme_tpu_torch/csrc/jacobi.cu",
-                         "primme_tpu/operators.py:484", hl_launches, jac,
+                         "primme_tpu/operators.py:484", hl_run, jac,
                          {"jacobi_shifted_f64": "primme_tpu/operators.py:484",
                           "jacobi_f32": "primme_tpu/operators.py:481",
                           "jacobi_f64": "primme_tpu/operators.py:481"})],

@@ -12,24 +12,33 @@ product); each keeps the form of ``primme_tpu/operators.py::JacobiPrecond``.
 * :func:`shifted_reference`, :func:`unshifted_reference` — plain PyTorch;
 * :func:`shifted`, :func:`unshifted` — the kernel wrappers: on a CUDA tensor
   they launch the hand-written Hopper kernel (``csrc/jacobi.cu``) or raise;
-  on a CPU tensor, where no kernel exists, they run the plain version.
+  on a CPU tensor, where no kernel exists, they run the plain version;
+* :func:`plan` — the kernel's launch: columns of a row group, load width
+  and grid.
 
 The kernels take X's row stride; its columns must be adjacent.
-``LAUNCHES`` counts the wrappers' kernel launches and ``KERNEL_LAUNCHES``
-the same by entry point.
+``LAUNCHES`` counts the wrappers' kernel launches, ``KERNEL_LAUNCHES`` the
+same by entry point and ``VECTOR_LAUNCHES`` those of them that loaded X in
+vectors (``vw > 1``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+
+from .stencil3d import column_group, vector_width
 
 LAUNCHES = 0         # kernel launches made by shifted and unshifted
 KERNEL_LAUNCHES = {"jacobi_shifted_f32": 0, "jacobi_shifted_f64": 0,
                    "jacobi_f32": 0, "jacobi_f64": 0}
+VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
            torch.float64: ("f64", ctypes.c_double)}
+THREADS = 256        # threads a block: the kernel's kThreads
+ROWS = 4             # rows a thread loads at once: the kernel's kRows
 
 
 def _guard(den, eps):
@@ -49,14 +58,47 @@ def unshifted_reference(X, d, eps):
     return torch.reciprocal(_guard(d, eps))[:, None] * X
 
 
+class Plan(NamedTuple):
+    kc: int        # columns of a row group (divides k)
+    vw: int        # elements of X per load; 1 is the scalar path
+    blocks: int    # blocks of THREADS threads, kc / vw of them a row, each
+                   # thread ROWS rows
+
+
+def plan(n, k, ldx, align, size) -> Plan:
+    """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
+    elements apart at an address with ``align = data_ptr % 16``, ``size``
+    bytes an element: ``kc / vw`` threads to a row, one vector each,
+    ``ROWS`` rows a thread, in one pass over as many blocks as the rows
+    need. Raises ValueError on a shape the kernel does not take (its row
+    index is 32-bit)."""
+    if n < 1 or k < 1:
+        raise ValueError(f"an [{n}, {k}] block has no element to launch for")
+    kc = column_group(k)
+    vw = vector_width(kc, ldx, align, size)
+    rows = THREADS // (kc // vw) * ROWS   # rows a block takes
+    blocks = -(-n // rows)
+    if k >= 2 ** 31 or blocks * rows >= 2 ** 31:
+        raise ValueError(f"an [{n}, {k}] block is outside the kernel's range "
+                         "(n < 2**31 rounded up to whole blocks, k < 2**31)")
+    return Plan(kc, vw, blocks)
+
+
+def card_plan(X) -> Plan:
+    """The plan :func:`shifted` or :func:`unshifted` launches X with."""
+    return plan(X.shape[0], X.shape[1], max(X.stride(0), 1),
+                X.data_ptr() % 16, X.element_size())
+
+
 def _jacobi_fn(entry, eps_type, shifted_form):
     """The C entry point ``entry`` of ``csrc/jacobi.cu``."""
     from . import build
     fn = getattr(build.load("jacobi"), entry)
     if fn.argtypes is None:
-        # X, d, [sigma,] Y; n, k, ldx; eps; stream
+        # X, d, [sigma,] Y; n, k; ldx; eps; kc, vw, blocks; stream
         fn.argtypes = [ctypes.c_void_p] * (4 if shifted_form else 3) \
-            + [ctypes.c_longlong] * 3 + [eps_type, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_longlong, eps_type] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -93,17 +135,21 @@ def _launch(X, d, sigma, eps):
     if Y.numel() == 0:
         return Y
     suffix, eps_type = _SUFFIX[X.dtype]
-    entry = ("jacobi_shifted_" if sigma is not None else "jacobi_") + suffix
-    fn = _jacobi_fn(entry, eps_type, sigma is not None)
+    shifted_form = sigma is not None
+    entry = ("jacobi_shifted_" if shifted_form else "jacobi_") + suffix
+    p = card_plan(X)
+    fn = _jacobi_fn(entry, eps_type, shifted_form)
     ptrs = [X.data_ptr(), d.data_ptr()] \
-        + ([sigma.data_ptr()] if sigma is not None else []) + [Y.data_ptr()]
+        + ([sigma.data_ptr()] if shifted_form else []) + [Y.data_ptr()]
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*ptrs, n, k, max(ldx, 1), float(eps), stream)
+        rc = fn(*ptrs, n, k, max(ldx, 1), float(eps), p.kc, p.vw, p.blocks,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
+    VECTOR_LAUNCHES[entry] += p.vw > 1
     return Y
 
 

@@ -74,6 +74,9 @@ def trace(label, solve, kernels):
         "repo": os.path.dirname(os.path.dirname(ptt.__file__)),
         "solve": label,
         "num_matvecs": [st["num_matvecs"], st2["num_matvecs"]],
+        "num_probe_matvecs": [st["num_probe_matvecs"],
+                              st2["num_probe_matvecs"]],
+        "num_probe_rounds": [st["num_probe_rounds"], st2["num_probe_rounds"]],
         "warmup_solve_s": warmup_s, "traced_solve_s": traced_s,
         "device_ms": total / 1e3,
         "device_busy_share": total / 1e6 / traced_s, "kernels": own,
@@ -123,7 +126,9 @@ def main():
         def solve():
             res = solve_eigs(A, p, K=K, v0=v0, dtype=torch.float32,
                              inner_solve=jdqmr_inner_solve)
-            return {"num_matvecs": res.stats.num_matvecs}
+            return {"num_matvecs": res.stats.num_matvecs,
+                    "num_probe_matvecs": res.stats.num_probe_matvecs,
+                    "num_probe_rounds": res.stats.num_probe_rounds}
 
         trace("headline f32", solve, ("stencil3d_kernel", "jacobi_kernel"))
         return 0
