@@ -14,15 +14,21 @@ point for the f32 solve, its native FP64 one for the f64 solve. Then
 the 64^3 grid with the shift-aware ``JacobiPrecond``, the same settings in
 f32 at tol 1e-5, through ``solve_eigs``; every product runs
 ``csrc/stencil3d.cu`` and every preconditioner apply ``csrc/jacobi.cu``.
-Last, ``__graft_entry__.entry``'s GD_Olsen_plusK + Jacobi on the 16^3
-stencil, run to convergence.
+Then ``__graft_entry__.entry``'s GD_Olsen_plusK + Jacobi on the 16^3
+stencil, run to convergence. Last, ``eigsh`` through the format chooser's
+other branches at n = 262,144 with the sparse paths' settings: the banded
+one (``csrc/dia.cu``), the DIA+ELL hybrid (``csrc/dia.cu`` and the
+sliced-ELL kernel on a layout built from CSR) and the ELL one
+(``aslinearoperator``'s ``ELLOperator`` on the same kernel), and a
+BlockELL product against scipy.
 
 Phases, each printing its own lines; any failed check raises:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them;
-2. build: compiles ``windowed_ell.cu``, ``stencil3d.cu`` and ``jacobi.cu``
-   from the checkout's sources, one ``nvcc`` each, all started together;
+2. build: compiles ``windowed_ell.cu``, ``stencil3d.cu``, ``jacobi.cu``
+   and ``dia.cu`` from the checkout's sources, one ``nvcc`` each, all
+   started together;
 3. f32 layout and kernel: ``pack`` and ``compact`` of the permuted
    matrix timed apart and equal to the operator's arrays; the entry count
    E <= 1.1 nnz and the operator's device bytes <= 1.1 nnz (4 + 4) + 8n.
@@ -38,18 +44,19 @@ Phases, each printing its own lines; any failed check raises:
    longest row to the host each call, only without it); and the bound, the bytes the product
    needs (each non-zero's value and column, X and Y, once) over
    3.35 TB/s;
-4. f32 solve: the kernel's launch count during the solve, eigenvalues
-   within 1e-4 of the closed-form spectrum, every true residual
-   (recomputed with the plain version) <= 1.5e-5 * ||A||, probe verified
-   and not exhausted, matvec count within 2x of the JAX reference's 1385;
+4. f32 solve: the kernel's launch count during the solve (at least one
+   per two matvecs, no other kernel), eigenvalues within 1e-4 of the
+   closed-form spectrum, every true residual (A in f64 on the host) <=
+   1.5e-5 * ||A||, probe verified and not exhausted, matvec count within
+   2x of the JAX reference's 1385;
 5. f64 layout and kernel: the chooser packs the f64 matrix into an f64
    windowed operator; the layout checks of phase 3 with 8-byte values;
    the FP64 kernel against the f64 plain version at k in {1, 2, 4, 8}:
    max |diff| <= 1e-13 * max|y|, and the times and bound of phase 3;
 6. f64 solve: only FP64 launches, at least one per two matvecs;
-   eigenvalues within 1e-8 of the closed form, every true residual (the
-   f64 plain version) <= 1.5e-10 * ||A||, probe verified and not
-   exhausted, matvec count within 2x of the JAX reference's 1876;
+   eigenvalues within 1e-8 of the closed form, every true residual (on
+   the host) <= 1.5e-10 * ||A||, probe verified and not exhausted, matvec
+   count within 2x of the JAX reference's 1876;
 7. stencil kernel against its plain version, f32 and f64, at every shape
    of ``KERNEL_SHAPES``: the 64^3 grid at k in {1, 2, 4, 8}, 128^3 and
    256^3 at k in {2, 8}, and at 64^3 a k=2 column slice of a [n, 24]
@@ -61,7 +68,9 @@ Phases, each printing its own lines; any failed check raises:
    the share; ``library_ms``, a depthwise ``conv3d`` over the same memory
    (cuDNN, TF32 off; timed only, its max |diff| printed); ``copy_ms``,
    torch's copy of X into a preallocated Y (the same bytes in one launch:
-   the launch-and-bytes floor; a yardstick the port never calls);
+   the launch-and-bytes floor; a yardstick the port never calls); and a
+   70000 x 1 x 32 grid at k=1, past CUDA's 65535 planes: two launches
+   counted as one call, bit for bit;
 8. Jacobi kernel against its plain version at the same shapes and types,
    the shifted entry (one shift equal to a diagonal entry, so the eps
    clamp fires) and the unshifted one: bit for bit; the times of phase 7
@@ -81,7 +90,36 @@ Phases, each printing its own lines; any failed check raises:
 10. GD_Olsen_plusK + Jacobi on the 16^3 stencil, k=4, tol 1e-4:
     eigenvalues within 1e-4 of the closed form, probe verified, matvecs
     within 2x of the JAX reference's 494, Jacobi launches > 0 (the Olsen
-    correction of ``gd_correction``).
+    correction of ``gd_correction``);
+11. banded: the 64^3 27-point Laplacian in grid order; the chooser must
+    return a 27-diagonal ``BandedOperator`` with no permutation (its
+    seconds and peak host memory printed); the DIA kernel against its
+    plain version, matmat and rmatmat, f32 and f64, at k in {1, 2, 4, 8}
+    and on the k=2 slice at column offset 1: bit for bit, timed as in
+    phase 7 (the plain version without the spin: ten of its calls
+    overflow the launch queue) with ``library_ms`` cuSPARSE's CSR product
+    of the same matrix; then the solve at tol 1e-5: eigenvalues within
+    1e-4 of the closed form, true residuals <= 1.5e-5 ||A||, probe
+    verified and not exhausted, matvecs within 2x of the JAX reference's
+    1405, DIA launches >= matvecs / 2, no windowed-ELL launch;
+12. DIA+ELL: the 7-point Laplacian plus a long-range scatter
+    (``hybrid_matrix``); the chooser must return ``SumOperator([
+    BandedOperator(7 offsets), ELLOperator])``; the sliced-ELL kernel
+    against its plain version on the remainder's layout at k in {1, 2, 8}
+    (as phase 3); the solve: eigenvalues within 1e-4 of the JAX
+    reference's, true residuals <= 1.5e-5 times the Gershgorin bound of
+    ||A||, probe, matvecs within 2x of 1438, DIA and sliced-ELL launches
+    each >= matvecs / 2;
+13. ELL: a random symmetric matrix with about 10 entries a row
+    (``scattered_matrix``); ``rcm_banded`` must return None (it tries the
+    windowed pack, whose count array takes about 2 GB here) and
+    ``aslinearoperator`` an ``ELLOperator``; the kernel against its plain
+    version at k in {1, 2, 8}; the solve gated as in phase 12 against the
+    JAX reference's f64 solve of the matrix (533 matvecs; its f32 solve
+    stagnates);
+14. BlockELL: a ``BlockELLOperator`` (plain PyTorch) of ``fem_like`` at
+    n = 262,144 against scipy at k in {2, 8}, timed beside its bytes bound
+    and cuSPARSE's CSR product.
 
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves; the last is
@@ -111,30 +149,131 @@ REF_HEADLINE_MATVECS = 1710
 REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
 GD_GRID = 16
 REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
-KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi")
+KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi", "dia")
+# phases 11-13: the JAX reference's counts for the same eigsh call on the
+# CPU (tools/torch_smoke_refs.py: seed 0, x64 on, the f32 matrices below)
+REF_BANDED_MATVECS = 1405
+REF_HYBRID_MATVECS = 1438
+REF_HYBRID_EVALS = (0.01283545047044754, 0.013797947205603123,
+                    0.013878232799470425, 0.013991146348416805,
+                    0.02051515132188797, 0.02086835727095604,
+                    0.02094254083931446, 0.02531163953244686,
+                    0.0254620723426342, 0.027725255116820335)
+# phase 13: the JAX reference's f64 solve of the same matrix (its f32 solve
+# stagnates there: 2000 matvecs, and eigenvalues up to 1.4e-4 from its own
+# vectors' Rayleigh quotients; ROADMAP.md, Queue C's verdicts)
+REF_ELL_MATVECS = 533
+REF_ELL_EVALS = (-0.02710828066429022, 0.9702542814823517, 1.991720077512685,
+                 2.9502063129247187, 3.9763373437232934, 4.977048162137013,
+                 5.9808882058165, 6.959294202733723, 7.910877819518647,
+                 8.980020506181951)
+# phase 11: DIA kernel shapes (k, column offset in a SLICE_WIDTH-wide block
+# or None)
+DIA_SHAPES = [(k, None) for k in (1, 2, 4, 8)] + [(2, 1)]
+# phase 7: a grid past CUDA's 65535 planes, run as two launches
+SPLIT_SHAPES = [((70000, 1, 32), 1)]
 # phases 7-8: (grid side, k, column offset in a SLICE_WIDTH-wide block or
 # None for a contiguous [n, k] block)
 KERNEL_SHAPES = ([(GRID, k, None) for k in (1, 2, 4, 8)]
                  + [(side, k, None) for side in (128, 256) for k in (2, 8)]
                  + [(GRID, 2, 1)])
 SLICE_WIDTH = 24
+HYBRID_DENSITY = 5e-7       # phase 12's scatter
+SCATTER_PER_ROW = 4.5       # phase 13's S: ~ 2 x 4.5 + 1 entries a row
+# the eigsh call of the sparse phases (4, 6, 11-13), at tol 1e-5 unless
+# a phase says otherwise
+SOLVE_KWARGS = dict(k=10, which="SA", method="PRIMME_JDQMR_ETol",
+                    maxBlockSize=2, ncv=24, minRestartSize=14,
+                    return_stats=True)
 HEADLINE_SHAPE = f"{GRID}^3 k=2"    # the shape the record's top level reads
 
 
-def laplacian27(m, seed):
-    """27-point Laplacian 27 I - E(x)E(x)E (E = tridiag(1, 1, 1)) on an
-    m^3 grid, rows and columns in a random order from ``seed``; returns
-    (A, analytic eigenvalues ascending)."""
+def laplacian27_grid(m):
+    """27-point Laplacian 27 I - E(x)E(x)E (E = tridiag(1, 1, 1)) on an m^3
+    grid in grid order, f32; returns (A, analytic eigenvalues ascending)."""
     import numpy as np
     import scipy.sparse as sp
 
     E = sp.diags([np.ones(m - 1), np.ones(m), np.ones(m - 1)], [-1, 0, 1])
     A = (27.0 * sp.identity(m ** 3) - sp.kron(sp.kron(E, E), E)).tocsr()
-    p = np.random.default_rng(seed).permutation(m ** 3)
-    A = A[p][:, p].tocsr().astype(np.float32)
     lam1 = 1.0 + 2.0 * np.cos(np.pi * np.arange(1, m + 1) / (m + 1))
     ev = np.sort((27.0 - np.einsum("i,j,k->ijk", lam1, lam1, lam1)).ravel())
-    return A, ev
+    return A.astype(np.float32), ev
+
+
+def laplacian27(m, seed):
+    """:func:`laplacian27_grid` with rows and columns in a random order from
+    ``seed``; returns (A, analytic eigenvalues ascending)."""
+    import numpy as np
+
+    A, ev = laplacian27_grid(m)
+    p = np.random.default_rng(seed).permutation(m ** 3)
+    return A[p][:, p].tocsr(), ev
+
+
+def random_sparse(n, count, seed):
+    """``count`` entries at uniform random positions of an n x n matrix
+    with values uniform in [0, 1), from ``seed`` (a repeated position sums):
+    ``sp.random``'s distribution, drawn without its n^2 index space."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    rc = rng.integers(0, n, size=(2, count))
+    return sp.coo_matrix((rng.random(count), (rc[0], rc[1])), shape=(n, n))
+
+
+def hybrid_matrix(m, seed):
+    """The 7-point Laplacian of an m^3 grid in grid order plus a seeded,
+    symmetric, long-range scatter: ``L7 + 0.1 (S + S^T)`` with ``S`` of
+    density ``HYBRID_DENSITY`` (:func:`random_sparse`; about 69k scattered
+    entries at 64^3), f32: the input of the chooser's DIA+ELL branch."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    T = sp.diags([-np.ones(m - 1), 2.0 * np.ones(m), -np.ones(m - 1)],
+                 [-1, 0, 1])
+    Im = sp.identity(m)
+    L = (sp.kron(sp.kron(T, Im), Im) + sp.kron(sp.kron(Im, T), Im)
+         + sp.kron(sp.kron(Im, Im), T))
+    n = m ** 3
+    S = random_sparse(n, round(HYBRID_DENSITY * n * n), seed)
+    return (L + 0.1 * (S + S.T)).tocsr().astype(np.float32)
+
+
+def scattered_matrix(n, seed):
+    """A seeded random symmetric matrix no earlier branch of the chooser
+    takes: ``diag(min(i, 100)) + S + S^T`` with ``SCATTER_PER_ROW`` entries
+    of ``S`` a row (:func:`random_sparse`; about 10 entries a row in all),
+    f32. Its smallest eigenvalues lie near 0, 1, ..., 9; the rest near
+    100."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    S = random_sparse(n, round(SCATTER_PER_ROW * n), seed)
+    D = sp.diags(np.minimum(np.arange(n, dtype=np.float64), 100.0))
+    return (D + S + S.T).tocsr().astype(np.float32)
+
+
+def fem_like(n, seed, b=8):
+    """Block-clustered sparsity at scale, the pattern of
+    ``tests/test_operators.py``'s ``_fem_like`` with its own random tiles:
+    dense b x b tiles in block columns i, 7i + 3 and 13i + 11 (mod n / b)
+    of block row i (a repeated one sums), plus the transpose; f32."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    nb = n // b
+    i = np.arange(nb)
+    bj = np.stack([i, (i * 7 + 3) % nb, (i * 13 + 11) % nb], axis=1)
+    r, c = np.meshgrid(np.arange(b), np.arange(b), indexing="ij")
+    rows = (i[:, None, None, None] * b + r).repeat(3, axis=1)
+    cols = bj[:, :, None, None] * b + c
+    vals = rng.normal(size=(nb, 3, b, b))
+    A = sp.coo_matrix((vals.ravel(), (rows.ravel(), cols.ravel())),
+                      shape=(n, n)).tocsr()
+    return (A + A.T).tocsr().astype(np.float32)
 
 
 _SPIN_CYCLES_PER_MS = None
@@ -206,10 +345,7 @@ def median_ms(fn, reps=21, per=10, spin=True):
 
 
 def solve(ptt, A, seed, tol=1e-5):
-    return ptt.eigsh(A, k=10, which="SA", tol=tol,
-                     method="PRIMME_JDQMR_ETol", maxBlockSize=2, ncv=24,
-                     minRestartSize=14, return_stats=True, seed=seed,
-                     device="cuda")
+    return ptt.eigsh(A, tol=tol, seed=seed, device="cuda", **SOLVE_KWARGS)
 
 
 def reset_counts(*mods):
@@ -266,8 +402,8 @@ def csr_on_card(Ap, dtype, dev):
             torch.as_tensor(C.data.astype(dtype)), size=C.shape).to(dev)
 
 
-def compare_kernel(WE, op, A_csr, gen, rel, tag):
-    """The kernel against its plain version on ``op`` at k in {1,2,4,8}:
+def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8)):
+    """The kernel against its plain version on ``op`` at each k of ``ks``:
     max |diff| <= rel * max|y|; the median time of the kernel (with and
     without the spin), the plain version (without) and the fastest of
     three library calls on ``A_csr``; the bound from the bytes the product
@@ -279,7 +415,7 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag):
     size = op.vals.element_size()
     arrays = (op.slice_ptr, op.rowlen, op.cols, op.vals)
     per_k = {}
-    for k in (1, 2, 4, 8):
+    for k in ks:
         X = torch.randn((n, k), generator=gen, dtype=op.dtype).to(op.device)
         y = WE.matmat(*arrays, X)
         yref = WE.matmat_reference(*arrays, X)
@@ -323,70 +459,6 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag):
     return per_k
 
 
-def run_solve(ptt, WE, A, op, perm, ev, seed, tol, ev_tol, ref_mv, entry,
-              tag):
-    """One gated eigsh at ``tol``: only ``entry`` launches, at least one per
-    two matvecs; eigenvalues within ``ev_tol`` of the closed form; true
-    residuals (the plain product on ``op``) <= 1.5 tol ||A||; probe
-    verified and not exhausted; matvecs within 2x of ``ref_mv``."""
-    import numpy as np
-    import torch
-
-    from primme_tpu_torch.ops import jacobi as JK
-    from primme_tpu_torch.ops import stencil3d as ST
-
-    dev = op.device
-    torch.cuda.synchronize()
-    before_bytes = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(WE, ST, JK)
-    t0 = time.perf_counter()
-    w, V, st = solve(ptt, A, seed, tol)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**WE.KERNEL_LAUNCHES, **ST.KERNEL_LAUNCHES,
-                **JK.KERNEL_LAUNCHES}
-    peak = torch.cuda.max_memory_allocated()
-    mv = st["num_matvecs"]
-    err_ev = float(np.abs(np.sort(w) - ev[:10]).max())
-    # true residuals on the card, with the plain product, in the packed order
-    Xp = torch.as_tensor(np.ascontiguousarray(V[perm])).to(dev, op.dtype)
-    lam = torch.as_tensor(w).to(dev, op.dtype)
-    R = WE.matmat_reference(op.slice_ptr, op.rowlen, op.cols, op.vals, Xp) \
-        - Xp * lam[None, :]
-    res = float(torch.linalg.vector_norm(R, dim=0).max())
-    anorm = float(np.abs(ev).max())
-    print(f"[{tag}] eigsh wall {wall:.3f} s (solve {st['elapsed_time']:.3f}"
-          f" s; the rest is format choice, packing, transfer)  num_matvecs "
-          f"{mv}  num_probe_matvecs {st['num_probe_matvecs']}  num_probe_rounds "
-          f"{st['num_probe_rounds']}  outer {st['num_outer_iterations']}  "
-          f"inner {st['num_inner_iterations']}  restarts {st['num_restarts']}"
-          f"  resets {st['num_resets']}", flush=True)
-    print(f"[{tag}] kernel launches {WE.KERNEL_LAUNCHES}  max|eval-analytic| "
-          f"{err_ev:.3e}  max residual {res:.3e} (limit "
-          f"{1.5 * tol * anorm:.3e})  probe verified {st['probe_verified']} "
-          f"exhausted {st['probe_exhausted']}", flush=True)
-    print(f"[{tag}] peak device memory {peak} B (max_memory_allocated; "
-          f"{before_bytes} B were allocated before the call)", flush=True)
-    own = launches.pop(entry)
-    check(own >= mv / 2, f"{tag}: only {own} {entry} launches for {mv} "
-          "matvecs at block width 2")
-    check(not any(launches.values()),
-          f"{tag}: another kernel served this solve: {launches}")
-    check(err_ev <= ev_tol, f"{tag}: eigenvalue error {err_ev:.3e} > {ev_tol}")
-    check(res <= 1.5 * tol * anorm,
-          f"{tag}: residual {res:.3e} > {1.5 * tol}*||A||")
-    check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
-          f"{tag}: spectrum verification did not complete")
-    check(ref_mv / 2 <= mv <= 2 * ref_mv,
-          f"{tag}: {mv} matvecs, not within 2x of the reference's {ref_mv}")
-    return {"wall_s": wall, "solve_s": st["elapsed_time"],
-            "num_matvecs": mv, "num_probe_matvecs": st["num_probe_matvecs"],
-            "num_probe_rounds": st["num_probe_rounds"], "eval_err": err_ev,
-            "max_residual": res, "launches": own,
-            "peak_bytes": peak, "bytes_before": before_bytes}
-
-
 def stencil_eigenvalues(m, k):
     """The k smallest eigenvalues of the 7-point Dirichlet Laplacian on an
     m^3 grid in closed form (``bench.py``'s), and its norm (the largest)."""
@@ -406,16 +478,19 @@ def _bitwise(a, b):
                 and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
 
 
-def _times(kernel, plain, nbytes, copy, library=None):
+def _times(kernel, plain, nbytes, copy, library=None, plain_spin=True):
     """The kernel's median time with and without the spin, the plain
-    version's (with the spin: it reads nothing back to the host), torch's
-    copy of the same bytes and the library call's, beside the bound: the
+    version's (with the spin where ``plain_spin``: it reads nothing back to
+    the host; without it where ten calls of it overflow the launch queue,
+    which no spin can hold), torch's copy of the same bytes and the library
+    call's, beside the bound: the
     ``nbytes`` the function moves over the device memory's rate. Where they
     fit in L2, the repeated calls of ``median_ms`` find them there, so the
     share is not one of a device-memory bound (``l2_resident``)."""
     bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     out = {"ms": median_ms(kernel), "nospin_ms": median_ms(kernel, spin=False),
-           "plain_ms": median_ms(plain), "copy_ms": median_ms(copy),
+           "plain_ms": median_ms(plain, spin=plain_spin),
+           "copy_ms": median_ms(copy),
            "bound_ms": bound_ms, "l2_resident": nbytes <= L2_BYTES,
            "library_ms": median_ms(library) if library is not None else None}
     out["bound_share"] = bound_ms / out["ms"]
@@ -425,7 +500,9 @@ def _times(kernel, plain, nbytes, copy, library=None):
 def _print_times(tag, shape, err, bit, t, plan, extra=""):
     print(f"[{tag}] {shape} max|y-yref|={err:.3e} bit for bit {bit}; plan "
           f"kc={plan.kc} vw={plan.vw} ({'vector' if plan.vw > 1 else 'scalar'}"
-          f" path)" + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}"
+          f" path)" + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}, "
+                       f"{len(plan.launches)} launch(es)"
+                       if hasattr(plan, "tl") else f" grid {plan.grid}"
                        if hasattr(plan, "grid") else f" blocks {plan.blocks}")
           + f"; kernel {t['ms']:.5f} ms (without the "
           f"spin {t['nospin_ms']:.5f})  plain {t['plain_ms']:.5f} ms  copy "
@@ -443,9 +520,14 @@ def shape_label(side, k, off):
 def kernel_block(side, k, off, dtype, dev, gen):
     """A random [side^3, k] block on the card: contiguous, or columns
     [off, off + k) of a SLICE_WIDTH-wide one."""
+    return block_n(side ** 3, k, off, dtype, dev, gen)
+
+
+def block_n(n, k, off, dtype, dev, gen):
+    """A random [n, k] block on the card: contiguous, or columns
+    [off, off + k) of a SLICE_WIDTH-wide one."""
     import torch
 
-    n = side ** 3
     if off is None:
         return torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
     W = torch.randn((n, SLICE_WIDTH), generator=gen, dtype=dtype, device=dev)
@@ -506,6 +588,31 @@ def stencil_phase(ST, dev, gen, scale=1.0):
             check(bit, f"{name}: kernel differs from its plain version at "
                   f"{label}")
             del X, y, yref, ylib, Xc, Yc
+        # a grid past CUDA's 65535 (plane, column group) pairs: several
+        # launches from plane offsets, one count
+        for grid, k in SPLIT_SHAPES:
+            n = grid[0] * grid[1] * grid[2]
+            label = "x".join(map(str, grid)) + f" k={k}"
+            X = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
+            before = ST.LAUNCHES
+            y = ST.matmat(X, *grid, scale)
+            counted = ST.LAUNCHES - before
+            yref = ST.matmat_reference(X, *grid, scale)
+            Yc = torch.empty((n, k), dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            err, bit = float((y - yref).abs().max()), _bitwise(y, yref)
+            plan = ST.card_plan(X, *grid)
+            t = _times(lambda: ST.matmat(X, *grid, scale),
+                       lambda: ST.matmat_reference(X, *grid, scale),
+                       2 * n * k * size, lambda: Yc.copy_(X))
+            per_shape[label] = {"max_abs_err": err, "bitwise": bit,
+                                "vector_path": plan.vw > 1,
+                                "plan": plan._asdict(), **t}
+            _print_times(name, label, err, bit, t, plan)
+            check(bit and len(plan.launches) > 1 and counted == 1,
+                  f"{name}: the split grid {label} is not bit for bit in "
+                  f"{len(plan.launches)} launches counted {counted}")
+            del X, y, yref, Yc
         out[name] = per_shape
     return out
 
@@ -721,6 +828,280 @@ def gdk_phase(ptt, dev, grid=GD_GRID, ref_mv=REF_GD_MATVECS):
             "num_preconds": st.num_preconds, "launches": launches}
 
 
+def choose(ptt, A, tag):
+    """The port's chooser on ``A``, timed, its peak host memory traced
+    (numpy's allocations included); returns (rcm_banded's result, record)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    rb = ptt.rcm_banded(A)
+    secs = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    op = None if rb is None else rb[0]
+    print(f"[{tag}] n={A.shape[0]} nnz={A.nnz}: rcm_banded -> "
+          f"{type(op).__name__ if op is not None else None} in {secs:.3f} s, "
+          f"peak host memory {peak} B (tracemalloc)", flush=True)
+    return rb, {"chooser_s": secs, "chooser_peak_host_bytes": peak,
+                "operator": type(op).__name__ if op is not None else None}
+
+
+def gershgorin(A):
+    """max_i sum_j |a_ij| >= ||A||: the norm the residual gates of the
+    matrices without a closed form use."""
+    import numpy as np
+
+    return float(np.abs(A).sum(axis=1).max())
+
+
+def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
+                 need, forbid=(), tol=1e-5):
+    """One gated eigsh on the scipy matrix ``A`` (the chooser inside) at
+    ``tol``: eigenvalues within ``ev_tol`` of ``ev_ref``; true residuals (A
+    in f64 on the host) <= 1.5 tol ``anorm``; probe verified and not
+    exhausted; matvecs within 2x of ``ref_mv``; each entry point of
+    ``need`` at least matvecs / 2 launches, none of ``forbid``. The counts
+    are set to 0 just before the call and read just after it."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    w, V, st = solve(ptt, A, seed, tol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, vector = {}, {}
+    for mod in mods:
+        launches.update(mod.KERNEL_LAUNCHES)
+        vector.update(getattr(mod, "VECTOR_LAUNCHES", {}))
+    peak = torch.cuda.max_memory_allocated()
+    mv = st["num_matvecs"]
+    err_ev = float(np.abs(np.sort(w) - np.asarray(ev_ref)[:len(w)]).max())
+    R = A.astype(np.float64) @ V.astype(np.float64) - V * w[None, :]
+    res = float(np.linalg.norm(R, axis=0).max())
+    print(f"[{tag}] eigsh wall {wall:.3f} s (solve {st['elapsed_time']:.3f}"
+          f" s; the rest is format choice, packing, transfer)  num_matvecs "
+          f"{mv} (reference {ref_mv})  num_probe_matvecs "
+          f"{st['num_probe_matvecs']}  num_probe_rounds "
+          f"{st['num_probe_rounds']}  outer {st['num_outer_iterations']}  "
+          f"inner {st['num_inner_iterations']}  restarts "
+          f"{st['num_restarts']}  resets {st['num_resets']}", flush=True)
+    print(f"[{tag}] launches {launches}  max|eval-ref| {err_ev:.3e} (limit "
+          f"{ev_tol})  max residual {res:.3e} (limit {1.5 * tol * anorm:.3e})  "
+          f"probe verified {st['probe_verified']} exhausted "
+          f"{st['probe_exhausted']}  peak device memory {peak} B "
+          f"({before_bytes} B before)", flush=True)
+    for entry in need:
+        check(launches[entry] >= mv / 2, f"{tag}: only {launches[entry]} "
+              f"{entry} launches for {mv} matvecs")
+    for entry in forbid:
+        check(launches[entry] == 0,
+              f"{tag}: {entry} served this solve: {launches}")
+    check(err_ev <= ev_tol, f"{tag}: eigenvalue error {err_ev:.3e} > {ev_tol}")
+    check(res <= 1.5 * tol * anorm,
+          f"{tag}: residual {res:.3e} > {1.5 * tol}*||A||")
+    check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+          f"{tag}: spectrum verification did not complete")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"{tag}: {mv} matvecs, not within 2x of the reference's {ref_mv}")
+    return {"wall_s": wall, "solve_s": st["elapsed_time"],
+            "num_matvecs": mv, "num_probe_matvecs": st["num_probe_matvecs"],
+            "num_probe_rounds": st["num_probe_rounds"], "eval_err": err_ev,
+            "max_residual": res, "anorm": anorm, "launches": launches,
+            "vector_launches": vector, "peak_bytes": peak,
+            "bytes_before": before_bytes}
+
+
+def dia_phase(DK, op, A, dev, gen):
+    """The DIA kernel against its plain version on ``op``'s diagonals, f32
+    and f64, matmat and rmatmat, bit for bit at every shape of
+    ``DIA_SHAPES``; the matmat timed beside its bound (vals, X and Y once
+    over 3.35 TB/s), torch's copy of X and the library call (cuSPARSE CSR
+    of the same matrix, ``A_csr @ X``)."""
+    import numpy as np
+    import torch
+
+    n, B = op.shape[0], len(op.offsets)
+    out = {}
+    for dtype, ndt in ((torch.float32, np.float32),
+                       (torch.float64, np.float64)):
+        name = "dia_f32" if dtype == torch.float32 else "dia_f64"
+        size = torch.finfo(dtype).bits // 8
+        vals = op.vals.to(dtype).contiguous()
+        offs, offsets = op.offs, op.offsets
+        A_csr = csr_on_card(A, ndt, dev)
+        per_shape = {}
+        for k, off in DIA_SHAPES:
+            label = shape_label(GRID, k, off)
+            X = block_n(n, k, off, dtype, dev, gen)
+            Xc = X.contiguous()
+            y = DK.matmat(vals, offs, X)
+            yref = DK.matmat_reference(vals, offsets, X)
+            yt = DK.matmat(vals, offs, X, adjoint=True)
+            ytref = DK.rmatmat_reference(vals, offsets, X)
+            ylib = A_csr @ Xc
+            Yc = torch.empty((n, k), dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            err = max(float((y - yref).abs().max()),
+                      float((yt - ytref).abs().max()))
+            bit = _bitwise(y, yref) and _bitwise(yt, ytref)
+            lib_err = float((ylib - yref).abs().max())
+            plan = DK.card_plan(X)
+            t = _times(lambda: DK.matmat(vals, offs, X),
+                       lambda: DK.matmat_reference(vals, offsets, X),
+                       (B * n + 2 * n * k) * size, lambda: Yc.copy_(X),
+                       lambda: A_csr @ Xc, plain_spin=False)
+            per_shape[label] = {"max_abs_err": err, "bitwise": bit,
+                                "vector_path": plan.vw > 1,
+                                "plan": plan._asdict(),
+                                "library_call": "A_csr @ X (cuSPARSE CSR)",
+                                "library_max_abs_err": lib_err, **t}
+            _print_times(name, label, err, bit, t, plan,
+                         f"  library (A_csr @ X) {t['library_ms']:.5f} ms "
+                         f"(max|diff| {lib_err:.3e})")
+            check(bit, f"{name}: kernel differs from its plain version at "
+                  f"{label} (matmat or rmatmat)")
+            del X, Xc, y, yref, yt, ytref, ylib, Yc
+        out[name] = per_shape
+    return out
+
+
+def banded_phase(ptt, mods, DK, WE, dev, gen, seed):
+    """Phase 11: the 64^3 27-point Laplacian in grid order through the
+    chooser's banded branch, the DIA kernel against its plain version, and
+    the gated solve (DIA launches >= matvecs / 2, no windowed launch)."""
+    import numpy as np
+
+    A, ev = laplacian27_grid(GRID)
+    rb, chooser = choose(ptt, A, "banded")
+    check(rb is not None and isinstance(rb[0], ptt.BandedOperator)
+          and rb[1] is None and len(rb[0].offsets) == 27,
+          f"banded: the chooser returned {rb and type(rb[0]).__name__}, "
+          f"perm {rb and rb[1] is not None}")
+    op = rb[0].to(dev)
+    kern = dia_phase(DK, op, A, dev, gen)
+    run = format_solve(ptt, mods, A, seed, "banded", ev, 1e-4,
+                       float(np.abs(ev).max()), REF_BANDED_MATVECS,
+                       need=("dia_f32",), forbid=tuple(WE.KERNEL_LAUNCHES))
+    return {"chooser": chooser, "offsets": list(op.offsets), "solve": run,
+            "kernel": kern}
+
+
+def hybrid_remainder(A, offsets):
+    """The entries of ``A`` off the banded part's diagonals (the hybrid's
+    ELL part), as CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    C = A.tocoo()
+    off = np.isin(C.col - C.row, np.asarray(offsets))
+    return sp.csr_matrix((C.data[~off], (C.row[~off], C.col[~off])),
+                         shape=A.shape)
+
+
+def hybrid_phase(ptt, mods, DK, WE, dev, gen, seed):
+    """Phase 12: the 7-point Laplacian plus a long-range scatter through
+    the DIA+ELL branch; the sliced-ELL kernel against its plain version on
+    the remainder's layout; the gated solve (DIA and sliced-ELL launches
+    each >= matvecs / 2)."""
+    import numpy as np
+
+    A = hybrid_matrix(GRID, seed)
+    rb, chooser = choose(ptt, A, "hybrid")
+    ok = (rb is not None and rb[1] is None
+          and isinstance(rb[0], ptt.SumOperator)
+          and [type(o) for o in rb[0].ops]
+          == [ptt.BandedOperator, ptt.ELLOperator]
+          and len(rb[0].ops[0].offsets) == 7)
+    check(ok, f"hybrid: the chooser returned {rb and type(rb[0]).__name__}")
+    op = rb[0].to(dev)
+    ell = op.ops[1]
+    rem = hybrid_remainder(A, op.ops[0].offsets)
+    check(rem.nnz == int(ell.rowlen.sum()),
+          f"hybrid: remainder {rem.nnz} entries, layout {int(ell.rowlen.sum())}")
+    print(f"[hybrid] banded offsets {op.ops[0].offsets}; remainder "
+          f"{rem.nnz} entries, {len(ell.cols)} layout entries, max row "
+          f"{int(ell.rowlen.max())}, empty slices "
+          f"{int(((ell.slice_ptr[1:] - ell.slice_ptr[:-1]) == 0).sum())} of "
+          f"{len(ell.slice_ptr) - 1}", flush=True)
+    kern = compare_kernel(WE, ell, csr_on_card(rem, np.float32, dev), gen,
+                          1e-5, "hybrid ell", ks=(1, 2, 8))
+    run = format_solve(ptt, mods, A, seed, "hybrid", REF_HYBRID_EVALS, 1e-4,
+                       gershgorin(A), REF_HYBRID_MATVECS,
+                       need=("dia_f32", "windowed_ell_spmm_f32"))
+    return {"chooser": chooser, "remainder_nnz": rem.nnz,
+            "layout_entries": len(ell.cols), "solve": run, "ell_kernel": kern}
+
+
+def ell_phase(ptt, mods, WE, dev, gen, seed):
+    """Phase 13: a random symmetric matrix that no branch of the chooser
+    takes, through ``aslinearoperator``'s ELLOperator; the sliced-ELL
+    kernel against its plain version on its layout; the gated solve."""
+    import numpy as np
+
+    A = scattered_matrix(GRID ** 3, seed)
+    rb, chooser = choose(ptt, A, "ell")
+    check(rb is None, f"ell: the chooser returned {rb and type(rb[0])}")
+    t0 = time.perf_counter()
+    op = ptt.aslinearoperator(A)
+    chooser["aslinearoperator_s"] = time.perf_counter() - t0
+    check(isinstance(op, ptt.ELLOperator),
+          f"ell: aslinearoperator built {type(op).__name__}")
+    op = op.to(dev)
+    print(f"[ell] ELLOperator in {chooser['aslinearoperator_s']:.3f} s: "
+          f"{len(op.cols)} layout entries for {A.nnz} non-zeros, max row "
+          f"{int(op.rowlen.max())}", flush=True)
+    kern = compare_kernel(WE, op, csr_on_card(A, np.float32, dev), gen, 1e-5,
+                          "ell", ks=(1, 2, 8))
+    run = format_solve(ptt, mods, A, seed, "ell", REF_ELL_EVALS, 1e-4,
+                       gershgorin(A), REF_ELL_MATVECS,
+                       need=("windowed_ell_spmm_f32",))
+    return {"chooser": chooser, "solve": run, "ell_kernel": kern}
+
+
+def block_ell_phase(ptt, dev, gen, seed):
+    """Phase 14: a BlockELLOperator (plain PyTorch: a panel gather and one
+    batched product) built from the FEM-like pattern at n = 64^3, against
+    scipy's product at k in {2, 8}; its time beside the bytes it needs and
+    the library call (cuSPARSE CSR of the same matrix)."""
+    import numpy as np
+    import torch
+
+    F = fem_like(GRID ** 3, seed)
+    t0 = time.perf_counter()
+    op = ptt.BlockELLOperator.from_scipy(F, block_size=8)
+    build_s = time.perf_counter() - t0
+    op = op.to(dev)
+    A_csr = csr_on_card(F, np.float32, dev)
+    nb, w, b, _ = op.bvals.shape
+    out = {"build_s": build_s, "blocks": [nb, w, b], "nnz": F.nnz}
+    for k in (2, 8):
+        X = torch.randn((F.shape[0], k), generator=gen).to(dev)
+        y = op.matmat(X).cpu().double().numpy()
+        yref = F.astype(np.float64) @ X.cpu().double().numpy()
+        err = float(np.abs(y - yref).max())
+        ymax = float(np.abs(yref).max())
+        nbytes = (op.bvals.numel() * 4 + op.bcols.numel() * 8
+                  + 2 * F.shape[0] * k * 4)
+        t = {"ms": median_ms(lambda: op.matmat(X)),
+             "library_ms": median_ms(lambda: A_csr @ X),
+             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "max_abs_err": err, "ymax": ymax}
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        out[f"k={k}"] = t
+        print(f"[block_ell] n={F.shape[0]} nnz={F.nnz} blocks {nb}x{w} of "
+              f"{b}x{b} (built in {build_s:.3f} s) k={k}: max|y-scipy| "
+              f"{err:.3e} (limit {1e-5 * ymax:.3e})  {t['ms']:.5f} ms  bound "
+              f"{t['bound_ms']:.5f} ms (bytes; share {t['bound_share']:.3f})  "
+              f"library (A_csr @ X) {t['library_ms']:.5f} ms", flush=True)
+        check(err <= 1e-5 * ymax, f"block_ell: k={k} differs from scipy")
+    return out
+
+
 def kernel_record(name, replaces, launches, per_k, layout):
     k2 = per_k[2]
     return {"name": name, "route": "cuda",
@@ -789,6 +1170,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import primme_tpu_torch as ptt
     from primme_tpu_torch.ops import build
+    from primme_tpu_torch.ops import dia as DK
     from primme_tpu_torch.ops import jacobi as JK
     from primme_tpu_torch.ops import stencil3d as ST
     from primme_tpu_torch.ops import windowed_ell as WE
@@ -816,7 +1198,7 @@ def main():
         handles = dict(zip(KERNEL_SOURCES, pool.map(build.load,
                                                     KERNEL_SOURCES)))
     for src, mod in (("windowed_ell", WE), ("stencil3d", ST),
-                     ("jacobi", JK)):
+                     ("jacobi", JK), ("dia", DK)):
         entries = list(mod.KERNEL_LAUNCHES)
         for entry in entries:
             getattr(handles[src], entry)  # AttributeError if it is missing
@@ -843,9 +1225,13 @@ def main():
                            1e-5, "kernel")
 
     # --- 4. f32 solve -------------------------------------------------------
-    solve32 = run_solve(ptt, WE, A, op, perm, ev, args.seed, tol=1e-5,
-                        ev_tol=1e-4, ref_mv=REF_MATVECS,
-                        entry="windowed_ell_spmm_f32", tag="solve")
+    mods = (DK, WE, ST, JK)
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    anorm = float(np.abs(ev).max())
+    solve32 = format_solve(
+        ptt, mods, A, args.seed, "solve", ev, 1e-4, anorm, REF_MATVECS,
+        need=("windowed_ell_spmm_f32",),
+        forbid=[e for e in others if e != "windowed_ell_spmm_f32"])
 
     # --- 5. f64 layout and kernel against its plain version -------------
     A64 = A.astype(np.float64)      # entries 26 and -1: exact in f32
@@ -865,9 +1251,11 @@ def main():
                              gen, 1e-13, "kernel64")
 
     # --- 6. f64 solve -------------------------------------------------------
-    solve64 = run_solve(ptt, WE, A64, op64, perm64, ev, args.seed,
-                        tol=1e-10, ev_tol=1e-8, ref_mv=REF_MATVECS_F64,
-                        entry="windowed_ell_spmm_f64", tag="solve64")
+    solve64 = format_solve(
+        ptt, mods, A64, args.seed, "solve64", ev, 1e-8, anorm,
+        REF_MATVECS_F64, need=("windowed_ell_spmm_f64",),
+        forbid=[e for e in others if e != "windowed_ell_spmm_f64"],
+        tol=1e-10)
 
     # --- 7. stencil kernel against its plain version --------------------
     # inputs made on the card (256^3 at k=8 in f64 is 1 GB a block)
@@ -896,13 +1284,23 @@ def main():
     # --- 10. GD_Olsen_plusK + Jacobi (__graft_entry__.entry's method) ----
     gdk = gdk_phase(ptt, dev)
 
+    # --- 11-13. the chooser's banded, DIA+ELL and ELL branches ----------
+    banded = banded_phase(ptt, mods, DK, WE, dev, cgen, args.seed)
+    hybrid = hybrid_phase(ptt, mods, DK, WE, dev, gen, args.seed)
+    ell = ell_phase(ptt, mods, WE, dev, gen, args.seed)
+
+    # --- 14. BlockELL (plain PyTorch) against scipy ----------------------
+    block_ell = block_ell_phase(ptt, dev, gen, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
-                      solve32["launches"], per_k, layout32),
+                      solve32["launches"]["windowed_ell_spmm_f32"], per_k,
+                      layout32),
         kernel_record("windowed_ell_spmm_f64",
                       "primme_tpu/ops/pallas_windowed.py:363",
-                      solve64["launches"], per_k64, layout64),
+                      solve64["launches"]["windowed_ell_spmm_f64"], per_k64,
+                      layout64),
         main_path_record("stencil3d_f32", "primme_tpu_torch/csrc/stencil3d.cu",
                          "primme_tpu/operators.py:379", hl_run, sten,
                          {"stencil3d_f64": "primme_tpu/operators.py:379"}),
@@ -911,9 +1309,15 @@ def main():
                          "primme_tpu/operators.py:484", hl_run, jac,
                          {"jacobi_shifted_f64": "primme_tpu/operators.py:484",
                           "jacobi_f32": "primme_tpu/operators.py:481",
-                          "jacobi_f64": "primme_tpu/operators.py:481"})],
+                          "jacobi_f64": "primme_tpu/operators.py:481"}),
+        main_path_record("dia_f32", "primme_tpu_torch/csrc/dia.cu",
+                         "primme_tpu/operators.py:671", banded["solve"],
+                         banded["kernel"],
+                         {"dia_f64": "primme_tpu/operators.py:671"})],
         "solve": {**solve32, "f64": solve64},
         "headline": headline, "gdk": gdk,
+        "banded": {k: v for k, v in banded.items() if k != "kernel"},
+        "hybrid": hybrid, "ell": ell, "block_ell": block_ell,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,26 @@
 """primme_tpu_torch: the PyTorch/CUDA port of primme_tpu.
 
 A second package beside the JAX reference ``primme_tpu``, for an NVIDIA
-Hopper card. It runs two paths end to end, each product and
-preconditioner apply through a hand-written ``sm_90a`` CUDA kernel, and
-the block Davidson solve (JDQMR or GD+k) with the spectrum-verification
-probe as plain PyTorch:
+Hopper card. It runs these paths end to end, each product and
+preconditioner apply through a hand-written ``sm_90a`` CUDA kernel (the
+BlockELL product excepted), and the block Davidson solve (JDQMR or GD+k)
+with the spectrum-verification probe as plain PyTorch:
 
 * ``bench.py``'s headline: the 7-point Laplacian :class:`Stencil3DOperator`
   (``csrc/stencil3d.cu``) with the shift-aware :class:`JacobiPrecond`
   (``csrc/jacobi.cu``), through ``solve_eigs`` or ``eigsh(...,
   jacobi=True)``;
-* sparse ``eigsh`` in f32 and f64: the format chooser (``rcm_banded``)
-  packs a band-reducible matrix into the windowed-slot ELL layout, whose
-  product runs ``csrc/windowed_ell.cu`` (native FP64 for an f64 matrix).
+* sparse ``eigsh`` in f32 and f64 through the reference's format chooser
+  (``rcm_banded``, then ``aslinearoperator``): a banded matrix becomes a
+  :class:`BandedOperator` (``csrc/dia.cu``), a banded one with a scattered
+  remainder the DIA+ELL :class:`SumOperator`, a band-reducible one the
+  windowed-slot ELL layout and any other large one an :class:`ELLOperator`
+  (both on ``csrc/windowed_ell.cu``'s sliced-ELL kernel, native FP64 for
+  an f64 matrix), a block-clustered one a :class:`BlockELLOperator` (plain
+  PyTorch, as the reference's XLA einsum).
 
-Small dense and sparse inputs become a :class:`DenseOperator`.
+Small dense and sparse inputs become a :class:`DenseOperator`, a scipy
+``LinearOperator`` a :class:`FunctionOperator` applied on the host.
 ``eigsh(dtype=...)`` solves in another precision than the operator's
 through :class:`CastOperator`.
 
@@ -32,7 +38,9 @@ from .params import (PrimmeParams, Target, Projection, InitBasisMode,  # noqa: E
                      resolve_defaults)
 from .operators import (LinearOperator, WindowedELLOperator,  # noqa: E402
                         CastOperator, Stencil3DOperator, JacobiPrecond,
-                        DenseOperator, DiagonalOperator, rcm_banded,
+                        DenseOperator, DiagonalOperator, BandedOperator,
+                        ELLOperator, BlockELLOperator, FunctionOperator,
+                        SumOperator, dia_ell_hybrid, rcm_banded,
                         aslinearoperator, apply_precond)
 from .core.solver import solve_eigs, EigsResult, Stats  # noqa: E402
 from .api import eigsh, PrimmeError  # noqa: E402
@@ -42,6 +50,7 @@ __all__ = [
     "Method", "Projectors", "set_method", "resolve_defaults",
     "LinearOperator", "WindowedELLOperator", "CastOperator",
     "Stencil3DOperator", "JacobiPrecond", "DenseOperator", "DiagonalOperator",
-    "rcm_banded", "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
+    "BandedOperator", "ELLOperator", "BlockELLOperator", "FunctionOperator",
+    "SumOperator", "dia_ell_hybrid", "rcm_banded", "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
     "Stats", "eigsh", "PrimmeError",
 ]

@@ -69,10 +69,12 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
           raise_for_unconverged: bool = True, dtype: Any = None,
           seed: int = 0, projection: Any = None,
           return_history: bool = False, monitor: Any = None,
-          mesh: Any = None, convtest: Any = None,
+          mesh: Any = None, convtest: Any = None, printLevel: int = 0,
           maxInnerIterations: Optional[int] = None,
           time_breakdown: bool = False,
+          segment_outer: Optional[int] = None,
           verify_spectrum: Optional[int] = None,
+          monitor_inner: bool = False,
           profile: Optional[str] = None, device: Any = None,
           **primme_kwargs):
     """Find ``k`` eigenvalues/eigenvectors of the Hermitian operator ``A``
@@ -93,6 +95,12 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise _unported("return_history")
     if time_breakdown:
         raise _unported("time_breakdown")
+    if printLevel:
+        raise _unported(f"printLevel={printLevel!r} (the monitor's reports)")
+    if segment_outer is not None:
+        raise _unported("segment_outer")
+    if monitor_inner:
+        raise _unported("monitor_inner")
     wd = _working_dtype(dtype)
     device = default_device(device, "eigsh")
 
@@ -226,6 +234,10 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
 
     stats = dataclasses.asdict(res.stats)
     stats["elapsed_time"] = elapsed
+    # zero by construction: the projected solve is never solved on one
+    # process and broadcast (the reference's numBroadcast)
+    stats["num_broadcast"] = 0
+    stats["volume_broadcast"] = 0
     out = [res.evals.cpu().numpy()]
     if return_eigenvectors:
         ev = res.evecs.cpu().numpy()

@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from . import params as prm
-from .operators import JacobiPrecond, Stencil3DOperator, WindowedELLOperator
+from .operators import (BandedOperator, BlockELLOperator, ELLOperator,
+                        JacobiPrecond, Stencil3DOperator, SumOperator,
+                        WindowedELLOperator)
 
 
 def params_from_jax(p) -> prm.PrimmeParams:
@@ -63,6 +65,49 @@ def jacobi_from_jax(K, device=None) -> JacobiPrecond:
     numpy, ``eps`` and ``use_shifts``."""
     out = JacobiPrecond(np.asarray(K.d), eps=K.eps, use_shifts=K.use_shifts)
     return out.to(device) if device is not None else out
+
+
+def _on(op, device):
+    return op.to(device) if device is not None else op
+
+
+def banded_from_jax(op, device=None) -> BandedOperator:
+    """A ``primme_tpu`` ``BandedOperator`` as the port's: the same offsets
+    in the same order and the same ``vals``."""
+    return _on(BandedOperator(op.offsets, np.asarray(op.vals), op.shape),
+               device)
+
+
+def ell_from_jax(op, device=None) -> ELLOperator:
+    """A ``primme_tpu`` ``ELLOperator`` as the port's: the matrix its
+    padded rows hold (the zero-valued padding dropped), laid out by the
+    port's ``from_scipy``."""
+    import scipy.sparse as sp
+
+    cols, vals = np.asarray(op.cols), np.asarray(op.vals)
+    keep = vals != 0
+    A = sp.csr_matrix((vals[keep], (np.nonzero(keep)[0], cols[keep])),
+                      shape=op.shape)
+    return _on(ELLOperator.from_scipy(A), device)
+
+
+def block_ell_from_jax(op, device=None) -> BlockELLOperator:
+    """A ``primme_tpu`` ``BlockELLOperator`` as the port's: the same block
+    columns and blocks, and the transposed layout where it has one."""
+    t = op.bcolsT is not None
+    return _on(BlockELLOperator(
+        np.asarray(op.bcols), np.asarray(op.bvals), op.shape,
+        np.asarray(op.bcolsT) if t else None,
+        np.asarray(op.bvalsT) if t else None), device)
+
+
+def sum_from_jax(op, device=None) -> SumOperator:
+    """A ``primme_tpu`` ``SumOperator`` as the port's, each part converted
+    by its own function."""
+    conv = {"BandedOperator": banded_from_jax, "ELLOperator": ell_from_jax,
+            "BlockELLOperator": block_ell_from_jax}
+    return _on(SumOperator([conv[type(o).__name__](o) for o in op.ops]),
+               device)
 
 
 def block_from_numpy(X, device, dtype=None) -> torch.Tensor:

@@ -61,6 +61,14 @@ class Stats:
     # 1 when the returned set survived probing (the solver state's
     # ``verified`` at extraction; the reference keeps it off its Stats)
     probe_verified: int = 0
+    # the reference's analytic counts of the reductions a row-sharded
+    # solve would make (globalSumReal), of the scalars they reduce, of the
+    # fused residual kernel's flops and of the inner products of
+    # orthogonalization, counted at the same points
+    num_global_sum: int = 0
+    volume_global_sum: float = 0.0
+    flops_dense: float = 0.0
+    num_ortho_inner_prods: float = 0.0
 
     @staticmethod
     def zeros(rdt):
@@ -187,6 +195,18 @@ def _host(*xs):
     """Read several device scalars back in one transfer."""
     return torch.stack([torch.as_tensor(x).to(torch.float64).reshape(())
                         for x in xs]).tolist()
+
+
+def _ortho_counts(cfg: SolveConfig, has_locked: bool):
+    """Reductions and scalars of one ``block_ortho`` call (the reference's
+    ``_ortho_counts``): two CGS passes over the basis (and the locked
+    vectors) plus the CholeskyQR Gram, the reference norms and the
+    survivor norms."""
+    blk = cfg.blk
+    ngs = 2 * (1 + (1 if has_locked else 0) + 1) + 2
+    vol = (2 * (cfg.mmax * blk + (cfg.lockmax * blk if has_locked else 0)
+                + blk * blk) + 2 * blk)
+    return ngs, float(vol)
 
 
 def _locked(cfg: SolveConfig, s: SolverState):
@@ -322,11 +342,19 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
         weak_only = practical & is_target & ~conv
         conv = conv | (practical & is_target)
     nconv, nweak = (int(x) for x in _host(conv.sum(), weak_only.sum()))
+    # the residual kernel's flops (real types) and this window's reductions
+    has_locked = cfg.locking or cfg.noc > 0
+    st = s.stats
     stats = _replace(
-        s.stats, anorm_estimate=anorm_est,
-        est_min_eval=min(s.stats.est_min_eval, emin),
-        est_max_eval=max(s.stats.est_max_eval, emax),
-        num_practical=s.stats.num_practical + nweak)
+        st, anorm_estimate=anorm_est,
+        num_global_sum=st.num_global_sum + 2 + (1 if has_locked else 0),
+        volume_global_sum=(st.volume_global_sum + 2.0 * c
+                           + (float(cfg.lockmax * c) if has_locked else 0.0)),
+        flops_dense=(st.flops_dense + 2.0 * cfg.n * cfg.mmax * c * 2
+                     + 3.0 * cfg.n * c),
+        est_min_eval=min(st.est_min_eval, emin),
+        est_max_eval=max(st.est_max_eval, emax),
+        num_practical=st.num_practical + nweak)
     return Window(sol, cands, conv, is_target, n_needed, nconv, tol,
                   passes & active | conv, active), stats
 
@@ -966,12 +994,19 @@ def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
     s.H[:, b:b + blk] = hc
     s.H[b:b + blk, :] = hc.mH
     st = s.stats
+    # one block_ortho, the H panel's Gram and ~5 width-blk dot products an
+    # inner QMR iteration
+    ngs_bo, vol_bo = _ortho_counts(cfg, Q is not None)
     stats = _replace(
         st, num_outer_iterations=st.num_outer_iterations + 1,
         num_matvecs=st.num_matvecs + nc + n_mv_inner,
         num_preconds=st.num_preconds + n_prec,
         num_inner_iterations=st.num_inner_iterations + n_inner,
-        num_random=st.num_random + n_random)
+        num_random=st.num_random + n_random,
+        num_global_sum=st.num_global_sum + ngs_bo + 1 + 5 * n_inner,
+        volume_global_sum=(st.volume_global_sum + vol_bo
+                           + float(cfg.mmax * blk) + 5.0 * blk * n_inner),
+        num_ortho_inner_prods=st.num_ortho_inner_prods + vol_bo)
     return _replace(s, b=b + nc, prev_hvecs=prev, stats=stats,
                     prev_ritz=prev_ritz2, num_prev_ritz=num_prev2)
 
@@ -1002,9 +1037,17 @@ def do_reset(cfg: SolveConfig, A, s: SolverState) -> SolverState:
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
     nkeep = int(good.sum())
-    stats = _replace(s.stats, num_matvecs=s.stats.num_matvecs + nkeep,
-                     num_resets=s.stats.num_resets + 1,
-                     estimate_resid_error=0.0)
+    has_locked = cfg.locking or cfg.noc > 0
+    st = s.stats
+    stats = _replace(
+        st, num_matvecs=st.num_matvecs + nkeep,
+        num_resets=st.num_resets + 1, estimate_resid_error=0.0,
+        num_global_sum=st.num_global_sum + 2 + (2 if has_locked else 0),
+        volume_global_sum=(st.volume_global_sum + 2.0 * cfg.mmax * cfg.mmax
+                           + (2.0 * cfg.lockmax * cfg.mmax
+                              if has_locked else 0.0)),
+        num_ortho_inner_prods=(st.num_ortho_inner_prods
+                               + float(cfg.mmax * cfg.mmax)))
     return _replace(s, V=V, W=W, H=H, b=nkeep,
                     prev_hvecs=torch.zeros_like(s.prev_hvecs),
                     best_res=float(torch.finfo(real_dtype(s.H.dtype)).max),
@@ -1048,8 +1091,15 @@ def _build_state(cfg: SolveConfig, A, v0, gen, dtype, device) -> SolverState:
     if v0 is not None:
         v0 = v0.to(device=device, dtype=dtype)
     V, W, H, b0, nrand0 = init_basis(A, cfg, gen, v0, dtype, device)
+    # the initial basis: one block_ortho a block of the reference's b0,
+    # and H's Gram
+    nb0 = -(-max(min(cfg.mrs, mmax), min(cfg.blk, mmax)) // cfg.blk)
+    ngs_bo, vol_bo = _ortho_counts(cfg, cfg.noc > 0)
     stats = _replace(Stats.zeros(rdt), num_matvecs=b0, num_random=nrand0,
-                     probe_unsupported=cfg.probe_unsupported)
+                     probe_unsupported=cfg.probe_unsupported,
+                     num_global_sum=nb0 * ngs_bo + 1,
+                     volume_global_sum=nb0 * vol_bo + mmax * mmax,
+                     num_ortho_inner_prods=nb0 * vol_bo)
 
     def zr(m):
         return torch.zeros((m,), dtype=rdt, device=device)

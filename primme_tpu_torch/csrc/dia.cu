@@ -1,0 +1,188 @@
+// DIA (diagonal storage) product for Hopper (sm_90a), in f32 and f64:
+//   matmat   y_i = sum_b vals[b, i] * x_{i + off_b}
+//   rmatmat  y_i = sum_b vals[b, i - off_b] * x_{i - off_b}   (A^T, real)
+// on an [n, k] block, a term whose row i + off_b (i - off_b) lies outside
+// [0, n) counting as 0.
+//
+// Replaces the XLA-fused product of primme_tpu/operators.py::
+// BandedOperator.matmat/rmatmat (:671-704; the JAX package has no Pallas
+// kernel for it): the banded branch of the format chooser and the banded
+// part of its DIA+ELL hybrid run every product through it.
+//
+// Layout: vals is [B, n] row-indexed (vals[b, i] = A[i, i + off_b], the
+// ends of a diagonal padded with anything, usually 0), offs [B] i64 in the
+// operator's stored order (not sorted: the sum keeps that order). X is
+// [n, k] with rows ldx >= k elements apart (a column slice of the basis
+// needs no copy) and adjacent columns; Y is a new contiguous [n, k].
+//
+// What bounds it: vals is read once (B n sizeof(T) bytes), X and Y once
+// each (2 n k sizeof(T)): 2 B k flops for B n + 2 n k elements, bound by
+// device memory. At 64^3 with the 27 diagonals of a 27-point stencil and
+// k=2 in f32 that is 28.3 + 2.1 + 2.1 MB, 9.7 us at 3.35 TB/s (it fits the
+// 50 MB L2, so repeated calls find it there).
+//
+// What the design does about that: one thread per (row, column group of
+// kc = 8, 4, 2 or 1 columns), rows along the block so that a warp's loads
+// of vals[b, i .. i+31] are one line and its B shifted reads of X are
+// adjacent rows, served by L1/L2; the offsets are a small device array
+// whose loads are the same address across the warp. X is loaded vw
+// elements at a time (as wide as kc, ldx and X's address allow; the scalar
+// path for a slice at an odd column offset). A row off the edge reads the
+// thread's own row of X (no load waits on a branch) and counts as 0.
+// The arithmetic keeps the plain version's order, one IEEE rounding per
+// operation and no fma: out = 0; for each b in stored order
+//   out = out + v * x    (matmat: v = vals[b, i], x = 0 off the edge;
+//                         rmatmat: v and x both 0 off the edge)
+// so the kernel equals its plain PyTorch version bit for bit (an off-edge
+// term is v * 0 as there, and 0 + -0 is +0 as there). Addresses are 64-bit:
+// B n passes 2^31 at B = 256 and n >= 8.4M.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;        // rows of a block
+constexpr int kMaxGridY = 65535;     // CUDA's limit on gridDim.y
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <typename T, int W> struct Vec;
+template <> struct Vec<float, 1> { using type = float; };
+template <> struct Vec<float, 2> { using type = float2; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 1> { using type = double; };
+template <> struct Vec<double, 2> { using type = double2; };
+
+template <typename T, int W>
+__device__ __forceinline__ void ldg_vec(const T* p, T* out) {
+  using V = typename Vec<T, W>::type;
+  const V v = __ldg(reinterpret_cast<const V*>(p));
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int c = 0; c < W; ++c) out[c] = e[c];
+}
+template <typename T, int W>
+__device__ __forceinline__ void st_vec(T* p, const T* in) {
+  using V = typename Vec<T, W>::type;
+  V v;
+  T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+  for (int c = 0; c < W; ++c) e[c] = in[c];
+  *reinterpret_cast<V*>(p) = v;
+}
+
+// Thread (x, y) of the grid sums row blockIdx.x * kThreads + threadIdx.x,
+// columns [blockIdx.y * KC, + KC), over the B diagonals in stored order.
+template <typename T, int KC, int VW, bool kAdjoint>
+__global__ void __launch_bounds__(kThreads)
+    dia_kernel(const T* __restrict__ vals, const long long* __restrict__ offs,
+               int B, const T* __restrict__ X, long long ldx,
+               T* __restrict__ Y, int n, int k) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int c0 = blockIdx.y * KC;
+  T acc[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) acc[q] = T(0);
+#pragma unroll 4
+  for (int b = 0; b < B; ++b) {
+    const long long off = __ldg(offs + b);
+    const long long j = kAdjoint ? i - off : i + off;
+    const bool in = j >= 0 && j < n;
+    const long long r = in ? j : i;          // an off-edge row reads row i
+    const T v = __ldg(vals + static_cast<long long>(b) * n +
+                      (kAdjoint ? r : i));
+    const T* x = X + r * ldx + c0;
+    T xv[KC];
+#pragma unroll
+    for (int c = 0; c < KC; c += VW) ldg_vec<T, VW>(x + c, xv + c);
+    // matmat: v * 0 off the edge; rmatmat: 0 * 0
+    const T vv = (kAdjoint && !in) ? T(0) : v;
+#pragma unroll
+    for (int q = 0; q < KC; ++q)
+      acc[q] = add_rn(acc[q], mul_rn(vv, in ? xv[q] : T(0)));
+  }
+  T* y = Y + i * k + c0;
+#pragma unroll
+  for (int c = 0; c < KC; c += VW) st_vec<T, VW>(y + c, acc + c);
+}
+
+template <typename T>
+using Kernel = void (*)(const T*, const long long*, int, const T*, long long,
+                        T*, int, int);
+
+template <typename T, int KC, bool A>
+Kernel<T> pick_vw(int vw) {
+  if (vw == 1) return dia_kernel<T, KC, 1, A>;
+  if constexpr (KC >= 2) {
+    if (vw == 2) return dia_kernel<T, KC, 2, A>;
+  }
+  if constexpr (KC >= 4 && sizeof(T) == 4) {
+    if (vw == 4) return dia_kernel<T, KC, 4, A>;
+  }
+  return nullptr;
+}
+
+template <typename T, bool A>
+Kernel<T> pick_kc(int kc, int vw) {
+  switch (kc) {
+    case 1: return pick_vw<T, 1, A>(vw);
+    case 2: return pick_vw<T, 2, A>(vw);
+    case 4: return pick_vw<T, 4, A>(vw);
+    case 8: return pick_vw<T, 8, A>(vw);
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+int launch(const T* vals, const long long* offs, int B, const T* X,
+           long long ldx, T* Y, int n, int k, int adjoint, int kc, int vw,
+           int gx, int gy, void* stream) {
+  const Kernel<T> fn =
+      adjoint ? pick_kc<T, true>(kc, vw) : pick_kc<T, false>(kc, vw);
+  // the grid is the wrapper's plan; here only what CUDA and the kernel's
+  // instances take
+  if (fn == nullptr || B < 1 || n < 1 || k % kc != 0 || ldx < k ||
+      gx < 1 || gy < 1 || gy > kMaxGridY ||
+      static_cast<long long>(gx) * kThreads < n ||
+      static_cast<long long>(gy) * kc != k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fn<<<dim3(gx, gy), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, offs, B, X, ldx, Y, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The wrapper (primme_tpu_torch/ops/dia.py::plan) plans the launch: kc
+// columns a thread, X loaded vw elements at a time, gx blocks of 256 rows
+// by gy = k / kc column groups. adjoint = 1 computes rmatmat. Each entry
+// point returns the CUDA error of its launch as an int (0: none).
+extern "C" int dia_f32(const float* vals, const long long* offs, int B,
+                       const float* X, long long ldx, float* Y, int n, int k,
+                       int adjoint, int kc, int vw, int gx, int gy,
+                       void* stream) {
+  return launch<float>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx, gy,
+                       stream);
+}
+
+extern "C" int dia_f64(const double* vals, const long long* offs, int B,
+                       const double* X, long long ldx, double* Y, int n, int k,
+                       int adjoint, int kc, int vw, int gx, int gy,
+                       void* stream) {
+  return launch<double>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
+                        gy, stream);
+}

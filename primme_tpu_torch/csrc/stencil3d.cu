@@ -31,9 +31,11 @@
 // without a division. A thread's seven loads (the point and its six
 // neighbours; one outside the grid reads the point itself and counts as 0,
 // so no load waits on a branch) are all in flight at once, served by L1
-// and L2. The wrapper refuses a grid whose j tiles or (plane, column group)
-// pairs pass CUDA's 65535 along y or z: a block that steps through several
-// measured 8-25% slower at every shape, so no grid is folded.
+// and L2. A grid whose j tiles or (plane, column group) pairs pass CUDA's
+// 65535 along y or z runs as several launches, each over at most 65535 of
+// them from a j tile and a pair offset (a block that steps through several
+// measured 8-25% slower at every shape, so no grid is folded into one
+// launch); every other grid is one launch at offsets 0.
 // (Marching planes through shared memory measured slower at every shape
 // with whole-point loads: its prologue and barriers cost a short march more
 // than the L1/L2 loads it saves. It won only on slices at an odd column
@@ -98,25 +100,27 @@ __host__ __device__ constexpr int parts() {
   return KC * sizeof(T) > 16 ? KC * sizeof(T) / 16 : 1;
 }
 
-// Block (x, y, z) computes the points of l tile x and j tile y (tj =
-// blockDim.y rows) in (plane, column group) pair z of the nx * (k / KC),
-// group fastest; a block past the grid's edge computes nothing. A thread's
+// Block (x, y, z) computes the points of l tile x and j tile y0 + y (tj =
+// blockDim.y rows) in (plane, column group) pair z0 + z of the nx * (k /
+// KC), group fastest; a block past the grid's edge computes nothing. A thread's
 // columns and its six neighbours' come straight from L1/L2, VW elements a
 // load, all seven in flight at once, and are summed in the reference's
 // order.
 template <typename T, int KC, int VW>
 __global__ void __launch_bounds__(kTileL* kMaxTJ)
     stencil3d_kernel(const T* __restrict__ X, T* __restrict__ Y, int nx,
-                     int ny, int nz, int k, long long ldx, T scale) {
+                     int ny, int nz, int k, long long ldx, T scale, int y0,
+                     int z0) {
   constexpr int kParts = parts<T, KC>();
   constexpr int kPC = KC / kParts;  // columns of one thread
   const int l = blockIdx.x * (kTileL / kParts) + threadIdx.x / kParts;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  int i = blockIdx.z, c0 = (threadIdx.x % kParts) * kPC;
+  const int j = (blockIdx.y + y0) * blockDim.y + threadIdx.y;
+  const int z = blockIdx.z + z0;
+  int i = z, c0 = (threadIdx.x % kParts) * kPC;
   if (k != KC) {  // column groups: z = plane * groups + group
     const int groups = k / KC;
-    i = blockIdx.z / groups;
-    c0 += (blockIdx.z - i * groups) * KC;
+    i = z / groups;
+    c0 += (z - i * groups) * KC;
   }
   if (l >= nz || j >= ny || i >= nx) return;
   const long long row = (static_cast<long long>(i) * ny + j) * nz + l;
@@ -151,7 +155,8 @@ __global__ void __launch_bounds__(kTileL* kMaxTJ)
 }
 
 template <typename T>
-using Kernel = void (*)(const T*, T*, int, int, int, int, long long, T);
+using Kernel = void (*)(const T*, T*, int, int, int, int, long long, T, int,
+                        int);
 
 template <typename T, int KC>
 Kernel<T> pick_vw(int vw) {
@@ -180,17 +185,19 @@ Kernel<T> pick(int kc, int vw) {
 
 template <typename T>
 int launch(const T* X, T* Y, int nx, int ny, int nz, int k, long long ldx,
-           T scale, int kc, int vw, int tj, int gx, int gy, int gz,
-           void* stream) {
+           T scale, int kc, int vw, int tj, int gx, int gy, int gz, int y0,
+           int z0, void* stream) {
   const Kernel<T> fn = pick<T>(kc, vw);
   // the grid is the wrapper's plan; here only what CUDA and the kernel's
   // instances take (blocks past the grid's edge compute nothing)
   if (fn == nullptr || k % kc != 0 || tj < 1 || tj > kMaxTJ || gx < 1 ||
-      gy < 1 || gy > kMaxGridYZ || gz < 1 || gz > kMaxGridYZ) {
+      gy < 1 || gy > kMaxGridYZ || gz < 1 || gz > kMaxGridYZ || y0 < 0 ||
+      z0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fn<<<dim3(gx, gy, gz), dim3(kTileL, tj), 0,
-       static_cast<cudaStream_t>(stream)>>>(X, Y, nx, ny, nz, k, ldx, scale);
+       static_cast<cudaStream_t>(stream)>>>(X, Y, nx, ny, nz, k, ldx, scale,
+                                            y0, z0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,20 +205,22 @@ int launch(const T* X, T* Y, int nx, int ny, int nz, int k, long long ldx,
 
 // The wrapper (primme_tpu_torch/ops/stencil3d.py::plan) plans the launch:
 // kc columns a point, X loaded vw elements at a time, blocks of 32 x tj
-// threads on a gx x gy x gz grid that covers every point.
+// threads on gx x gy x gz grids, from j tile y0 and (plane, column group)
+// pair z0, that together cover every point.
 // Each entry point returns the CUDA error of its launch as an int (0:
 // none).
 extern "C" int stencil3d_f32(const float* X, float* Y, int nx, int ny, int nz,
                              int k, long long ldx, float scale, int kc, int vw,
-                             int tj, int gx, int gy, int gz, void* stream) {
+                             int tj, int gx, int gy, int gz, int y0, int z0,
+                             void* stream) {
   return launch<float>(X, Y, nx, ny, nz, k, ldx, scale, kc, vw, tj, gx, gy,
-                       gz, stream);
+                       gz, y0, z0, stream);
 }
 
 extern "C" int stencil3d_f64(const double* X, double* Y, int nx, int ny,
                              int nz, int k, long long ldx, double scale,
                              int kc, int vw, int tj, int gx, int gy, int gz,
-                             void* stream) {
+                             int y0, int z0, void* stream) {
   return launch<double>(X, Y, nx, ny, nz, k, ldx, scale, kc, vw, tj, gx, gy,
-                        gz, stream);
+                        gz, y0, z0, stream);
 }

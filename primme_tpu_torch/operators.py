@@ -1,29 +1,40 @@
-"""Operator layer: block-matvec linear operators (main-path subset).
+"""Operator layer: block-matvec linear operators.
 
 PyTorch port of ``primme_tpu/operators.py``. An operator is an
 ``nn.Module`` holding its arrays as buffers, so ``.to(device)`` moves it,
 with a ``matmat(X)`` on an ``[n, k]`` block; one that holds no array
-(:class:`Stencil3DOperator`) states its device. The port has the protocol,
-:class:`Stencil3DOperator` and :class:`JacobiPrecond` (``bench.py``'s
-headline operator and preconditioner, each applied by a hand-written CUDA
-kernel), :class:`WindowedELLOperator` (the sparse format the chooser picks
-for a band-reducible matrix, applied by a hand-written CUDA kernel in f32
-or f64), :class:`DenseOperator`, :class:`DiagonalOperator`,
-:class:`CastOperator` (a working precision other than the operator's) and
-the decision logic of :func:`rcm_banded`. Formats the chooser may pick but
-the port does not have yet raise ``NotImplementedError`` naming the
-format; another format is never substituted.
+(:class:`Stencil3DOperator`, :class:`FunctionOperator`) states its device.
+Operators and their products:
+
+* :class:`Stencil3DOperator` and :class:`JacobiPrecond` (``bench.py``'s
+  headline operator and preconditioner): ``csrc/stencil3d.cu`` and
+  ``csrc/jacobi.cu``;
+* the sparse formats the chooser (:func:`rcm_banded`,
+  :func:`aslinearoperator`) picks, each in the same case as the reference:
+  :class:`BandedOperator` (DIA, ``csrc/dia.cu``), the DIA+ELL hybrid
+  :class:`SumOperator` (:func:`dia_ell_hybrid`), :class:`WindowedELLOperator`
+  and :class:`ELLOperator` (the sliced-ELL layout of ``csrc/windowed_ell.cu``,
+  f32 or f64), :class:`BlockELLOperator` (a panel gather and one batched
+  product in plain PyTorch, as the reference leaves it to XLA);
+* :class:`DenseOperator`, :class:`DiagonalOperator`,
+  :class:`FunctionOperator` (a scipy ``LinearOperator`` applied on the
+  host) and :class:`CastOperator` (a working precision other than the
+  operator's).
+
+The sparse formats hold real f32 or f64 values; complex input raises
+``NotImplementedError`` naming the format.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .core.linalg import real_dtype
+from .ops import dia as DK
 from .ops import jacobi as JK
 from .ops import stencil3d as ST
 from .ops import windowed_ell as WE
@@ -41,12 +52,6 @@ def default_device(device: Any, what: str) -> torch.device:
                 "to run on the CPU")
         device = "cuda"
     return torch.device(device)
-
-
-def _todo(fmt: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{fmt} is not ported to primme_tpu_torch yet (ROADMAP Queue A: "
-        "the other operators and formats rcm_banded chooses)")
 
 
 class LinearOperator(nn.Module):
@@ -92,7 +97,7 @@ def _as_tensor(a) -> torch.Tensor:
 
 
 def _kernel_block(X: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """X in ``dtype`` as the stencil and Jacobi kernels take it: its rows
+    """X in ``dtype`` as the stencil, Jacobi and DIA kernels take it: its rows
     may lie apart (a column slice of the basis needs no copy), its columns
     must be adjacent."""
     X = X.to(dtype)
@@ -313,13 +318,314 @@ def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,
     return K.matmat(X)
 
 
+def _value_dtype(dtype, fmt: str) -> np.dtype:
+    """The numpy type a sparse format stores, from a numpy or torch dtype:
+    f32 or f64 as given; complex and other types are not served."""
+    name = str(dtype).replace("torch.", "")
+    if name not in ("float32", "float64"):
+        raise NotImplementedError(
+            f"a {fmt} of dtype {name} is not ported to primme_tpu_torch "
+            "(f32 and f64 only)")
+    return np.dtype(name)
+
+
+def _result_dtype(op_dtype: torch.dtype, X: torch.Tensor) -> torch.dtype:
+    # the reference's jnp product promotes the operator's type with X's
+    return torch.promote_types(op_dtype, X.dtype)
+
+
+class BandedOperator(LinearOperator):
+    """DIA (diagonal) sparse operator: ``offsets`` (Python ints, in the
+    stored order, which the sum keeps) and ``vals [B, n]`` row-indexed,
+    ``vals[b, i] = A[i, i + offsets[b]]``. ``matmat`` and ``rmatmat`` run
+    the hand-written kernel of ``csrc/dia.cu`` on the card and its plain
+    version (the reference's loop) on the CPU, in the operator's f32 or
+    f64."""
+
+    def __init__(self, offsets, vals, shape=None):
+        super().__init__()
+        self.offsets = tuple(int(o) for o in offsets)
+        vals = _as_tensor(vals)
+        _value_dtype(vals.dtype, "BandedOperator")
+        if vals.ndim != 2 or vals.shape[0] != len(self.offsets):
+            raise ValueError(f"vals shape {tuple(vals.shape)} is not "
+                             f"[{len(self.offsets)}, n]")
+        self.register_buffer("vals", vals.contiguous())
+        # the offsets as the kernel reads them
+        self.register_buffer("offs", torch.tensor(self.offsets,
+                                                  dtype=torch.int64))
+        n = vals.shape[1]
+        self.shape = tuple(shape) if shape is not None else (n, n)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    def matmat(self, X):
+        Y = DK.matmat(self.vals, self.offs, _kernel_block(X, self.dtype))
+        return Y.to(_result_dtype(self.dtype, X))
+
+    def rmatmat(self, X):
+        Y = DK.matmat(self.vals, self.offs, _kernel_block(X, self.dtype),
+                      adjoint=True)
+        return Y.to(_result_dtype(self.dtype, X))
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.vals[self.offsets.index(0)]
+        return torch.zeros((self.shape[0],), dtype=self.dtype,
+                           device=self.device)
+
+    @staticmethod
+    def from_scipy(A) -> "BandedOperator":
+        import scipy.sparse as sp
+
+        _value_dtype(A.dtype, "BandedOperator")
+        D = sp.dia_matrix(A)
+        n = A.shape[0]
+        offsets = [int(o) for o in D.offsets]
+        # scipy stores data[b, j] = A[j - off, j] over its columns (which
+        # may stop before n); vals[b, i] = A[i, i + off]
+        data = np.zeros((len(offsets), max(n, D.data.shape[1])), D.dtype)
+        data[:, :D.data.shape[1]] = D.data
+        vals = np.zeros((len(offsets), n), dtype=D.dtype)
+        for b, off in enumerate(offsets):
+            if off >= 0:
+                m = max(n - off, 0)
+                vals[b, :m] = data[b, off:off + m]
+            else:
+                m = max(n + off, 0)
+                vals[b, -off:] = data[b, :m]
+        return BandedOperator(offsets, vals, shape=A.shape)
+
+
+class ELLOperator(LinearOperator):
+    """General sparse operator on the sliced-ELL layout
+    (``ops/windowed_ell.py::SlicedELL``, built straight from CSR by
+    ``from_csr``): ``matmat`` runs the hand-written kernel of
+    ``csrc/windowed_ell.cu`` on the card and its plain version on the CPU,
+    in the operator's f32 or f64. ``from_scipy`` also lays out ``A^T``
+    (the reference's ``colsT``/``valsT``), so ``rmatmat`` runs the same
+    kernel, and takes the diagonal from the CSR. Square matrices only."""
+
+    _FIELDS = WE.SlicedELL._fields
+
+    def __init__(self, lay, layT, diag):
+        super().__init__()
+        for name in self._FIELDS:
+            self.register_buffer(name, _as_tensor(getattr(lay, name)))
+            self.register_buffer(name + "_t", _as_tensor(getattr(layT, name)))
+        self.register_buffer("diag", _as_tensor(diag))
+        n = self.rowlen.shape[0]
+        self.shape = (n, n)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    def _product(self, suffix, X):
+        arrays = [getattr(self, name + suffix) for name in self._FIELDS]
+        Y = WE.matmat(*arrays, X.to(self.dtype).contiguous())
+        return Y.to(_result_dtype(self.dtype, X))
+
+    def matmat(self, X):
+        return self._product("", X)
+
+    def rmatmat(self, X):
+        return self._product("_t", X)
+
+    def diagonal(self):
+        return self.diag
+
+    @staticmethod
+    def from_scipy(A) -> "ELLOperator":
+        import scipy.sparse as sp
+
+        dt = _value_dtype(A.dtype, "ELLOperator")
+        A = sp.csr_matrix(A)
+        if A.shape[0] != A.shape[1]:
+            raise NotImplementedError(
+                f"a rectangular ELLOperator ({A.shape}) is not ported to "
+                "primme_tpu_torch yet (ROADMAP Queue A: svds)")
+        return ELLOperator(WE.from_csr(A, dt), WE.from_csr(A.T.tocsr(), dt),
+                           A.diagonal().astype(dt))
+
+
+class BlockELLOperator(LinearOperator):
+    """Block-ELLPACK (BSR-style) sparse operator: ``b x b`` dense blocks,
+    ``w`` a block row. ``bcols [nb, w]`` holds block columns (padding
+    points at block 0 with zero blocks), ``bvals [nb, w, b, b]``. The
+    product gathers the ``b``-row panels of X and applies the blocks as one
+    batched product (``einsum`` over ``[nb, w, b, b]`` by ``[nb, w, b,
+    k]``; TF32 off), in plain PyTorch, as the reference leaves it to
+    XLA's einsum."""
+
+    def __init__(self, bcols, bvals, shape, bcolsT=None, bvalsT=None):
+        super().__init__()
+        bvals = _as_tensor(bvals)
+        _value_dtype(bvals.dtype, "BlockELLOperator")
+        self.register_buffer("bcols", _as_tensor(bcols).to(torch.int64))
+        self.register_buffer("bvals", bvals)
+        self.register_buffer("bcolsT", None if bcolsT is None
+                             else _as_tensor(bcolsT).to(torch.int64))
+        self.register_buffer("bvalsT", None if bvalsT is None
+                             else _as_tensor(bvalsT))
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.bvals.dtype
+
+    @staticmethod
+    def _product(bcols, bvals, X, nrows):
+        nb, w, b, _ = bvals.shape
+        k = X.shape[1]
+        ncb = -(-X.shape[0] // b)           # column blocks of the matrix
+        Xb = torch.nn.functional.pad(X, (0, 0, 0, ncb * b - X.shape[0]))
+        G = Xb.reshape(ncb, b, k)[bcols]                  # [nb, w, b, k]
+        Y = torch.einsum("iwab,iwbk->iak", bvals, G)      # batched blocks
+        return Y.reshape(nb * b, k)[:nrows]
+
+    def matmat(self, X):
+        return self._product(self.bcols, self.bvals, X.to(self.dtype),
+                           self.shape[0]).to(_result_dtype(self.dtype, X))
+
+    def rmatmat(self, X):
+        if self.bcolsT is None:
+            return super().rmatmat(X)
+        return self._product(self.bcolsT, self.bvalsT, X.to(self.dtype),
+                           self.shape[1]).to(_result_dtype(self.dtype, X))
+
+    def diagonal(self):
+        nb, w, b, _ = self.bvals.shape
+        own = self.bcols == torch.arange(nb, device=self.bcols.device)[:, None]
+        dblk = torch.diagonal(self.bvals, dim1=2, dim2=3)    # [nb, w, b]
+        d = torch.where(own[:, :, None], dblk, 0).sum(dim=1)
+        return d.reshape(nb * b)[:self.shape[0]]
+
+    @staticmethod
+    def _pack(A, b):
+        import scipy.sparse as sp
+
+        m, n = A.shape
+        nbr, nbc = -(-m // b), -(-n // b)
+        A = sp.csr_matrix(A).copy()
+        A.resize(nbr * b, nbc * b)  # zero-pad to block multiples
+        Absr = sp.bsr_matrix(A, blocksize=(b, b))
+        Absr.sort_indices()
+        rows_nnz = np.diff(Absr.indptr)
+        w = max(int(rows_nnz.max()), 1)
+        bcols = np.zeros((nbr, w), dtype=np.int32)
+        bvals = np.zeros((nbr, w, b, b), dtype=Absr.dtype)
+        rows = np.repeat(np.arange(nbr), rows_nnz)
+        offs = np.arange(len(Absr.indices)) - np.repeat(
+            Absr.indptr[:-1], rows_nnz)
+        bcols[rows, offs] = Absr.indices
+        bvals[rows, offs] = Absr.data
+        return bcols, bvals
+
+    @staticmethod
+    def from_scipy(A, block_size: int = 8,
+                   with_transpose: bool = False) -> "BlockELLOperator":
+        import scipy.sparse as sp
+
+        _value_dtype(A.dtype, "BlockELLOperator")
+        A = sp.csr_matrix(A)
+        bcols, bvals = BlockELLOperator._pack(A, block_size)
+        bcolsT = bvalsT = None
+        if with_transpose or A.shape[0] != A.shape[1]:
+            bcolsT, bvalsT = BlockELLOperator._pack(A.T.tocsr(), block_size)
+        return BlockELLOperator(bcols, bvals, A.shape, bcolsT, bvalsT)
+
+
+class FunctionOperator(LinearOperator):
+    """A function ``f: [n, k] -> [m, k]`` on tensors (and ``rf`` for the
+    adjoint) as an operator. It holds no array, so it states its device:
+    None means the card, and raises when there is none; ``.to(device)``
+    moves it."""
+
+    def __init__(self, f: Callable, shape, dtype, rf: Optional[Callable] = None,
+                 diag: Optional[torch.Tensor] = None, device: Any = None):
+        super().__init__()
+        self._f, self._rf = f, rf
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.register_buffer("_anchor", torch.empty(
+            0, dtype=dtype,
+            device=default_device(device, "FunctionOperator")),
+            persistent=False)
+        self.register_buffer("_diag", None if diag is None
+                             else _as_tensor(diag))
+
+    def matmat(self, X):
+        return self._f(X)
+
+    def rmatmat(self, X):
+        if self._rf is not None:
+            return self._rf(X)
+        return super().rmatmat(X)
+
+    def diagonal(self):
+        return self._diag
+
+
+def _on_host(fn, rows: int, dtype: np.dtype) -> Callable:
+    """``fn`` on numpy blocks as a function on tensors: the block goes to
+    the host, ``fn`` runs there and its result comes back to the block's
+    device in ``dtype`` (the reference's ``jax.pure_callback``)."""
+    def call(X):
+        Y = np.asarray(fn(X.detach().cpu().numpy()), dtype=dtype)
+        return torch.from_numpy(
+            np.ascontiguousarray(Y.reshape(rows, X.shape[1]))).to(X.device)
+    return call
+
+
+class SumOperator(LinearOperator):
+    """``y = sum_i A_i x``: the DIA+ELL hybrid's banded part plus its
+    scattered remainder (:func:`dia_ell_hybrid`)."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = nn.ModuleList(ops)
+        self.shape = self.ops[0].shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ops[0].dtype
+
+    def matmat(self, X):
+        y = self.ops[0].matmat(X)
+        for op in self.ops[1:]:
+            y = y + op.matmat(X)
+        return y
+
+    def rmatmat(self, X):
+        y = self.ops[0].rmatmat(X)
+        for op in self.ops[1:]:
+            y = y + op.rmatmat(X)
+        return y
+
+    def diagonal(self):
+        # a BandedOperator without a 0-offset stores a zero diagonal
+        total = None
+        for op in self.ops:
+            d = op.diagonal()
+            if d is None and isinstance(op, BandedOperator):
+                continue
+            if d is None:
+                return None
+            total = d if total is None else total + d
+        return total
+
+
 def aslinearoperator(A: Any) -> LinearOperator:
-    """Coerce a port :class:`LinearOperator` (passed through), a numpy or
-    torch 2-D array (a :class:`DenseOperator`) or a scipy sparse matrix of
-    at most 8192 rows and columns and 256 MB dense (densified, as the
-    reference does). The reference's other branches (a larger scipy sparse
-    matrix becomes an ``ELLOperator``, a scipy ``LinearOperator`` a
-    ``FunctionOperator``) are not ported yet and raise, naming themselves."""
+    """Coerce a port :class:`LinearOperator` (passed through), a scipy
+    sparse matrix (densified up to 8192 rows and columns and 256 MB, as
+    the reference does, else an :class:`ELLOperator`), a scipy
+    ``LinearOperator`` (a host :class:`FunctionOperator`) or a numpy or
+    torch 2-D array (a :class:`DenseOperator`). What it builds lies on the
+    CPU; ``eigsh`` moves it. A ``FunctionOperator`` applies the scipy
+    operator on the host whatever its device."""
     if isinstance(A, LinearOperator):
         return A
     import scipy.sparse as sp
@@ -329,39 +635,64 @@ def aslinearoperator(A: Any) -> LinearOperator:
         nr, mc = A.shape
         if max(nr, mc) <= 8192 and nr * mc * A.dtype.itemsize <= (256 << 20):
             return DenseOperator(A.toarray())
-        raise _todo("ELLOperator (general sparse input)")
+        return ELLOperator.from_scipy(A)
     if isinstance(A, spla.LinearOperator):
-        raise _todo("FunctionOperator (scipy LinearOperator input)")
+        dt = _value_dtype(A.dtype, "FunctionOperator")
+        return FunctionOperator(_on_host(A.matmat, A.shape[0], dt), A.shape,
+                                getattr(torch, dt.name),
+                                rf=_on_host(A.rmatmat, A.shape[1], dt),
+                                device="cpu")
     return DenseOperator(A)
 
 
-def _dia_ell_accepts(A, max_diags: int = 256, min_fill: float = 0.25,
-                     min_coverage: float = 0.5) -> bool:
-    """Acceptance test of the reference's ``dia_ell_hybrid``: would the
-    DIA+ELL split be taken?"""
+def dia_ell_hybrid(A, max_diags: int = 256, min_fill: float = 0.25,
+                   min_coverage: float = 0.5):
+    """Split a sparse matrix into dense-ish diagonals (a
+    :class:`BandedOperator`) plus a scattered remainder (an
+    :class:`ELLOperator`): offsets whose occupancy is at least ``min_fill``
+    (and the main diagonal) become the banded part; the split is taken when
+    it covers at least ``min_coverage`` of the nnz. Returns a
+    :class:`SumOperator`, the banded part alone when nothing remains, or
+    None (the reference's rule)."""
     import scipy.sparse as sp
 
     A = sp.csr_matrix(A)
     n = A.shape[0]
     if A.shape[0] != A.shape[1] or A.nnz == 0:
-        return False
+        return None
     C = A.tocoo()
-    offs_all, counts = np.unique(C.col - C.row, return_counts=True)
+    d = C.col - C.row
+    offs_all, inv, counts = np.unique(d, return_inverse=True,
+                                      return_counts=True)
     good = counts / n >= min_fill
-    good |= offs_all == 0
+    good |= offs_all == 0       # the main diagonal keeps diagonal() exact
     if good.sum() == 0 or good.sum() > max_diags:
-        return False
-    return counts[good].sum() >= min_coverage * A.nnz
+        return None
+    if counts[good].sum() < min_coverage * A.nnz:
+        return None
+    sel = good[inv]
+    offsets = tuple(int(o) for o in offs_all[good])
+    vals = np.zeros((len(offsets), n), dtype=A.dtype)
+    band_of = np.searchsorted(offs_all[good], d[sel])
+    vals[band_of, C.row[sel]] = C.data[sel]
+    banded = BandedOperator(offsets, vals, shape=A.shape)
+    if int((~sel).sum()) == 0:
+        return banded
+    rem = sp.coo_matrix((C.data[~sel], (C.row[~sel], C.col[~sel])),
+                        shape=A.shape)
+    return SumOperator([banded, ELLOperator.from_scipy(rem)])
 
 
 def rcm_banded(A, max_diags: int = 256, fill_factor: float = 32.0,
                mem_cap_bytes: int = 1 << 30):
     """The reference's sparse format chooser (``operators.rcm_banded``):
-    the same decisions in the same order on the natural and the reverse
-    Cuthill-McKee ordering. Returns ``(operator, perm-or-None)`` or None;
-    a non-None perm means the operator acts on ``P A P^T``. Raises
-    ``NotImplementedError`` where the reference would choose a format the
-    port does not have yet."""
+    the same decisions in the same order, with the same thresholds. The
+    banded (DIA) layout on the natural ordering, then on the reverse
+    Cuthill-McKee ordering; the DIA+ELL hybrid on each; the windowed-slot
+    ELL layout (f32 or f64, n >= 4096) of the RCM ordering; BlockELL with
+    8 x 8 or 4 x 4 tiles. Returns ``(operator, perm-or-None)``, or None
+    (the caller then uses :func:`aslinearoperator`); a non-None perm means
+    the operator acts on ``P A P^T``."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -378,14 +709,17 @@ def rcm_banded(A, max_diags: int = 256, fill_factor: float = 32.0,
                 and len(offs) * n * M.dtype.itemsize <= mem_cap_bytes)
 
     if _accept(A):
-        raise _todo("BandedOperator (DIA layout)")
+        return BandedOperator.from_scipy(A.todia()), None
     perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
     Ap = A[perm][:, perm]
     if _accept(Ap):
-        raise _todo("BandedOperator (DIA layout after RCM)")
-    if _dia_ell_accepts(A, max_diags=max_diags) \
-            or _dia_ell_accepts(Ap, max_diags=max_diags):
-        raise _todo("SumOperator (DIA+ELL hybrid)")
+        return BandedOperator.from_scipy(Ap.todia()), perm
+    h = dia_ell_hybrid(A, max_diags=max_diags)
+    if h is not None:
+        return h, None
+    hp = dia_ell_hybrid(Ap, max_diags=max_diags)
+    if hp is not None:
+        return hp, perm
     if A.dtype in (np.float32, np.float64) and n >= 4096:
         won = WindowedELLOperator.from_scipy(Ap)
         if won is not None:
@@ -396,5 +730,5 @@ def rcm_banded(A, max_diags: int = 256, fill_factor: float = 32.0,
             (Cp.row // b).astype(np.int64) * (-(-n // b)) + Cp.col // b))
         stored = nblk * b * b
         if stored <= 6.0 * A.nnz and stored * A.dtype.itemsize <= mem_cap_bytes:
-            raise _todo("BlockELLOperator")
+            return BlockELLOperator.from_scipy(Ap, block_size=b), perm
     return None

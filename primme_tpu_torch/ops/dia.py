@@ -1,0 +1,193 @@
+"""The DIA (diagonal storage) product of a banded matrix on an ``[n, k]``
+block. The matrix is ``B`` diagonals: ``offsets`` (Python ints, in the
+stored order) and ``vals [B, n]`` row-indexed, ``vals[b, i] = A[i, i +
+offsets[b]]`` (the ends of a diagonal are padding):
+
+* matmat: ``y_i = sum_b vals[b, i] * x_{i + off_b}``;
+* rmatmat (``A^T``, real types): ``y_i = sum_b vals[b, i - off_b] *
+  x_{i - off_b}``;
+
+a term whose row lies outside ``[0, n)`` counting as 0.
+
+* :func:`matmat_reference`, :func:`rmatmat_reference` — plain PyTorch, the
+  reference's loop (``primme_tpu/operators.py::BandedOperator``): ``out =
+  0``, then ``out = out + v * shift(X)`` for each offset in stored order;
+* :func:`matmat` — the kernel wrapper (``adjoint=True`` for rmatmat): on a
+  CUDA tensor it launches the hand-written Hopper kernel (``csrc/dia.cu``)
+  or raises; on a CPU tensor, where no kernel exists, it runs the plain
+  version;
+* :func:`plan` — the kernel's launch: columns of a thread, load width and
+  grid.
+
+The kernel takes X's row stride, so a column slice of a wider block needs
+no copy; its columns must be adjacent. ``LAUNCHES`` counts the wrapper's
+kernel launches, ``KERNEL_LAUNCHES`` the same by entry point and
+``VECTOR_LAUNCHES`` those of them that loaded X in vectors (``vw > 1``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
+
+import torch
+
+from .stencil3d import column_group, vector_width
+
+LAUNCHES = 0         # kernel launches made by matmat
+KERNEL_LAUNCHES = {"dia_f32": 0, "dia_f64": 0}
+VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
+_ENTRY = {torch.float32: "dia_f32", torch.float64: "dia_f64"}
+THREADS = 256        # rows of a block: the kernel's kThreads
+MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y: column groups
+
+
+def _shift_rows(X, off):
+    """Rows ``i + off`` of X for i in [0, n), zero rows where that lies
+    outside (the reference's ``jnp.pad`` of a slice)."""
+    n = X.shape[0]
+    m = max(0, n - abs(off))            # rows that stay inside
+    zeros = X.new_zeros((n - m, X.shape[1]))
+    if off >= 0:
+        return torch.cat([X[off:off + m], zeros])
+    return torch.cat([zeros, X[:m]])
+
+
+def _check(vals, offsets, X):
+    if vals.ndim != 2 or vals.shape[0] != len(offsets):
+        raise ValueError(f"vals shape {tuple(vals.shape)} is not "
+                         f"[{len(offsets)}, n] for {len(offsets)} offsets")
+    if X.ndim != 2 or X.shape[0] != vals.shape[1]:
+        raise ValueError(f"X shape {tuple(X.shape)} is not "
+                         f"[{vals.shape[1]}, k]")
+
+
+def matmat_reference(vals, offsets: Sequence[int], X):
+    """Plain PyTorch ``Y = A X`` in the type of ``vals``: for each offset in
+    stored order ``out = out + v * shift(X)``, each product and sum rounded
+    once."""
+    _check(vals, offsets, X)
+    X = X.to(vals.dtype)
+    out = torch.zeros((X.shape[0], X.shape[1]), dtype=vals.dtype,
+                      device=X.device)
+    for b, off in enumerate(offsets):
+        xs = X if off == 0 else _shift_rows(X, off)
+        out = out + vals[b][:, None] * xs
+    return out
+
+
+def rmatmat_reference(vals, offsets: Sequence[int], X):
+    """Plain PyTorch ``Y = A^T X`` (real types): the diagonal at ``off``
+    adds ``vals[b, i - off] * x_{i - off}``, both shifted with zeros, for
+    each offset in stored order."""
+    _check(vals, offsets, X)
+    X = X.to(vals.dtype)
+    out = torch.zeros((X.shape[0], X.shape[1]), dtype=vals.dtype,
+                      device=X.device)
+    for b, off in enumerate(offsets):
+        if off == 0:
+            out = out + vals[b][:, None] * X
+        else:
+            vs = _shift_rows(vals[b][:, None], -off)
+            out = out + vs * _shift_rows(X, -off)
+    return out
+
+
+class Plan(NamedTuple):
+    kc: int        # columns of a thread (divides k)
+    vw: int        # elements of X per load; 1 is the scalar path
+    grid: tuple    # (blocks of THREADS rows, column groups k / kc)
+
+
+def plan(n, k, ldx, align, size) -> Plan:
+    """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
+    elements apart at an address with ``align = data_ptr % 16``, ``size``
+    bytes an element: one thread a (row, group of ``kc`` columns), X loaded
+    :func:`vector_width` at a time, blocks of ``THREADS`` rows. Raises
+    ValueError on a shape the kernel does not take."""
+    if n < 1 or k < 1 or n >= 2 ** 31 or k >= 2 ** 31:
+        raise ValueError(f"an [{n}, {k}] block is outside the kernel's range "
+                         "(1 <= n, k < 2**31)")
+    kc = column_group(k)
+    groups = k // kc
+    if groups > MAX_GRID_Y:
+        raise ValueError(f"{groups} column groups of {kc}: the grid takes "
+                         f"{MAX_GRID_Y}")
+    return Plan(kc, vector_width(kc, ldx, align, size),
+                (-(-n // THREADS), groups))
+
+
+def card_plan(X) -> Plan:
+    """The plan :func:`matmat` launches the CUDA tensor X with."""
+    return plan(X.shape[0], X.shape[1], max(X.stride(0), 1),
+                X.data_ptr() % 16, X.element_size())
+
+
+def _dia_fn(entry):
+    """The C entry point ``entry`` of ``csrc/dia.cu``."""
+    from . import build
+    fn = getattr(build.load("dia"), entry)
+    if fn.argtypes is None:
+        # vals, offs; B; X; ldx; Y; n, k, adjoint, kc, vw, gx, gy; stream
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                               ctypes.c_longlong,
+                                               ctypes.c_void_p] \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def matmat(vals, offs, X, adjoint=False):
+    """``Y = A X`` (``adjoint``: ``A^T X``) for an ``[n, k]`` block in the
+    type of ``vals`` (f32 or f64), X of the same type, the offsets an i64
+    tensor ``offs [B]`` on X's device in stored order. CUDA tensors: the
+    hand-written kernel of ``csrc/dia.cu`` on the current stream, launched
+    as :func:`plan` says (raises on a bad argument or a refused launch).
+    CPU tensors: the plain version."""
+    global LAUNCHES
+    if X.device.type == "cpu":
+        return (rmatmat_reference if adjoint else matmat_reference)(
+            vals, offs.tolist(), X)
+    if X.device.type != "cuda":
+        raise ValueError(f"dia matmat: unsupported device {X.device}")
+    if tuple(offs.shape) != (vals.shape[0],):
+        raise ValueError(f"offs shape {tuple(offs.shape)} != "
+                         f"({vals.shape[0]},)")
+    _check(vals, range(vals.shape[0]), X)
+    if vals.dtype not in _ENTRY:
+        raise TypeError(f"vals has dtype {vals.dtype}, expected float32 or "
+                        "float64")
+    for name, t, dt in (("vals", vals, vals.dtype), ("X", X, vals.dtype),
+                        ("offs", offs, torch.int64)):
+        if t.device != X.device:
+            raise ValueError(f"{name} is on {t.device}, X on {X.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dt}")
+    if not vals.is_contiguous() or not offs.is_contiguous():
+        raise ValueError("vals and offs must be contiguous")
+    n, k = X.shape
+    ldx = X.stride(0)
+    if k > 1 and X.stride(1) != 1:
+        raise ValueError("X's columns are not adjacent (stride "
+                         f"{tuple(X.stride())})")
+    if ldx < k:
+        raise ValueError(f"X's rows overlap (row stride {ldx} < {k} columns)")
+    Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
+    if Y.numel() == 0:
+        return Y
+    if vals.shape[0] == 0:
+        return Y.zero_()
+    p = card_plan(X)
+    entry = _ENTRY[X.dtype]
+    fn = _dia_fn(entry)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(vals.data_ptr(), offs.data_ptr(), vals.shape[0], X.data_ptr(),
+                max(ldx, 1), Y.data_ptr(), n, k, int(adjoint), p.kc, p.vw,
+                *p.grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    KERNEL_LAUNCHES[entry] += 1
+    VECTOR_LAUNCHES[entry] += p.vw > 1
+    return Y

@@ -9,7 +9,8 @@ grid neighbours)`` on an ``nx x ny x nz`` grid with Dirichlet edges, for an
   hand-written Hopper kernel (``csrc/stencil3d.cu``) or raises; on a CPU
   tensor, where no kernel exists, it runs :func:`matmat_reference`;
 * :func:`plan` — the kernel's launch: columns a point holds, load width,
-  tile and grid; :func:`launch` — the kernel under a given plan.
+  tile and grid (split into several launches where it passes CUDA's
+  limits); :func:`launch` — the kernel under a given plan.
 
 The kernel takes X's row stride, so a column slice of a wider block needs
 no copy; its columns must be adjacent. ``LAUNCHES`` counts the wrapper's
@@ -83,6 +84,13 @@ class Plan(NamedTuple):
     tiles_j: int   # tiles along j
     groups: int    # column groups, k / kc
     grid: tuple    # (tiles along l, tiles along j, planes x groups)
+    launches: tuple  # ((j tile, pair) offsets, (gx, gy, gz)) of each launch
+
+
+def _pieces(total):
+    """``[0, total)`` in pieces of at most ``MAX_GRID_YZ``: (start, size)."""
+    return [(a, min(MAX_GRID_YZ, total - a))
+            for a in range(0, total, MAX_GRID_YZ)]
 
 
 def plan(nx, ny, nz, k, ldx, align, size, kc=None) -> Plan:
@@ -92,8 +100,10 @@ def plan(nx, ny, nz, k, ldx, align, size, kc=None) -> Plan:
     :func:`column_group`), loaded :func:`vector_width` at a time; a point
     wider than 16 bytes shared by threads, 16 bytes each; tiles of ``tl x
     tj`` points; a grid of (l tile, j tile, plane x column group), one
-    block each. Raises ValueError on a shape the kernel does not take,
-    among them a grid whose last two extents pass CUDA's 65535."""
+    block each. Where the grid's last two extents pass CUDA's 65535, it
+    runs as several launches, each over at most 65535 j tiles and 65535
+    (plane, column group) pairs from the offsets it is given; otherwise as
+    one. Raises ValueError on a shape the kernel does not take."""
     if min(nx, ny, nz, k) < 1 or max(nx, ny, nz) > MAX_DIM or k >= 2 ** 31:
         raise ValueError(f"grid {nx}x{ny}x{nz} at k={k} is outside the "
                          f"kernel's range (1..{MAX_DIM} a side, k < 2**31)")
@@ -105,11 +115,14 @@ def plan(nx, ny, nz, k, ldx, align, size, kc=None) -> Plan:
     tj = min(MAX_TJ, 1 << (ny - 1).bit_length())
     tl = TILE_L // max(1, kc * size // 16)
     tiles_l, tiles_j, groups = -(-nz // tl), -(-ny // tj), k // kc
-    if tiles_j > MAX_GRID_YZ or nx * groups > MAX_GRID_YZ:
-        raise ValueError(f"{tiles_j} j tiles and {nx * groups} planes of "
-                         f"column groups: the grid takes {MAX_GRID_YZ}")
+    if nx * groups >= 2 ** 31:
+        raise ValueError(f"{nx * groups} (plane, column group) pairs are "
+                         "outside the kernel's range (< 2**31)")
+    launches = tuple(((y0, z0), (tiles_l, gy, gz))
+                     for y0, gy in _pieces(tiles_j)
+                     for z0, gz in _pieces(nx * groups))
     return Plan(kc, vw, tj, tl, tiles_j, groups,
-                (tiles_l, tiles_j, nx * groups))
+                (tiles_l, tiles_j, nx * groups), launches)
 
 
 def _stencil_fn(entry, scale_type):
@@ -117,9 +130,10 @@ def _stencil_fn(entry, scale_type):
     from . import build
     fn = getattr(build.load("stencil3d"), entry)
     if fn.argtypes is None:
-        # X, Y; nx, ny, nz, k; ldx; scale; kc, vw, tj; grid x, y, z; stream
+        # X, Y; nx, ny, nz, k; ldx; scale; kc, vw, tj; grid x, y, z;
+        # j tile and pair offsets; stream
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
-            + [ctypes.c_longlong, scale_type] + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong, scale_type] + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -133,17 +147,19 @@ def card_plan(X, nx, ny, nz) -> Plan:
 
 def launch(X, Y, nx, ny, nz, scale, p: Plan):
     """Launches the kernel of X's dtype on the current stream under plan
-    ``p``: ``Y = A X`` into the contiguous ``[n, k]`` Y. Counts nothing
-    (:func:`matmat` does); raises when the launch is refused."""
+    ``p`` (each of its launches): ``Y = A X`` into the contiguous ``[n, k]``
+    Y. Counts nothing (:func:`matmat` does); raises when a launch is
+    refused."""
     entry, scale_type = _ENTRY[X.dtype]
     fn = _stencil_fn(entry, scale_type)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(X.data_ptr(), Y.data_ptr(), nx, ny, nz, X.shape[1],
-                max(X.stride(0), 1), float(scale), p.kc, p.vw, p.tj, *p.grid,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        for (y0, z0), grid in p.launches:
+            rc = fn(X.data_ptr(), Y.data_ptr(), nx, ny, nz, X.shape[1],
+                    max(X.stride(0), 1), float(scale), p.kc, p.vw, p.tj,
+                    *grid, y0, z0, stream)
+            if rc != 0:
+                raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
 def matmat(X, nx, ny, nz, scale=1.0):
@@ -151,7 +167,8 @@ def matmat(X, nx, ny, nz, scale=1.0):
     X's dtype (f32 or f64). CUDA tensors: the hand-written kernel of
     ``csrc/stencil3d.cu`` on the current stream, launched as :func:`plan`
     says (raises on a bad argument, a refused shape or a refused launch).
-    CPU tensors: :func:`matmat_reference`."""
+    CPU tensors: :func:`matmat_reference`. ``LAUNCHES`` counts one a call,
+    however many launches its plan makes."""
     global LAUNCHES
     if X.device.type == "cpu":
         return matmat_reference(X, nx, ny, nz, scale)

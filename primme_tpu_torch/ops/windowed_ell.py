@@ -13,7 +13,9 @@ worst row of each diagonal bin, summed over the bins), so the card never
 reads this layout: :func:`compact` turns it into a warp-sliced ELL layout
 without padding slots (:class:`SlicedELL`), which keeps the rows in the
 packed order and each row's non-zero slots in slot order with their
-absolute columns. Two functions apply it:
+absolute columns. :func:`from_csr` builds the same layout straight from a
+CSR matrix (the general sparse format, ``ELLOperator``). Two functions
+apply it:
 
 * :func:`matmat_reference` — plain PyTorch, the same terms summed in the
   same order as the kernel;
@@ -227,6 +229,39 @@ def compact(scal, offs, vals, meta) -> SlicedELL:
     cols[pos] = col
     cvals[pos] = vals.reshape(-1)[idx]
     return SlicedELL(slice_ptr, rowlen[:n].astype(np.int32), cols, cvals)
+
+
+def from_csr(A, dtype) -> SlicedELL:
+    """The :class:`SlicedELL` layout of a square scipy sparse matrix,
+    straight from its CSR form: a row's entries are its stored entries in
+    CSR order (an explicit zero stays an entry), with values of the numpy
+    type ``dtype``. Rows may be empty, and so may whole slices (width 0)
+    and the matrix. Vectorised: entry ``j`` of row ``r`` lands at
+    ``slice_ptr[r // 32] + 32 j + r % 32``."""
+    import scipy.sparse as sp
+
+    C = sp.csr_matrix(A)
+    n = C.shape[0]
+    if C.shape[0] != C.shape[1]:
+        raise ValueError(f"a sliced-ELL layout of a {C.shape} matrix: square "
+                         "only")
+    indptr = C.indptr.astype(np.int64)
+    rowlen = np.diff(indptr)
+    nsl = -(-n // SLICE)
+    padded = np.zeros(nsl * SLICE, np.int64)
+    padded[:n] = rowlen
+    slice_ptr = np.zeros(nsl + 1, np.int64)
+    np.cumsum(SLICE * padded.reshape(nsl, SLICE).max(axis=1, initial=0),
+              out=slice_ptr[1:])
+    rows = np.repeat(np.arange(n, dtype=np.int64), rowlen)
+    rank = np.arange(C.nnz, dtype=np.int64) - indptr[rows]
+    pos = slice_ptr[rows >> 5] + SLICE * rank + (rows & (SLICE - 1))
+    E = int(slice_ptr[-1])
+    cols = np.zeros(E, np.int32)
+    vals = np.zeros(E, dtype)
+    cols[pos] = C.indices
+    vals[pos] = C.data
+    return SlicedELL(slice_ptr, rowlen.astype(np.int32), cols, vals)
 
 
 def _check_layout(slice_ptr, rowlen, cols, vals):

@@ -1,7 +1,7 @@
-"""The port's entry points refuse what this slice does not carry, in the
-places the reference would have taken another path: the format chooser
-never substitutes a format, and ``eigsh`` raises NotImplementedError for
-the arguments that are not ported."""
+"""The port's entry points take the reference's path or refuse by name:
+the format chooser picks the reference's format (never a substitute), and
+``eigsh`` raises NotImplementedError for the arguments that are not
+ported."""
 
 import numpy as np
 import pytest
@@ -33,8 +33,16 @@ def _windowed_case():
 
 
 def test_chooser_names_the_unported_banded_format():
+    # the banded branch, once refused by name, is the reference's
+    from primme_tpu.operators import rcm_banded as jrcm
+
+    jop, jperm = jrcm(_lap1d(5000))
+    top, tperm = rcm_banded(_lap1d(5000))
+    assert isinstance(top, ptt.BandedOperator) and tperm is None is jperm
+    assert top.offsets == jop.offsets
+    assert np.array_equal(top.vals.numpy(), np.asarray(jop.vals))
     with pytest.raises(NotImplementedError, match="BandedOperator"):
-        rcm_banded(_lap1d(5000))
+        rcm_banded(_lap1d(5000).astype(np.complex64))
 
 
 def test_chooser_picks_windowed_like_the_reference():
@@ -50,27 +58,31 @@ def test_chooser_picks_windowed_like_the_reference():
 
 def test_aslinearoperator_passes_port_operators_only():
     # a port operator passes through; small dense and sparse inputs become
-    # a DenseOperator (test_torch_dense_ops.py); the unported branches
-    # raise, naming themselves
+    # a DenseOperator (test_torch_dense_ops.py), a large sparse matrix an
+    # ELLOperator and a scipy LinearOperator a FunctionOperator, as in the
+    # reference
     import scipy.sparse.linalg as spla
 
     op, _ = rcm_banded(_windowed_case())
     assert aslinearoperator(op) is op
     assert isinstance(aslinearoperator(_lap1d(100)), ptt.DenseOperator)
     assert isinstance(aslinearoperator(np.eye(4)), ptt.DenseOperator)
-    with pytest.raises(NotImplementedError, match="ELLOperator"):
-        aslinearoperator(_lap1d(9000))
-    with pytest.raises(NotImplementedError, match="FunctionOperator"):
-        aslinearoperator(spla.aslinearoperator(np.eye(4)))
+    assert isinstance(aslinearoperator(_lap1d(9000)), ptt.ELLOperator)
+    assert isinstance(aslinearoperator(spla.aslinearoperator(np.eye(4))),
+                      ptt.FunctionOperator)
 
 
 @pytest.mark.parametrize("kwargs", [
     {"M": "x"}, {"mesh": "x"}, {"monitor": print}, {"return_history": True},
     {"time_breakdown": True}, {"profile": "pt_"}, {"lock": np.ones(4096)},
     {"dtype": torch.bfloat16}, {"method": "PRIMME_DYNAMIC"},
-    {"projection": "refined"}])
+    {"projection": "refined"}, {"printLevel": 2}, {"segment_outer": 5},
+    {"monitor_inner": True}])
 def test_eigsh_refuses_unported_arguments(kwargs):
-    with pytest.raises(NotImplementedError):
+    name = next(iter(kwargs))
+    match = name if name in ("printLevel", "segment_outer",
+                             "monitor_inner") else None
+    with pytest.raises(NotImplementedError, match=match):
         ptt.eigsh(_windowed_case(), k=2, which="SA", device="cpu",
                   maxMatvecs=50, raise_for_unconverged=False, **kwargs)
 

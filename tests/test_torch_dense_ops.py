@@ -78,16 +78,20 @@ def test_aslinearoperator_dense_branches(kind):
 
 def test_aslinearoperator_refuses_what_it_does_not_port():
     # a 1-D array is no operator (the reference's ValueError); a large
-    # sparse matrix and a scipy LinearOperator name the unported format
+    # sparse matrix is an ELLOperator and a scipy LinearOperator a
+    # FunctionOperator, as in the reference; complex values name the format
     import scipy.sparse.linalg as spla
 
     with pytest.raises(ValueError, match="2-D"):
         ptt.aslinearoperator(np.ones(5))
+    big = sp.identity(8193, format="csr", dtype=np.float32)
+    assert isinstance(ptt.aslinearoperator(big), ptt.ELLOperator)
     with pytest.raises(NotImplementedError, match="ELLOperator"):
-        ptt.aslinearoperator(sp.identity(8193, format="csr",
-                                         dtype=np.float32))
+        ptt.aslinearoperator(big.astype(np.complex64))
+    assert isinstance(ptt.aslinearoperator(spla.aslinearoperator(np.eye(3))),
+                      ptt.FunctionOperator)
     with pytest.raises(NotImplementedError, match="FunctionOperator"):
-        ptt.aslinearoperator(spla.aslinearoperator(np.eye(3)))
+        ptt.aslinearoperator(spla.aslinearoperator(np.eye(3) * 1j))
 
 
 def test_dense_eigsh_on_cpu_finds_smallest():

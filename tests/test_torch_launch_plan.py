@@ -6,8 +6,10 @@ ops/jacobi.py::plan), checked on the CPU:
 * the stencil's tiles, column groups and planes cover every grid point
   and column exactly once: by enumeration on small odd grids, and by
   counting the extents on grids up to 1024^3;
-* the grid stays within CUDA's limits, and a grid past them is refused;
+* the grid stays within CUDA's limits in one launch, and a grid past them
+  runs as several launches that reach every block once;
 * the Jacobi grid reaches every element once, in one pass;
+* the DIA grid reaches every (row, column) once, one thread each;
 * a shape the kernels do not take raises.
 
 Exact checks: a plan is integer arithmetic."""
@@ -17,6 +19,7 @@ import itertools
 import numpy as np
 import pytest
 
+from primme_tpu_torch.ops import dia as DK
 from primme_tpu_torch.ops import jacobi as JK
 from primme_tpu_torch.ops import stencil3d as ST
 
@@ -148,16 +151,32 @@ def test_stencil_plan_picks_its_form():
         [1, 2, 4, 8]
 
 
+def _launch_cover(p):
+    """How often the launches of plan p reach each (j tile, pair) of its
+    grid; each launch within CUDA's limits."""
+    seen = np.zeros((p.grid[1], p.grid[2]), np.int32)
+    for (y0, z0), (gx, gy, gz) in p.launches:
+        assert gx == p.grid[0] and 1 <= gy <= 65535 and 1 <= gz <= 65535
+        seen[y0:y0 + gy, z0:z0 + gz] += 1
+    return seen
+
+
 def test_stencil_plan_refuses_tall_grids():
-    # j tiles or planes x column groups up to gridDim's 65535 launch; one
-    # more is refused
-    assert ST.plan(65535, 3, 3, 2, 2, 0, 4).grid == (1, 1, 65535)
-    assert ST.plan(1, 8 * 65535, 1, 1, 1, 0, 4).grid == (1, 65535, 1)
-    assert ST.plan(5041, 4, 4, 13, 13, 0, 8).grid == (1, 1, 65533)
-    for args in [(65536, 3, 3, 2), (1, 8 * 65535 + 1, 1, 1),
-                 (5042, 4, 4, 13), (8192, 2, 2, 24 * 3)]:
-        with pytest.raises(ValueError, match="grid takes"):
-            ST.plan(*args, args[3], 0, 4)
+    # j tiles or planes x column groups up to gridDim's 65535: one launch;
+    # past that, several launches that reach every (j tile, pair), and so
+    # (by the block map above) every point, exactly once
+    assert ST.plan(65535, 3, 3, 2, 2, 0, 4).launches == \
+        (((0, 0), (1, 1, 65535)),)
+    assert ST.plan(1, 8 * 65535, 1, 1, 1, 0, 4).launches == \
+        (((0, 0), (1, 65535, 1)),)
+    assert ST.plan(5041, 4, 4, 13, 13, 0, 8).launches == \
+        (((0, 0), (1, 1, 65533)),)
+    for args, nlaunch in [((65536, 3, 3, 2), 2), ((1, 8 * 65535 + 1, 1, 1), 2),
+                          ((5042, 4, 4, 13), 2), ((8192, 2, 2, 24 * 3), 2)]:
+        p = ST.plan(*args, args[3], 0, 4)
+        assert p.grid[1:] == (p.tiles_j, args[0] * p.groups)
+        assert len(p.launches) == nlaunch, (args, p.launches)
+        assert (_launch_cover(p) == 1).all(), args
 
 
 @pytest.mark.parametrize("size", SIZES)
@@ -168,6 +187,7 @@ def test_stencil_plan_within_cuda_limits(size):
         p = ST.plan(*grid, k, k, 0, size)
         assert 1 <= p.grid[0] <= 2 ** 31 - 1
         assert 1 <= p.grid[1] <= 65535 and 1 <= p.grid[2] <= 65535
+        assert p.launches == (((0, 0), p.grid),)
         assert 32 <= ST.TILE_L * p.tj <= 256 and p.tj in (1, 2, 4, 8)
 
 
@@ -208,3 +228,38 @@ def test_jacobi_plan():
     for n, k in [(0, 2), (4, 0), (2 ** 31 - 100, 1), (10, 2 ** 31)]:
         with pytest.raises(ValueError):
             JK.plan(n, k, max(k, 1), 0, 4)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_dia_plan_covers_each_element_once(size):
+    # thread (row r of block bx, group gy) takes row bx THREADS + r, columns
+    # [gy kc, gy kc + kc), loaded vw at a time
+    for n, k, ldx, align in [(1, 1, 1, 0), (300, 2, 2, 0), (300, 2, 24, 4),
+                             (257, 8, 8, 0), (513, 8, 9, 0), (100, 13, 13, 0),
+                             (64, 6, 6, 8)]:
+        if align % size:            # no tensor of this type lies there
+            continue
+        p = DK.plan(n, k, ldx, align, size)
+        assert p.kc == ST.column_group(k) and k % p.kc == 0
+        assert p.vw == _widest(p.kc, ldx, align, size)
+        gx, gy = p.grid
+        assert gx == -(-n // DK.THREADS) and gy == k // p.kc <= 65535
+        seen = np.zeros((gx * DK.THREADS, k), np.int32)
+        for bx, r, g in itertools.product(range(gx), range(DK.THREADS),
+                                          range(gy)):
+            seen[bx * DK.THREADS + r, g * p.kc:(g + 1) * p.kc] += 1
+        assert (seen[:n] == 1).all() and (seen[n:] <= 1).all(), (n, k)
+
+
+def test_dia_plan_limits():
+    # the solve's slices: scalar loads at an odd column offset of f32
+    assert DK.plan(262144, 2, 24, 4, 4).vw == 1
+    assert DK.plan(262144, 2, 24, 8, 4).vw == 2
+    assert DK.plan(262144, 8, 8, 0, 4) == DK.Plan(8, 4, (1024, 1))
+    assert DK.plan(2 ** 31 - 1, 1, 1, 0, 8).grid == (2 ** 23, 1)
+    assert DK.plan(5, 65535, 65535, 0, 4).grid == (1, 65535)
+    for args in [(0, 2), (4, 0), (2 ** 31, 1), (4, 2 ** 31)]:
+        with pytest.raises(ValueError, match="outside"):
+            DK.plan(*args, max(args[1], 1), 0, 4)
+    with pytest.raises(ValueError, match="grid takes"):
+        DK.plan(5, 65537, 65537, 0, 4)

@@ -106,6 +106,22 @@ def _launch(X, grid, p, scale=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", TYPES)
+def test_stencil_kernel_split_launches(card, dtype):
+    # grids past CUDA's 65535 planes (with column groups) or j tiles run as
+    # several launches from offsets; one call counts one launch
+    for grid, k in (((70000, 1, 32), 1), ((5042, 2, 3), 13),
+                    ((1, 8 * 65535 + 1, 1), 1)):
+        n = grid[0] * grid[1] * grid[2]
+        X = torch.randn((n, k), dtype=dtype, device=card)
+        assert len(ST.card_plan(X, *grid).launches) == 2
+        before = ST.LAUNCHES
+        y = ST.matmat(X, *grid, 0.5)
+        assert ST.LAUNCHES == before + 1
+        assert _same(y, ST.matmat_reference(X, *grid, 0.5)), grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("grid", GRIDS)
 def test_stencil_every_plan_on_small_grids(card, grid, dtype):
     # every column group, whatever the wrapper would pick: the edges are

@@ -7,7 +7,10 @@ Laplacian in random node order) in f32 and f64 and runs the smoke's
 sparse solve on it (k=10 smallest, JDQMR_ETol, block 2, basis 24, restart
 14; tol 1e-5 in f32, 1e-10 in f64). With ``--headline``: ``bench.py``'s
 solve instead, the 64^3 ``Stencil3DOperator`` with ``JacobiPrecond`` in
-f32 through ``solve_eigs`` (``chip_smoke.py`` phase 9). Each solve runs
+f32 through ``solve_eigs`` (``chip_smoke.py`` phase 9). With
+``--formats``: the sparse solve on the matrices of ``chip_smoke.py``
+phases 11-13 (the chooser's banded, DIA+ELL and ELL branches, f32, tol
+1e-5). Each solve runs
 once to warm up (timed on the host clock up to a synchronise; the
 process's first solve also pays the libraries' set-up), then once under
 ``torch.profiler``. For the profiled solve it prints the host time, the
@@ -19,7 +22,8 @@ and its share of the device total, and the eight largest device items.
 the parent commit, unpacked), so that two versions are traced in one
 call.
 
-Run: ``python3 tools/torch_profile_solve.py [--repo DIR] [--headline]``.
+Run: ``python3 tools/torch_profile_solve.py [--repo DIR] [--headline |
+--formats]``.
 """
 
 import argparse
@@ -91,6 +95,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--headline", action="store_true",
                     help="trace bench.py's stencil + Jacobi solve")
+    ap.add_argument("--formats", action="store_true",
+                    help="trace the banded, DIA+ELL and ELL solves")
     args = ap.parse_args()
 
     import numpy as np
@@ -102,7 +108,8 @@ def main():
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.abspath(args.repo))
     import primme_tpu_torch as ptt
-    from chip_smoke import GRID, laplacian27
+    from chip_smoke import (GRID, hybrid_matrix, laplacian27,
+                            laplacian27_grid, scattered_matrix)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,10 +139,18 @@ def main():
 
         trace("headline f32", solve, ("stencil3d_kernel", "jacobi_kernel"))
         return 0
-    A, _ = laplacian27(GRID, args.seed)
-    for dt, tol in ((np.float32, 1e-5), (np.float64, 1e-10)):
-        op, _ = ptt.rcm_banded(A.astype(dt))
-        op = op.to("cuda")
+    if args.formats:
+        cases = (("banded", laplacian27_grid(GRID)[0]),
+                 ("hybrid", hybrid_matrix(GRID, args.seed)),
+                 ("ell", scattered_matrix(GRID ** 3, args.seed)))
+    else:
+        A, _ = laplacian27(GRID, args.seed)
+        cases = ((np.dtype(dt).name, A.astype(dt))
+                 for dt in (np.float32, np.float64))
+    for label, M in cases:
+        tol = 1e-10 if M.dtype == np.float64 else 1e-5
+        rb = ptt.rcm_banded(M)
+        op = (rb[0] if rb is not None else ptt.aslinearoperator(M)).to("cuda")
 
         def solve():
             return ptt.eigsh(op, k=10, which="SA", tol=tol,
@@ -143,7 +158,7 @@ def main():
                              ncv=24, minRestartSize=14, return_stats=True,
                              seed=args.seed, device="cuda")[2]
 
-        trace(np.dtype(dt).name, solve, ("ell_spmm",))
+        trace(label, solve, ("ell_spmm", "dia_kernel"))
     return 0
 
 
