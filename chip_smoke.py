@@ -20,7 +20,12 @@ other branches at n = 262,144 with the sparse paths' settings: the banded
 one (``csrc/dia.cu``), the DIA+ELL hybrid (``csrc/dia.cu`` and the
 sliced-ELL kernel on a layout built from CSR) and the ELL one
 (``aslinearoperator``'s ``ELLOperator`` on the same kernel), and a
-BlockELL product against scipy.
+BlockELL product against scipy. Then the rest of the Hermitian surface:
+the north star (the 128^3 stencil's f32 solve polished in native FP64 to
+a true residual of 1e-10 with a Chebyshev preconditioner over the f64
+stencil kernel), a generalized FEM pencil (``M=``), orthogonality
+constraints (``lock=``) and interior targets through the refined and
+harmonic projections and JDQR's skew-Q projector.
 
 Phases, each printing its own lines; any failed check raises:
 
@@ -119,10 +124,51 @@ Phases, each printing its own lines; any failed check raises:
     stagnates);
 14. BlockELL: a ``BlockELLOperator`` (plain PyTorch) of ``fem_like`` at
     n = 262,144 against scipy at k in {2, 8}, timed beside its bytes bound
-    and cuSPARSE's CSR product.
+    and cuSPARSE's CSR product;
+15. the north star, ``benches/northstar.py``'s configuration at full size
+    through ``tools/torch_northstar.py``'s stages: the 128^3 7-point
+    Laplacian (n = 2,097,152), k=10; the f32 JDQMR_ETol + Jacobi solve
+    (basis 24, block 2, restart 14, locking off, ``v0`` from
+    ``default_rng(0)``), then ``refine_eigsh`` in native FP64 on the f64
+    stencil with ``ChebyshevPrecond.from_operator(A64, degree=8)`` to tol
+    1e-10: every eigenvalue within 1e-10 of the closed form, the largest
+    true residual (recomputed in f64 with the stencil's plain version)
+    <= 1e-10 * 12 (the closed form's bound of ||A||), the f32 matvecs and
+    the polish iterations each within 2x of the JAX package's (3112 and 77,
+    ``tools/torch_smoke_refs.py --phase northstar``), the stencil and
+    Jacobi kernels >= matvecs / block and > 0 in the f32 stage, the f64
+    stencil >= iterations x (degree + 2) in the polish and no other
+    kernel there; the stages' seconds, the peak device memory and one
+    polish iteration's device time split into the f64 stencil, the dense
+    work (GEMMs and cuSOLVER) and the rest (``torch.profiler``); then the
+    same two stages and gates at k=100 (BASELINE config 4: hard locking,
+    basis 64, block 4 in the f32 stage), the counts held to the
+    reference's recorded 21,005 matvecs and 72 iterations;
+16. the generalized pencil: ``eigsh(K, k=10, M=M, which="SA", tol=1e-5)``
+    with the sparse phases' settings on the Q1 finite-element Laplacian of
+    the 64^3 grid (``fem_q1``: K with 5.3M non-zeros, 21 a row, its face
+    terms cancelling, and M with 6.9M, 27 a row; each an
+    ``ELLOperator``): eigenvalues within 1e-4 of the closed form,
+    true residuals ``||K x - lambda M x||`` (f64 on the host) <= 1.5 tol
+    ``||M^-1 K||``, ``X^T M X = I`` to 1e-4, probe verified, matvecs
+    within 2x of the JAX package's 1005, and the sliced-ELL kernel
+    launched for every product of K and of M, each >= matvecs / 2;
+17. orthogonality constraints: ``eigsh`` on the headline's 64^3 stencil
+    (with Jacobi) with ``lock=`` the closed-form eigenvectors of
+    lambda_1-4, k=6: the closed form's lambda_5-10 within 1e-4, vectors
+    orthogonal to the constraints to 1e-5, true residuals, probe, stencil
+    launches >= matvecs / 2;
+18. interior targets: the k=5 eigenvalues closest to 50 of
+    ``tests/test_eigsh.py``'s fixture (``interior_matrix``; the banded
+    branch) by GD_plusK with the refined and with the harmonic projection
+    at n = 512 and by JDQR with Jacobi (the skew-Q projector) at n = 2048:
+    each within 1e-4 ||A|| of scipy's shift-invert ``eigsh`` (f64, host),
+    true residuals, matvecs within 2x of the JAX package's (1629, 2226,
+    990), DIA launches >= matvecs / 2.
 
 Each solve also prints its peak device memory. The second-to-last line is
-a JSON record of the kernels and the solves; the last is
+a JSON record of the kernels and the solves (each kernel record also
+lists its launches on every path, ``path_launches``); the last is
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``.
 """
 
@@ -186,6 +232,51 @@ SOLVE_KWARGS = dict(k=10, which="SA", method="PRIMME_JDQMR_ETol",
                     maxBlockSize=2, ncv=24, minRestartSize=14,
                     return_stats=True)
 HEADLINE_SHAPE = f"{GRID}^3 k=2"    # the shape the record's top level reads
+# phase 15: benches/northstar.py's configuration, the 128^3 7-point
+# Laplacian, k=10 smallest to a true residual <= 1e-10 ||A|| (||A|| <= 12,
+# the closed form's bound): an f32 JDQMR_ETol + Jacobi solve, then the f64
+# LOBPCG polish with Chebyshev(8); the JAX package's counts on the CPU
+# (tools/torch_smoke_refs.py --phase northstar)
+NS_GRID = 128
+NS_K = 10
+NS_TOL = 1e-10
+NS_DEGREE = 8
+NS_ANORM = 12.0
+REF_NS_MATVECS = 3112
+REF_NS_ITERS = 77
+# and at k=100 (BASELINE config 4, hard locking, basis 64, block 4): the
+# reference's counts as BASELINE.md:192-209 records them (21,005 f32
+# matvecs, 72 polish iterations; a CPU run of the JAX package's host
+# polish at this size takes hours)
+NS_K_LARGE = 100
+REF_NS_LARGE = (21005, 72)
+# phase 16: the Q1 FEM pencil on the 64^3 grid (fem_q1); the JAX package's
+# matvecs for the same eigsh call (--phase generalized)
+FEM_GRID = 64
+REF_FEM_MATVECS = 1005
+# phase 17: orthogonality constraints on the headline's 64^3 stencil: the
+# closed-form ground state and the three-fold lambda_2-4 as lock=, then
+# the next LOCK_K (the three-fold clusters lambda_5-7 and lambda_8-10)
+LOCK_MODES = ((1, 1, 1), (2, 1, 1), (1, 2, 1), (1, 1, 2))
+LOCK_K = 6
+# phase 18: interior targets on tests/test_eigsh.py's fixture (the
+# chooser's banded branch), k=5 closest to sigma=50, each solve at its own
+# INTERIOR_N rows; the JAX package's matvecs for each (--phase interior).
+# The eigenvalues are 99/n apart, so the counts grow with n: refined
+# GD_plusK takes 1629, 3346 and 11,520 matvecs at n = 512, 1024 and 4096;
+# JDQR + Jacobi 251, 407, 990, 28,558 and 44,509 at n = 512, 1024, 2048,
+# 3072 and 4096 (the JAX package on the CPU, tools/torch_smoke_refs.py
+# --phase interior --interior-n); an outer step of the refined solve
+# takes ~12.6 ms on the card, so it stays at 512
+INTERIOR_N = {"refined": 512, "harmonic": 512, "jdqr": 2048}
+INTERIOR_SIGMA = 50.0
+INTERIOR_KWARGS = dict(k=5, which="SM", sigma=INTERIOR_SIGMA,
+                       maxMatvecs=60000, return_stats=True)
+INTERIOR_SOLVES = {
+    "refined": dict(method="PRIMME_GD_plusK", projection="refined"),
+    "harmonic": dict(method="PRIMME_GD_plusK", projection="harmonic"),
+    "jdqr": dict(method="PRIMME_JDQR", jacobi=True)}
+REF_INTERIOR_MATVECS = {"refined": 1629, "harmonic": 2226, "jdqr": 990}
 
 
 def laplacian27_grid(m):
@@ -276,6 +367,58 @@ def fem_like(n, seed, b=8):
     return (A + A.T).tocsr().astype(np.float32)
 
 
+def fem_q1(m):
+    """The Q1 finite-element Laplacian pencil on an m^3 grid (Dirichlet
+    edges, unit spacing): ``K = K1 x M1 x M1 + M1 x K1 x M1 + M1 x M1 x
+    K1`` and ``M = M1 x M1 x M1`` with ``K1 = tridiag(-1, 2, -1)`` and
+    ``M1 = tridiag(1, 4, 1) / 6``, both f32 CSR (27 points a row). Returns
+    ``(K, M, eigenvalues of the pencil ascending, Gershgorin bound of
+    ||K||)``: ``lambda = mu_i + mu_j + mu_k`` with ``mu = 6 (1 - cos t) /
+    (2 + cos t)``, ``t = i pi / (m + 1)``."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    K1 = sp.diags([-np.ones(m - 1), 2.0 * np.ones(m), -np.ones(m - 1)],
+                  [-1, 0, 1])
+    M1 = sp.diags([np.ones(m - 1), 4.0 * np.ones(m), np.ones(m - 1)],
+                  [-1, 0, 1]) / 6.0
+    K = (sp.kron(sp.kron(K1, M1), M1) + sp.kron(sp.kron(M1, K1), M1)
+         + sp.kron(sp.kron(M1, M1), K1)).tocsr()
+    M = sp.kron(sp.kron(M1, M1), M1).tocsr()
+    c = np.cos(np.pi * np.arange(1, m + 1) / (m + 1))
+    mu = 6.0 * (1.0 - c) / (2.0 + c)
+    ev = np.sort((mu[:, None, None] + mu[None, :, None]
+                  + mu[None, None, :]).ravel())
+    return K.astype(np.float32), M.astype(np.float32), ev, gershgorin(K)
+
+
+def interior_matrix(n):
+    """``tests/test_eigsh.py``'s fixture at size n: diag(linspace(1, 100,
+    n)) + 0.3 (sub + super), f32 CSR (the chooser's banded branch)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    d = np.linspace(1, 100, n)
+    return sp.diags([d, 0.3 * np.ones(n - 1), 0.3 * np.ones(n - 1)],
+                    [0, 1, -1]).tocsr().astype(np.float32)
+
+
+def stencil_modes(m, modes):
+    """Closed-form eigenvectors of the 7-point Laplacian on an m^3 grid,
+    one column per ``(a, b, c)``: ``sin(a pi i / (m+1)) sin(b pi j / (m+1))
+    sin(c pi l / (m+1))`` at row ``(i ny + j) nz + l`` (1-based i, j, l),
+    unit norm, f64."""
+    import numpy as np
+
+    t = np.pi * np.arange(1, m + 1) / (m + 1)
+    cols = []
+    for a, b, c in modes:
+        v = np.einsum("i,j,k->ijk", np.sin(a * t), np.sin(b * t),
+                      np.sin(c * t)).ravel()
+        cols.append(v / np.linalg.norm(v))
+    return np.stack(cols, axis=1)
+
+
 _SPIN_CYCLES_PER_MS = None
 
 
@@ -344,8 +487,9 @@ def median_ms(fn, reps=21, per=10, spin=True):
                        "slower than the spin, four times over")
 
 
-def solve(ptt, A, seed, tol=1e-5):
-    return ptt.eigsh(A, tol=tol, seed=seed, device="cuda", **SOLVE_KWARGS)
+def solve(ptt, A, seed, tol=1e-5, kwargs=None, M=None):
+    return ptt.eigsh(A, tol=tol, seed=seed, device="cuda", M=M,
+                     **(kwargs or SOLVE_KWARGS))
 
 
 def reset_counts(*mods):
@@ -355,6 +499,14 @@ def reset_counts(*mods):
                        getattr(mod, "VECTOR_LAUNCHES", {})):
             for name in counts:
                 counts[name] = 0
+
+
+def read_counts(mods):
+    """Every entry point's launches since ``reset_counts``."""
+    launches = {}
+    for mod in mods:
+        launches.update(mod.KERNEL_LAUNCHES)
+    return launches
 
 
 def layout_phase(WE, op, Ap, dtype, tag):
@@ -856,13 +1008,17 @@ def gershgorin(A):
 
 
 def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
-                 need, forbid=(), tol=1e-5):
-    """One gated eigsh on the scipy matrix ``A`` (the chooser inside) at
-    ``tol``: eigenvalues within ``ev_tol`` of ``ev_ref``; true residuals (A
-    in f64 on the host) <= 1.5 tol ``anorm``; probe verified and not
-    exhausted; matvecs within 2x of ``ref_mv``; each entry point of
-    ``need`` at least matvecs / 2 launches, none of ``forbid``. The counts
-    are set to 0 just before the call and read just after it."""
+                 need, forbid=(), tol=1e-5, kwargs=None, M=None):
+    """One gated eigsh of ``A`` (with the mass matrix ``M``, if any) at
+    ``tol`` with ``kwargs`` (``SOLVE_KWARGS`` by default). ``A`` and
+    ``M`` are scipy matrices (the chooser inside) or operators that carry
+    theirs as ``.matrix``. Gates: eigenvalues within ``ev_tol`` of
+    ``ev_ref``; true residuals (``A x - lambda M x``, the matrices in f64
+    on the host) <= 1.5 tol ``anorm``; with ``M``, ``X^T M X = I`` to
+    1e-4; probe verified and not exhausted where the probe covers the
+    target; matvecs within 2x of ``ref_mv``; each entry point of ``need``
+    at least matvecs / 2 launches, none of ``forbid``. The counts are set
+    to 0 just before the call and read just after it."""
     import numpy as np
     import torch
 
@@ -871,18 +1027,23 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*mods)
     t0 = time.perf_counter()
-    w, V, st = solve(ptt, A, seed, tol)
+    w, V, st = solve(ptt, A, seed, tol, kwargs, M)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, vector = {}, {}
+    launches, vector = read_counts(mods), {}
     for mod in mods:
-        launches.update(mod.KERNEL_LAUNCHES)
         vector.update(getattr(mod, "VECTOR_LAUNCHES", {}))
     peak = torch.cuda.max_memory_allocated()
     mv = st["num_matvecs"]
     err_ev = float(np.abs(np.sort(w) - np.asarray(ev_ref)[:len(w)]).max())
-    R = A.astype(np.float64) @ V.astype(np.float64) - V * w[None, :]
+    V64 = V.astype(np.float64)
+    host = [getattr(X, "matrix", X) for X in (A, M)]
+    BV = V64 if M is None else host[1].astype(np.float64) @ V64
+    R = host[0].astype(np.float64) @ V64 - BV * w[None, :]
     res = float(np.linalg.norm(R, axis=0).max())
+    mtm = (None if M is None else
+           float(np.abs(V64.T @ BV - np.eye(V64.shape[1])).max()))
+    verify = not st["probe_unsupported"]
     print(f"[{tag}] eigsh wall {wall:.3f} s (solve {st['elapsed_time']:.3f}"
           f" s; the rest is format choice, packing, transfer)  num_matvecs "
           f"{mv} (reference {ref_mv})  num_probe_matvecs "
@@ -893,8 +1054,12 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
     print(f"[{tag}] launches {launches}  max|eval-ref| {err_ev:.3e} (limit "
           f"{ev_tol})  max residual {res:.3e} (limit {1.5 * tol * anorm:.3e})  "
           f"probe verified {st['probe_verified']} exhausted "
-          f"{st['probe_exhausted']}  peak device memory {peak} B "
-          f"({before_bytes} B before)", flush=True)
+          f"{st['probe_exhausted']}"
+          + ("" if verify else " (the probe does not cover this target)")
+          + ("" if M is None else f"  max|X^T M X - I| {mtm:.3e} (limit "
+             "1e-4)")
+          + f"  peak device memory {peak} B ({before_bytes} B before)",
+          flush=True)
     for entry in need:
         check(launches[entry] >= mv / 2, f"{tag}: only {launches[entry]} "
               f"{entry} launches for {mv} matvecs")
@@ -904,16 +1069,20 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
     check(err_ev <= ev_tol, f"{tag}: eigenvalue error {err_ev:.3e} > {ev_tol}")
     check(res <= 1.5 * tol * anorm,
           f"{tag}: residual {res:.3e} > {1.5 * tol}*||A||")
-    check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+    check(M is None or mtm <= 1e-4, f"{tag}: X^T M X - I reads {mtm}")
+    check(not verify or (st["probe_verified"] == 1
+                         and st["probe_exhausted"] == 0),
           f"{tag}: spectrum verification did not complete")
     check(ref_mv / 2 <= mv <= 2 * ref_mv,
           f"{tag}: {mv} matvecs, not within 2x of the reference's {ref_mv}")
     return {"wall_s": wall, "solve_s": st["elapsed_time"],
+            "evals": [float(x) for x in np.sort(w)],
             "num_matvecs": mv, "num_probe_matvecs": st["num_probe_matvecs"],
             "num_probe_rounds": st["num_probe_rounds"], "eval_err": err_ev,
             "max_residual": res, "anorm": anorm, "launches": launches,
             "vector_launches": vector, "peak_bytes": peak,
-            "bytes_before": before_bytes}
+            "bytes_before": before_bytes,
+            **({} if M is None else {"mtm_err": mtm})}
 
 
 def dia_phase(DK, op, A, dev, gen):
@@ -1099,6 +1268,284 @@ def block_ell_phase(ptt, dev, gen, seed):
               f"{t['bound_ms']:.5f} ms (bytes; share {t['bound_share']:.3f})  "
               f"library (A_csr @ X) {t['library_ms']:.5f} ms", flush=True)
         check(err <= 1e-5 * ymax, f"block_ell: k={k} differs from scipy")
+    return out
+
+
+def polish_split(ptt, A64, K, X, dev):
+    """Device time of one polish iteration (``refine_step`` on the
+    polished block, the P block zero: the same products and small dense
+    work as any iteration) from a ``torch.profiler`` trace, split into the
+    f64 stencil kernel, the dense work (cuBLAS GEMMs, the Grams, and
+    cuSOLVER's Cholesky, triangular solves and ``eigh``) and the rest
+    (torch's elementwise kernels and reductions: the Chebyshev recurrence's
+    updates among them); plus the iteration's time between CUDA events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from primme_tpu_torch.refine import refine_step
+
+    dense = ("gemm", "gemv", "syevd", "syev", "potrf", "potrs", "trsm",
+             "trsv", "getrf", "geqrf", "orgqr", "ormqr", "larf", "sytrd",
+             "steqr", "stedc", "cusolver", "magma", "Magma", "syrk",
+             "splitKreduce", "cutlass", "sm90_xmma", "xmma")
+    Xt = torch.as_tensor(X, dtype=torch.float64, device=dev)
+    P = torch.zeros_like(Xt)
+    refine_step(A64, K, Xt, P, 1.0)              # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    refine_step(A64, K, Xt, P, 1.0)
+    b.record()
+    b.synchronize()
+    iter_ms, host_ms = a.elapsed_time(b), 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        refine_step(A64, K, Xt, P, 1.0)
+        torch.cuda.synchronize()
+    split = {"stencil3d_f64": 0.0, "dense": 0.0, "rest": 0.0}
+    items = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us <= 0:
+            continue
+        key = ("stencil3d_f64" if "stencil3d" in e.key else "dense"
+               if any(t in e.key for t in dense) else "rest")
+        split[key] += us / 1e3
+        items.append([e.key[:70], us / 1e3, e.count, key])
+    total = sum(split.values())
+    items.sort(key=lambda x: -x[1])
+    return {"iteration_ms": iter_ms, "iteration_host_ms": host_ms,
+            "device_ms": total, "split_ms": split,
+            "split_share": {k: v / max(total, 1e-12)
+                            for k, v in split.items()},
+            "top": items[:10]}
+
+
+def northstar_phase(ptt, mods, dev, k=NS_K, refs=(REF_NS_MATVECS,
+                                                  REF_NS_ITERS),
+                    split=True):
+    """Phase 15: ``benches/northstar.py``'s configuration at full size
+    through ``tools/torch_northstar.py``'s two stages, k pairs, gated
+    against the reference's counts ``refs`` (f32 matvecs, polish
+    iterations); the counts are set to 0 before each stage and read after
+    it. ``split`` traces one polish iteration."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_northstar as NS
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref_mv, ref_its = refs
+    tag = f"northstar k={k}"
+    reset_counts(*mods)
+    res, t32 = NS.f32_stage(ptt, NS_GRID, k, dev)
+    l32 = read_counts(mods)
+    st = res.stats
+    mv = st.num_matvecs
+    reset_counts(*mods)
+    ev, X, rst, A64, K64, t64 = NS.polish(ptt, NS_GRID, res.evecs, NS_TOL,
+                                          dev, degree=NS_DEGREE)
+    l64 = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    err, true_res = NS.check(NS_GRID, k, ev, X, dev)
+    its = rst["num_refine_iters"]
+    print(f"[{tag}] f32 stage {t32:.3f} s: num_matvecs {mv} (reference "
+          f"{ref_mv})  probe {st.num_probe_matvecs} matvecs, "
+          f"{st.num_probe_rounds} rounds, verified {st.probe_verified}  "
+          f"launches {l32}", flush=True)
+    print(f"[{tag}] f64 polish {t64:.3f} s: {its} iterations "
+          f"(reference {ref_its})  Chebyshev({NS_DEGREE}) interval "
+          f"[{float(K64.a):.6g}, {float(K64.b):.6g}]  launches {l64}",
+          flush=True)
+    print(f"[{tag}] max|eval-analytic| {err:.3e} (limit 1e-10)  max "
+          f"true residual {true_res:.3e} (limit {NS_TOL * NS_ANORM:.3e}; "
+          f"the polish's own {float(rst['resnorms'].max()):.3e} with ||A|| "
+          f"{rst['anorm_estimate']:.6f})  peak device memory {peak} B "
+          f"({before} B before)", flush=True)
+    out = {}
+    if split:
+        out["polish_iteration"] = sp = polish_split(ptt, A64, K64, X, dev)
+        print(f"[{tag}] one polish iteration: {sp['iteration_ms']:.3f} ms "
+              f"between events ({sp['iteration_host_ms']:.3f} ms on the "
+              f"host), traced device time {sp['device_ms']:.3f} ms: " +
+              "; ".join(f"{c} {v:.3f} ms ({sp['split_share'][c]:.3f})"
+                        for c, v in sp["split_ms"].items()), flush=True)
+        print(f"[{tag}] largest device items of the iteration: " + "; ".join(
+            f"{name} {ms:.3f} ms x{cnt} ({cat})"
+            for name, ms, cnt, cat in sp["top"]), flush=True)
+    check(err < 1e-10, f"{tag}: eigenvalue error {err:.3e} >= 1e-10")
+    check(true_res <= NS_TOL * NS_ANORM,
+          f"{tag}: true residual {true_res:.3e} > {NS_TOL}*||A||")
+    check(st.probe_verified == 1 and st.probe_exhausted == 0,
+          f"{tag}: the f32 stage's verification did not complete")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"{tag}: {mv} f32 matvecs, not within 2x of the reference's "
+          f"{ref_mv}")
+    check(ref_its / 2 <= its <= 2 * ref_its,
+          f"{tag}: {its} polish iterations, not within 2x of the "
+          f"reference's {ref_its}")
+    # a launch applies at most a block's columns
+    blk = NS.block_size(k)
+    check(l32["stencil3d_f32"] >= mv / blk and l32["jacobi_shifted_f32"] > 0,
+          f"{tag}: the f32 kernels did not serve the solve ({mv} matvecs "
+          f"in blocks of {blk}): {l32}")
+    check(l64["stencil3d_f64"] >= its * (NS_DEGREE + 2),
+          f"{tag}: {l64['stencil3d_f64']} f64 stencil launches for "
+          f"{its} iterations of {NS_DEGREE + 2} products")
+    check(not any(v for e, v in l64.items() if e != "stencil3d_f64"),
+          f"{tag}: another kernel served the polish: {l64}")
+    interval = [float(K64.a), float(K64.b)]
+    del res, X, A64, K64
+    return {"k": k, "f32_s": t32, "f32_num_matvecs": mv,
+            "f32_num_probe_matvecs": st.num_probe_matvecs,
+            "f32_num_probe_rounds": st.num_probe_rounds,
+            "f32_launches": l32, "polish_s": t64, "num_refine_iters": its,
+            "polish_launches": l64,
+            "chebyshev_interval": interval,
+            "anorm_estimate": rst["anorm_estimate"], "eval_err": err,
+            "max_true_residual": true_res, "peak_bytes": peak,
+            "bytes_before": before, **out}
+
+
+def generalized_phase(ptt, mods, seed):
+    """Phase 16: ``eigsh(K, M=M)`` on the Q1 FEM pencil (``fem_q1``): both
+    matrices become ``ELLOperator``s, as ``eigsh`` builds them with a mass
+    matrix (``aslinearoperator``), here wrapped to count each one's
+    products; gated as ``format_solve`` (``X^T M X = I`` among its gates)
+    with the sliced-ELL kernel's launches: at least matvecs / 2 for each
+    of K and M, and one for every product of either. The residual gate's
+    norm is the pencil's, ``||M^-1 K||`` (its largest eigenvalue, closed
+    form): the norm the solver's criterion is relative to, as in the
+    reference (problemNorm, the largest |Ritz value| seen); ``||K||``
+    itself is about 4, a ninth of it."""
+
+    class Counted(ptt.LinearOperator):
+        def __init__(self, op, matrix):
+            super().__init__()
+            self.op, self.matrix, self.shape, self.calls = (
+                op, matrix, op.shape, 0)
+
+        @property
+        def dtype(self):
+            return self.op.dtype
+
+        def matmat(self, X):
+            self.calls += 1
+            return self.op.matmat(X)
+
+    K, M, ev, kn = fem_q1(FEM_GRID)
+    t0 = time.perf_counter()
+    Kop, Mop = (ptt.aslinearoperator(X) for X in (K, M))
+    build_s = time.perf_counter() - t0
+    check(isinstance(Kop, ptt.ELLOperator) and isinstance(Mop, ptt.ELLOperator),
+          f"generalized: aslinearoperator built {type(Kop).__name__}, "
+          f"{type(Mop).__name__}")
+    pnorm = float(ev.max())
+    print(f"[generalized] Q1 FEM pencil {FEM_GRID}^3: K {K.nnz} and M "
+          f"{M.nnz} non-zeros, two ELLOperators in {build_s:.3f} s; "
+          f"||M^-1 K|| {pnorm:.6f}, ||K|| <= {kn} (Gershgorin)", flush=True)
+    Kc, Mc = Counted(Kop, K), Counted(Mop, M)
+    run = format_solve(ptt, mods, Kc, seed, "generalized", ev, 1e-4, pnorm,
+                       REF_FEM_MATVECS, need=("windowed_ell_spmm_f32",),
+                       M=Mc)
+    mv = run["num_matvecs"]
+    ell = run["launches"]["windowed_ell_spmm_f32"]
+    print(f"[generalized] products K {Kc.calls}, M {Mc.calls}; sliced-ELL "
+          f"launches {ell}", flush=True)
+    check(Kc.calls >= mv / 2 and Mc.calls >= mv / 2,
+          f"generalized: {Kc.calls} K and {Mc.calls} M products for {mv} "
+          "matvecs")
+    check(ell == Kc.calls + Mc.calls,
+          f"generalized: {ell} kernel launches for {Kc.calls} + {Mc.calls} "
+          "products")
+    run.update(build_s=build_s, k_products=Kc.calls, m_products=Mc.calls,
+               pencil_norm=pnorm, k_norm_bound=kn)
+    return run
+
+
+def constraints_phase(ptt, mods, ST, dev, seed):
+    """Phase 17: ``eigsh`` on the headline's 64^3 stencil with ``lock=``
+    the closed-form eigenvectors of lambda_1-4 (whole clusters): the next
+    LOCK_K eigenvalues of the closed form, vectors orthogonal to the
+    constraints to 1e-5, true residuals (the stencil's plain version in
+    f64) <= 1.5e-5 ||A||, probe verified, stencil launches >= matvecs / 2."""
+    import numpy as np
+    import torch
+
+    L = stencil_modes(GRID, LOCK_MODES)
+    lam, anorm = stencil_eigenvalues(GRID, len(LOCK_MODES) + LOCK_K)
+    A = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=torch.float32,
+                              device=dev)
+    torch.cuda.synchronize()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    w, X, st = ptt.eigsh(A, lock=L, tol=1e-5, seed=seed, jacobi=True,
+                         device=dev, **{**SOLVE_KWARGS, "k": LOCK_K})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    mv = st["num_matvecs"]
+    err = float(np.abs(np.sort(w) - lam[len(LOCK_MODES):]).max())
+    orth = float(np.abs(L.T @ X.astype(np.float64)).max())
+    Xt = torch.as_tensor(X, dtype=torch.float64, device=dev)
+    R = ST.matmat_reference(Xt, GRID, GRID, GRID) - Xt * torch.as_tensor(
+        w, dtype=torch.float64, device=dev)
+    res = float(torch.linalg.vector_norm(R, dim=0).max())
+    print(f"[constraints] lock {len(LOCK_MODES)} closed-form vectors, k="
+          f"{LOCK_K}: eigsh {wall:.3f} s  num_matvecs {mv}  probe "
+          f"{st['num_probe_matvecs']} matvecs, verified "
+          f"{st['probe_verified']}  max|eval-closed form| {err:.3e} (limit "
+          f"1e-4)  max|L^T X| {orth:.3e} (limit 1e-5)  max residual "
+          f"{res:.3e} (limit {1.5e-5 * anorm:.3e})  launches {launches}",
+          flush=True)
+    check(err <= 1e-4, f"constraints: eigenvalue error {err:.3e}")
+    check(orth <= 1e-5, f"constraints: |L^T X| reads {orth:.3e}")
+    check(res <= 1.5e-5 * anorm, f"constraints: residual {res:.3e}")
+    check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+          "constraints: spectrum verification did not complete")
+    check(launches["stencil3d_f32"] >= mv / 2,
+          f"constraints: {launches['stencil3d_f32']} stencil launches for "
+          f"{mv} matvecs")
+    return {"wall_s": wall, "num_matvecs": mv, "eval_err": err,
+            "max_abs_LtX": orth, "max_residual": res, "launches": launches,
+            "num_probe_matvecs": st["num_probe_matvecs"]}
+
+
+def interior_phase(ptt, mods, seed):
+    """Phase 18: the k=5 eigenvalues closest to sigma=50 of
+    ``interior_matrix(INTERIOR_N[name])`` (banded branch, DIA kernel) by
+    GD_plusK with the refined and the harmonic projection and by JDQR with
+    Jacobi (its locking turns on the skew-Q projector); each gated by
+    ``format_solve`` against scipy's shift-invert ``eigsh`` in f64 on the
+    host (within 1e-4 ||A||) and the JAX package's matvecs."""
+    import numpy as np
+    import scipy.sparse.linalg as sla
+
+    out = {}
+    for name, kw in INTERIOR_SOLVES.items():
+        n = INTERIOR_N[name]
+        A = interior_matrix(n)
+        rb, chooser = choose(ptt, A, f"interior {name}")
+        check(rb is not None and isinstance(rb[0], ptt.BandedOperator),
+              f"interior: the chooser returned "
+              f"{rb and type(rb[0]).__name__}")
+        ref = np.sort(sla.eigsh(A.astype(np.float64),
+                                k=INTERIOR_KWARGS["k"], sigma=INTERIOR_SIGMA,
+                                return_eigenvectors=False))
+        anorm = gershgorin(A)
+        out[name] = format_solve(
+            ptt, mods, A, seed, f"interior {name}", ref, 1e-4 * anorm, anorm,
+            REF_INTERIOR_MATVECS[name], need=("dia_f32",),
+            kwargs={**INTERIOR_KWARGS, **kw})
+        out[name].update(n=n, chooser=chooser,
+                         scipy_evals=[float(x) for x in ref])
     return out
 
 
@@ -1292,6 +1739,16 @@ def main():
     # --- 14. BlockELL (plain PyTorch) against scipy ----------------------
     block_ell = block_ell_phase(ptt, dev, gen, args.seed)
 
+    # --- 15. the north star: f32 solve + native FP64 polish --------------
+    northstar = northstar_phase(ptt, mods, dev)
+    northstar100 = northstar_phase(ptt, mods, dev, k=NS_K_LARGE,
+                                   refs=REF_NS_LARGE, split=False)
+
+    # --- 16-18. generalized pencil, constraints, interior targets --------
+    generalized = generalized_phase(ptt, mods, args.seed)
+    constraints = constraints_phase(ptt, mods, ST, dev, args.seed)
+    interior = interior_phase(ptt, mods, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -1318,7 +1775,30 @@ def main():
         "headline": headline, "gdk": gdk,
         "banded": {k: v for k, v in banded.items() if k != "kernel"},
         "hybrid": hybrid, "ell": ell, "block_ell": block_ell,
+        "northstar": northstar, "northstar_k100": northstar100,
+        "generalized": generalized,
+        "constraints": constraints, "interior": interior,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
+    # every path's launches, each counted from 0 just before it ran
+    paths = {"solve f32": solve32["launches"],
+             "solve f64": solve64["launches"],
+             "headline": hl_launches, "gdk": gdk["launches"],
+             "banded": banded["solve"]["launches"],
+             "hybrid": hybrid["solve"]["launches"],
+             "ell": ell["solve"]["launches"],
+             "northstar f32": northstar["f32_launches"],
+             "northstar polish": northstar["polish_launches"],
+             "northstar k=100 f32": northstar100["f32_launches"],
+             "northstar k=100 polish": northstar100["polish_launches"],
+             "generalized": generalized["launches"],
+             "constraints": constraints["launches"],
+             **{f"interior {name}": interior[name]["launches"]
+                for name in INTERIOR_SOLVES}}
+    for kern in rec["kernels"]:
+        for entry, r in [(kern["name"], kern),
+                         *kern.get("entries", {}).items()]:
+            r["path_launches"] = {path: counts.get(entry, 0)
+                                  for path, counts in paths.items()}
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

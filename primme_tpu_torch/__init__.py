@@ -22,7 +22,12 @@ with the spectrum-verification probe as plain PyTorch:
 Small dense and sparse inputs become a :class:`DenseOperator`, a scipy
 ``LinearOperator`` a :class:`FunctionOperator` applied on the host.
 ``eigsh(dtype=...)`` solves in another precision than the operator's
-through :class:`CastOperator`.
+through :class:`CastOperator`. ``eigsh`` also serves generalized problems
+(``M=``), orthogonality constraints (``lock=``) and the refined and
+harmonic projections; :func:`refine_eigsh` polishes an f32 solve's pairs
+in native FP64 on the card, with a :class:`ChebyshevPrecond` over the f64
+operator's own kernel (the north star: the 128^3 Laplacian to a true
+residual of 1e-10).
 
 f32 products run in full f32: TF32 is disabled at import, the
 counterpart of the reference's ``Precision.HIGHEST``.
@@ -40,10 +45,11 @@ from .operators import (LinearOperator, WindowedELLOperator,  # noqa: E402
                         CastOperator, Stencil3DOperator, JacobiPrecond,
                         DenseOperator, DiagonalOperator, BandedOperator,
                         ELLOperator, BlockELLOperator, FunctionOperator,
-                        SumOperator, dia_ell_hybrid, rcm_banded,
-                        aslinearoperator, apply_precond)
+                        SumOperator, ChebyshevPrecond, dia_ell_hybrid,
+                        rcm_banded, aslinearoperator, apply_precond)
 from .core.solver import solve_eigs, EigsResult, Stats  # noqa: E402
 from .api import eigsh, PrimmeError  # noqa: E402
+from .refine import refine_eigsh  # noqa: E402
 
 __all__ = [
     "PrimmeParams", "Target", "Projection", "InitBasisMode", "ConvTest",
@@ -51,6 +57,7 @@ __all__ = [
     "LinearOperator", "WindowedELLOperator", "CastOperator",
     "Stencil3DOperator", "JacobiPrecond", "DenseOperator", "DiagonalOperator",
     "BandedOperator", "ELLOperator", "BlockELLOperator", "FunctionOperator",
-    "SumOperator", "dia_ell_hybrid", "rcm_banded", "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
-    "Stats", "eigsh", "PrimmeError",
+    "SumOperator", "ChebyshevPrecond", "dia_ell_hybrid", "rcm_banded",
+    "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
+    "Stats", "eigsh", "PrimmeError", "refine_eigsh",
 ]

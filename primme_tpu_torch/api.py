@@ -3,12 +3,13 @@
 PyTorch port of ``primme_tpu/api.py::eigsh`` with the surface ported so
 far: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
 and its permutation contract, ``which``/``sigma`` targets, the method
-presets and keyword forwarding, ``v0``, ``return_stats``, a working
-``dtype`` of f32 or f64 (the operator is wrapped in a ``CastOperator`` when
-it differs from its own), the Jacobi preconditioner (``jacobi=True``, or
-an ``OPinv`` that is a port operator), ``raise_for_unconverged`` and the
-probe-exhaustion error. Arguments of the reference that the port does not
-serve yet raise ``NotImplementedError``.
+presets and keyword forwarding, generalized problems (``M``), orthogonality
+constraints (``lock``), the refined and harmonic projections, ``v0``,
+``return_stats``, a working ``dtype`` of f32 or f64 (the operators are
+wrapped in a ``CastOperator`` when it differs from their own), the Jacobi
+preconditioner (``jacobi=True``, or an ``OPinv`` that is a port operator),
+``raise_for_unconverged`` and the probe-exhaustion error. Arguments of the
+reference that the port does not serve yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,9 +86,11 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     like the reference."""
     if mode != "normal":
         raise ValueError(f"only mode='normal' is supported (got {mode!r})")
-    for name, val in (("M (generalized problems)", M),
-                      ("Minv", Minv), ("lock (orthogonal constraints)", lock),
-                      ("mesh", mesh), ("monitor", monitor),
+    if Minv is not None:
+        raise NotImplementedError(
+            "Minv is not supported (reference parity: primme.pyx:350); "
+            "pass OPinv for a preconditioner")
+    for name, val in (("mesh", mesh), ("monitor", monitor),
                       ("convtest", convtest), ("profile", profile)):
         if val is not None:
             raise _unported(name)
@@ -109,7 +112,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
 
     if _sp.issparse(A):
         from .operators import rcm_banded
-        rb = rcm_banded(A)
+        # with a mass matrix both operators keep the caller's order
+        rb = rcm_banded(A) if M is None else None
         if rb is not None:
             Aop, perm = rb
         else:
@@ -122,6 +126,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise ValueError("expected square operator")
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
+    Mop = aslinearoperator(M).to(device) if M is not None else None
 
     if isinstance(which, str) and which.upper() in _WHICH_TO_TARGET:
         which = which.upper()
@@ -168,6 +173,9 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         Aop = CastOperator(Aop, wd)
         if K is not None:
             K = CastOperator(K, wd)
+    if Mop is not None and Mop.dtype != Aop.dtype:
+        # the mass matrix works in the solve's precision
+        Mop = CastOperator(Mop, Aop.dtype)
 
     meth = method
     if meth is None:
@@ -179,7 +187,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         if isinstance(projection, str):
             projection = Projection(projection.replace("primme_proj_", ""))
         p = p.with_(projection=projection)
-    p = set_method(meth, p, has_precond=K is not None)
+    p = set_method(meth, p, has_precond=K is not None,
+                   has_mass=Mop is not None)
     if p.dynamic_method_switch:
         raise _unported("DYNAMIC method switching")
     if maxInnerIterations is not None:
@@ -202,6 +211,23 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             v0n = v0n[perm, :]
         v0t = torch.as_tensor(np.ascontiguousarray(v0n)).to(
             device=device, dtype=Aop.dtype)
+    oc = None
+    if lock is not None:
+        ocn = np.asarray(lock)
+        if ocn.ndim == 1:
+            ocn = ocn[:, None]
+        if ocn.ndim != 2 or ocn.shape[0] != n:
+            # `lock` is the reference binding's name for orthogonal
+            # constraint vectors, not a flag: hard locking is locking=True
+            raise ValueError(
+                f"lock= must be an [n, c] array of orthogonal-constraint "
+                f"vectors (n={n}); for hard locking pass locking=True. "
+                f"Got shape {np.shape(lock)}")
+        if perm is not None:
+            ocn = ocn[perm, :]
+        oc = torch.as_tensor(np.ascontiguousarray(ocn)).to(
+            device=device, dtype=Aop.dtype)
+        p = prm.resolve_defaults(p.with_(num_ortho_const=int(ocn.shape[1])))
 
     inner = None
     if p.max_inner_iterations != 0:
@@ -209,8 +235,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         inner = jdqmr_inner_solve
 
     t0 = time.perf_counter()
-    res = solve_eigs(Aop, p, K=K, v0=v0t, inner_solve=inner, dtype=wd,
-                     device=device)
+    res = solve_eigs(Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc,
+                     inner_solve=inner, dtype=wd, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from . import params as prm
-from .operators import (BandedOperator, BlockELLOperator, ELLOperator,
-                        JacobiPrecond, Stencil3DOperator, SumOperator,
-                        WindowedELLOperator)
+from .operators import (BandedOperator, BlockELLOperator, ChebyshevPrecond,
+                        ELLOperator, JacobiPrecond, Stencil3DOperator,
+                        SumOperator, WindowedELLOperator)
 
 
 def params_from_jax(p) -> prm.PrimmeParams:
@@ -107,6 +107,15 @@ def sum_from_jax(op, device=None) -> SumOperator:
     conv = {"BandedOperator": banded_from_jax, "ELLOperator": ell_from_jax,
             "BlockELLOperator": block_ell_from_jax}
     return _on(SumOperator([conv[type(o).__name__](o) for o in op.ops]),
+               device)
+
+
+def chebyshev_from_jax(K, A, device=None) -> ChebyshevPrecond:
+    """A ``primme_tpu`` ``ChebyshevPrecond`` as the port's over ``A``, the
+    port's counterpart of the operator it wraps: the same interval,
+    ``sigma`` and degree."""
+    return _on(ChebyshevPrecond(A, (float(K.a), float(K.b)),
+                                degree=K.degree, sigma=float(K.sigma)),
                device)
 
 

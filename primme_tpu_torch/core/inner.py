@@ -3,14 +3,17 @@
 PyTorch port of ``primme_tpu/core/inner.py::jdqmr_inner_solve``: per
 block column x with residual r and shift sigma it solves
 
-    (I-QQ')(I-xx')(A - sigma)(I-xx')(I-QQ') s = -r
+    (I-BQQ')(I-Bxx')(A - sigma B)(I-xx'B)(I-QQ'B) s = -r
 
 by Hermitian simplified QMR with PRIMME's dynamic eigenpair monitoring
 (the Delta/Beta/Phi/Psi/Gamma recurrences) for the adaptive stopping
 rules. Converged columns are frozen with an ``alive`` mask, as in the
 reference, so every step applies the operator to the full ``[n, blk]``
 block. The reference's ``lax.while_loop`` is a host loop here: its
-condition (any column alive) is read back once per step. No mass matrix.
+condition (any column alive) is read back once per step. With SkewQ and a
+preconditioner (JDQR) the right projector on the locked vectors is the
+skew projector ``(I - Qhat M^{-1} Q^H)``, ``Qhat = K^{-1} B Q``, with the
+small ``M = Q^H Qhat`` LU-factorized once per call.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..params import ConvTest, Target
-from .linalg import real_dtype, machine_eps, prefix_project
+from .linalg import bcomb, gram, real_dtype, machine_eps, prefix_project
 
 
 def _dots(X, Y):
@@ -40,8 +43,6 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     """
     from ..operators import apply_precond
 
-    if B is not None:
-        raise NotImplementedError("generalized problems (B) are not ported")
     if evals is None:
         evals = sigma
 
@@ -62,18 +63,24 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     vmaskf = valid.to(dtype)[None, :]
 
     has_lockedQ = cfg.locking or cfg.noc > 0
-    Q = s.evecs
+    Q, BQ = s.evecs, (s.Bevecs if B is not None else s.evecs)
     nlockq = cfg.noc + s.num_locked
 
+    # skew-Q projector state (factorize.c:83-183)
+    skew_lu = None
+    Qhat = None
     if cfg.skewQ and cfg.rightQ and K is not None and has_lockedQ:
-        raise NotImplementedError(
-            "the skew-Q projector (JDQR with a preconditioner) is not ported")
+        qmask = torch.arange(Q.shape[1], device=dev) < nlockq
+        Qhat = apply_precond(K, BQ, None) * qmask.to(dtype)[None, :]
+        Mq = gram(Q, Qhat) + torch.diag((~qmask).to(dtype))
+        skew_lu = torch.linalg.lu_factor(Mq)
 
     def apply_A_proj(D):
         W = A.matmat(D)
-        W = W - D * shift[None, :].to(dtype)
+        BD = B.matmat(D) if B is not None else D
+        W = W - BD * shift[None, :].to(dtype)
         if cfg.leftQ and has_lockedQ:
-            W = prefix_project(Q, Q, W, nlockq)
+            W = prefix_project(BQ, Q, W, nlockq)
         if cfg.leftX:
             W = W - BX * torch.sum(X.conj() * W, dim=0)[None, :]
         return W
@@ -88,8 +95,11 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
 
     def apply_K_proj(G):
         Y = apply_precond(K, G, shift) if K is not None else G
-        if cfg.rightQ and has_lockedQ:
-            Y = prefix_project(Q, Q, Y, nlockq)
+        if skew_lu is not None:
+            ov = gram(Q, Y)
+            Y = Y - bcomb(Qhat, torch.linalg.lu_solve(*skew_lu, ov))
+        elif cfg.rightQ and has_lockedQ:
+            Y = prefix_project(BQ, Q, Y, nlockq)
         if KinvBx is not None:
             ov = torch.sum(X.conj() * Y, dim=0)
             Y = Y - KinvBx * (ov / xKinvBx)[None, :]
@@ -135,7 +145,8 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     rho_prev = _dots(g, d)
     tau_prev = torch.clamp(res.to(rdt), min=tiny)
     tau_init = tau_prev
-    normBx = torch.ones((blk,), dtype=rdt, device=dev)
+    normBx = (_dots(BX, BX) if (B is not None and adaptive)
+              else torch.ones((blk,), dtype=rdt, device=dev))
     sol = torch.zeros_like(X)
     delta = torch.zeros_like(X)
     alive = valid.clone()
@@ -181,7 +192,7 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
             stop = stop | (tau < LTol)
 
         if adaptive:
-            dot_sol = _dots(sol, sol)
+            dot_sol = _dots(sol, B.matmat(sol) if B is not None else sol)
             Delta_n = gamma * Delta + eta * rho_prev
             Beta_n = Beta - Delta_n
             Phi_n = gamma * gamma * Phi + eta * eta * sigma_p

@@ -1,7 +1,9 @@
 """Dense numerics substrate: masked kernels under static shapes.
 
-PyTorch port of ``primme_tpu/core/linalg.py`` (main-path subset). The
-reference's central design move is kept so that arrays compare one to one:
+PyTorch port of ``primme_tpu/core/linalg.py`` (its Hermitian subset:
+the B inner product of generalized problems, Rayleigh-Ritz, refined and
+harmonic extraction). The reference's central design move is kept so that
+arrays compare one to one:
 PRIMME's dynamic basis size is a count over fixed-shape ``[n, mmax]``
 arrays whose inactive columns are exactly zero. Here the count is a host
 integer, so a prefix projection may slice to it directly instead of
@@ -16,6 +18,7 @@ reference's ``Precision.HIGHEST``.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -61,11 +64,23 @@ def bcomb(V: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def prefix_project(P, C, X, count: int):
     """``X - P_w (C_w^H X)`` over the first ``count`` columns (columns
-    ``>= count`` of ``P`` and ``C`` are exactly zero). With no mass matrix
-    it is also the reference's ``prefix_project2(Q, Q, X, X, count)``."""
+    ``>= count`` of ``P`` and ``C`` are exactly zero)."""
     if count <= 0:
         return X
     return X - bcomb(P[:, :count], gram(C[:, :count], X))
+
+
+def prefix_project2(Q, BQ, X, BX, count: int, same: bool):
+    """Project ``X`` (and ``BX``, sharing the overlap ``BQ_w^H X``) out of
+    the first ``count`` columns of ``(Q, BQ)``: the B-ortho counterpart of
+    :func:`prefix_project`. ``same`` means ``BX`` aliases ``X`` (no mass
+    matrix). Returns ``(X, BX)``."""
+    if count <= 0:
+        return X, BX
+    oq = gram(BQ[:, :count], X)
+    X2 = X - bcomb(Q[:, :count], oq)
+    BX2 = X2 if same else BX - bcomb(BQ[:, :count], oq)
+    return X2, BX2
 
 
 def rand_block(gen: torch.Generator, n: int, bs: int, dtype, device):
@@ -81,7 +96,7 @@ def rand_block(gen: torch.Generator, n: int, bs: int, dtype, device):
 
 class OrthoResult(NamedTuple):
     X: torch.Tensor       # orthonormalized block [n, bs]
-    BX: torch.Tensor      # alias of X (no mass matrix)
+    BX: torch.Tensor      # B X (alias of X when there is no mass matrix)
     n_random: int         # columns replaced by random vectors
 
 
@@ -111,35 +126,39 @@ def _chol_qr(X, BX, active_bs: int, thresh2):
 
 
 def block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
-                n_iters: int = 2, locked_count: Optional[int] = None
-                ) -> OrthoResult:
-    """Orthonormalize ``X[:, :active_bs]`` against the basis ``V``
-    (inactive columns exactly zero), the locked vectors ``Q`` (or None)
-    and internally: ``n_iters`` passes of block classical Gram-Schmidt +
-    CholeskyQR; columns found dependent in the first pass are replaced by
-    random vectors from ``gen`` (reference ``block_ortho``, no mass
-    matrix). Random numbers are drawn only when a column is replaced."""
+                n_iters: int = 2, locked_count: Optional[int] = None,
+                Bop=None, BV=None, BQ=None) -> OrthoResult:
+    """B-orthonormalize ``X[:, :active_bs]`` against the basis ``V``
+    (inactive columns exactly zero; ``BV`` its B image), the locked
+    vectors ``Q`` (or None; ``BQ`` their B images) and internally:
+    ``n_iters`` passes of block classical Gram-Schmidt + CholeskyQR;
+    columns found dependent in the first pass are replaced by random
+    vectors from ``gen`` (reference ``block_ortho``). Without ``Bop`` the
+    B images are the vectors themselves. Random numbers are drawn only
+    when a column is replaced."""
     n = X.shape[0]
     rdt = real_dtype(X.dtype)
     meps = max(machine_eps(X.dtype), machine_eps(V.dtype))
+    same = Bop is None
+    if same:
+        BV, BQ = V, Q
 
-    def project_out(X):
-        X = X - bcomb(V, gram(V, X))
+    def project_out(X, BX):
+        X, BX = prefix_project2(V, BV, X, BX, V.shape[1], same)
         if Q is not None:
-            if locked_count is not None:
-                X = prefix_project(Q, Q, X, locked_count)
-            else:
-                X = X - bcomb(Q, gram(Q, X))
-        return X
+            count = Q.shape[1] if locked_count is None else locked_count
+            X, BX = prefix_project2(Q, BQ, X, BX, count, same)
+        return X, BX
 
-    nrm0_2 = torch.clamp(torch.sum(X.conj() * X, dim=0).real,
+    BX = X if same else Bop.matmat(X)
+    nrm0_2 = torch.clamp(torch.sum(X.conj() * BX, dim=0).real,
                          min=torch.finfo(rdt).tiny)
     thresh2 = (meps ** 2 * 64.0) * nrm0_2
 
     total_bad = 0
     for it in range(n_iters):
-        X = project_out(X)
-        X, _, bad = _chol_qr(X, X, active_bs, thresh2)
+        X, BX = project_out(X, BX)
+        X, BX, bad = _chol_qr(X, BX, active_bs, thresh2)
         if it == 0:
             nbad = int(bad.sum())
             total_bad += nbad
@@ -147,8 +166,10 @@ def block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
                 rnd = rand_block(gen, n, X.shape[1], X.dtype, X.device)
                 rnd = rnd / float(n) ** 0.5
                 X = torch.where(bad[None, :], rnd, X)
+                BX = X if same else torch.where(bad[None, :],
+                                                Bop.matmat(rnd), BX)
             thresh2 = torch.full_like(thresh2, meps ** 2 * 64.0)
-    return OrthoResult(X=X, BX=X, n_random=total_bad)
+    return OrthoResult(X=X, BX=BX, n_random=total_bad)
 
 
 # ---------------------------------------------------------------------------
@@ -183,34 +204,53 @@ class ProjectedSolution(NamedTuple):
     active: torch.Tensor  # [mmax] bool, col j is a real (in-basis) pair
 
 
+def _embed(w, Z, mmax: int, rdt) -> ProjectedSolution:
+    """A solution of the active ``b x b`` block (values ``w``, vectors
+    ``Z``, already in target order) as the reference's fixed-shape one:
+    pads after the ``b`` pairs, valued ``finfo.max``, zero columns."""
+    b = w.shape[0]
+    dev = Z.device
+    hvals = torch.full((mmax,), torch.finfo(rdt).max, dtype=rdt, device=dev)
+    hvals[:b] = w
+    hvecs = torch.zeros((mmax, mmax), dtype=Z.dtype, device=dev)
+    hvecs[:b, :b] = Z
+    return ProjectedSolution(hvals=hvals, hvecs=hvecs,
+                             active=col_mask(mmax, b, dev))
+
+
+_WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
+def projected_eigh(M):
+    """``eigh`` of a small projected matrix, computed in double precision
+    for a single-precision one and returned in its precision. cuSOLVER's
+    f32 ``syevd`` loses the digits an interior Ritz value needs (JDQR +
+    Jacobi at sigma=50 on ``tests/test_eigsh.py``'s fixture, n = 1024,
+    took 2425 matvecs with it on an NVIDIA H100 80GB HBM3 at 700 W against
+    476 with LAPACK's f32 on the host; ``tools/torch_small_dense.py``). The
+    matrix is at most mmax x mmax."""
+    wide = _WIDE.get(M.dtype)
+    if wide is None:
+        return torch.linalg.eigh(M)
+    w, Z = torch.linalg.eigh(M.to(wide))
+    return w.to(real_dtype(M.dtype)), Z.to(M.dtype)
+
+
 def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int
                ) -> ProjectedSolution:
     """Rayleigh-Ritz on the active ``b x b`` block of ``H`` (reference
-    ``solve_H_rr``): the inactive diagonal gets a decoupled sentinel ramp,
-    sentinel pairs are identified by eigenvector support and sorted last."""
+    ``solve_H_rr``). The reference decouples the inactive diagonal with a
+    sentinel ramp so that one fixed-shape ``eigh`` serves every ``b``; the
+    basis size is a host integer here, so the block is solved alone. The
+    result is the same, and it keeps the small eigenvalues accurate where
+    the ramp (up to ~mmax times ||H||) costs cuSOLVER's f32 ``eigh`` digits
+    that interior targets need (:func:`projected_eigh`)."""
     mmax = H.shape[0]
-    dev = H.device
     rdt = real_dtype(H.dtype)
-    amask = col_mask(mmax, b, dev)
-    am2 = amask[:, None] & amask[None, :]
-    Hm = torch.where(am2, H, 0)
-    scale = 2.0 * torch.max(torch.abs(Hm)) + 1.0
-    ramp = (1.0 + torch.arange(mmax, dtype=rdt, device=dev)) * scale
-    Hm = Hm + torch.diag(torch.where(amask, 0, ramp)).to(H.dtype)
-    w, Z = torch.linalg.eigh(Hm)
-    support_inactive = torch.sum(
-        torch.abs(Z) ** 2 * (~amask).to(w.dtype)[:, None], dim=0)
-    is_pad = support_inactive > 0.5
+    w, Z = projected_eigh(H[:b, :b])
     keys = target_sort_keys(w, target, shifts.to(w.dtype), shift_idx)
-    inf = torch.finfo(w.dtype).max
-    keys = torch.where(is_pad, inf, keys)
     order = torch.argsort(keys, stable=True)
-    w = w[order]
-    Z = Z[:, order]
-    is_pad = is_pad[order]
-    Z = Z * (~is_pad).to(Z.dtype)[None, :]
-    w = torch.where(is_pad, inf, w)
-    return ProjectedSolution(hvals=w, hvecs=Z, active=~is_pad)
+    return _embed(w[order], Z[:, order], mmax, rdt)
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +260,8 @@ def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int
 class Candidates(NamedTuple):
     X: torch.Tensor         # Ritz vectors        [n, c]
     WX: torch.Tensor        # A X                 [n, c]
-    BX: torch.Tensor        # alias of X (no mass matrix)
-    R: torch.Tensor         # residuals W h - X diag(lambda)
+    BX: torch.Tensor        # B X (alias of X with no mass matrix)
+    R: torch.Tensor         # residuals W h - B X diag(lambda)
     resnorms: torch.Tensor  # [c] 2-norms of R columns
     xnorms: torch.Tensor    # [c] 2-norms of X columns (~0: collapsed pair)
 
@@ -239,3 +279,170 @@ def compute_residuals(V, W, BV, hvecs_c, hvals_c) -> Candidates:
     xnorms = torch.linalg.vector_norm(X, dim=0)
     return Candidates(X=X, WX=WX, BX=BX, R=R, resnorms=resnorms.real,
                       xnorms=xnorms.real)
+
+
+# ---------------------------------------------------------------------------
+# Harmonic and refined extraction (solve_H_Harm / solve_H_Ref,
+# src/eigs/solve_projection.c:430,541)
+# ---------------------------------------------------------------------------
+#
+# As in the reference, extraction works from the R factor of a QR of a
+# tall panel recomputed each outer iteration, so the conditioning is that
+# of R (kappa), not of a Gram (kappa^2).
+
+
+def _mask2(m: int, b: int, device):
+    """[m, m] bool mask of the active ``b x b`` block."""
+    amask = col_mask(m, b, device)
+    return amask[:, None] & amask[None, :]
+
+
+def _r_factor(S, mmax: int):
+    """R of the QR of the tall ``S`` (``[n, mmax]``), padded with zero rows
+    when n < mmax."""
+    R = torch.linalg.qr(S, mode="r").R
+    if R.shape[0] < mmax:
+        R = torch.cat([R, R.new_zeros((mmax - R.shape[0], mmax))], dim=0)
+    return R
+
+
+def shifted_qr_R(W, BV, b: int, tau):
+    """R factor of the QR of (A - tau B)V = W - tau BV over the active
+    columns (reference ``shifted_qr_R``); inactive rows and columns of the
+    result are exactly zero."""
+    mmax = W.shape[1]
+    R = _r_factor(W - torch.as_tensor(tau).to(W.dtype) * BV, mmax)
+    am2 = _mask2(mmax, b, W.device)
+    return torch.where(am2, R, 0)
+
+
+def complement_qr_R(V, W, H, b: int):
+    """R factor (m x m) of the QR of D = W - V H, the part of W = AV
+    orthogonal to the orthonormal basis V (reference ``complement_qr_R``):
+    ``||(A - tau) V h||^2 = ||(H - tau I) h||^2 + ||G h||^2``. Standard
+    problems only."""
+    mmax = W.shape[1]
+    am2 = _mask2(mmax, b, W.device)
+    D = W - bcomb(V, torch.where(am2, H, 0))
+    return torch.where(am2, _r_factor(D, mmax), 0)
+
+
+def smallest_right_svecs(C):
+    """Smallest right singular vector and value of each of the stacked
+    ``[b, 2b, b]`` matrices ``C``, on ``C``'s device: the lowest
+    eigenvector of the Gram ``C^H C`` from one batched ``eigh`` in
+    double precision (a single-precision ``C`` is widened first, as in
+    :func:`projected_eigh`), its value ``||C y||`` recomputed from the
+    vector. The Gram squares the conditioning, but in f64 that still
+    resolves a singular value down to ~1e-8 ||C||, below what an f32
+    ``C`` holds. Returns ``(Y, smin)``: vectors as the columns of ``Y``
+    ``[b, pairs]`` in ``C``'s type, values ``[pairs]`` in its real
+    type."""
+    wide = _WIDE.get(C.dtype, C.dtype)
+    Cw = C.to(wide)
+    _, Z = torch.linalg.eigh(Cw.mH @ Cw)
+    y = Z[:, :, 0]                                       # [pairs, b]
+    smin = torch.linalg.vector_norm(Cw @ y[:, :, None], dim=(1, 2))
+    return y.T.to(C.dtype), smin.to(real_dtype(C.dtype))
+
+
+def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
+                    anorm=None, conv_eps=None) -> ProjectedSolution:
+    """Refined extraction (reference ``solve_H_refined``) on the active
+    block: for each pair the unit coefficient vector minimizing ``||(A -
+    tau_i) V h||`` with tau_i its own Rayleigh-Ritz value, the smallest
+    right singular vector of ``[H - tau_i I; G]`` (one batched
+    :func:`smallest_right_svecs` over the pairs); pairs keep the
+    Rayleigh-Ritz order, near-duplicates are orthonormalized in that
+    order and each cluster (``prepare_vecs``'s gap
+    test, off without ``anorm``/``conv_eps``) is re-diagonalized by one
+    block-diagonal ``eigh``."""
+    mmax = H.shape[0]
+    dev = H.device
+    rdt = real_dtype(H.dtype)
+    meps = machine_eps(H.dtype)
+    base = solve_H_rr(H, b, target, shifts, shift_idx)
+    if b == 0:
+        return base
+    Hb, Gb = H[:b, :b], G[:b, :b]
+    taus = base.hvals[:b]
+    eye = torch.eye(b, dtype=H.dtype, device=dev)
+    top = Hb[None] - taus.to(H.dtype)[:, None, None] * eye[None]
+    C = torch.cat([top, Gb[None].expand(b, -1, -1)], dim=1)    # [b, 2b, b]
+    y, smin = smallest_right_svecs(C)
+    hv = torch.linalg.qr(y).Q
+    rq = torch.sum(hv.conj() * (Hb @ hv), dim=0).real
+
+    brk = torch.ones((b,), dtype=torch.bool, device=dev)
+    if anorm is not None and conv_eps is not None and b > 1:
+        an = max(float(anorm), float(torch.finfo(rdt).tiny))
+        ce = max(float(conv_eps), 6.28 * meps)
+        smax = torch.max(torch.abs(taus)) + torch.max(torch.abs(Gb))
+        dlam = torch.abs(rq[1:] - rq[:-1])
+        min_diff = math.sqrt(2.0) * smax * meps * dlam / (an * ce)
+        brk[1:] = torch.abs(smin[1:] - smin[:-1]) >= min_diff
+    cid = torch.cumsum(brk.to(torch.int64), 0) - 1
+
+    S = gram(hv, Hb @ hv)
+    S = 0.5 * (S + S.mH)
+    w, Z = projected_eigh(torch.where(cid[:, None] == cid[None, :], S, 0))
+    # the matrix is block diagonal: each eigenvector lies in one cluster
+    col_cid = torch.sum(torch.abs(Z) ** 2 * cid.to(rdt)[:, None], dim=0)
+    tk = target_sort_keys(w, target, shifts.to(rdt), shift_idx)
+    # lexicographic (cluster, target key): two stable sorts
+    o1 = torch.argsort(tk, stable=True)
+    order = o1[torch.argsort(torch.round(col_cid)[o1], stable=True)]
+    return _embed(w[order], bcomb(hv, Z)[:, order], mmax, rdt)
+
+
+def solve_H_harmonic(H, R, b: int, target: Target, shifts,
+                     shift_idx: int) -> ProjectedSolution:
+    """Harmonic Rayleigh-Ritz (reference ``solve_H_harmonic``) on the
+    active block: the pencil ``(H - tau I) h = mu R^H R h``, whose right
+    side factors as ``R^H R`` so its Cholesky factor is ``R^H`` (a
+    near-singular diagonal clamped at 32 macheps of the largest, the
+    reference's unit pad diagonal counted where there are pads); harmonic
+    values ``tau + 1/mu`` sorted by target, coefficient vectors
+    orthonormalized in that order, returned values the Rayleigh
+    quotients."""
+    mmax = H.shape[0]
+    dev = H.device
+    rdt = real_dtype(H.dtype)
+    tiny = torch.finfo(rdt).tiny
+    tau = shifts[min(int(shift_idx), shifts.shape[0] - 1)].to(rdt)
+    Rb, Hb = R[:b, :b], H[:b, :b]
+    d = torch.diagonal(Rb)
+    mag = torch.abs(d)
+    dmax = torch.max(mag) if b else torch.zeros((), dtype=rdt, device=dev)
+    if b < mmax:
+        dmax = torch.clamp(dmax, min=1.0)
+    floor = 32.0 * machine_eps(H.dtype) * torch.clamp(dmax, min=tiny)
+    phase = torch.where(mag > tiny, d / torch.clamp(mag, min=tiny),
+                        torch.ones((), dtype=H.dtype, device=dev))
+    dnew = torch.where(mag < floor, phase * floor.to(H.dtype), d)
+    L = (Rb + torch.diag(dnew - d)).mH           # lower; L L^H = R^H R
+    Hm = Hb - tau.to(H.dtype) * torch.eye(b, dtype=H.dtype, device=dev)
+    S1 = torch.linalg.solve_triangular(L, Hm, upper=False)
+    S = torch.linalg.solve_triangular(L, S1.mH, upper=False)
+    mu, Z = projected_eigh(0.5 * (S + S.mH))
+    hv = torch.linalg.solve_triangular(L.mH, Z, upper=True)
+    safe_mu = torch.where(torch.abs(mu) < tiny, tiny, mu)
+    keys = target_sort_keys(tau + 1.0 / safe_mu, target, shifts.to(rdt),
+                            shift_idx)
+    hv = torch.linalg.qr(hv[:, torch.argsort(keys, stable=True)]).Q
+    rq = torch.sum(hv.conj() * (Hb @ hv), dim=0).real
+    return _embed(rq, hv, mmax, rdt)
+
+
+def orthonormalize_coeffs(C, valid, dtype_eps: float):
+    """Orthonormalize small coefficient columns (rank-revealing, eigh
+    based); invalid or dependent columns come out zero (reference
+    ``orthonormalize_coeffs``, restart after refined/harmonic
+    extraction). Returns ``(Q, ok)``."""
+    C = C * valid.to(C.dtype)[None, :]
+    G = gram(C, C)
+    w, U = torch.linalg.eigh(G)
+    wmax = torch.clamp(torch.max(w), min=1.0)
+    ok = w > 64.0 * dtype_eps * wmax
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, w, 1.0)), 0.0)
+    return bcomb(C, U * inv[None, :].to(C.dtype)), ok

@@ -1,9 +1,11 @@
 """Core eigensolver iteration: block (Jacobi-)Davidson.
 
-PyTorch port of ``primme_tpu/core/solver.py`` on the main path: Hermitian
-standard problems (no mass matrix, no orthogonality constraints),
-Rayleigh-Ritz extraction, GD/GD+k or JDQMR corrections, hard or soft
-locking, and the spectrum-verification probe.
+PyTorch port of ``primme_tpu/core/solver.py`` for Hermitian problems,
+standard or generalized (a mass matrix B: the basis is B-orthonormal and
+the state carries ``BV``/``Bevecs``), with orthogonality constraints
+(columns ``[0, noc)`` of ``evecs``), Rayleigh-Ritz, refined or harmonic
+extraction, GD/GD+k or JDQMR corrections, hard or soft locking, and the
+spectrum-verification probe.
 
 The reference's fixed-shape masked state is kept so that arrays compare
 one to one: the basis is ``[n, mmax]`` with a basis size ``b`` whose
@@ -21,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,7 +31,9 @@ from ..params import PrimmeParams, Target, ConvTest, Projection, InitBasisMode
 from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask, gram,
                      real_dtype, machine_eps, solve_H_rr, block_ortho,
                      compute_residuals, target_sort_keys, prefix_project,
-                     rand_block)
+                     rand_block, shifted_qr_R, complement_qr_R,
+                     solve_H_refined, solve_H_harmonic,
+                     orthonormalize_coeffs)
 
 _BIG = 1 << 20  # stable-sort priority offset
 
@@ -91,10 +95,14 @@ class ProbeResult(NamedTuple):
 class SolverState:
     V: torch.Tensor              # [n, mmax] basis, inactive columns zero
     W: torch.Tensor              # [n, mmax] A V
+    BV: Optional[torch.Tensor]   # [n, mmax] B V (None: no mass matrix)
     H: torch.Tensor              # [mmax, mmax] V^H A V
     b: int                       # basis size
     prev_hvecs: torch.Tensor     # [mmax, kmax] +k retention candidates
-    evecs: torch.Tensor          # [n, lockmax] locked pairs
+    # columns [0, noc) are the orthogonality constraints, then the locked
+    # pairs; Bevecs their B images (None: no mass matrix)
+    evecs: torch.Tensor          # [n, lockmax]
+    Bevecs: Optional[torch.Tensor]
     locked_vals: torch.Tensor    # [lockmax - noc]
     locked_res: torch.Tensor
     num_locked: int
@@ -156,6 +164,7 @@ class SolveConfig(NamedTuple):
     init_random: bool
     init_user: bool = False
     b_norm: float = 0.0
+    inv_b_norm: float = 0.0
     probe_extra: int = 0
     max_probe_rounds: int = 0
     probe_unsupported: int = 0
@@ -188,7 +197,7 @@ def make_config(p: PrimmeParams) -> SolveConfig:
         projection=p.projection, hermitian=p.hermitian,
         init_random=(p.init_basis_mode == InitBasisMode.random),
         init_user=(p.init_basis_mode == InitBasisMode.user),
-        b_norm=p.b_norm)
+        b_norm=p.b_norm, inv_b_norm=p.inv_b_norm)
 
 
 def _host(*xs):
@@ -210,17 +219,33 @@ def _ortho_counts(cfg: SolveConfig, has_locked: bool):
 
 
 def _locked(cfg: SolveConfig, s: SolverState):
-    return s.evecs if (cfg.noc > 0 or cfg.locking) else None
+    """``(Q, BQ)``: the constraint and locked columns and their B images,
+    or ``(None, None)`` when the solve has neither."""
+    if not (cfg.noc > 0 or cfg.locking):
+        return None, None
+    return s.evecs, (s.Bevecs if s.Bevecs is not None else s.evecs)
+
+
+def _ortho(cfg: SolveConfig, B, s: SolverState, X, nact: int,
+           **kw):
+    """``block_ortho`` of X against the basis and the locked columns of
+    ``s`` in the B inner product."""
+    Q, BQ = _locked(cfg, s)
+    return block_ortho(X, s.V, Q, nact, s.gen,
+                       locked_count=cfg.noc + s.num_locked, Bop=B,
+                       BV=s.BV, BQ=BQ, **kw)
 
 
 # ---------------------------------------------------------------------------
 # Basis initialization (init_basis, src/eigs/init.c:125)
 # ---------------------------------------------------------------------------
 
-def init_basis(A, cfg: SolveConfig, gen, v0, dtype, device):
+def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
+               device):
     """Block-Krylov initial basis: ``V[:, :b0]`` spans {X0, A X0, ...},
-    orthonormal; each A-application doubles as the W panel of its block.
-    Returns ``(V, W, H, b0, n_random)``."""
+    B-orthonormal and orthogonal to the constraint columns of ``evecs``;
+    each A-application doubles as the W panel of its block. Returns
+    ``(V, W, BV, H, b0, n_random)``."""
     n, mmax, blk = cfg.n, cfg.mmax, cfg.blk
     if cfg.init_user:
         nguess = v0.shape[1] if v0 is not None else 0
@@ -231,6 +256,10 @@ def init_basis(A, cfg: SolveConfig, gen, v0, dtype, device):
     mal = max(mmax, nb * blk)
     V = torch.zeros((n, mal), dtype=dtype, device=device)
     W = torch.zeros((n, mal), dtype=dtype, device=device)
+    BV = None if B is None else torch.zeros((n, mal), dtype=dtype,
+                                            device=device)
+    Q = evecs if cfg.noc > 0 else None
+    BQ = Bevecs if (Q is not None and B is not None) else Q
 
     ngb = 0
     v0pad = None
@@ -251,17 +280,22 @@ def init_basis(A, cfg: SolveConfig, gen, v0, dtype, device):
         if v0pad is not None and i < ngb:
             X = v0pad[:, bi:bi + blk]
         nact = min(blk, b0 - bi)
-        res = block_ortho(X, V, None, nact, gen, locked_count=cfg.noc)
+        res = block_ortho(X, V, Q, nact, gen, locked_count=cfg.noc, Bop=B,
+                          BV=BV, BQ=BQ)
         V[:, bi:bi + blk] = res.X
+        if B is not None:
+            BV[:, bi:bi + blk] = res.BX
         Y = A.matmat(res.X)
         W[:, bi:bi + blk] = Y
         X = Y
         nrand += res.n_random
     V, W = V[:, :mmax].contiguous(), W[:, :mmax].contiguous()
+    if B is not None:
+        BV = BV[:, :mmax].contiguous()
     H = gram(V, W)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
-    return V, W, H, b0, nrand
+    return V, W, BV, H, b0, nrand
 
 
 # ---------------------------------------------------------------------------
@@ -296,10 +330,27 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
     rdt = real_dtype(s.H.dtype)
     fmax = float(torch.finfo(rdt).max)
     sidx = min(s.num_locked, shifts.shape[0] - 1)
-    sol = solve_H_rr(s.H, s.b, cfg.target, shifts, sidx)
+    has_B = s.BV is not None
+    if cfg.projection == Projection.refined and not has_B:
+        # the cluster gap test's inputs (prepare_vecs,
+        # solve_projection.c:878-890)
+        meps = machine_eps(s.V.dtype)
+        sres = s.best_res / 10.0 if s.best_res < fmax / 4 else 0.0
+        conv_eps = max(s.stats.max_conv_tol, sres, 6.28 * meps)
+        an0 = max(s.stats.anorm_estimate, cfg.a_norm, 0.0)
+        G = complement_qr_R(s.V, s.W, s.H, s.b)
+        sol = solve_H_refined(s.H, G, s.b, cfg.target, shifts, sidx,
+                              anorm=an0, conv_eps=conv_eps)
+    elif cfg.projection in (Projection.refined, Projection.harmonic):
+        # harmonic; refined with a mass matrix is served by harmonic, as
+        # the reference does
+        R = shifted_qr_R(s.W, s.BV if has_B else s.V, s.b, shifts[sidx])
+        sol = solve_H_harmonic(s.H, R, s.b, cfg.target, shifts, sidx)
+    else:
+        sol = solve_H_rr(s.H, s.b, cfg.target, shifts, sidx)
     hv_c = sol.hvecs[:, :c]
     hl_c = sol.hvals[:c]
-    cands = compute_residuals(s.V, s.W, None, hv_c, hl_c)
+    cands = compute_residuals(s.V, s.W, s.BV, hv_c, hl_c)
     active = sol.active[:c] & (cands.xnorms > 0.5)
     finite = torch.where(active, torch.where(torch.isfinite(hl_c), hl_c, 0), 0)
     rv = finite.real
@@ -307,7 +358,11 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
                              torch.min(torch.where(active, rv, fmax)),
                              torch.max(torch.where(active, rv, -fmax)))
     anorm_est = max(s.stats.anorm_estimate, amax)
-    anorm = cfg.a_norm if cfg.a_norm > 0 else anorm_est
+    # problemNorm (auxiliary_eigs.c:567): with a mass matrix and both user
+    # estimates, aNorm * invBNorm; otherwise the largest |Ritz value| seen
+    user_pnorm = (cfg.a_norm * cfg.inv_b_norm
+                  if has_B and cfg.inv_b_norm > 0 else cfg.a_norm)
+    anorm = user_pnorm if cfg.a_norm > 0 else anorm_est
     tol = max(_tolerance(cfg, anorm, rdt), s.stats.max_conv_tol)
     n_needed = cfg.ne - s.num_locked
     if cfg.locking:
@@ -334,8 +389,8 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
     weak_only = torch.zeros_like(conv)
     if cfg.locking or cfg.noc > 0:
         # practically converged (check_practical_convergence)
-        Rp = prefix_project(s.evecs, s.evecs, cands.R,
-                            cfg.noc + s.num_locked)
+        Rp = prefix_project(s.Bevecs if has_B else s.evecs, s.evecs,
+                            cands.R, cfg.noc + s.num_locked)
         projres = torch.linalg.vector_norm(Rp, dim=0).real
         attainable = math.sqrt(1.0 + cfg.noc + s.num_locked) * tol
         practical = (projres <= tol) & (cands.resnorms <= attainable)
@@ -350,7 +405,8 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
         num_global_sum=st.num_global_sum + 2 + (1 if has_locked else 0),
         volume_global_sum=(st.volume_global_sum + 2.0 * c
                            + (float(cfg.lockmax * c) if has_locked else 0.0)),
-        flops_dense=(st.flops_dense + 2.0 * cfg.n * cfg.mmax * c * 2
+        flops_dense=(st.flops_dense
+                     + 2.0 * cfg.n * cfg.mmax * c * (3 if has_B else 2)
                      + 3.0 * cfg.n * c),
         est_min_eval=min(st.est_min_eval, emin),
         est_max_eval=max(st.est_max_eval, emax),
@@ -453,13 +509,14 @@ def _deg(need: float, cut: float, width: float) -> int:
     return min(max(int(need / ac) + 1, 8), 512)
 
 
-def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
+def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                     shifts, bar: float, margin: float) -> ProbeResult:
     """Out-of-band spectrum-verification probe (reference
     ``_probe_subsolve``): a small Davidson iteration on the complement of
-    the converged set, started from a Chebyshev-filtered random block;
-    *found* when its best Ritz value, certified on the deflated
-    candidate, sorts strictly inside the returned set."""
+    the converged set, started from a Chebyshev-filtered random block (a
+    plain random one with a mass matrix); *found* when its best Ritz
+    value, certified on the deflated candidate, sorts strictly inside the
+    returned set."""
     from ..operators import apply_precond
 
     n, blk = cfg.n, cfg.blk
@@ -470,7 +527,8 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
     tiny = float(torch.finfo(rdt).tiny)
     gen = s.gen
     sidx = min(s.num_locked, shifts.shape[0] - 1)
-    Q = _locked(cfg, s)
+    has_B = B is not None
+    Q, BQ = _locked(cfg, s)
     lcount = cfg.noc + s.num_locked
     need = math.log(4.0 * math.sqrt(n))
 
@@ -478,7 +536,9 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
     bnd_hi, bnd_lo = s.probe_bnd_hi, s.probe_bnd_lo
     bnds_set = s.probe_bnds_set
     fast_start = False
-    if cfg.target == Target.largest_abs:
+    if has_B:
+        Z0, mv0 = rand_block(gen, n, blk, cdt, dev), 0
+    elif cfg.target == Target.largest_abs:
         sctr = float(shifts[sidx]) if shifts.shape[0] else 0.0
         cut = max(8.0 * margin, 1e-3 * max(-2.0 * bar, 0.0))
         s_lo = sctr + bar + cut
@@ -535,13 +595,15 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
 
     P = torch.zeros((n, pw), dtype=cdt, device=dev)
     WP = torch.zeros((n, pw), dtype=cdt, device=dev)
+    BP = torch.zeros((n, pw), dtype=cdt, device=dev) if has_B else None
     Hp = torch.zeros((pw, pw), dtype=cdt, device=dev)
     V = s.V
+    BVd = s.BV if has_B else V
     floor = tiny * 1e10
     ar = torch.arange(blk, device=dev)
 
     def deflate(Z):
-        return Z - bcomb(V, gram(V, Z))
+        return Z - bcomb(V, gram(BVd, Z))
 
     def colnorm(Y):
         return torch.sqrt(torch.clamp(torch.sum(Y.conj() * Y, dim=0).real,
@@ -569,6 +631,10 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
             Pn[:, :kk] = bcomb(P, C)
             WPn = torch.zeros_like(WP)
             WPn[:, :kk] = bcomb(WP, C)
+            if has_B:
+                BPn = torch.zeros_like(BP)
+                BPn[:, :kk] = bcomb(BP, C)
+                BP = BPn
             Hn = torch.zeros_like(Hp)
             Hn[:kk, :kk] = C.mH @ (Hp @ C)
             P, WP, Hp, w = Pn, WPn, Hn, min(w, kk)
@@ -589,13 +655,13 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
                                     zj / torch.clamp(zjn, min=floor), 0.0))
         Zd = torch.cat(cols, dim=1)
         ores = block_ortho(Zd, P, Q, blk, gen, locked_count=lcount,
-                           n_iters=1)
+                           n_iters=1, Bop=B, BV=BP, BQ=BQ)
         # count only columns certified to live in the complement of
         # span(V) and the locked set, compacted to the front
         if ores.n_random > 0 or bool(defl_shrunk):
-            cert = ores.X - bcomb(V, gram(V, ores.X))
+            cert = ores.X - bcomb(V, gram(BVd, ores.X))
             if Q is not None:
-                cert = prefix_project(Q, Q, cert, lcount)
+                cert = prefix_project(BQ, Q, cert, lcount)
             cn2p = torch.sum(cert.conj() * cert, dim=0).real
         else:
             cn2p = torch.sum(ores.X.conj() * ores.X, dim=0).real
@@ -605,6 +671,8 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
         keepp = (ar < srvp)[None, :]
         Xs = torch.where(keepp, ores.X[:, srtp], 0)
         P[:, w:w + blk] = Xs
+        if has_B:
+            BP[:, w:w + blk] = torch.where(keepp, ores.BX[:, srtp], 0)
         Y = A.matmat(Xs)
         WP[:, w:w + blk] = Y
         mv += srvp
@@ -627,15 +695,16 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
             # complement's extreme
             xd = Xb[:, :1]
             for _ in range(2):
-                xd = xd - bcomb(V, gram(V, xd))
+                xd = xd - bcomb(V, gram(BVd, xd))
                 if Q is not None:
-                    xd = prefix_project(Q, Q, xd, lcount)
+                    xd = prefix_project(BQ, Q, xd, lcount)
             xdn = torch.sqrt(torch.clamp(torch.sum(xd.conj() * xd).real,
                                          min=0.0))
             xdu = torch.where(xdn > floor, xd / torch.clamp(xdn, min=floor),
                               0.0)
             Axd = A.matmat(xdu)
-            den = torch.sum(xdu.conj() * xdu).real
+            den = torch.sum(xdu.conj() * (B.matmat(xdu) if has_B
+                                          else xdu)).real
             rqd = torch.sum(xdu.conj() * Axd).real / torch.clamp(den,
                                                                  min=tiny)
             ckey = target_sort_keys(rqd[None], cfg.target, shifts, sidx)[0]
@@ -643,7 +712,8 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
             found2 = xdn_h > 0.5 * xb0 and ckey_h < bar - margin
             mv += 1
         lamb = torch.where(torch.isfinite(hb), hb, 0).to(cdt)
-        Rb = bcomb(WP, Cb) - Xb * lamb[None, :]
+        Rb = bcomb(WP, Cb) - (bcomb(BP, Cb) if has_B else Xb) \
+            * lamb[None, :]
         if K is not None:
             Z = apply_precond(K, Rb, lamb.real)
             npc += blk
@@ -662,18 +732,19 @@ def _probe_subsolve(cfg: SolveConfig, A, K, s: SolverState, win: Window,
                        bnds_set=bnds_set)
 
 
-def _append_probe_block(cfg: SolveConfig, A, s: SolverState,
+def _append_probe_block(cfg: SolveConfig, A, B, s: SolverState,
                         Xb) -> SolverState:
     """Inject a found probe block as new basis columns at ``s.b`` (caller
     guarantees ``s.b + blk <= mmax``)."""
     blk = cfg.blk
-    ores = block_ortho(Xb, s.V, _locked(cfg, s), blk, s.gen,
-                       locked_count=cfg.noc + s.num_locked)
-    Xs, nc = _survivors(ores.X)
-    Xs = torch.where((torch.arange(blk, device=Xb.device) < nc)[None, :],
-                     Xs, 0)
+    ores = _ortho(cfg, B, s, Xb, blk)
+    (Xs, BXs), nc = _survivors(ores)
+    keep = (torch.arange(blk, device=Xb.device) < nc)[None, :]
+    Xs = torch.where(keep, Xs, 0)
     b = s.b
     s.V[:, b:b + blk] = Xs
+    if B is not None:
+        s.BV[:, b:b + blk] = torch.where(keep, BXs, 0)
     Y = A.matmat(Xs)
     s.W[:, b:b + blk] = Y
     hc = gram(s.V, Y)
@@ -771,7 +842,10 @@ def _robust_shifts(cfg: SolveConfig, s: SolverState, win: Window,
     ts = shifts[min(s.num_locked, shifts.shape[0] - 1)].to(lam0.dtype)
     d = ts - lam0
     near = torch.abs(d) < res.to(lam0.dtype)
-    far = lam0 + res.to(lam0.dtype) * torch.sign(d)
+    if cfg.projection == Projection.refined:
+        far = lam0      # a refined Ritz value is trusted at once
+    else:
+        far = lam0 + res.to(lam0.dtype) * torch.sign(d)
     return torch.where(valid, torch.where(near, ts, far), 0), prev2, nprev2
 
 
@@ -793,11 +867,12 @@ def _ortho_span_coeff(P, C, tol):
     return bcomb(P, U * inv[None, :].to(P.dtype)), valid
 
 
-def do_restart(cfg: SolveConfig, A, s: SolverState,
+def do_restart(cfg: SolveConfig, A, B, s: SolverState,
                win: Window) -> SolverState:
     """Thick restart with +k retention and (optional) hard locking."""
     mmax, mrs, kmax, c = cfg.mmax, cfg.mrs, cfg.kmax, cfg.cwin
     dev = s.V.device
+    has_B = B is not None
     idx = torch.arange(mmax, device=dev)
     active = win.sol.active
     rdt = s.locked_res.dtype
@@ -816,6 +891,10 @@ def do_restart(cfg: SolveConfig, A, s: SolverState,
         evecs = s.evecs
         evecs[:, off:off + c] = torch.where(lvalid[None, :], Xl,
                                             evecs[:, off:off + c])
+        if has_B:
+            BXl = win.cands.BX[:, lockorder] * lvalid.to(s.V.dtype)[None, :]
+            s.Bevecs[:, off:off + c] = torch.where(
+                lvalid[None, :], BXl, s.Bevecs[:, off:off + c])
         nlk = s.num_locked
         locked_vals = s.locked_vals
         locked_vals[nlk:nlk + c] = torch.where(
@@ -845,6 +924,11 @@ def do_restart(cfg: SolveConfig, A, s: SolverState,
     keep_ok = (active[keep_order] & ~locked_now[keep_order]
                & (idx[:keepW] < nkeep))
     Ckeep = win.sol.hvecs[:, keep_order] * keep_ok.to(s.H.dtype)[None, :]
+    if cfg.projection != Projection.RR:
+        # refined/harmonic coefficient vectors are not mutually orthogonal
+        # (restart_refined/harmonic, src/eigs/restart.c:1837,2255)
+        Ckeep, keep_ok = orthonormalize_coeffs(Ckeep, keep_ok,
+                                               machine_eps(s.H.dtype))
 
     if kmax > 0:
         meps = machine_eps(s.H.dtype)
@@ -871,6 +955,7 @@ def do_restart(cfg: SolveConfig, A, s: SolverState,
 
     V = bcomb(s.V, Cfull)
     W = bcomb(s.W, Cfull)
+    BV = bcomb(s.BV, Cfull) if has_B else None
     H = gram(Cfull, s.H @ Cfull)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
@@ -889,7 +974,7 @@ def do_restart(cfg: SolveConfig, A, s: SolverState,
                      num_locked=s.stats.num_locked + nl, max_conv_tol=mct,
                      estimate_resid_error=drift,
                      num_resets=0 if nl > 0 else s.stats.num_resets)
-    s = _replace(s, V=V, W=W, H=H, b=b_new,
+    s = _replace(s, V=V, W=W, BV=BV, H=H, b=b_new,
                  prev_hvecs=torch.zeros_like(s.prev_hvecs),
                  evecs=evecs, locked_vals=locked_vals,
                  locked_res=locked_res, num_locked=num_locked,
@@ -899,15 +984,16 @@ def do_restart(cfg: SolveConfig, A, s: SolverState,
                  stall_restarts=0 if nl > 0 else s.stall_restarts,
                  stats=stats)
     # locking consumed the whole basis: refill with a random block
-    return _refill_random(cfg, A, s) if s.b < 1 else s
+    return _refill_random(cfg, A, B, s) if s.b < 1 else s
 
 
-def _refill_random(cfg: SolveConfig, A, s: SolverState) -> SolverState:
+def _refill_random(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     X = rand_block(s.gen, cfg.n, cfg.blk, s.V.dtype, s.V.device)
-    res = block_ortho(X, s.V, _locked(cfg, s), cfg.blk, s.gen,
-                      locked_count=cfg.noc + s.num_locked)
+    res = _ortho(cfg, B, s, X, cfg.blk)
     blk = cfg.blk
     s.V[:, :blk] = res.X
+    if B is not None:
+        s.BV[:, :blk] = res.BX
     Y = A.matmat(res.X)
     s.W[:, :blk] = Y
     Hn = torch.zeros_like(s.H)
@@ -922,17 +1008,20 @@ def _refill_random(cfg: SolveConfig, A, s: SolverState) -> SolverState:
 # Expansion (one outer iteration of main_iter.c:517)
 # ---------------------------------------------------------------------------
 
-def _survivors(X):
-    """Compact columns that kept a norm (>= 0.5) to the front; NaN columns
-    count as collapsed. Returns ``(X, n_survivors)``."""
+def _survivors(o):
+    """Compact the columns of ``block_ortho``'s result that kept a norm
+    (>= 0.5) to the front; NaN columns count as collapsed. Returns
+    ``((X, BX), n_survivors)``."""
+    X = o.X
     blk = X.shape[1]
     ar = torch.arange(blk, device=X.device)
     ok = torch.sum(X.conj() * X, dim=0).real >= 0.25
     srt = torch.argsort(ar + _BIG * (~ok).to(ar.dtype), stable=True)
-    return X[:, srt], int(ok.sum())
+    Xc = X[:, srt]
+    return (Xc, Xc if o.BX is X else o.BX[:, srt]), int(ok.sum())
 
 
-def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
+def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
               shifts, inner_solve=None,
               force_random: bool = False) -> SolverState:
     """One expansion step; ``force_random`` replaces the corrections with
@@ -948,6 +1037,7 @@ def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
     vmask = valid.to(win.cands.X.dtype)[None, :]
     R = win.cands.R[:, cand_idx] * vmask
     X = win.cands.X[:, cand_idx] * vmask
+    BX = win.cands.BX[:, cand_idx] * vmask if B is not None else X
     lam = win.sol.hvals[:c][cand_idx]
     res = win.cands.resnorms[cand_idx]
     sigma, prev_ritz2, num_prev2 = _robust_shifts(
@@ -966,28 +1056,29 @@ def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
         D = rand_block(s.gen, cfg.n, blk, R.dtype, dev)
     elif cfg.max_inner != 0 and inner_solve is not None:
         D, n_inner, n_mv_inner, n_prec = inner_solve(
-            cfg, A, None, K, s, X, X, R, sigma, res, valid, win.tol,
+            cfg, A, B, K, s, X, BX, R, sigma, res, valid, win.tol,
             evals=lam)
     else:
         D = gd_correction(cfg, K, R, X, sigma, valid)
         if K is not None:
             n_prec = nc
-    Q = _locked(cfg, s)
-    lcount = cfg.noc + s.num_locked
-    ores = block_ortho(D, s.V, Q, nc, s.gen, locked_count=lcount)
-    Xo, srv = _survivors(ores.X)
+    ores = _ortho(cfg, B, s, D, nc)
+    (Xo, BXo), srv = _survivors(ores)
     n_random = ores.n_random
     if srv == 0 and nc > 0:
         # every direction collapsed: retry with a fresh random block
         rnd = rand_block(s.gen, cfg.n, blk, s.V.dtype, dev)
-        o2 = block_ortho(rnd, s.V, Q, nc, s.gen, locked_count=lcount)
-        Xo, srv = _survivors(o2.X)
+        o2 = _ortho(cfg, B, s, rnd, nc)
+        (Xo, BXo), srv = _survivors(o2)
         n_random = o2.n_random
     nc = min(nc, srv)
-    Xo = torch.where((ar < nc)[None, :], Xo, 0)
+    keep = (ar < nc)[None, :]
+    Xo = torch.where(keep, Xo, 0)
 
     b = s.b
     s.V[:, b:b + blk] = Xo
+    if B is not None:
+        s.BV[:, b:b + blk] = torch.where(keep, BXo, 0)
     Y = A.matmat(Xo)
     s.W[:, b:b + blk] = Y
     hc = gram(s.V, Y)                     # [mmax, blk] new columns of H
@@ -996,7 +1087,7 @@ def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
     st = s.stats
     # one block_ortho, the H panel's Gram and ~5 width-blk dot products an
     # inner QMR iteration
-    ngs_bo, vol_bo = _ortho_counts(cfg, Q is not None)
+    ngs_bo, vol_bo = _ortho_counts(cfg, cfg.noc > 0 or cfg.locking)
     stats = _replace(
         st, num_outer_iterations=st.num_outer_iterations + 1,
         num_matvecs=st.num_matvecs + nc + n_mv_inner,
@@ -1015,14 +1106,17 @@ def do_expand(cfg: SolveConfig, A, K, s: SolverState, win: Window,
 # Reset (main_iter.c:853-896)
 # ---------------------------------------------------------------------------
 
-def do_reset(cfg: SolveConfig, A, s: SolverState) -> SolverState:
+def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     """Rebuild W = A V from a re-orthonormalized basis (rank-revealing
-    symmetric whitening after two passes against the locked vectors)."""
+    symmetric whitening in the B inner product after two passes against
+    the locked vectors)."""
     V = s.V * col_mask(cfg.mmax, s.b, s.V.device).to(s.V.dtype)[None, :]
     if cfg.locking or cfg.noc > 0:
+        Bq = s.Bevecs if B is not None else s.evecs
         for _ in range(2):
-            V = prefix_project(s.evecs, s.evecs, V, cfg.noc + s.num_locked)
-    G = gram(V, V)
+            V = prefix_project(s.evecs, Bq, V, cfg.noc + s.num_locked)
+    Bv = B.matmat(V) if B is not None else V
+    G = gram(V, Bv)
     G = 0.5 * (G + G.mH)
     meps = machine_eps(s.V.dtype)
     lam, U = torch.linalg.eigh(G)
@@ -1031,7 +1125,9 @@ def do_reset(cfg: SolveConfig, A, s: SolverState) -> SolverState:
     lmax = torch.clamp(lam[0], min=meps)
     good = (lam > 64.0 * meps * lmax) & torch.isfinite(lam)
     scale = torch.where(good, torch.rsqrt(torch.clamp(lam, min=meps)), 0.0)
-    V = bcomb(V, U * scale.to(G.dtype)[None, :])
+    C = U * scale.to(G.dtype)[None, :]
+    V = bcomb(V, C)
+    BV = bcomb(Bv, C) if B is not None else None
     W = A.matmat(V).to(s.W.dtype)
     H = gram(V, W)
     if cfg.hermitian:
@@ -1048,7 +1144,7 @@ def do_reset(cfg: SolveConfig, A, s: SolverState) -> SolverState:
                               if has_locked else 0.0)),
         num_ortho_inner_prods=(st.num_ortho_inner_prods
                                + float(cfg.mmax * cfg.mmax)))
-    return _replace(s, V=V, W=W, H=H, b=nkeep,
+    return _replace(s, V=V, W=W, BV=BV, H=H, b=nkeep,
                     prev_hvecs=torch.zeros_like(s.prev_hvecs),
                     best_res=float(torch.finfo(real_dtype(s.H.dtype)).max),
                     restarts_since_reset=0, stall_restarts=0, stats=stats)
@@ -1058,18 +1154,15 @@ def do_reset(cfg: SolveConfig, A, s: SolverState) -> SolverState:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def setup_solver(A, p: PrimmeParams, *, v0=None, dtype=None, device=None):
-    """Build config, target shifts and initial state."""
+def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
+                 dtype=None, device=None):
+    """Build config, target shifts and initial state. ``B`` is the mass
+    matrix (an operator) or None; ``ortho_const`` an ``[n, noc]`` tensor
+    of constraint vectors (``p.num_ortho_const`` columns)."""
     cfg = make_config(p)
     if not cfg.hermitian:
         raise NotImplementedError("normal (non-Hermitian) operators are "
                                   "not ported yet")
-    if cfg.projection != Projection.RR:
-        raise NotImplementedError(f"projection={cfg.projection} is not "
-                                  "ported yet (Rayleigh-Ritz only)")
-    if cfg.noc > 0:
-        raise NotImplementedError("orthogonality constraints are not "
-                                  "ported yet")
     dtype = dtype or A.dtype
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"working dtype {dtype} is not ported "
@@ -1079,18 +1172,30 @@ def setup_solver(A, p: PrimmeParams, *, v0=None, dtype=None, device=None):
     ts = p.target_shifts if p.target_shifts else (0.0,)
     shifts = torch.tensor(ts, dtype=rdt, device=device)
     gen = torch.Generator().manual_seed(int(p.rng_seed))
-    s0 = _build_state(cfg, A, v0, gen, dtype, device)
+    s0 = _build_state(cfg, A, B, v0, ortho_const, gen, dtype, device)
     return cfg, shifts, s0
 
 
-def _build_state(cfg: SolveConfig, A, v0, gen, dtype, device) -> SolverState:
+def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
+                 device) -> SolverState:
     n, mmax = cfg.n, cfg.mmax
     rdt = real_dtype(dtype)
     fmax = float(torch.finfo(rdt).max)
     evecs0 = torch.zeros((n, cfg.lockmax), dtype=dtype, device=device)
+    if ortho_const is not None:
+        if ortho_const.shape[1] != cfg.noc:
+            raise ValueError(f"{ortho_const.shape[1]} constraint columns, "
+                             f"num_ortho_const={cfg.noc}")
+        evecs0[:, :cfg.noc] = ortho_const.to(device=device, dtype=dtype)
+    Bevecs0 = None
+    if B is not None:
+        Bevecs0 = torch.zeros_like(evecs0)
+        if cfg.noc > 0:
+            Bevecs0[:, :cfg.noc] = B.matmat(evecs0[:, :cfg.noc])
     if v0 is not None:
         v0 = v0.to(device=device, dtype=dtype)
-    V, W, H, b0, nrand0 = init_basis(A, cfg, gen, v0, dtype, device)
+    V, W, BV, H, b0, nrand0 = init_basis(A, B, cfg, gen, evecs0, Bevecs0,
+                                         v0, dtype, device)
     # the initial basis: one block_ortho a block of the reference's b0,
     # and H's Gram
     nb0 = -(-max(min(cfg.mrs, mmax), min(cfg.blk, mmax)) // cfg.blk)
@@ -1105,10 +1210,10 @@ def _build_state(cfg: SolveConfig, A, v0, gen, dtype, device) -> SolverState:
         return torch.zeros((m,), dtype=rdt, device=device)
 
     return SolverState(
-        V=V, W=W, H=H, b=b0,
+        V=V, W=W, BV=BV, H=H, b=b0,
         prev_hvecs=torch.zeros((mmax, max(cfg.kmax, 1)), dtype=dtype,
                                device=device),
-        evecs=evecs0, locked_vals=zr(cfg.lockmax - cfg.noc),
+        evecs=evecs0, Bevecs=Bevecs0, locked_vals=zr(cfg.lockmax - cfg.noc),
         locked_res=zr(cfg.lockmax - cfg.noc), num_locked=0,
         best_res=fmax, stall_restarts=0, restarts_since_reset=0,
         prev_ritz=zr(cfg.lockmax + cfg.cwin), num_prev_ritz=0,
@@ -1117,7 +1222,7 @@ def _build_state(cfg: SolveConfig, A, v0, gen, dtype, device) -> SolverState:
         give_up=False, gen=gen, done=False, stats=stats)
 
 
-def run_segment(cfg: SolveConfig, A, K, inner_solve, shifts,
+def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
                 s: SolverState) -> SolverState:
     """The main iteration (reference ``run_segment``'s while loop, on the
     host) until done, give-up, or the iteration/matvec limits."""
@@ -1155,7 +1260,7 @@ def run_segment(cfg: SolveConfig, A, K, inner_solve, shifts,
             if cap_hit:
                 s.stats = _replace(s.stats, probe_exhausted=1)
             if do_probe:
-                pr = _probe_subsolve(cfg, A, K, s, win, shifts, newkth,
+                pr = _probe_subsolve(cfg, A, B, K, s, win, shifts, newkth,
                                      margin)
                 st = s.stats
                 clean2 = 0 if pr.found else (
@@ -1173,7 +1278,7 @@ def run_segment(cfg: SolveConfig, A, K, inner_solve, shifts,
                              probe_bnds_set=pr.bnds_set,
                              verified=now_verified)
                 if pr.found:
-                    s = _append_probe_block(cfg, A, s, pr.X)
+                    s = _append_probe_block(cfg, A, B, s, pr.X)
         probe_injected = s.b > b_pre
         done = done_cand and s.verified
 
@@ -1192,13 +1297,13 @@ def run_segment(cfg: SolveConfig, A, K, inner_solve, shifts,
         s = _replace(s, best_res=best_res, stall_restarts=stall)
         if not (done or probe_injected):
             if need_restart:
-                s = do_restart(cfg, A, s, win)
+                s = do_restart(cfg, A, B, s, win)
                 s = _replace(s, stall_restarts=s.stall_restarts + 1)
                 if need_reset:
-                    s = do_reset(cfg, A, s)
+                    s = do_reset(cfg, A, B, s)
             else:
                 mv0 = s.stats.num_matvecs
-                s = do_expand(cfg, A, K, s, win, shifts,
+                s = do_expand(cfg, A, B, K, s, win, shifts,
                               inner_solve=inner_solve, force_random=inject)
                 if s.stats.num_matvecs <= mv0:
                     s = _replace(s, stall_restarts=s.stall_restarts + 1)
@@ -1252,11 +1357,16 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
                       stats=_replace(stats, probe_verified=int(s.verified)))
 
 
-def solve_eigs(A, p: PrimmeParams, *, K=None, v0=None, inner_solve=None,
-               dtype=None, device=None) -> EigsResult:
+def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
+               ortho_const=None, inner_solve=None, dtype=None,
+               device=None) -> EigsResult:
     """Run the eigensolver on a port :class:`LinearOperator` with resolved
-    params (``set_method``/``resolve_defaults``). ``device`` defaults to
-    the operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses."""
-    cfg, shifts, s0 = setup_solver(A, p, v0=v0, dtype=dtype, device=device)
-    s = run_segment(cfg, A, K, inner_solve, shifts, s0)
+    params (``set_method``/``resolve_defaults``). ``B`` is the mass matrix
+    of a generalized problem (``A x = lambda B x``, B Hermitian positive
+    definite), ``ortho_const`` an ``[n, p.num_ortho_const]`` tensor the
+    returned vectors are B-orthogonal to. ``device`` defaults to the
+    operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses."""
+    cfg, shifts, s0 = setup_solver(A, p, B=B, v0=v0, ortho_const=ortho_const,
+                                   dtype=dtype, device=device)
+    s = run_segment(cfg, A, B, K, inner_solve, shifts, s0)
     return extract_result(cfg, s, shifts)

@@ -19,7 +19,9 @@ Operators and their products:
 * :class:`DenseOperator`, :class:`DiagonalOperator`,
   :class:`FunctionOperator` (a scipy ``LinearOperator`` applied on the
   host) and :class:`CastOperator` (a working precision other than the
-  operator's).
+  operator's);
+* :class:`ChebyshevPrecond`, a polynomial preconditioner over any of
+  them (``degree - 1`` products a block).
 
 The sparse formats hold real f32 or f64 values; complex input raises
 ``NotImplementedError`` naming the format.
@@ -303,6 +305,72 @@ class CastOperator(LinearOperator):
     def diagonal(self):
         d = self.op.diagonal()
         return None if d is None else d.to(self.dtype)
+
+
+class ChebyshevPrecond(LinearOperator):
+    """Polynomial (Chebyshev-iteration) preconditioner, ``z ~= (A - sigma
+    I)^{-1} r`` with the error polynomial equioscillating on ``[a, b]``,
+    the interval enclosing the unwanted spectrum of ``A - sigma I`` (the
+    reference's ``ChebyshevPrecond``; requires ``0 < a < b``, the wanted
+    eigenvalues below ``a``). ``matmat`` is the classic three-term
+    recurrence (Saad, alg. 12.1) as a host loop of ``degree - 1`` steps,
+    each one block product with ``A``: on the card, ``A``'s own kernel.
+    The recurrence's scalars are computed on the host in the operator's
+    real precision, as the reference computes them."""
+
+    def __init__(self, A, interval, degree: int = 10, sigma: float = 0.0):
+        super().__init__()
+        self.A = A if isinstance(A, LinearOperator) else aslinearoperator(A)
+        rdt = np.dtype(str(real_dtype(self.A.dtype)).replace("torch.", ""))
+        a, b = interval
+        self._r = rdt.type          # host scalars in the real precision
+        self.a, self.b, self.sigma = (self._r(v) for v in (a, b, sigma))
+        self.degree = int(degree)
+        self.shape = self.A.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.A.dtype
+
+    @classmethod
+    def from_operator(cls, A, degree: int = 10, lower_frac: float = 0.05,
+                      sigma: float = 0.0, power_iters: int = 20,
+                      seed: int = 0) -> "ChebyshevPrecond":
+        """Build with the interval estimated by a short power iteration on
+        ``A`` from a normal start drawn by a ``torch.Generator`` seeded
+        with ``seed``: ``b`` its last norm growth times 1.05, ``a =
+        lower_frac * b`` (the wanted eigenvalues must lie below ``a``)."""
+        from .core.linalg import rand_block
+
+        Aop = A if isinstance(A, LinearOperator) else aslinearoperator(A)
+        rdt = real_dtype(Aop.dtype)
+        x = rand_block(torch.Generator().manual_seed(int(seed)),
+                       Aop.shape[0], 1, Aop.dtype, Aop.device)
+        lam = torch.ones((), dtype=rdt, device=x.device)
+        tiny = torch.finfo(rdt).tiny
+        for _ in range(power_iters):
+            y = Aop.matmat(x)
+            lam = torch.linalg.vector_norm(y)
+            x = y / torch.clamp(lam, min=tiny)
+        b = 1.05 * float(lam)
+        return cls(Aop, (lower_frac * b, b), degree=degree, sigma=sigma)
+
+    def matmat(self, X):
+        r = self._r
+        theta = r(0.5) * (self.b + self.a)
+        delta = r(0.5) * (self.b - self.a)
+        sig1 = theta / delta
+        sh = float(self.sigma)
+        z = X / float(theta)
+        d = z
+        rho = r(1.0) / sig1
+        for _ in range(self.degree - 1):
+            res = X - (self.A.matmat(z) - sh * z)
+            rho_n = r(1.0) / (r(2.0) * sig1 - rho)
+            d = float(rho_n * rho) * d + float(r(2.0) * rho_n / delta) * res
+            z = z + d
+            rho = rho_n
+        return z
 
 
 def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,

@@ -1,7 +1,7 @@
 """The port's entry points take the reference's path or refuse by name:
-the format chooser picks the reference's format (never a substitute), and
-``eigsh`` raises NotImplementedError for the arguments that are not
-ported."""
+the format chooser picks the reference's format (never a substitute),
+``eigsh`` serves ``M``, ``lock`` and the refined and harmonic projections
+and raises NotImplementedError for the arguments that are not ported."""
 
 import numpy as np
 import pytest
@@ -72,19 +72,41 @@ def test_aslinearoperator_passes_port_operators_only():
                       ptt.FunctionOperator)
 
 
+# M, lock and projection are served: their cases keep their places (and
+# ids) and check that the call runs (a lock vector of unit norm: the
+# constraints are used as given, orthonormal, as in the reference)
+SERVED = ("M", "lock", "projection")
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"M": "x"}, {"mesh": "x"}, {"monitor": print}, {"return_history": True},
-    {"time_breakdown": True}, {"profile": "pt_"}, {"lock": np.ones(4096)},
+    {"M": sp.identity(4096, format="csr")}, {"mesh": "x"},
+    {"monitor": print}, {"return_history": True},
+    {"time_breakdown": True}, {"profile": "pt_"},
+    {"lock": np.ones(4096) / 64.0},
     {"dtype": torch.bfloat16}, {"method": "PRIMME_DYNAMIC"},
     {"projection": "refined"}, {"printLevel": 2}, {"segment_outer": 5},
     {"monitor_inner": True}])
 def test_eigsh_refuses_unported_arguments(kwargs):
     name = next(iter(kwargs))
+    call = lambda: ptt.eigsh(  # noqa: E731
+        _windowed_case(), k=2, which="SA", device="cpu", maxMatvecs=50,
+        raise_for_unconverged=False, **kwargs)
+    if name in SERVED:
+        w, X = call()
+        assert w.shape == (2,) and np.all(np.isfinite(w))
+        if name == "lock":      # orthogonal to the unit constraint
+            assert np.abs(X.sum(axis=0) / 64.0).max() <= 1e-5
+        return
     match = name if name in ("printLevel", "segment_outer",
                              "monitor_inner") else None
     with pytest.raises(NotImplementedError, match=match):
+        call()
+
+
+def test_eigsh_minv_keeps_the_reference_refusal():
+    with pytest.raises(NotImplementedError, match="Minv is not supported"):
         ptt.eigsh(_windowed_case(), k=2, which="SA", device="cpu",
-                  maxMatvecs=50, raise_for_unconverged=False, **kwargs)
+                  Minv=np.eye(4096))
 
 
 def test_eigsh_without_device_needs_a_card(monkeypatch):

@@ -3,8 +3,9 @@
 a random node order, the usual stand-in for an unstructured FEM matrix.
 Its spectrum is known in closed form and has three-fold clusters.
 
-The other ``test_torch_*`` files import :func:`laplacian27_permuted`; the
-tests here hold the closed form against a dense eigensolver, to f64
+The other ``test_torch_*`` files import :func:`laplacian27_permuted`, and
+:func:`tridiag_fixture`, ``tests/test_eigsh.py``'s tridiagonal fixture;
+the tests here hold the closed form against a dense eigensolver, to f64
 rounding (1e-12 on eigenvalues of size <= 27)."""
 
 import numpy as np
@@ -21,6 +22,15 @@ def laplacian27_permuted(m, seed=0):
     lam1 = 1.0 + 2.0 * np.cos(np.pi * np.arange(1, m + 1) / (m + 1))
     ev = np.sort((27.0 - np.einsum("i,j,k->ijk", lam1, lam1, lam1)).ravel())
     return A[p][:, p].tocsr().astype(np.float32), ev
+
+
+def tridiag_fixture(n=300):
+    """``tests/test_eigsh.py``'s ``tridiag``: diag(linspace(1, 100, n)) +
+    0.3 (sub + super) as f64 CSR, with its eigenvalues ascending."""
+    d = np.linspace(1, 100, n)
+    A = sp.diags([d, 0.3 * np.ones(n - 1), 0.3 * np.ones(n - 1)],
+                 [0, 1, -1]).tocsr()
+    return A, np.linalg.eigvalsh(A.toarray())
 
 
 @pytest.mark.parametrize("m", [3, 5])

@@ -10,7 +10,12 @@ solve instead, the 64^3 ``Stencil3DOperator`` with ``JacobiPrecond`` in
 f32 through ``solve_eigs`` (``chip_smoke.py`` phase 9). With
 ``--formats``: the sparse solve on the matrices of ``chip_smoke.py``
 phases 11-13 (the chooser's banded, DIA+ELL and ELL branches, f32, tol
-1e-5). Each solve runs
+1e-5). With ``--northstar``: one iteration of the north star's f64 polish
+(``chip_smoke.py`` phase 15: ``refine_step`` on the 128^3 f64 stencil
+with ``ChebyshevPrecond.from_operator(A64, degree=8)``, on the closed-form
+eigenvectors of the ten smallest eigenvalues plus 1e-6 noise), traced by
+``chip_smoke.polish_split``: the f64 stencil, the dense work and the rest,
+and the ten largest device items. Each solve runs
 once to warm up (timed on the host clock up to a synchronise; the
 process's first solve also pays the libraries' set-up), then once under
 ``torch.profiler``. For the profiled solve it prints the host time, the
@@ -23,7 +28,7 @@ the parent commit, unpacked), so that two versions are traced in one
 call.
 
 Run: ``python3 tools/torch_profile_solve.py [--repo DIR] [--headline |
---formats]``.
+--formats | --northstar]``.
 """
 
 import argparse
@@ -97,6 +102,8 @@ def main():
                     help="trace bench.py's stencil + Jacobi solve")
     ap.add_argument("--formats", action="store_true",
                     help="trace the banded, DIA+ELL and ELL solves")
+    ap.add_argument("--northstar", action="store_true",
+                    help="trace one iteration of the north star's polish")
     args = ap.parse_args()
 
     import numpy as np
@@ -116,6 +123,24 @@ def main():
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip(),
         flush=True)
+    if args.northstar:
+        import chip_smoke as CS
+
+        m = CS.NS_GRID
+        A64 = ptt.Stencil3DOperator(m, m, m, dtype=torch.float64,
+                                    device="cuda")
+        K = ptt.ChebyshevPrecond.from_operator(A64, degree=CS.NS_DEGREE)
+        modes = ((1, 1, 1), (2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 1),
+                 (2, 1, 2), (1, 2, 2), (3, 1, 1), (1, 3, 1), (1, 1, 3))
+        X = CS.stencil_modes(m, modes[:CS.NS_K])
+        X = X + 1e-6 * np.random.default_rng(args.seed).standard_normal(
+            X.shape)
+        for _ in range(3):
+            rec = CS.polish_split(ptt, A64, K, X, torch.device("cuda"))
+            print(json.dumps({"repo": os.path.dirname(os.path.dirname(
+                ptt.__file__)), "solve": "northstar polish iteration",
+                **rec}), flush=True)
+        return 0
     if args.headline:
         from primme_tpu_torch.core.inner import jdqmr_inner_solve
         from primme_tpu_torch.core.solver import solve_eigs

@@ -18,13 +18,27 @@ matrix's type, f32 unless said):
   reference's f32 solve of this matrix stagnates (2000 matvecs here, 5975
   at n = 65,536, where its f64 solve takes 518): its f64 counts and
   eigenvalues are the converging algorithm's;
-* ``ell_f32``: the same in f32, the stagnating run, for the record.
+* ``ell_f32``: the same in f32, the stagnating run, for the record;
+* ``northstar``: ``benches/northstar.py``'s two stages on the 128^3
+  stencil (``chip_smoke.NS_*``): the f32 ``solve_eigs`` (x64 off, as the
+  bench runs it) and the f64 ``refine_eigsh`` with
+  ``ChebyshevPrecond.from_operator(A64, degree=8)``;
+* ``generalized``: ``eigsh(K, M=M)`` on ``chip_smoke.fem_q1(64)``;
+* ``interior``: each solve of ``chip_smoke.INTERIOR_SOLVES`` on
+  ``chip_smoke.interior_matrix(INTERIOR_N[solve])``; ``--interior-n N
+  ...`` runs every solve at each given size instead, ``--interior-solve``
+  only the named ones (a solve that does not converge within its
+  ``maxMatvecs`` prints its error).
 
-Prints one JSON object per phase (``num_matvecs``, the ten eigenvalues, the
-chosen operator's class, seconds). Run from the repository root, on a
-machine with JAX (no card needed):
+Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
+their largest distance from the closed form or scipy where there is one,
+the chosen operator's class, seconds; the north star also its polish
+iterations). Run from the repository root, on a machine with JAX (no card
+needed):
 
-    python3 tools/torch_smoke_refs.py [--phase banded|hybrid|ell|ell_f32]
+    python3 tools/torch_smoke_refs.py [--phase banded|hybrid|ell|ell_f32|
+        northstar|generalized|interior] [--interior-n N ...]
+        [--interior-solve refined|harmonic|jdqr ...]
 """
 
 import argparse
@@ -39,7 +53,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
-                                        "ell_f32"), action="append")
+                                        "ell_f32", "northstar",
+                                        "generalized", "interior"),
+                    action="append")
+    ap.add_argument("--interior-n", type=int, nargs="+")
+    ap.add_argument("--interior-solve", nargs="+")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -54,6 +72,11 @@ def main():
 
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
+        if phase in ("northstar", "generalized", "interior"):
+            for rec in globals()["_" + phase](CS, pt, np, args):
+                rec.update(phase=phase, seconds=time.perf_counter() - t0)
+                print(json.dumps(rec), flush=True)
+            continue
         if phase == "banded":
             A = CS.laplacian27_grid(CS.GRID)[0]
         elif phase == "hybrid":
@@ -72,6 +95,81 @@ def main():
                           "num_probe_matvecs": int(st["num_probe_matvecs"]),
                           "evals": [float(x) for x in np.sort(np.asarray(w))],
                           "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def _northstar(CS, pt, np, args):
+    import jax
+    import jax.numpy as jnp
+    from primme_tpu.core.inner import jdqmr_inner_solve
+    from primme_tpu.core.solver import solve_eigs
+    from primme_tpu.refine import refine_eigsh
+
+    m, k = CS.NS_GRID, CS.NS_K
+    n = m ** 3
+    t0 = time.perf_counter()
+    with jax.enable_x64(False):
+        A32 = pt.Stencil3DOperator(m, m, m, dtype=jnp.float32)
+        K32 = pt.JacobiPrecond(A32.diagonal())
+        p = pt.PrimmeParams(n=n, num_evals=k, eps=1e-5, max_basis_size=24,
+                            max_block_size=2, min_restart_size=k + 4,
+                            max_matvecs=60000, locking=0)
+        p = pt.set_method(pt.Method.JDQMR_ETol, p, has_precond=True)
+        v0 = jnp.asarray(np.random.default_rng(0).normal(size=(n, 2)),
+                         jnp.float32)
+        r = solve_eigs(A32, p, K=K32, v0=v0, dtype=jnp.float32,
+                       inner_solve=jdqmr_inner_solve, segment_outer=100)
+        X32 = np.asarray(r.evecs)
+    t32 = time.perf_counter() - t0
+    A64 = pt.Stencil3DOperator(m, m, m, dtype=jnp.float64)
+    K64 = pt.ChebyshevPrecond.from_operator(A64, degree=CS.NS_DEGREE)
+    t0 = time.perf_counter()
+    ev, _, st = refine_eigsh(A64, X32, tol=CS.NS_TOL, OPinv=K64,
+                             maxiter=200, return_stats=True)
+    lam, _ = CS.stencil_eigenvalues(m, k)
+    yield {"f32_num_matvecs": int(r.stats.num_matvecs),
+           "f32_num_probe_matvecs": int(r.stats.num_probe_matvecs),
+           "f32_s": t32, "num_refine_iters": int(st["num_refine_iters"]),
+           "polish_s": time.perf_counter() - t0,
+           "max_res_over_anorm": float(st["resnorms"].max()
+                                       / st["anorm_estimate"]),
+           "chebyshev_interval": [float(K64.a), float(K64.b)],
+           "eval_err": float(np.abs(np.sort(ev) - lam).max()),
+           "evals": [float(x) for x in np.sort(ev)]}
+
+
+def _generalized(CS, pt, np, args):
+    K, M, ev, _ = CS.fem_q1(CS.FEM_GRID)
+    w, _, st = pt.eigsh(K, M=M, tol=1e-5, seed=0, **CS.SOLVE_KWARGS)
+    w = np.sort(np.asarray(w))
+    yield {"num_matvecs": int(st["num_matvecs"]),
+           "num_probe_matvecs": int(st["num_probe_matvecs"]),
+           "eval_err": float(np.abs(w - ev[:len(w)]).max()),
+           "evals": [float(x) for x in w]}
+
+
+def _interior(CS, pt, np, args):
+    import scipy.sparse.linalg as sla
+
+    for name, kw in CS.INTERIOR_SOLVES.items():
+        if args.interior_solve and name not in args.interior_solve:
+            continue
+        for n in args.interior_n or [CS.INTERIOR_N[name]]:
+            A = CS.interior_matrix(n)
+            ref = np.sort(sla.eigsh(A.astype(np.float64),
+                                    k=CS.INTERIOR_KWARGS["k"],
+                                    sigma=CS.INTERIOR_SIGMA,
+                                    return_eigenvectors=False))
+            try:
+                w, _, st = pt.eigsh(A, tol=1e-5, seed=0,
+                                    **CS.INTERIOR_KWARGS, **kw)
+            except pt.PrimmeError as e:
+                yield {"solve": name, "n": n, "error": str(e)}
+                continue
+            w = np.sort(np.asarray(w))
+            yield {"solve": name, "n": n,
+                   "num_matvecs": int(st["num_matvecs"]),
+                   "eval_err": float(np.abs(w - ref).max()),
+                   "evals": [float(x) for x in w]}
 
 
 if __name__ == "__main__":
