@@ -25,7 +25,10 @@ the north star (the 128^3 stencil's f32 solve polished in native FP64 to
 a true residual of 1e-10 with a Chebyshev preconditioner over the f64
 stencil kernel), a generalized FEM pencil (``M=``), orthogonality
 constraints (``lock=``) and interior targets through the refined and
-harmonic projections and JDQR's skew-Q projector.
+harmonic projections and JDQR's skew-Q projector. Last, ``svds`` (the
+two-stage singular value solver) on the grounded incidence matrix of the
+64^3 grid graph (m = 1,036,288 rows, n = 262,144 columns), an
+``ELLOperator`` whose ``A`` and ``A^T`` layouts run the sliced-ELL kernel.
 
 Phases, each printing its own lines; any failed check raises:
 
@@ -79,9 +82,10 @@ Phases, each printing its own lines; any failed check raises:
 8. Jacobi kernel against its plain version at the same shapes and types,
    the shifted entry (one shift equal to a diagonal entry, so the eps
    clamp fires) and the unshifted one: bit for bit; the times of phase 7
-   with ``copy_ms``; no library call (``library_ms`` null: no single
-   PyTorch call computes ``X / guard(d - sigma)``, the eps guard is part of
-   the function);
+   with ``copy_ms``; the unshifted apply's ``library_ms`` is
+   ``torch.div(X, d[:, None])`` (d lies far from 0, so the eps guard does
+   not act), the shifted one has none (no single PyTorch call computes
+   ``X[:, j] / guard(d - sigma_j)``);
 9. the headline: ``bench.py``'s configuration through ``solve_eigs``, one
    untimed solve and then the minimum of 3 timed ones, each printed;
    ``bench.py``'s ``ok`` (max resnorm <= 1.5e-5 * anorm_estimate,
@@ -164,7 +168,30 @@ Phases, each printing its own lines; any failed check raises:
     at n = 512 and by JDQR with Jacobi (the skew-Q projector) at n = 2048:
     each within 1e-4 ||A|| of scipy's shift-invert ``eigsh`` (f64, host),
     true residuals, matvecs within 2x of the JAX package's (1629, 2226,
-    990), DIA launches >= matvecs / 2.
+    990), DIA launches >= matvecs / 2;
+19. the sliced-ELL kernel on rectangular layouts: ``grounded_incidence(64)``
+    (``A = [D; 0.1 I]``, D the grid graph's edge-node incidence) as the
+    ``ELLOperator`` ``svds`` builds, its ``A`` layout (m rows, X of n
+    rows) and ``A^T`` layout (n rows, X of m rows), f32 and f64, at k in
+    {1, 2, 4, 8}: against the plain version (1e-5 and 1e-13 of max|y|),
+    timed as phase 3 with ``copy_ms``, the bound counting values, columns,
+    X and Y once;
+20. ``svds(A, k=10, which="LM", tol=1e-10)`` (hybrid) on the f64 matrix:
+    singular values within 1e-8 sigma_max of the closed form ``sqrt(mu_a
+    + mu_b + mu_c + 0.01)``, the host's f64 triplet residual <= 10 tol
+    ||A||, ``U^T U`` and ``V^T V`` = I to 1e-8, each stage's matvecs
+    within 2x of the JAX package's, the probe verified in each stage it
+    covers, ``windowed_ell_spmm_f64`` launches >= matvecs and no other
+    kernel;
+21. ``method="augmented"``, k=4, LM, tol 1e-5 on the f32 matrix: values
+    within 1e-4 sigma_max, the residual, orthonormality to 1e-4, matvecs,
+    probe, ``windowed_ell_spmm_f32`` launches >= matvecs;
+22. ``svds(A, k=4, which="SM", tol=1e-8)`` (hybrid, f64): delta and the
+    three-fold ``sqrt(mu_1 + delta^2)`` within 1e-7 sigma_max, residual and
+    orthonormality as phase 20, stage 1 within 2x of the JAX package's
+    matvecs, stage 2 run (> 0 matvecs), the total within 2x, launches.
+    The JAX package's counts (``REF_SVDS``) come from
+    ``python3 tools/torch_smoke_refs.py --phase svds`` on the CPU.
 
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
@@ -277,6 +304,32 @@ INTERIOR_SOLVES = {
     "harmonic": dict(method="PRIMME_GD_plusK", projection="harmonic"),
     "jdqr": dict(method="PRIMME_JDQR", jacobi=True)}
 REF_INTERIOR_MATVECS = {"refined": 1629, "harmonic": 2226, "jdqr": 990}
+# phases 19-22: svds on the grounded incidence matrix of the SVD_GRID^3
+# grid graph, A = [D; SVD_DELTA I] (grounded_incidence), m = 1,036,288
+# rows, n = 262,144 columns at 64
+SVD_GRID = 64
+SVD_DELTA = 0.1
+# (name, svds arguments, the matrix's type): phase 20 the hybrid LM in
+# f64, 21 the augmented stage alone in f32, 22 the hybrid SM in f64
+SVDS_SOLVES = {
+    "lm": (dict(k=10, which="LM", tol=1e-10), "float64"),
+    "augmented": (dict(k=4, which="LM", tol=1e-5, method="augmented"),
+                  "float32"),
+    "sm": (dict(k=4, which="SM", tol=1e-8), "float64"),
+}
+# each solve's singular values against the closed form, in sigma_max
+SVDS_VALUE_BAR = {"lm": 1e-8, "augmented": 1e-4, "sm": 1e-7}
+# the JAX package's counts for the same svds calls on the CPU, seed 0
+# (python3 tools/torch_smoke_refs.py --phase svds, x64 on; 274 s, 542 s
+# and 124 s): each stage's matvecs (probe included) and its probe's
+# matvecs, rounds and exhaustion; its values were within 1.4e-14, 7.4e-6
+# and 3.5e-15 of the closed form. Stage 2 of SM targets closest_geq,
+# which the probe does not cover.
+REF_SVDS = {
+    "lm": {"stage1": (2732, 286, 2, 0)},
+    "augmented": {"stage2": (3096, 408, 2, 0)},
+    "sm": {"stage1": (1834, 410, 2, 0), "stage2": (691, 0, 0, 0)},
+}
 
 
 def laplacian27_grid(m):
@@ -401,6 +454,39 @@ def interior_matrix(n):
     d = np.linspace(1, 100, n)
     return sp.diags([d, 0.3 * np.ones(n - 1), 0.3 * np.ones(n - 1)],
                     [0, 1, -1]).tocsr().astype(np.float32)
+
+
+def grounded_incidence(N, delta=SVD_DELTA, dtype="float64"):
+    """The grounded incidence matrix of the N x N x N grid graph, ``A =
+    [D; delta I]``: ``D`` the edge-node incidence (discrete gradient), one
+    row per edge (3 N^2 (N - 1) of them, the edges along each axis in turn)
+    with -1 at its tail node and +1 at its head, nodes in grid order. So
+    ``A^T A = L + delta^2 I`` with ``L`` the grid's Neumann Laplacian, and
+    the singular values are ``sqrt(mu_a + mu_b + mu_c + delta^2)``,
+    ``mu_j = 2 - 2 cos(pi j / N)``, ``j = 0..N-1``. Returns ``(A as CSR of
+    ``dtype``, the N^3 singular values ascending in f64)``."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    idx = np.arange(N ** 3).reshape(N, N, N)
+    tails, heads = [], []
+    for ax in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[ax], hi[ax] = slice(0, N - 1), slice(1, N)
+        tails.append(idx[tuple(lo)].ravel())
+        heads.append(idx[tuple(hi)].ravel())
+    tail, head = np.concatenate(tails), np.concatenate(heads)
+    ne = len(tail)
+    rows = np.concatenate([np.arange(ne), np.arange(ne)])
+    D = sp.csr_matrix((np.concatenate([-np.ones(ne), np.ones(ne)]),
+                       (rows, np.concatenate([tail, head]))),
+                      shape=(ne, N ** 3))
+    A = sp.vstack([D, delta * sp.identity(N ** 3)]).tocsr()
+    mu = 2.0 - 2.0 * np.cos(np.pi * np.arange(N) / N)
+    sv = np.sqrt(np.sort((mu[:, None, None] + mu[None, :, None]
+                          + mu[None, None, :]).ravel()) + delta ** 2)
+    return A.astype(dtype), sv
 
 
 def stencil_modes(m, modes):
@@ -554,23 +640,29 @@ def csr_on_card(Ap, dtype, dev):
             torch.as_tensor(C.data.astype(dtype)), size=C.shape).to(dev)
 
 
-def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8)):
-    """The kernel against its plain version on ``op`` at each k of ``ks``:
-    max |diff| <= rel * max|y|; the median time of the kernel (with and
-    without the spin), the plain version (without) and the fastest of
-    three library calls on ``A_csr``; the bound from the bytes the product
-    needs."""
+def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
+                   copy=False):
+    """The kernel against its plain version on ``op``'s layout (with
+    ``suffix="_t"`` an ``ELLOperator``'s ``A^T`` layout) at each k of
+    ``ks``: max |diff| <= rel * max|y|; the median time of the kernel
+    (with and without the spin), the plain version (without) and the
+    fastest of three library calls on ``A_csr``, the same matrix (with
+    ``copy``, also torch's copy of X, ``copy_ms``); the bound from the
+    bytes the product needs: each value and column once, X (the matrix's
+    columns x k) and Y (its rows x k)."""
     import numpy as np
     import torch
 
-    n, nnz = op.shape[0], A_csr._nnz()
-    size = op.vals.element_size()
-    arrays = (op.slice_ptr, op.rowlen, op.cols, op.vals)
+    arrays = tuple(getattr(op, name + suffix)
+                   for name in ("slice_ptr", "rowlen", "cols", "vals"))
+    rows, nnz = arrays[1].shape[0], A_csr._nnz()
+    ncols = A_csr.shape[1]
+    size = arrays[3].element_size()
     per_k = {}
     for k in ks:
-        X = torch.randn((n, k), generator=gen, dtype=op.dtype).to(op.device)
-        y = WE.matmat(*arrays, X)
-        yref = WE.matmat_reference(*arrays, X)
+        X = torch.randn((ncols, k), generator=gen, dtype=op.dtype).to(op.device)
+        y = WE.matmat(*arrays, X, ncols)
+        yref = WE.matmat_reference(*arrays, X, ncols)
         Xcm = X.t().contiguous().t()        # the same X, column-major
         libs = {"A_csr @ X": lambda: A_csr @ X,
                 "torch.sparse.mm(A_csr, X)": lambda: torch.sparse.mm(A_csr, X),
@@ -578,11 +670,12 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8)):
         torch.cuda.synchronize()
         err = float((y - yref).abs().max())
         ymax = float(yref.abs().max())
-        ms = median_ms(lambda: WE.matmat(*arrays, X))
-        nospin_ms = median_ms(lambda: WE.matmat(*arrays, X), spin=False)
+        ms = median_ms(lambda: WE.matmat(*arrays, X, ncols))
+        nospin_ms = median_ms(lambda: WE.matmat(*arrays, X, ncols),
+                              spin=False)
         # the plain version reads its longest row to the host once per
         # call: no spin can queue it ahead, and its host pace is its cost
-        plain_ms = median_ms(lambda: WE.matmat_reference(*arrays, X),
+        plain_ms = median_ms(lambda: WE.matmat_reference(*arrays, X, ncols),
                              spin=False)
         lib = {}
         for call, f in libs.items():
@@ -590,17 +683,22 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8)):
                          "max_abs_err": float((f() - yref).abs().max())}
         library_call = min(lib, key=lambda c: lib[c]["ms"])
         library_ms = lib[library_call]["ms"]
-        bound_ms = 1e3 * (nnz * (size + 4) + 2 * n * k * size) \
+        bound_ms = 1e3 * (nnz * (size + 4) + (rows + ncols) * k * size) \
             / HBM_BYTES_PER_S
         per_k[k] = {"max_abs_err": err, "ymax": ymax, "ms": ms,
                     "nospin_ms": nospin_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library_call": library_call,
                     "library": lib, "bound_ms": bound_ms,
                     "bound_share": bound_ms / ms}
+        extra = ""
+        if copy:
+            Xc = torch.empty_like(X)
+            per_k[k]["copy_ms"] = median_ms(lambda: Xc.copy_(X))
+            extra = f"  copy {per_k[k]['copy_ms']:.4f} ms"
         print(f"[{tag}] k={k} max|y-yref|={err:.3e} (limit "
               f"{rel * ymax:.3e}) kernel {ms:.4f} ms (without the spin "
               f"{nospin_ms:.4f})  plain {plain_ms:.4f} ms  bound "
-              f"{bound_ms:.4f} ms (bytes; share {bound_ms / ms:.3f})",
+              f"{bound_ms:.4f} ms (bytes; share {bound_ms / ms:.3f})" + extra,
               flush=True)
         print(f"[{tag}] k={k} library: " + "; ".join(
             f"{c} {v['ms']:.4f} ms (max|diff| {v['max_abs_err']:.3e})"
@@ -791,24 +889,30 @@ def jacobi_phase(JK, dev, gen):
             s[0] = d[n // 2]
             eps = 1e-10
             Yc = torch.empty((n, k), dtype=dtype, device=dev)
+            # the library call: torch.div for the unshifted apply (d is
+            # far from 0 here, so the eps guard does not act); no one call
+            # computes the shifted apply's X[:, j] / guard(d - s_j)
             pairs = (
                 ("jacobi_shifted_" + suffix,
                  lambda: JK.shifted(X, d, s, eps),
-                 lambda: JK.shifted_reference(X, d, s, eps), k),
+                 lambda: JK.shifted_reference(X, d, s, eps), k, None),
                 ("jacobi_" + suffix, lambda: JK.unshifted(X, d, eps),
-                 lambda: JK.unshifted_reference(X, d, eps), 0))
-            for name, kern, plain, nsig in pairs:
+                 lambda: JK.unshifted_reference(X, d, eps), 0,
+                 lambda: torch.div(X, d[:, None])))
+            for name, kern, plain, nsig, library in pairs:
                 y, yref = kern(), plain()
                 torch.cuda.synchronize()
                 err = float((y - yref).abs().max())
                 bit = _bitwise(y, yref)
                 plan = JK.card_plan(X)
                 t = _times(kern, plain, (2 * n * k + n + nsig) * size,
-                           lambda: Yc.copy_(X))
+                           lambda: Yc.copy_(X), library)
                 res[name][label] = {"max_abs_err": err, "bitwise": bit,
                                     "vector_path": plan.vw > 1,
                                     "plan": plan._asdict(), **t}
-                _print_times(name, label, err, bit, t, plan)
+                _print_times(name, label, err, bit, t, plan,
+                             "" if library is None else
+                             f"  library (torch.div) {t['library_ms']:.5f} ms")
                 check(bit, f"{name}: kernel differs from its plain version "
                       f"at {label}")
                 check(bool(torch.isfinite(y).all()),
@@ -1549,6 +1653,196 @@ def interior_phase(ptt, mods, seed):
     return out
 
 
+def rect_kernel_phase(ptt, WE, dev, gen, mats):
+    """Phase 19: the sliced-ELL kernel on the rectangular layouts of the
+    grounded incidence matrix, ``A`` (m rows, X of n rows) and ``A^T`` (n
+    rows, X of m rows), as the ``ELLOperator`` that ``svds`` builds holds
+    them, f32 and f64, at k in {1, 2, 4, 8}: against its plain version
+    (1e-5 and 1e-13 of max|y|), timed beside its bound, ``copy_ms`` and
+    cuSPARSE's CSR product of the same matrix."""
+    import numpy as np
+
+    out = {}
+    for dt, name, rel in (("float32", "windowed_ell_spmm_f32", 1e-5),
+                          ("float64", "windowed_ell_spmm_f64", 1e-13)):
+        A = mats[dt][0]
+        t0 = time.perf_counter()
+        op = ptt.aslinearoperator(A)
+        build_s = time.perf_counter() - t0
+        check(isinstance(op, ptt.ELLOperator) and op.shape == A.shape,
+              f"rect: aslinearoperator built {type(op).__name__} "
+              f"{getattr(op, 'shape', None)} for {A.shape}")
+        op = op.to(dev)
+        layouts, per = {}, {}
+        for label, suffix, M in (("A", "", A), ("A^T", "_t", A.T.tocsr())):
+            sp_ = getattr(op, "slice_ptr" + suffix)
+            rl = getattr(op, "rowlen" + suffix)
+            layouts[label] = {
+                "rows": int(rl.shape[0]), "cols": int(M.shape[1]),
+                "nnz": int(M.nnz), "entries": int(sp_[-1]),
+                "max_row": int(rl.max()),
+                "empty_slices": int(((sp_[1:] - sp_[:-1]) == 0).sum())}
+            print(f"[rect {name}] {label}: {layouts[label]}  (ELLOperator "
+                  f"built in {build_s:.3f} s)", flush=True)
+            per[label] = compare_kernel(
+                WE, op, csr_on_card(M, np.dtype(dt), dev), gen, rel,
+                f"rect {name} {label}", suffix=suffix, copy=True)
+        out[name] = {"build_s": build_s, "layouts": layouts, "per_k": per}
+        del op
+    return out
+
+
+def svds_phase(ptt, mods, dev, name, seed, mats):
+    """Phases 20-22: one ``svds`` call of ``SVDS_SOLVES[name]`` on the
+    grounded incidence matrix, on the card, the counts set to 0 just
+    before it and read just after. Gates: singular values within
+    ``SVDS_VALUE_BAR[name]`` sigma_max of the closed form; the host's f64
+    triplet residual ``sqrt(||A v - s u||^2 + ||A^T u - s v||^2)`` <= 10
+    tol ||A||; ``U^T U`` and ``V^T V`` equal to I within 1e-8 (f64) or
+    1e-4 (f32); every stage the JAX package ran within 2x of its matvecs
+    (stage 2 of SM: its count > 0, with the total within 2x); the probe
+    verified and not exhausted in each stage it covers; the sliced-ELL
+    entry point of the matrix's type launched at least once a matvec,
+    every other kernel never."""
+    import numpy as np
+    import torch
+
+    kw, dt = SVDS_SOLVES[name]
+    A, sv = mats[dt]
+    tol, smax = kw["tol"], float(sv[-1])
+    entry = {"float32": "windowed_ell_spmm_f32",
+             "float64": "windowed_ell_spmm_f64"}[dt]
+    tag = f"svds {name}"
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    U, s, Vt, st = ptt.svds(A, seed=seed, return_stats=True, device=dev,
+                            **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    ref = sv[-len(s):] if kw["which"] == "LM" else sv[:len(s)]
+    err = float(np.abs(np.sort(s) - ref).max())
+    A64 = A.astype(np.float64)
+    U64, V64 = U.astype(np.float64), Vt.T.astype(np.float64)
+    R1 = A64 @ V64 - U64 * s[None, :]
+    R2 = A64.T @ U64 - V64 * s[None, :]
+    res = float(np.sqrt((R1 ** 2).sum(axis=0) + (R2 ** 2).sum(axis=0)).max())
+    kk = len(s)
+    orth = max(float(np.abs(U64.T @ U64 - np.eye(kk)).max()),
+               float(np.abs(V64.T @ V64 - np.eye(kk)).max()))
+    orth_bar = 1e-8 if dt == "float64" else 1e-4
+    stages = sorted({key.split("_")[0] for key in st if key != "resnorms"})
+    mv = sum(int(st[f"{g}_num_matvecs"]) for g in stages)
+    ref_mv = sum(r[0] for r in REF_SVDS[name].values())
+    per_stage = {g: {key: st[f"{g}_{key}"] for key in (
+        "num_matvecs", "num_probe_matvecs", "num_probe_rounds",
+        "probe_verified", "probe_exhausted", "probe_unsupported",
+        "num_outer_iterations", "num_inner_iterations", "num_restarts",
+        "num_locked")} for g in stages}
+    for g, r in per_stage.items():
+        print(f"[{tag}] {g}: {r} (JAX package: matvecs, probe matvecs, "
+              f"rounds, exhausted {REF_SVDS[name].get(g)})", flush=True)
+    print(f"[{tag}] {A.shape[0]}x{A.shape[1]} {dt} {kw}: wall {wall:.3f} s  "
+          f"matvecs {mv} (JAX package {ref_mv})  max|s-closed form| "
+          f"{err:.3e} (limit {SVDS_VALUE_BAR[name] * smax:.3e})  max "
+          f"triplet residual {res:.3e} (limit {10 * tol * smax:.3e})  "
+          f"orthonormality {orth:.3e} (limit {orth_bar})  launches "
+          f"{launches}  peak device memory {peak} B ({before_bytes} B "
+          "before)", flush=True)
+    check(err <= SVDS_VALUE_BAR[name] * smax,
+          f"{tag}: singular values {err:.3e} from the closed form")
+    check(res <= 10 * tol * smax, f"{tag}: triplet residual {res:.3e}")
+    check(orth <= orth_bar, f"{tag}: orthonormality {orth:.3e}")
+    check(set(REF_SVDS[name]) <= set(stages),
+          f"{tag}: stages {stages}, the JAX package ran "
+          f"{sorted(REF_SVDS[name])}")
+    for g, r in REF_SVDS[name].items():
+        got = per_stage[g]["num_matvecs"]
+        if name == "sm" and g == "stage2":
+            check(got > 0, f"{tag}: stage 2 ran no matvec")
+        else:
+            check(r[0] / 2 <= got <= 2 * r[0], f"{tag}: {g} {got} matvecs, "
+                  f"not within 2x of the JAX package's {r[0]}")
+        if not per_stage[g]["probe_unsupported"]:
+            check(per_stage[g]["probe_verified"] == 1
+                  and per_stage[g]["probe_exhausted"] == 0,
+                  f"{tag}: {g}'s spectrum verification did not complete")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"{tag}: {mv} matvecs, not within 2x of the JAX package's {ref_mv}")
+    check(launches[entry] >= mv,
+          f"{tag}: {launches[entry]} {entry} launches for {mv} matvecs")
+    for other, count in launches.items():
+        check(other == entry or count == 0,
+              f"{tag}: {other} served this solve: {launches}")
+    return {"wall_s": wall, "shape": list(A.shape), "dtype": dt,
+            "kwargs": kw, "svals": [float(x) for x in s], "eval_err": err,
+            "max_triplet_residual": res, "anorm": smax,
+            "orthonormality": orth, "num_matvecs": mv,
+            "ref_num_matvecs": ref_mv, "stages": per_stage,
+            "launches": launches, "peak_bytes": peak,
+            "bytes_before": before_bytes}
+
+
+def svds_phases(ptt, mods, WE, dev, seed):
+    """Phases 19-22 and their records: the rectangular kernel (one record
+    per precision, its launches those of the svds path in its type: phase
+    20 for f64, 21 for f32) and the three solves; with the phases'
+    seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    # the matrix in each type, with its singular values
+    mats = {dt: grounded_incidence(SVD_GRID, dtype=dt)
+            for dt in ("float64", "float32")}
+    gen = torch.Generator().manual_seed(seed)
+    rect = rect_kernel_phase(ptt, WE, dev, gen, mats)
+    t1 = time.perf_counter()
+    runs = {name: svds_phase(ptt, mods, dev, name, seed, mats)
+            for name in SVDS_SOLVES}
+    t2 = time.perf_counter()
+    print(f"[svds] phases 19-22 took {t2 - t0:.1f} s (the matrices and "
+          f"phase 19 {t1 - t0:.1f} s, the solves {t2 - t1:.1f} s)",
+          flush=True)
+    kernels = [rect_kernel_record("windowed_ell_spmm_f64",
+                                  "primme_tpu/ops/pallas_windowed.py:363",
+                                  runs["lm"], rect["windowed_ell_spmm_f64"]),
+               rect_kernel_record("windowed_ell_spmm_f32",
+                                  "primme_tpu/ops/pallas_windowed.py:228",
+                                  runs["augmented"],
+                                  rect["windowed_ell_spmm_f32"])]
+    return {"kernels": kernels, "svds": runs,
+            "seconds": {"total": t2 - t0, "phase19": t1 - t0,
+                        "solves": t2 - t1}}
+
+
+def rect_kernel_record(name, replaces, run, per):
+    """The record of a sliced-ELL entry point on the rectangular layouts
+    (phase 19), its top-level numbers at the ``A`` layout's k=2, its
+    launches those of the svds path ``run``."""
+    top = per["per_k"]["A"][2]
+    keys = ("ms", "nospin_ms", "plain_ms", "copy_ms", "library_ms",
+            "library_call", "bound_ms", "bound_share", "max_abs_err")
+    return {"name": name, "route": "cuda",
+            "source": "primme_tpu_torch/csrc/windowed_ell.cu",
+            "replaces": replaces, "launches": run["launches"][name],
+            "max_abs_err": max(v["max_abs_err"] for lay in per["per_k"].values()
+                               for v in lay.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "copy_ms": top["copy_ms"],
+            "bound_share": top["bound_share"],
+            "library_call": top["library_call"],
+            "shape": f"grounded_incidence({SVD_GRID}) A layout, k=2",
+            "layouts": per["layouts"],
+            "per_k": {label: {str(k): {key: v[key] for key in keys}
+                              for k, v in lay.items()}
+                      for label, lay in per["per_k"].items()}}
+
+
 def kernel_record(name, replaces, launches, per_k, layout):
     k2 = per_k[2]
     return {"name": name, "route": "cuda",
@@ -1654,6 +1948,7 @@ def main():
               f"{entries}", flush=True)
     print(f"[build] {len(KERNEL_SOURCES)} sources in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    mods = (DK, WE, ST, JK)
 
     # --- 3. f32 layout and kernel against its plain version -------------
     A, ev = laplacian27(GRID, args.seed)
@@ -1672,7 +1967,6 @@ def main():
                            1e-5, "kernel")
 
     # --- 4. f32 solve -------------------------------------------------------
-    mods = (DK, WE, ST, JK)
     others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
     anorm = float(np.abs(ev).max())
     solve32 = format_solve(
@@ -1749,6 +2043,9 @@ def main():
     constraints = constraints_phase(ptt, mods, ST, dev, args.seed)
     interior = interior_phase(ptt, mods, args.seed)
 
+    # --- 19-22. svds: the kernel on rectangular layouts, three solves ----
+    svd = svds_phases(ptt, mods, WE, dev, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -1770,7 +2067,8 @@ def main():
         main_path_record("dia_f32", "primme_tpu_torch/csrc/dia.cu",
                          "primme_tpu/operators.py:671", banded["solve"],
                          banded["kernel"],
-                         {"dia_f64": "primme_tpu/operators.py:671"})],
+                         {"dia_f64": "primme_tpu/operators.py:671"}),
+        *svd["kernels"]],
         "solve": {**solve32, "f64": solve64},
         "headline": headline, "gdk": gdk,
         "banded": {k: v for k, v in banded.items() if k != "kernel"},
@@ -1778,6 +2076,7 @@ def main():
         "northstar": northstar, "northstar_k100": northstar100,
         "generalized": generalized,
         "constraints": constraints, "interior": interior,
+        "svds": svd["svds"], "svds_seconds": svd["seconds"],
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -1793,7 +2092,9 @@ def main():
              "generalized": generalized["launches"],
              "constraints": constraints["launches"],
              **{f"interior {name}": interior[name]["launches"]
-                for name in INTERIOR_SOLVES}}
+                for name in INTERIOR_SOLVES},
+             **{f"svds {name}": svd["svds"][name]["launches"]
+                for name in SVDS_SOLVES}}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

@@ -29,6 +29,15 @@ in native FP64 on the card, with a :class:`ChebyshevPrecond` over the f64
 operator's own kernel (the north star: the 128^3 Laplacian to a true
 residual of 1e-10).
 
+:func:`svds` computes singular triplets of a rectangular operator by the
+reference's two stages: the normal equations (``A^T A`` or ``A A^T``),
+then the augmented operator ``[[0, A^T], [A, 0]]``, each with its own
+convergence test through ``solve_eigs(convtest=)``. A large sparse ``A``
+is an :class:`ELLOperator` with its ``A`` and ``A^T`` layouts on the
+sliced-ELL kernel, a small one a :class:`DenseOperator`;
+:class:`SvdsParams` and ``svds_*`` carry the reference's
+``primme_svds_params`` reflection.
+
 f32 products run in full f32: TF32 is disabled at import, the
 counterpart of the reference's ``Precision.HIGHEST``.
 """
@@ -50,6 +59,9 @@ from .operators import (LinearOperator, WindowedELLOperator,  # noqa: E402
 from .core.solver import solve_eigs, EigsResult, Stats  # noqa: E402
 from .api import eigsh, PrimmeError  # noqa: E402
 from .refine import refine_eigsh  # noqa: E402
+from .svds import (svds, SvdsParams, svds_set_member,  # noqa: E402
+                   svds_get_member, svds_member_info, svds_display_params,
+                   svds_from_params, svds_member_names)
 
 __all__ = [
     "PrimmeParams", "Target", "Projection", "InitBasisMode", "ConvTest",
@@ -59,5 +71,7 @@ __all__ = [
     "BandedOperator", "ELLOperator", "BlockELLOperator", "FunctionOperator",
     "SumOperator", "ChebyshevPrecond", "dia_ell_hybrid", "rcm_banded",
     "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
-    "Stats", "eigsh", "PrimmeError", "refine_eigsh",
+    "Stats", "eigsh", "PrimmeError", "refine_eigsh", "svds", "SvdsParams",
+    "svds_set_member", "svds_get_member", "svds_member_info",
+    "svds_display_params", "svds_from_params", "svds_member_names",
 ]

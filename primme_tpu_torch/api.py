@@ -5,11 +5,13 @@ far: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
 and its permutation contract, ``which``/``sigma`` targets, the method
 presets and keyword forwarding, generalized problems (``M``), orthogonality
 constraints (``lock``), the refined and harmonic projections, ``v0``,
-``return_stats``, a working ``dtype`` of f32 or f64 (the operators are
-wrapped in a ``CastOperator`` when it differs from their own), the Jacobi
-preconditioner (``jacobi=True``, or an ``OPinv`` that is a port operator),
-``raise_for_unconverged`` and the probe-exhaustion error. Arguments of the
-reference that the port does not serve yet raise ``NotImplementedError``.
+``return_stats``, a user convergence test (``convtest``, on tensors: see
+``core.solver.prepare_window``), a working ``dtype`` of f32 or f64 (the
+operators are wrapped in a ``CastOperator`` when it differs from their
+own), the Jacobi preconditioner (``jacobi=True``, or an ``OPinv`` that is
+a port operator), ``raise_for_unconverged`` and the probe-exhaustion
+error. Arguments of the reference that the port does not serve yet raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             "Minv is not supported (reference parity: primme.pyx:350); "
             "pass OPinv for a preconditioner")
     for name, val in (("mesh", mesh), ("monitor", monitor),
-                      ("convtest", convtest), ("profile", profile)):
+                      ("profile", profile)):
         if val is not None:
             raise _unported(name)
     if return_history:
@@ -236,7 +238,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
 
     t0 = time.perf_counter()
     res = solve_eigs(Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc,
-                     inner_solve=inner, dtype=wd, device=device)
+                     inner_solve=inner, dtype=wd, device=device,
+                     convtest=convtest)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

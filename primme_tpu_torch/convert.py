@@ -35,6 +35,18 @@ def params_from_jax(p) -> prm.PrimmeParams:
     return prm.PrimmeParams(**kw)
 
 
+def svds_params_from_jax(sp):
+    """A ``primme_tpu.svds.SvdsParams`` as the port's, field by field (the
+    embedded stage overrides as plain dicts, each value as it is)."""
+    from .svds import SvdsParams
+
+    kw = {}
+    for f in dataclasses.fields(SvdsParams):
+        v = getattr(sp, f.name)
+        kw[f.name] = dict(v) if isinstance(v, dict) else v
+    return SvdsParams(**kw)
+
+
 def windowed_from_jax(op, device=None) -> WindowedELLOperator:
     """A ``primme_tpu`` ``WindowedELLOperator`` as the port's: its packed
     arrays go through the port's constructor, which compacts them, and

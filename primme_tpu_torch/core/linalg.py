@@ -329,16 +329,21 @@ def complement_qr_R(V, W, H, b: int):
 
 def smallest_right_svecs(C):
     """Smallest right singular vector and value of each of the stacked
-    ``[b, 2b, b]`` matrices ``C``, on ``C``'s device: the lowest
-    eigenvector of the Gram ``C^H C`` from one batched ``eigh`` in
-    double precision (a single-precision ``C`` is widened first, as in
-    :func:`projected_eigh`), its value ``||C y||`` recomputed from the
-    vector. The Gram squares the conditioning, but in f64 that still
-    resolves a singular value down to ~1e-8 ||C||, below what an f32
-    ``C`` holds. Returns ``(Y, smin)``: vectors as the columns of ``Y``
-    ``[b, pairs]`` in ``C``'s type, values ``[pairs]`` in its real
-    type."""
-    wide = _WIDE.get(C.dtype, C.dtype)
+    ``[b, 2b, b]`` matrices ``C``, on ``C``'s device. A single-precision
+    ``C``: the lowest eigenvector of the Gram ``C^H C`` from one batched
+    ``eigh`` in double precision (as in :func:`projected_eigh`), its
+    value ``||C y||`` recomputed from the vector; the Gram squares the
+    conditioning, but in f64 that still resolves a singular value down to
+    ~1e-8 ``||C||``, below what an f32 ``C`` holds. A double-precision
+    ``C``: one batched SVD, as the reference takes it, since a solve in
+    f64 may need its pairs' singular values resolved far below 1e-8
+    ``||C||`` (svds' augmented stage on a near-null cluster). Returns
+    ``(Y, smin)``: vectors as the columns of ``Y`` ``[b, pairs]`` in
+    ``C``'s type, values ``[pairs]`` in its real type."""
+    wide = _WIDE.get(C.dtype)
+    if wide is None:
+        _, sv, Vh = torch.linalg.svd(C, full_matrices=False)
+        return Vh[:, -1, :].conj().T, sv[:, -1]
     Cw = C.to(wide)
     _, Z = torch.linalg.eigh(Cw.mH @ Cw)
     y = Z[:, :, 0]                                       # [pairs, b]

@@ -321,10 +321,14 @@ def _tolerance(cfg: SolveConfig, anorm: float, rdt) -> float:
     return max(eps, 2 * meps) * anorm
 
 
-def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
+def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
     """Projected solve + residuals + convergence flags for the current
     candidate window (reference ``prepare_window``). Returns
-    ``(Window, Stats)``."""
+    ``(Window, Stats)``. ``convtest`` is the user's convergence test
+    (``convTestFun``): ``fn(evals [c], resnorms [c], tol, anorm_est) ->
+    bool [c]`` on the window's tensors (inactive values zeroed) and the
+    host floats ``tol`` and ``anorm_est``; it replaces ``resnorms <=
+    tol``."""
     c = cfg.cwin
     dev = s.V.device
     rdt = real_dtype(s.H.dtype)
@@ -376,7 +380,12 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts):
             wkeys = target_sort_keys(hl_c, cfg.target, shifts, sidx)
             n_intr = int((active & (wkeys < worst_locked - tol)).sum())
         n_needed = min(max(n_needed + n_intr, 0), c)
-    passes = cands.resnorms <= tol
+    if convtest is not None:
+        passes = torch.as_tensor(
+            convtest(torch.where(active, hl_c, 0), cands.resnorms, tol,
+                     anorm_est), dtype=torch.bool, device=dev)
+    else:
+        passes = cands.resnorms <= tol
     is_target = (torch.arange(c, device=dev) < n_needed) & active
     conv = passes & is_target
     if cfg.target in (Target.closest_geq, Target.closest_leq):
@@ -1223,15 +1232,18 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
 
 
 def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
-                s: SolverState) -> SolverState:
+                s: SolverState, convtest=None) -> SolverState:
     """The main iteration (reference ``run_segment``'s while loop, on the
-    host) until done, give-up, or the iteration/matvec limits."""
+    host) until done, give-up, or the iteration/matvec limits.
+    ``convtest`` (see :func:`prepare_window`) decides every window's
+    convergence, and with it what the probe takes as passing; the final
+    extraction orders by the residual test, as the reference's does."""
     mmax, ne, c = cfg.mmax, cfg.ne, cfg.cwin
     fmax = float(torch.finfo(real_dtype(s.H.dtype)).max)
     while (not s.done and not s.give_up
            and s.stats.num_outer_iterations < cfg.max_outer
            and s.stats.num_matvecs < cfg.max_matvecs):
-        win, stats = prepare_window(cfg, s, shifts)
+        win, stats = prepare_window(cfg, s, shifts, convtest)
         s = _replace(s, stats=stats)
         locked = s.num_locked
         n_base = min(max(ne - locked, 0), c)
@@ -1359,14 +1371,15 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
 
 def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                ortho_const=None, inner_solve=None, dtype=None,
-               device=None) -> EigsResult:
+               device=None, convtest=None) -> EigsResult:
     """Run the eigensolver on a port :class:`LinearOperator` with resolved
     params (``set_method``/``resolve_defaults``). ``B`` is the mass matrix
     of a generalized problem (``A x = lambda B x``, B Hermitian positive
     definite), ``ortho_const`` an ``[n, p.num_ortho_const]`` tensor the
     returned vectors are B-orthogonal to. ``device`` defaults to the
-    operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses."""
+    operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses;
+    ``convtest`` a user convergence test (:func:`prepare_window`)."""
     cfg, shifts, s0 = setup_solver(A, p, B=B, v0=v0, ortho_const=ortho_const,
                                    dtype=dtype, device=device)
-    s = run_segment(cfg, A, B, K, inner_solve, shifts, s0)
+    s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest)
     return extract_result(cfg, s, shifts)

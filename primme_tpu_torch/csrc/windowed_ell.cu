@@ -12,6 +12,9 @@
 //   vals      [E] T               value, T = float or double
 // Entry j of row 32i+l lies at slice_ptr[i] + 32j + l (slot-major inside a
 // slice); a row's entries are its packed non-zero slots in slot order.
+// The same layout serves an m x ncols matrix built from CSR (from_csr): n
+// is its row count m, which bounds the rows of Y only, and X is [ncols, k]
+// with every column index below ncols; offsets into X and Y are 64-bit.
 //
 // What bounds it: one product needs each non-zero's value and column once
 // (nnz * (sizeof T + 4) bytes), X once and Y once (2 n k sizeof T); at 64^3
@@ -134,7 +137,8 @@ __device__ __forceinline__ void step(const int* c, const T* v, const T* X,
     vv[u] = v[u * kSlice];
   }
 #pragma unroll
-  for (int u = 0; u < U; ++u) load_row<T, KC, V>(X + cc[u] * k, kc, xx[u]);
+  for (int u = 0; u < U; ++u)
+    load_row<T, KC, V>(X + static_cast<long long>(cc[u]) * k, kc, xx[u]);
 #pragma unroll
   for (int u = 0; u < U; ++u)
 #pragma unroll

@@ -474,7 +474,11 @@ class ELLOperator(LinearOperator):
     ``csrc/windowed_ell.cu`` on the card and its plain version on the CPU,
     in the operator's f32 or f64. ``from_scipy`` also lays out ``A^T``
     (the reference's ``colsT``/``valsT``), so ``rmatmat`` runs the same
-    kernel, and takes the diagonal from the CSR. Square matrices only."""
+    kernel, and takes the diagonal from the CSR. An ``m x n`` matrix keeps
+    its shape: ``matmat`` takes ``[n, k]`` blocks to ``[m, k]`` on the
+    ``A`` layout (m rows), ``rmatmat`` ``[m, k]`` to ``[n, k]`` on the
+    ``A^T`` layout (n rows), and ``diagonal`` has the reference's length
+    ``m`` (``A[i, i]``, 0 past column ``n``)."""
 
     _FIELDS = WE.SlicedELL._fields
 
@@ -484,23 +488,22 @@ class ELLOperator(LinearOperator):
             self.register_buffer(name, _as_tensor(getattr(lay, name)))
             self.register_buffer(name + "_t", _as_tensor(getattr(layT, name)))
         self.register_buffer("diag", _as_tensor(diag))
-        n = self.rowlen.shape[0]
-        self.shape = (n, n)
+        self.shape = (self.rowlen.shape[0], self.rowlen_t.shape[0])
 
     @property
     def dtype(self) -> torch.dtype:
         return self.vals.dtype
 
-    def _product(self, suffix, X):
+    def _product(self, suffix, X, ncols):
         arrays = [getattr(self, name + suffix) for name in self._FIELDS]
-        Y = WE.matmat(*arrays, X.to(self.dtype).contiguous())
+        Y = WE.matmat(*arrays, X.to(self.dtype).contiguous(), ncols)
         return Y.to(_result_dtype(self.dtype, X))
 
     def matmat(self, X):
-        return self._product("", X)
+        return self._product("", X, self.shape[1])
 
     def rmatmat(self, X):
-        return self._product("_t", X)
+        return self._product("_t", X, self.shape[0])
 
     def diagonal(self):
         return self.diag
@@ -511,12 +514,11 @@ class ELLOperator(LinearOperator):
 
         dt = _value_dtype(A.dtype, "ELLOperator")
         A = sp.csr_matrix(A)
-        if A.shape[0] != A.shape[1]:
-            raise NotImplementedError(
-                f"a rectangular ELLOperator ({A.shape}) is not ported to "
-                "primme_tpu_torch yet (ROADMAP Queue A: svds)")
+        diag = np.zeros(A.shape[0], dt)
+        d = A.diagonal()
+        diag[:len(d)] = d
         return ELLOperator(WE.from_csr(A, dt), WE.from_csr(A.T.tocsr(), dt),
-                           A.diagonal().astype(dt))
+                           diag)
 
 
 class BlockELLOperator(LinearOperator):

@@ -232,28 +232,26 @@ def compact(scal, offs, vals, meta) -> SlicedELL:
 
 
 def from_csr(A, dtype) -> SlicedELL:
-    """The :class:`SlicedELL` layout of a square scipy sparse matrix,
-    straight from its CSR form: a row's entries are its stored entries in
-    CSR order (an explicit zero stays an entry), with values of the numpy
-    type ``dtype``. Rows may be empty, and so may whole slices (width 0)
-    and the matrix. Vectorised: entry ``j`` of row ``r`` lands at
+    """The :class:`SlicedELL` layout of an ``m x n`` scipy sparse matrix,
+    straight from its CSR form: ``ceil(m/32)`` slices of its ``m`` rows, a
+    row's entries its stored entries in CSR order (an explicit zero stays
+    an entry) with their columns as they are (in ``[0, n)``), and values of
+    the numpy type ``dtype``. Rows may be empty, and so may whole slices
+    (width 0) and the matrix. Vectorised: entry ``j`` of row ``r`` lands at
     ``slice_ptr[r // 32] + 32 j + r % 32``."""
     import scipy.sparse as sp
 
     C = sp.csr_matrix(A)
-    n = C.shape[0]
-    if C.shape[0] != C.shape[1]:
-        raise ValueError(f"a sliced-ELL layout of a {C.shape} matrix: square "
-                         "only")
+    m = C.shape[0]
     indptr = C.indptr.astype(np.int64)
     rowlen = np.diff(indptr)
-    nsl = -(-n // SLICE)
+    nsl = -(-m // SLICE)
     padded = np.zeros(nsl * SLICE, np.int64)
-    padded[:n] = rowlen
+    padded[:m] = rowlen
     slice_ptr = np.zeros(nsl + 1, np.int64)
     np.cumsum(SLICE * padded.reshape(nsl, SLICE).max(axis=1, initial=0),
               out=slice_ptr[1:])
-    rows = np.repeat(np.arange(n, dtype=np.int64), rowlen)
+    rows = np.repeat(np.arange(m, dtype=np.int64), rowlen)
     rank = np.arange(C.nnz, dtype=np.int64) - indptr[rows]
     pos = slice_ptr[rows >> 5] + SLICE * rank + (rows & (SLICE - 1))
     E = int(slice_ptr[-1])
@@ -264,7 +262,9 @@ def from_csr(A, dtype) -> SlicedELL:
     return SlicedELL(slice_ptr, rowlen.astype(np.int32), cols, vals)
 
 
-def _check_layout(slice_ptr, rowlen, cols, vals):
+def _check_layout(slice_ptr, rowlen, cols, vals, X, ncols):
+    """The layout's arrays agree, and ``X`` is ``[ncols, k]`` (``ncols``
+    None: as many columns as rows). Returns ``(rows, ncols)``."""
     n = rowlen.shape[0]
     if rowlen.ndim != 1 or tuple(slice_ptr.shape) != (-(-n // SLICE) + 1,):
         raise ValueError(f"slice_ptr shape {tuple(slice_ptr.shape)} != "
@@ -272,15 +272,20 @@ def _check_layout(slice_ptr, rowlen, cols, vals):
     if cols.ndim != 1 or tuple(cols.shape) != tuple(vals.shape):
         raise ValueError(f"cols shape {tuple(cols.shape)} and vals shape "
                          f"{tuple(vals.shape)} differ")
+    ncols = n if ncols is None else int(ncols)
+    if X.ndim != 2 or X.shape[0] != ncols:
+        raise ValueError(f"X shape {tuple(X.shape)} is not [{ncols}, k]")
+    return n, ncols
 
 
-def matmat_reference(slice_ptr, rowlen, cols, vals, X):
-    """Plain PyTorch ``Y = A X`` for an ``[n, k]`` block, in the type of
-    ``vals`` (f32 or f64): slot ``j`` at a time, rows with ``j < rowlen``
+def matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols=None):
+    """Plain PyTorch ``Y = A X`` for an ``[ncols, k]`` block (``ncols``
+    None: a square layout), in the type of ``vals`` (f32 or f64), ``Y``
+    with the layout's rows: slot ``j`` at a time, rows with ``j < rowlen``
     add ``v * X[col]`` as the kernel does, in the same order. The
     counterpart of the JAX package's CPU path of ``matmat_ds``."""
-    _check_layout(slice_ptr, rowlen, cols, vals)
-    n, k = rowlen.shape[0], X.shape[1]
+    n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
+    k = X.shape[1]
     dev = X.device
     Xf = X.to(vals.dtype)
     rows = torch.arange(n, device=dev)
@@ -306,21 +311,19 @@ def _spmm_fn(entry):
     return fn
 
 
-def matmat(slice_ptr, rowlen, cols, vals, X):
-    """``Y = A X`` for an ``[n, k]`` block of the type of ``vals`` (f32 or
-    f64) on the :class:`SlicedELL` arrays. CUDA tensors: the hand-written
-    kernel of ``csrc/windowed_ell.cu`` for that type, launched on the
-    current stream (raises on a bad argument or a refused launch). CPU
-    tensors: :func:`matmat_reference`."""
+def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None):
+    """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32
+    or f64) on the :class:`SlicedELL` arrays of an ``m x ncols`` matrix
+    (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
+    hand-written kernel of ``csrc/windowed_ell.cu`` for that type, launched
+    on the current stream (raises on a bad argument or a refused launch).
+    CPU tensors: :func:`matmat_reference`."""
     global LAUNCHES
     if X.device.type == "cpu":
-        return matmat_reference(slice_ptr, rowlen, cols, vals, X)
+        return matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols)
     if X.device.type != "cuda":
         raise ValueError(f"windowed-ELL matmat: unsupported device {X.device}")
-    _check_layout(slice_ptr, rowlen, cols, vals)
-    n = rowlen.shape[0]
-    if X.ndim != 2 or X.shape[0] != n:
-        raise ValueError(f"X shape {tuple(X.shape)} is not [{n}, k]")
+    n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
     if vals.dtype not in _ENTRY:
         raise TypeError(f"vals has dtype {vals.dtype}, expected float32 "
                         "or float64")

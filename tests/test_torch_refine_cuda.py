@@ -2,8 +2,9 @@
 f64 stencil kernel and ``refine_eigsh`` in native FP64, each against the
 same call on the CPU (the stencil's plain version there); and the refined
 extraction's batch (``smallest_right_svecs``) on the card against the
-CPU, on both sides of 32 pairs (cuSOLVER's batched Jacobi ``eigh`` below,
-its looped ``syevd`` above; LAPACK on the CPU). This file
+CPU, on both sides of 32 pairs (f32: the Gram's f64 ``eigh``, cuSOLVER's
+batched Jacobi ``eigh`` below, its looped ``syevd`` above; f64: the SVD;
+LAPACK on the CPU). This file
 imports no jax, so that it runs where the kernels do:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_refine_cuda.py
@@ -14,9 +15,9 @@ orders: the Chebyshev apply agrees to 1e-12 relative; the polish to 1e-12
 on eigenvalues (the converged values), its residuals both under the
 requested 1e-11 ||A||, and its iteration counts within 2 (the convergence
 test reads a residual near the threshold); the batch's vectors (through
-their projectors) and values agree to 1e-9 relative in f64 (an ``eigh``
-in f64 of Grams whose smallest gap is 6e-5 of their norm: 1e-13 against
-LAPACK's SVD on the CPU) and to 1e-6 in f32 (the results' own rounding).
+their projectors) and values agree to 1e-9 relative in f64 (cuSOLVER's
+SVD against LAPACK's, the smallest gap 6e-5 of the norm) and to 1e-6 in
+f32 (the results' own rounding).
 Every test here needs a card and skips without one."""
 
 import numpy as np

@@ -1,6 +1,7 @@
 """The port's sparse formats and format chooser against the JAX package's
 on the same numpy inputs, on the CPU (where each product runs its plain
-version): the CSR -> sliced-ELL layout (``from_csr``), ``ELLOperator``,
+version): the CSR -> sliced-ELL layout (``from_csr``, square and
+rectangular), ``ELLOperator`` (square and rectangular),
 the DIA+ELL hybrid ``SumOperator``, ``BlockELLOperator``, ``FunctionOperator`` over a
 scipy ``LinearOperator``, the chooser's choice on every fixture of
 ``tests/test_operators.py`` and ``tests/test_eigsh.py``, and ``eigsh``
@@ -119,9 +120,42 @@ def test_from_csr_product(k, dtype):
         assert out.shape == (Z.shape[0], k) and not out.any()
 
 
+def _rect_holes(m, n, seed=0):
+    """An m x n matrix with empty rows (a whole slice among them), empty
+    columns and an explicit zero."""
+    A = sp.random(m, n, density=0.08, random_state=seed, format="lil")
+    A[32:64, :] = 0
+    A[:, 3:9] = 0
+    A = A.tocsr()
+    A.data[A.indices == 10] = 0.0                # explicit zeros stay
+    return A
+
+
+RECT_SHAPES = [(333, 70), (45, 290)]             # m > n and m < n
+
+
 def test_from_csr_refuses_rectangular():
-    with pytest.raises(ValueError, match="square"):
-        WE.from_csr(sp.random(5, 7, density=0.5, random_state=0), np.float32)
+    """Once refused, a rectangular matrix is now laid out: ceil(m/32)
+    slices of its m rows, the columns as they are; the product takes an
+    [n, k] block to [m, k] (m > n and m < n, f32 and f64), and a block of
+    the wrong height is refused."""
+    for (m, n), dtype in zip(RECT_SHAPES * 2, DTYPES * 2):
+        A = _rect_holes(m, n).astype(dtype)
+        lay = WE.from_csr(A, dtype)
+        assert len(lay.slice_ptr) == -(-m // WE.SLICE) + 1
+        assert np.array_equal(lay.rowlen, np.diff(A.indptr))
+        assert len(lay.cols) == 0 or lay.cols.max() < n
+        for r in range(m):
+            lo, hi = A.indptr[r], A.indptr[r + 1]
+            pos = lay.slice_ptr[r // 32] + 32 * np.arange(hi - lo) + r % 32
+            assert np.array_equal(lay.cols[pos], A.indices[lo:hi])
+        X = np.random.default_rng(m).normal(size=(n, 3)).astype(dtype)
+        arrays = [torch.as_tensor(a) for a in lay]
+        y = WE.matmat(*arrays, _t(X), n).numpy()
+        assert y.shape == (m, 3) and y.dtype == dtype
+        assert np.abs(y - A @ X).max() <= _tol(A, X, dtype)
+        with pytest.raises(ValueError, match="is not"):
+            WE.matmat(*arrays, _t(X[:-1]), n)
 
 
 # --- ELLOperator -------------------------------------------------------------
@@ -149,11 +183,82 @@ def test_ell_operator_matches_reference(k, dtype):
 
 
 def test_ell_operator_refuses():
-    with pytest.raises(NotImplementedError, match="ELLOperator"):
-        ptt.ELLOperator.from_scipy(sp.random(9000, 10, density=0.1,
-                                             random_state=0))
+    """A rectangular matrix, once refused, keeps its shape (its products
+    on the A and A^T layouts, the reference's diagonal); complex values
+    are still refused."""
+    A = sp.random(9000, 10, density=0.1, random_state=0).tocsr()
+    top, jop = ptt.ELLOperator.from_scipy(A), JO.ELLOperator.from_scipy(A)
+    assert top.shape == jop.shape == (9000, 10)
+    X, Y = (np.random.default_rng(0).normal(size=(r, 2)) for r in (10, 9000))
+    assert np.abs(top.matmat(_t(X)).numpy()
+                  - np.asarray(jop.matmat(jnp.asarray(X)))).max() \
+        <= _tol(A, X, np.float64)
+    assert np.abs(top.rmatmat(_t(Y)).numpy()
+                  - np.asarray(jop.rmatmat(jnp.asarray(Y)))).max() \
+        <= _tol(A.T, Y, np.float64)
+    assert np.array_equal(top.diagonal().numpy(), np.asarray(jop.diagonal()))
     with pytest.raises(NotImplementedError, match="ELLOperator"):
         ptt.ELLOperator.from_scipy(sp.identity(10, dtype=np.complex128))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RECT_SHAPES)
+def test_rectangular_ell_operator_matches_reference(shape, dtype):
+    """An m x n ELLOperator against the JAX package's (its colsT/valsT
+    layout for rmatmat) and scipy, with empty rows and columns: matmat
+    [n, k] -> [m, k], rmatmat [m, k] -> [n, k], the diagonal of length m
+    (0 past column n), and ``ell_from_jax`` carrying the reference's
+    rectangular operator across."""
+    m, n = shape
+    A = _rect_holes(m, n, seed=1).astype(dtype)
+    top, jop = ptt.ELLOperator.from_scipy(A), JO.ELLOperator.from_scipy(A)
+    assert top.shape == jop.shape == (m, n)
+    rng = np.random.default_rng(2)
+    X, Y = (rng.normal(size=(r, 3)).astype(dtype) for r in (n, m))
+    for fn, Z, M in (("matmat", X, A), ("rmatmat", Y, A.T)):
+        y = getattr(top, fn)(_t(Z)).numpy()
+        assert y.shape == (M.shape[0], 3) and y.dtype == dtype, fn
+        assert np.abs(y - M @ Z).max() <= _tol(M, Z, dtype), fn
+        yj = np.asarray(getattr(jop, fn)(jnp.asarray(Z)))
+        assert np.abs(y - yj).max() <= _tol(M, Z, dtype), fn
+    d = top.diagonal().numpy()
+    assert d.shape == (m,) and np.array_equal(d, np.asarray(jop.diagonal()))
+    # the conversion drops zero values (the reference's padding), the
+    # explicit zero among them
+    conv = CV.ell_from_jax(jop)
+    Az = A.copy()
+    Az.eliminate_zeros()
+    tz = ptt.ELLOperator.from_scipy(Az)
+    assert conv.shape == (m, n)
+    for name in ("slice_ptr", "rowlen", "cols", "vals", "slice_ptr_t",
+                 "rowlen_t", "cols_t", "vals_t"):
+        assert torch.equal(getattr(conv, name), getattr(tz, name)), name
+    with pytest.raises(ValueError, match="is not"):
+        top.matmat(_t(Y))
+
+
+def test_aslinearoperator_densify_rule_on_rectangular_input():
+    """The reference's rule for sparse input, rectangular too: dense up to
+    8192 rows and columns (and 256 MB), else an ELLOperator of the same
+    shape."""
+    for shape in ((8192, 40), (40, 8192), (8193, 40), (40, 8193)):
+        A = sp.random(*shape, density=0.01, random_state=0).tocsr()
+        top, jop = ptt.aslinearoperator(A), JO.aslinearoperator(A)
+        assert type(top).__name__ == type(jop).__name__, shape
+        assert top.shape == tuple(jop.shape) == shape
+        assert isinstance(top, ptt.DenseOperator) == (max(shape) <= 8192)
+
+
+def test_svds_without_device_needs_a_card(monkeypatch):
+    # svds, like eigsh, runs on the card unless asked otherwise
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = _rect_holes(333, 70).tocsr()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ptt.svds(A, k=2, tol=1e-8)
+    s = ptt.svds(A, k=2, tol=1e-8, device="cpu",
+                 return_singular_vectors=False)
+    ref = np.linalg.svd(A.toarray(), compute_uv=False)[:2]
+    assert np.abs(np.sort(s)[::-1] - ref).max() <= 1e-7 * ref[0]
 
 
 # --- the DIA+ELL hybrid ------------------------------------------------------

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The small dense work of the projected problems on the card: why the
 port solves them on the active block and takes the refined extraction's
-vectors from a batched f64 ``eigh`` of the Gram.
+vectors in an f32 solve from a batched f64 ``eigh`` of the Gram (an f64
+solve takes them from a batched SVD, as the reference does).
 
 1. ``chip_smoke.py`` phase 18's JDQR + Jacobi interior solve (f32, tol
    1e-5, the tridiagonal fixture; ``--n``, 1024 by default) four ways:
@@ -13,8 +14,10 @@ vectors from a batched f64 ``eigh`` of the Gram.
    matvecs, outer iterations and seconds.
 2. The refined extraction's batch (``m`` stacked [2m, m] matrices, f32
    and f64, m in {24, 36, 48}): as shipped (``smallest_right_svecs``, on
-   the card), cuSOLVER's batched SVD on the card by driver, and LAPACK's
-   SVD on the host with one thread and with torch's default threads.
+   the card: the Gram's ``eigh`` for f32, the SVD for f64), cuSOLVER's
+   batched SVD on the card under each of ``torch.linalg.svd``'s solver
+   choices, and LAPACK's SVD on the host with one thread and with
+   torch's default threads.
 3. ``chip_smoke.py`` phase 18's refined GD_plusK solve (``--refined-n``,
    512 and 1024 by default) with the shipped extraction and with the
    batch's SVD on the host's LAPACK: matvecs, outer iterations, seconds.

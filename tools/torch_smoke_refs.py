@@ -28,7 +28,13 @@ matrix's type, f32 unless said):
   ``chip_smoke.interior_matrix(INTERIOR_N[solve])``; ``--interior-n N
   ...`` runs every solve at each given size instead, ``--interior-solve``
   only the named ones (a solve that does not converge within its
-  ``maxMatvecs`` prints its error).
+  ``maxMatvecs`` prints its error);
+* ``svds``: each solve of ``chip_smoke.SVDS_SOLVES`` (``primme_tpu.svds``
+  with the phase's arguments, seed 0) on
+  ``chip_smoke.grounded_incidence(SVD_GRID)`` in the solve's type: each
+  stage's matvecs and probe counters, the singular values and their
+  largest distance from the closed form; ``--svd-grid N ...`` runs at
+  other grids, ``--svds-solve`` only the named solves.
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -37,8 +43,9 @@ iterations). Run from the repository root, on a machine with JAX (no card
 needed):
 
     python3 tools/torch_smoke_refs.py [--phase banded|hybrid|ell|ell_f32|
-        northstar|generalized|interior] [--interior-n N ...]
-        [--interior-solve refined|harmonic|jdqr ...]
+        northstar|generalized|interior|svds] [--interior-n N ...]
+        [--interior-solve refined|harmonic|jdqr ...] [--svd-grid N ...]
+        [--svds-solve lm|augmented|sm ...]
 """
 
 import argparse
@@ -54,10 +61,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
                                         "ell_f32", "northstar",
-                                        "generalized", "interior"),
+                                        "generalized", "interior", "svds"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
+    ap.add_argument("--svd-grid", type=int, nargs="+")
+    ap.add_argument("--svds-solve", nargs="+")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -72,7 +81,7 @@ def main():
 
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
-        if phase in ("northstar", "generalized", "interior"):
+        if phase in ("northstar", "generalized", "interior", "svds"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -170,6 +179,29 @@ def _interior(CS, pt, np, args):
                    "num_matvecs": int(st["num_matvecs"]),
                    "eval_err": float(np.abs(w - ref).max()),
                    "evals": [float(x) for x in w]}
+
+
+def _svds(CS, pt, np, args):
+    for name, (kw, dtype) in CS.SVDS_SOLVES.items():
+        if args.svds_solve and name not in args.svds_solve:
+            continue
+        for N in args.svd_grid or [CS.SVD_GRID]:
+            A, sv = CS.grounded_incidence(N, dtype=dtype)
+            t0 = time.perf_counter()
+            _, s, _, st = pt.svds(A, seed=0, return_stats=True,
+                                  raise_for_unconverged=False, **kw)
+            s = np.sort(np.asarray(s, np.float64))
+            ref = sv[-len(s):] if kw["which"] == "LM" else sv[:len(s)]
+            stages = {key: int(st[key]) for key in sorted(st)
+                      if key.endswith(("num_matvecs", "num_probe_matvecs",
+                                       "num_probe_rounds", "probe_exhausted",
+                                       "num_outer_iterations"))}
+            yield {"solve": name, "svd_grid": N, "dtype": dtype,
+                   "shape": list(A.shape), **stages,
+                   "max_resnorm": float(np.max(st["resnorms"])),
+                   "eval_err": float(np.abs(s - ref).max()),
+                   "svals": [float(x) for x in s],
+                   "solve_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":
