@@ -38,8 +38,15 @@ sliced-ELL kernel, a small one a :class:`DenseOperator`;
 :class:`SvdsParams` and ``svds_*`` carry the reference's
 ``primme_svds_params`` reflection.
 
+Complex Hermitian input (complex64 and complex128) runs as the real does:
+the DIA and sliced-ELL kernels have complex entry points (the adjoint
+``A^H`` conjugating), ``eigsh`` returns real eigenvalues and complex
+vectors, ``svds`` returns ``Vh = V^H``. A real operator multiplies a
+complex block's two parts in one launch of its real product.
+
 f32 products run in full f32: TF32 is disabled at import, the
-counterpart of the reference's ``Precision.HIGHEST``.
+counterpart of the reference's ``Precision.HIGHEST``; Grams of f32 and
+complex64 blocks are summed in double.
 """
 
 import torch

@@ -6,9 +6,12 @@ and its permutation contract, ``which``/``sigma`` targets, the method
 presets and keyword forwarding, generalized problems (``M``), orthogonality
 constraints (``lock``), the refined and harmonic projections, ``v0``,
 ``return_stats``, a user convergence test (``convtest``, on tensors: see
-``core.solver.prepare_window``), a working ``dtype`` of f32 or f64 (the
-operators are wrapped in a ``CastOperator`` when it differs from their
-own), the Jacobi preconditioner (``jacobi=True``, or an ``OPinv`` that is
+``core.solver.prepare_window``), complex Hermitian input (complex64 and
+complex128: dense, scipy sparse through the chooser, scipy
+``LinearOperator`` or a port operator), a working ``dtype`` of f32, f64,
+complex64 or complex128 (the operators are wrapped in a ``CastOperator``
+when it differs from their own; a complex one over a real operator is
+refused), the Jacobi preconditioner (``jacobi=True``, or an ``OPinv`` that is
 a port operator), ``raise_for_unconverged`` and the probe-exhaustion
 error. Arguments of the reference that the port does not serve yet raise
 ``NotImplementedError``.
@@ -46,8 +49,8 @@ def _unported(what: str) -> NotImplementedError:
 
 
 def _working_dtype(dtype: Any) -> Optional[torch.dtype]:
-    """The solver's working dtype from a torch, numpy or named dtype; only
-    f32 and f64 are served."""
+    """The solver's working dtype from a torch, numpy or named dtype; f32,
+    f64, complex64 and complex128 are served."""
     if dtype is None:
         return None
     if not isinstance(dtype, torch.dtype):
@@ -55,7 +58,8 @@ def _working_dtype(dtype: Any) -> Optional[torch.dtype]:
         dtype = getattr(torch, name, None)
     if dtype in (torch.bfloat16, torch.float16):
         raise _unported(f"the half-precision basis (dtype={dtype})")
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in (torch.float32, torch.float64, torch.complex64,
+                     torch.complex128):
         raise _unported(f"a working dtype of {dtype}")
     return dtype
 

@@ -1,8 +1,8 @@
 """Carry objects over from the JAX package, as numpy.
 
 The tests use these so that both packages compute on the same operator
-and configuration. Nothing here imports jax: a JAX array converts through
-``np.asarray``.
+and configuration; the operators carry real and complex values alike.
+Nothing here imports jax: a JAX array converts through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ import torch
 
 from . import params as prm
 from .operators import (BandedOperator, BlockELLOperator, ChebyshevPrecond,
-                        ELLOperator, JacobiPrecond, Stencil3DOperator,
-                        SumOperator, WindowedELLOperator)
+                        DenseOperator, ELLOperator, JacobiPrecond,
+                        Stencil3DOperator, SumOperator, WindowedELLOperator)
 
 
 def params_from_jax(p) -> prm.PrimmeParams:
@@ -93,7 +93,9 @@ def banded_from_jax(op, device=None) -> BandedOperator:
 def ell_from_jax(op, device=None) -> ELLOperator:
     """A ``primme_tpu`` ``ELLOperator`` as the port's: the matrix its
     padded rows hold (the zero-valued padding dropped), laid out by the
-    port's ``from_scipy``."""
+    port's ``from_scipy``. Its ``A^H`` layout is built from that matrix
+    with conjugated values, so it equals the reference's ``valsT`` (stored
+    unconjugated, conjugated at each ``rmatmat``) conjugated."""
     import scipy.sparse as sp
 
     cols, vals = np.asarray(op.cols), np.asarray(op.vals)
@@ -101,6 +103,12 @@ def ell_from_jax(op, device=None) -> ELLOperator:
     A = sp.csr_matrix((vals[keep], (np.nonzero(keep)[0], cols[keep])),
                       shape=op.shape)
     return _on(ELLOperator.from_scipy(A), device)
+
+
+def dense_from_jax(op, device=None) -> DenseOperator:
+    """A ``primme_tpu`` ``DenseOperator`` as the port's: the same matrix,
+    in its type (real or complex)."""
+    return _on(DenseOperator(np.asarray(op.A)), device)
 
 
 def block_ell_from_jax(op, device=None) -> BlockELLOperator:

@@ -13,7 +13,8 @@ zero).
 Small dense factorizations (``eigh``, ``cholesky``, triangular solves) go
 to ``torch.linalg``. Products run in full f32/f64: the port disables TF32
 at import (``primme_tpu_torch/__init__.py``), the counterpart of the
-reference's ``Precision.HIGHEST``.
+reference's ``Precision.HIGHEST``; a Gram of single-precision blocks
+accumulates in double precision (:func:`gram`).
 """
 
 from __future__ import annotations
@@ -52,9 +53,23 @@ def mask_cols(X: torch.Tensor, active: int) -> torch.Tensor:
     return torch.where(col_mask(X.shape[1], active, X.device)[None, :], X, 0)
 
 
+_WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
 def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """X^H Y at full precision."""
-    return X.mH @ Y
+    """X^H Y at full precision, returned in X's type. Single-precision
+    blocks (f32, complex64) are summed in double precision: the card's
+    GEMM sums the basis' n-long columns in f32 less accurately than the
+    host's, and the block Krylov start and its orthogonalization amplify
+    that. Summed in f32 on an NVIDIA H100 80GB HBM3 (700 W), the
+    complex64 basis of ``chip_smoke.py`` phase 26 (n = 262,144, ||A|| ~
+    110) came out orthonormal only to 2.1e-5, against 1.7e-6 on the CPU,
+    and its Ritz values 1.3e-4 off; summed in double, to 1.3e-7
+    (``ROADMAP.md`` Queue C)."""
+    wide = _WIDE.get(X.dtype)
+    if wide is None:
+        return X.mH @ Y
+    return (X.to(wide).mH @ Y.to(wide)).to(X.dtype)
 
 
 def bcomb(V: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -85,8 +100,13 @@ def prefix_project2(Q, BQ, X, BX, count: int, same: bool):
 
 def rand_block(gen: torch.Generator, n: int, bs: int, dtype, device):
     """Standard normal ``[n, bs]`` block drawn from the CPU generator
-    ``gen`` and moved to ``device``, so the CPU and GPU streams agree."""
-    X = torch.randn((n, bs), generator=gen, dtype=real_dtype(dtype))
+    ``gen`` and moved to ``device``, so the CPU and GPU streams agree. A
+    complex block draws its real part, then its imaginary part, each
+    standard normal (the reference's ``_rand_block``)."""
+    rdt = real_dtype(dtype)
+    X = torch.randn((n, bs), generator=gen, dtype=rdt)
+    if dtype.is_complex:
+        X = torch.complex(X, torch.randn((n, bs), generator=gen, dtype=rdt))
     return X.to(device=device, dtype=dtype)
 
 
@@ -216,9 +236,6 @@ def _embed(w, Z, mmax: int, rdt) -> ProjectedSolution:
     hvecs[:b, :b] = Z
     return ProjectedSolution(hvals=hvals, hvecs=hvecs,
                              active=col_mask(mmax, b, dev))
-
-
-_WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 
 def projected_eigh(M):

@@ -1173,9 +1173,11 @@ def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
         raise NotImplementedError("normal (non-Hermitian) operators are "
                                   "not ported yet")
     dtype = dtype or A.dtype
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in (torch.float32, torch.float64, torch.complex64,
+                     torch.complex128):
         raise NotImplementedError(f"working dtype {dtype} is not ported "
-                                  "(f32 and f64 only)")
+                                  "(f32, f64, complex64 and complex128 "
+                                  "only)")
     device = torch.device(device) if device is not None else A.device
     rdt = real_dtype(dtype)
     ts = p.target_shifts if p.target_shifts else (0.0,)

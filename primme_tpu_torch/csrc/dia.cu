@@ -1,41 +1,52 @@
-// DIA (diagonal storage) product for Hopper (sm_90a), in f32 and f64:
+// DIA (diagonal storage) product for Hopper (sm_90a), in f32, f64,
+// complex64 and complex128:
 //   matmat   y_i = sum_b vals[b, i] * x_{i + off_b}
-//   rmatmat  y_i = sum_b vals[b, i - off_b] * x_{i - off_b}   (A^T, real)
+//   rmatmat  y_i = sum_b conj(vals[b, i - off_b]) * x_{i - off_b}   (A^H)
 // on an [n, k] block, a term whose row i + off_b (i - off_b) lies outside
 // [0, n) counting as 0.
 //
 // Replaces the XLA-fused product of primme_tpu/operators.py::
 // BandedOperator.matmat/rmatmat (:671-704; the JAX package has no Pallas
-// kernel for it): the banded branch of the format chooser and the banded
-// part of its DIA+ELL hybrid run every product through it.
+// kernel for it, in any type): the banded branch of the format chooser and
+// the banded part of its DIA+ELL hybrid run every product through it.
 //
 // Layout: vals is [B, n] row-indexed (vals[b, i] = A[i, i + off_b], the
 // ends of a diagonal padded with anything, usually 0), offs [B] i64 in the
 // operator's stored order (not sorted: the sum keeps that order). X is
 // [n, k] with rows ldx >= k elements apart (a column slice of the basis
-// needs no copy) and adjacent columns; Y is a new contiguous [n, k].
+// needs no copy) and adjacent columns; Y is a new contiguous [n, k]. A
+// complex element is its real and imaginary parts side by side (float2 or
+// double2: torch's complex64 and complex128).
 //
 // What bounds it: vals is read once (B n sizeof(T) bytes), X and Y once
-// each (2 n k sizeof(T)): 2 B k flops for B n + 2 n k elements, bound by
-// device memory. At 64^3 with the 27 diagonals of a 27-point stencil and
-// k=2 in f32 that is 28.3 + 2.1 + 2.1 MB, 9.7 us at 3.35 TB/s (it fits the
-// 50 MB L2, so repeated calls find it there).
+// each (2 n k sizeof(T)): 2 B k flops (8 B k complex) for B n + 2 n k
+// elements, bound by device memory. At 64^3 with the 27 diagonals of a
+// 27-point stencil and k=2 in f32 that is 28.3 + 2.1 + 2.1 MB, 9.7 us at
+// 3.35 TB/s; the 11 diagonals of the magnetic Laplacian at 64^3 and k=2 in
+// complex64 23.1 + 4.2 + 4.2 MB, 9.4 us (both fit the 50 MB L2, so
+// repeated calls find them there).
 //
 // What the design does about that: one thread per (row, column group of
 // kc = 8, 4, 2 or 1 columns), rows along the block so that a warp's loads
 // of vals[b, i .. i+31] are one line and its B shifted reads of X are
 // adjacent rows, served by L1/L2; the offsets are a small device array
 // whose loads are the same address across the warp. X is loaded vw
-// elements at a time (as wide as kc, ldx and X's address allow; the scalar
-// path for a slice at an odd column offset). A row off the edge reads the
+// elements at a time (up to 16 bytes: four f32, two f64 or complex64, one
+// complex128; as wide as kc, ldx and X's address allow; the scalar path
+// for a slice at an odd column offset). A row off the edge reads the
 // thread's own row of X (no load waits on a branch) and counts as 0.
 // The arithmetic keeps the plain version's order, one IEEE rounding per
 // operation and no fma: out = 0; for each b in stored order
 //   out = out + v * x    (matmat: v = vals[b, i], x = 0 off the edge;
-//                         rmatmat: v and x both 0 off the edge)
-// so the kernel equals its plain PyTorch version bit for bit (an off-edge
-// term is v * 0 as there, and 0 + -0 is +0 as there). Addresses are 64-bit:
-// B n passes 2^31 at B = 256 and n >= 8.4M.
+//                         rmatmat: v = conj(vals[b, i - off]), and v and x
+//                         both 0 off the edge)
+// a complex v * x being (vr*xr - vi*xi, vr*xi + vi*xr), each product, the
+// difference and the sum rounded once, and out + t adding part by part;
+// so the kernel equals its plain PyTorch version (which computes on the
+// real and imaginary parts in that order) bit for bit (an off-edge term
+// is v * 0 as there, and 0 + -0 is +0 as there). The adjoint conjugates in
+// the kernel (a negation, exact): no pass over vals or X. Addresses are
+// 64-bit: B n passes 2^31 at B = 256 and n >= 8.4M.
 
 #include <cuda_runtime.h>
 
@@ -56,13 +67,45 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
 
+// The value types: a real scalar, or a complex one as (x, y) = (re, im).
+template <typename T> struct Val {
+  static __device__ __forceinline__ T zero() { return T(0); }
+  static __device__ __forceinline__ T conj(T v) { return v; }
+  // acc + v * x, each operation rounded once
+  static __device__ __forceinline__ T madd(T acc, T v, T x) {
+    return add_rn(acc, mul_rn(v, x));
+  }
+};
+template <typename C> struct CVal {
+  static __device__ __forceinline__ C zero() { C z; z.x = 0; z.y = 0; return z; }
+  static __device__ __forceinline__ C conj(C v) { v.y = -v.y; return v; }
+  static __device__ __forceinline__ C madd(C acc, C v, C x) {
+    C out;
+    out.x = add_rn(acc.x, sub_rn(mul_rn(v.x, x.x), mul_rn(v.y, x.y)));
+    out.y = add_rn(acc.y, add_rn(mul_rn(v.x, x.y), mul_rn(v.y, x.x)));
+    return out;
+  }
+};
+template <> struct Val<float2> : CVal<float2> {};
+template <> struct Val<double2> : CVal<double2> {};
+
+// W elements of T as one load or store of sizeof(T) * W <= 16 bytes
 template <typename T, int W> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
 template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<float2, 1> { using type = float2; };
+template <> struct Vec<float2, 2> { using type = float4; };
+template <> struct Vec<double2, 1> { using type = double2; };
 
 template <typename T, int W>
 __device__ __forceinline__ void ldg_vec(const T* p, T* out) {
@@ -93,9 +136,10 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   const int c0 = blockIdx.y * KC;
+  using O = Val<T>;
   T acc[KC];
 #pragma unroll
-  for (int q = 0; q < KC; ++q) acc[q] = T(0);
+  for (int q = 0; q < KC; ++q) acc[q] = O::zero();
 #pragma unroll 4
   for (int b = 0; b < B; ++b) {
     const long long off = __ldg(offs + b);
@@ -108,11 +152,11 @@ __global__ void __launch_bounds__(kThreads)
     T xv[KC];
 #pragma unroll
     for (int c = 0; c < KC; c += VW) ldg_vec<T, VW>(x + c, xv + c);
-    // matmat: v * 0 off the edge; rmatmat: 0 * 0
-    const T vv = (kAdjoint && !in) ? T(0) : v;
+    // matmat: v * 0 off the edge; rmatmat: conj(v), and 0 * 0 off it
+    const T vv = kAdjoint ? (in ? O::conj(v) : O::zero()) : v;
 #pragma unroll
     for (int q = 0; q < KC; ++q)
-      acc[q] = add_rn(acc[q], mul_rn(vv, in ? xv[q] : T(0)));
+      acc[q] = O::madd(acc[q], vv, in ? xv[q] : O::zero());
   }
   T* y = Y + i * k + c0;
 #pragma unroll
@@ -126,7 +170,7 @@ using Kernel = void (*)(const T*, const long long*, int, const T*, long long,
 template <typename T, int KC, bool A>
 Kernel<T> pick_vw(int vw) {
   if (vw == 1) return dia_kernel<T, KC, 1, A>;
-  if constexpr (KC >= 2) {
+  if constexpr (KC >= 2 && sizeof(T) <= 8) {
     if (vw == 2) return dia_kernel<T, KC, 2, A>;
   }
   if constexpr (KC >= 4 && sizeof(T) == 4) {
@@ -169,8 +213,10 @@ int launch(const T* vals, const long long* offs, int B, const T* X,
 
 // The wrapper (primme_tpu_torch/ops/dia.py::plan) plans the launch: kc
 // columns a thread, X loaded vw elements at a time, gx blocks of 256 rows
-// by gy = k / kc column groups. adjoint = 1 computes rmatmat. Each entry
-// point returns the CUDA error of its launch as an int (0: none).
+// by gy = k / kc column groups. adjoint = 1 computes rmatmat (A^T, or
+// A^H for the complex types, whose pointers are to interleaved (re, im)
+// pairs). Each entry point returns the CUDA error of its launch as an int
+// (0: none).
 extern "C" int dia_f32(const float* vals, const long long* offs, int B,
                        const float* X, long long ldx, float* Y, int n, int k,
                        int adjoint, int kc, int vw, int gx, int gy,
@@ -185,4 +231,20 @@ extern "C" int dia_f64(const double* vals, const long long* offs, int B,
                        void* stream) {
   return launch<double>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
                         gy, stream);
+}
+
+extern "C" int dia_c64(const float2* vals, const long long* offs, int B,
+                       const float2* X, long long ldx, float2* Y, int n, int k,
+                       int adjoint, int kc, int vw, int gx, int gy,
+                       void* stream) {
+  return launch<float2>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
+                        gy, stream);
+}
+
+extern "C" int dia_c128(const double2* vals, const long long* offs, int B,
+                        const double2* X, long long ldx, double2* Y, int n,
+                        int k, int adjoint, int kc, int vw, int gx, int gy,
+                        void* stream) {
+  return launch<double2>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
+                         gy, stream);
 }

@@ -1,15 +1,22 @@
-// Sparse product Y = A X for Hopper (sm_90a), in f32 and f64, on the
-// warp-sliced ELL layout that primme_tpu_torch/ops/windowed_ell.py::compact
-// derives from the windowed-slot ELL packing.
+// Sparse product Y = A X for Hopper (sm_90a), in f32, f64, complex64 and
+// complex128, on the warp-sliced ELL layout that
+// primme_tpu_torch/ops/windowed_ell.py::compact derives from the
+// windowed-slot ELL packing (and from_csr builds from CSR).
 //
 // Replaces two TPU kernels of primme_tpu/ops/pallas_windowed.py:
 //   matmat    (the pl.pallas_call at :228), f32: windowed_ell_spmm_f32;
-//   matmat_ds (the pl.pallas_call at :363), f64: windowed_ell_spmm_f64.
+//   matmat_ds (the pl.pallas_call at :363), f64: windowed_ell_spmm_f64;
+// and the XLA gather of primme_tpu/operators.py::ELLOperator.matmat/
+// rmatmat (:198-207) for complex values, which the JAX package computes
+// outside any Pallas kernel: windowed_ell_spmm_c64 and _c128. A complex
+// value is its (re, im) pair side by side (float2 or double2, torch's
+// complex64 and complex128); the adjoint's layout holds A^H's values,
+// conjugated when it is built, so no entry point conjugates.
 // The layout keeps the packed (RCM) row order and holds no padding slot:
 //   slice_ptr [ceil(n/32)+1] i64  first entry of each 32-row slice
 //   rowlen    [n] i32             entries of each row
 //   cols      [E] i32             absolute column of each entry
-//   vals      [E] T               value, T = float or double
+//   vals      [E] T               value: float, double, float2, double2
 // Entry j of row 32i+l lies at slice_ptr[i] + 32j + l (slot-major inside a
 // slice); a row's entries are its packed non-zero slots in slot order.
 // The same layout serves an m x ncols matrix built from CSR (from_csr): n
@@ -34,8 +41,11 @@
 // in the chain, no 0*x term), gathers X with one vector load per entry
 // where k and alignment allow, and sums in slot order with fma in T, the
 // order of the packed layout's plain version, so the result does not
-// depend on the layout. Columns of X go in chunks of up to 8 held in
-// registers, one launch per chunk, so any k >= 1 works.
+// depend on the layout (a complex term as four fmas: re += vr xr, re +=
+// -vi xi, im += vr xi, im += vi xr). Columns of X go in chunks of up to 8
+// held in registers, one launch per chunk, so any k >= 1 works. A
+// complex128 entry takes 20 bytes of the ring, so its stages hold half
+// as many slots (kChunk 8) and the ring stays under 227 KB.
 //
 // What was dropped from the TPU kernels: their eight shifted copies of X
 // and [8,128] lane-shuffle scan existed because a lane shuffle is the
@@ -55,7 +65,9 @@ namespace {
 
 constexpr int kSlice = 32;              // rows per slice: lanes of a warp
 constexpr int kWarps = 8;               // consumer warps: slices per group
-constexpr int kChunk = 16;              // slots of a slice per stage
+// slots of a slice per stage: 16, 8 for the 16-byte complex128 values
+template <typename T>
+constexpr int kChunkOf = sizeof(T) > 8 ? 8 : 16;
 constexpr int kStages = 4;              // depth of the ring
 constexpr int kMaxKC = 8;               // columns of X per launch
 constexpr int kMaxDevices = 64;         // occupancy cached per device below
@@ -66,6 +78,29 @@ __device__ __forceinline__ float fma_t(float a, float b, float c) {
 }
 __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
+}
+// a complex c + a b: four fmas, the real part's two first
+__device__ __forceinline__ float2 fma_t(float2 a, float2 b, float2 c) {
+  c.x = fmaf(a.x, b.x, c.x);
+  c.x = fmaf(-a.y, b.y, c.x);
+  c.y = fmaf(a.x, b.y, c.y);
+  c.y = fmaf(a.y, b.x, c.y);
+  return c;
+}
+__device__ __forceinline__ double2 fma_t(double2 a, double2 b, double2 c) {
+  c.x = fma(a.x, b.x, c.x);
+  c.x = fma(-a.y, b.y, c.x);
+  c.y = fma(a.x, b.y, c.y);
+  c.y = fma(a.y, b.x, c.y);
+  return c;
+}
+
+template <typename T> __device__ __forceinline__ T zero() { return T(0); }
+template <> __device__ __forceinline__ float2 zero<float2>() {
+  return make_float2(0.f, 0.f);
+}
+template <> __device__ __forceinline__ double2 zero<double2>() {
+  return make_double2(0.0, 0.0);
 }
 
 // V > 1 consecutive elements of type T as one load or store
@@ -88,6 +123,17 @@ template <> struct Io<float, 4> {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
+// two complex64 columns in 16 bytes
+template <> struct Io<float2, 2> {
+  static __device__ __forceinline__ void ld(const float2* p, float2* o) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = make_float2(v.x, v.y); o[1] = make_float2(v.z, v.w);
+  }
+  static __device__ __forceinline__ void st(float2* p, const float2* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0].x, v[0].y, v[1].x,
+                                                v[1].y);
+  }
+};
 template <> struct Io<double, 2> {
   static __device__ __forceinline__ void ld(const double* p, double* o) {
     const double2 v = __ldg(reinterpret_cast<const double2*>(p));
@@ -104,7 +150,7 @@ template <typename T, int KC, int V>
 __device__ __forceinline__ void load_row(const T* p, int kc, T* o) {
   if constexpr (V == 1) {
 #pragma unroll
-    for (int q = 0; q < KC; ++q) o[q] = q < kc ? __ldg(p + q) : T(0);
+    for (int q = 0; q < KC; ++q) o[q] = q < kc ? __ldg(p + q) : zero<T>();
   } else {
 #pragma unroll
     for (int q = 0; q < KC; q += V) Io<T, V>::ld(p + q, o + q);
@@ -198,17 +244,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 template <typename T>
 struct Ring {
-  static constexpr int kStageEntries = kWarps * kChunk * kSlice;
+  static constexpr int kChunkT = kChunkOf<T>;
+  static constexpr int kStageEntries = kWarps * kChunkT * kSlice;
   static constexpr int kStageBytes = kStageEntries * (4 + int(sizeof(T)));
   static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kBytes <= 232448, "the ring exceeds a block's shared memory");
   // stage s: cols [kWarps][kChunk*32] i32, then vals [kWarps][kChunk*32] T
   __device__ static int* cols(unsigned char* smem, int s, int w) {
     return reinterpret_cast<int*>(smem + s * kStageBytes) +
-           w * kChunk * kSlice;
+           w * kChunkT * kSlice;
   }
   __device__ static T* vals(unsigned char* smem, int s, int w) {
     return reinterpret_cast<T*>(smem + s * kStageBytes +
-                                kStageEntries * 4) + w * kChunk * kSlice;
+                                kStageEntries * 4) + w * kChunkT * kSlice;
   }
 };
 
@@ -226,6 +274,7 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
                 T* __restrict__ Y, int n, int k, int kc, int ngroups) {
   extern __shared__ __align__(128) unsigned char smem[];
   using R = Ring<T>;
+  constexpr int kChunk = R::kChunkT;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * R::kStageBytes);
   uint64_t* empty = full + kStages;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -295,7 +344,7 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
     const int wmax = __reduce_max_sync(0xffffffffu, wl);
     T acc[KC];
 #pragma unroll
-    for (int q = 0; q < KC; ++q) acc[q] = T(0);
+    for (int q = 0; q < KC; ++q) acc[q] = zero<T>();
     for (int j0 = 0; j0 < wmax; j0 += kChunk) {
       mbar_wait(&full[stage], parity);
       accumulate<T, KC, V>(R::cols(smem, stage, warp) + lane,
@@ -342,26 +391,29 @@ cudaError_t launch(const long long* slice_ptr, const int* rowlen,
 }
 
 // One launch per chunk of up to kMaxKC columns; vector gathers (V > 1)
-// where the chunk is whole and every row of X and Y is V-aligned.
+// where the chunk is whole and every row of X and Y is V-aligned (none for
+// complex128, whose one column is 16 bytes).
 template <typename T>
 int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
          const T* vals, const T* X, T* Y, int n, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int kVec = 16 / sizeof(T);    // elements in 16 bytes
+  constexpr int kV2 = kVec < 2 ? kVec : 2;
   for (int j0 = 0; j0 < k; j0 += kMaxKC) {
     const int kc = k - j0 < kMaxKC ? k - j0 : kMaxKC;
     const T* Xc = X + j0;
     T* Yc = Y + j0;
     const int v = kc < kVec ? kc : kVec;
-    const bool vec = (kc == 2 || kc == 4 || kc == 8) && k % v == 0 &&
+    const bool vec = kVec > 1 && (kc == 2 || kc == 4 || kc == 8) &&
+                     k % v == 0 &&
                      reinterpret_cast<uintptr_t>(Xc) % (v * sizeof(T)) == 0 &&
                      reinterpret_cast<uintptr_t>(Yc) % (v * sizeof(T)) == 0;
     cudaError_t err;
     if (kc == 1)
       err = launch<T, 1, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k, kc, st);
     else if (kc == 2)
-      err = vec ? launch<T, 2, 2>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, st)
+      err = vec ? launch<T, 2, kV2>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
+                                    k, kc, st)
                 : launch<T, 2, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
                                   kc, st);
     else if (kc <= 4)
@@ -381,8 +433,9 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
 
 }  // namespace
 
-// X and Y are row-major [n, k] in the type of vals; each entry point
-// returns the first CUDA error of its launches as an int (0: none).
+// X and Y are row-major [n, k] in the type of vals (complex: interleaved
+// (re, im) pairs); each entry point returns the first CUDA error of its
+// launches as an int (0: none).
 extern "C" int windowed_ell_spmm_f32(const long long* slice_ptr,
                                      const int* rowlen, const int* cols,
                                      const float* vals, const float* X,
@@ -395,4 +448,18 @@ extern "C" int windowed_ell_spmm_f64(const long long* slice_ptr,
                                      const double* vals, const double* X,
                                      double* Y, int n, int k, void* stream) {
   return spmm<double>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
+}
+
+extern "C" int windowed_ell_spmm_c64(const long long* slice_ptr,
+                                     const int* rowlen, const int* cols,
+                                     const float2* vals, const float2* X,
+                                     float2* Y, int n, int k, void* stream) {
+  return spmm<float2>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
+}
+
+extern "C" int windowed_ell_spmm_c128(const long long* slice_ptr,
+                                      const int* rowlen, const int* cols,
+                                      const double2* vals, const double2* X,
+                                      double2* Y, int n, int k, void* stream) {
+  return spmm<double2>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
 }

@@ -23,8 +23,12 @@ Operators and their products:
 * :class:`ChebyshevPrecond`, a polynomial preconditioner over any of
   them (``degree - 1`` products a block).
 
-The sparse formats hold real f32 or f64 values; complex input raises
-``NotImplementedError`` naming the format.
+The sparse formats hold f32, f64, complex64 or complex128 values (the
+windowed-slot ELL layout real ones only, as the reference's chooser
+decides); other types raise ``NotImplementedError`` naming the format. A
+real operator applied to a complex block multiplies both its parts: the
+block goes through the real product as the ``[n, 2k]`` real block of its
+real and imaginary parts (:func:`_on_parts`), one launch for both.
 """
 
 from __future__ import annotations
@@ -98,6 +102,28 @@ def _as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def _on_parts(product: Callable, X: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``product(X)`` for an operator of type ``dtype``; where the operator
+    is real and X complex, the product of both of X's parts: X in the
+    complex type of ``dtype``'s precision, seen as the ``[n, 2k]`` real
+    block of its real and imaginary parts (``torch.view_as_real``: no copy
+    where its columns are adjacent, rows as far apart as X's), goes through
+    ``product`` once and comes back complex. The reference's products
+    promote so (``jnp`` einsums and shifts of a complex block)."""
+    if not X.is_complex() or dtype.is_complex:
+        return product(X)
+    Xc = X.to(_COMPLEX[dtype]).resolve_conj()
+    n, k = Xc.shape
+    if k > 1 and Xc.stride(1) != 1:
+        Xc = Xc.contiguous()
+    Y = product(torch.view_as_real(Xc).reshape(n, 2 * k))
+    return torch.view_as_complex(Y.contiguous().reshape(Y.shape[0], k, 2))
+
+
 def _kernel_block(X: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """X in ``dtype`` as the stencil, Jacobi and DIA kernels take it: its rows
     may lie apart (a column slice of the basis needs no copy), its columns
@@ -125,10 +151,11 @@ class DenseOperator(LinearOperator):
         return self.A.dtype
 
     def matmat(self, X):
-        return self.A @ X.to(self.dtype)
+        return _on_parts(lambda Z: self.A @ Z.to(self.dtype), X, self.dtype)
 
     def rmatmat(self, X):
-        return self.A.mH @ X.to(self.dtype)
+        return _on_parts(lambda Z: self.A.mH @ Z.to(self.dtype), X,
+                         self.dtype)
 
     def diagonal(self):
         return torch.diagonal(self.A)
@@ -186,8 +213,9 @@ class Stencil3DOperator(LinearOperator):
             persistent=False)
 
     def matmat(self, X):
-        return ST.matmat(_kernel_block(X, self.dtype), self.nx, self.ny,
-                         self.nz, self.scale)
+        return _on_parts(
+            lambda Z: ST.matmat(_kernel_block(Z, self.dtype), self.nx,
+                                self.ny, self.nz, self.scale), X, self.dtype)
 
     def diagonal(self):
         return torch.full((self.shape[0],), 6.0 * self.scale,
@@ -208,6 +236,11 @@ class JacobiPrecond(LinearOperator):
         # contiguous, as the kernel takes it (a DenseOperator's diagonal is
         # a strided view)
         d = _as_tensor(diag).contiguous()
+        if d.is_complex():
+            raise NotImplementedError(
+                f"a JacobiPrecond of dtype {d.dtype} is not ported to "
+                "primme_tpu_torch (f32 and f64 diagonals only; see "
+                "ROADMAP.md)")
         self.register_buffer("d", d)
         self.eps = float(eps)
         self.use_shifts = bool(use_shifts)
@@ -218,15 +251,21 @@ class JacobiPrecond(LinearOperator):
         return self.d.dtype
 
     def matmat(self, X):
-        return JK.unshifted(_kernel_block(X, self.dtype), self.d, self.eps)
+        return _on_parts(
+            lambda Z: JK.unshifted(_kernel_block(Z, self.dtype), self.d,
+                                   self.eps), X, self.dtype)
 
     def matmat_shifted(self, X, shifts):
-        """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])``."""
+        """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])`` (a
+        complex X's two parts of column j both by ``d - shifts[j]``)."""
         if not self.use_shifts:
             return self.matmat(X)
-        return JK.shifted(_kernel_block(X, self.dtype), self.d,
-                          shifts.to(device=self.d.device, dtype=self.dtype),
-                          self.eps)
+        sh = shifts.to(device=self.d.device, dtype=self.dtype)
+        if X.is_complex():
+            sh = sh.repeat_interleave(2)
+        return _on_parts(
+            lambda Z: JK.shifted(_kernel_block(Z, self.dtype), self.d, sh,
+                                 self.eps), X, self.dtype)
 
 
 class WindowedELLOperator(LinearOperator):
@@ -269,8 +308,10 @@ class WindowedELLOperator(LinearOperator):
 
     def matmat(self, X):
         # the product runs in the operator's precision, whatever X's
-        Y = WE.matmat(self.slice_ptr, self.rowlen, self.cols, self.vals,
-                      X.to(self.dtype).contiguous())
+        Y = _on_parts(
+            lambda Z: WE.matmat(self.slice_ptr, self.rowlen, self.cols,
+                                self.vals, Z.to(self.dtype).contiguous()),
+            X, self.dtype)
         return Y.to(X.dtype)
 
     def diagonal(self):
@@ -285,6 +326,15 @@ class CastOperator(LinearOperator):
 
     def __init__(self, op: LinearOperator, dtype: torch.dtype):
         super().__init__()
+        if dtype.is_complex != op.dtype.is_complex:
+            # the reference's cast of the block to the operator's type
+            # drops a complex block's imaginary part (its eigsh on a real
+            # matrix with dtype=complex64 does not converge): refused
+            raise NotImplementedError(
+                f"a working dtype of {dtype} over an operator of dtype "
+                f"{op.dtype} is not served by primme_tpu_torch (the real and "
+                "the complex types do not mix at the operator boundary; see "
+                "ROADMAP.md)")
         self.op = op
         self.dtype = dtype
         self.shape = op.shape
@@ -388,12 +438,13 @@ def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,
 
 def _value_dtype(dtype, fmt: str) -> np.dtype:
     """The numpy type a sparse format stores, from a numpy or torch dtype:
-    f32 or f64 as given; complex and other types are not served."""
+    f32, f64, complex64 or complex128 as given; other types are not
+    served."""
     name = str(dtype).replace("torch.", "")
-    if name not in ("float32", "float64"):
+    if name not in ("float32", "float64", "complex64", "complex128"):
         raise NotImplementedError(
             f"a {fmt} of dtype {name} is not ported to primme_tpu_torch "
-            "(f32 and f64 only)")
+            "(f32, f64, complex64 and complex128 only)")
     return np.dtype(name)
 
 
@@ -407,8 +458,9 @@ class BandedOperator(LinearOperator):
     stored order, which the sum keeps) and ``vals [B, n]`` row-indexed,
     ``vals[b, i] = A[i, i + offsets[b]]``. ``matmat`` and ``rmatmat`` run
     the hand-written kernel of ``csrc/dia.cu`` on the card and its plain
-    version (the reference's loop) on the CPU, in the operator's f32 or
-    f64."""
+    version (the reference's loop) on the CPU, in the operator's type
+    (f32, f64, complex64 or complex128); ``rmatmat`` is ``A^H``, the
+    kernel conjugating the values."""
 
     def __init__(self, offsets, vals, shape=None):
         super().__init__()
@@ -429,14 +481,17 @@ class BandedOperator(LinearOperator):
     def dtype(self) -> torch.dtype:
         return self.vals.dtype
 
-    def matmat(self, X):
-        Y = DK.matmat(self.vals, self.offs, _kernel_block(X, self.dtype))
+    def _product(self, X, adjoint):
+        Y = _on_parts(lambda Z: DK.matmat(self.vals, self.offs,
+                                          _kernel_block(Z, self.dtype),
+                                          adjoint=adjoint), X, self.dtype)
         return Y.to(_result_dtype(self.dtype, X))
 
+    def matmat(self, X):
+        return self._product(X, False)
+
     def rmatmat(self, X):
-        Y = DK.matmat(self.vals, self.offs, _kernel_block(X, self.dtype),
-                      adjoint=True)
-        return Y.to(_result_dtype(self.dtype, X))
+        return self._product(X, True)
 
     def diagonal(self):
         if 0 in self.offsets:
@@ -472,9 +527,11 @@ class ELLOperator(LinearOperator):
     (``ops/windowed_ell.py::SlicedELL``, built straight from CSR by
     ``from_csr``): ``matmat`` runs the hand-written kernel of
     ``csrc/windowed_ell.cu`` on the card and its plain version on the CPU,
-    in the operator's f32 or f64. ``from_scipy`` also lays out ``A^T``
-    (the reference's ``colsT``/``valsT``), so ``rmatmat`` runs the same
-    kernel, and takes the diagonal from the CSR. An ``m x n`` matrix keeps
+    in the operator's f32, f64, complex64 or complex128. ``from_scipy``
+    also lays out ``A^H`` (the reference's ``colsT``/``valsT``; its values
+    conjugated when they are laid out, where the reference conjugates
+    ``valsT`` at each apply), so ``rmatmat`` runs the same kernel, and
+    takes the diagonal from the CSR. An ``m x n`` matrix keeps
     its shape: ``matmat`` takes ``[n, k]`` blocks to ``[m, k]`` on the
     ``A`` layout (m rows), ``rmatmat`` ``[m, k]`` to ``[n, k]`` on the
     ``A^T`` layout (n rows), and ``diagonal`` has the reference's length
@@ -496,7 +553,8 @@ class ELLOperator(LinearOperator):
 
     def _product(self, suffix, X, ncols):
         arrays = [getattr(self, name + suffix) for name in self._FIELDS]
-        Y = WE.matmat(*arrays, X.to(self.dtype).contiguous(), ncols)
+        Y = _on_parts(lambda Z: WE.matmat(
+            *arrays, Z.to(self.dtype).contiguous(), ncols), X, self.dtype)
         return Y.to(_result_dtype(self.dtype, X))
 
     def matmat(self, X):
@@ -517,8 +575,8 @@ class ELLOperator(LinearOperator):
         diag = np.zeros(A.shape[0], dt)
         d = A.diagonal()
         diag[:len(d)] = d
-        return ELLOperator(WE.from_csr(A, dt), WE.from_csr(A.T.tocsr(), dt),
-                           diag)
+        return ELLOperator(WE.from_csr(A, dt),
+                           WE.from_csr(A.conj().T.tocsr(), dt), diag)
 
 
 class BlockELLOperator(LinearOperator):
@@ -528,7 +586,8 @@ class BlockELLOperator(LinearOperator):
     product gathers the ``b``-row panels of X and applies the blocks as one
     batched product (``einsum`` over ``[nb, w, b, b]`` by ``[nb, w, b,
     k]``; TF32 off), in plain PyTorch, as the reference leaves it to
-    XLA's einsum."""
+    XLA's einsum. ``bcolsT``/``bvalsT`` lay out ``A^T`` as the
+    reference's do, unconjugated: ``rmatmat`` conjugates the blocks."""
 
     def __init__(self, bcols, bvals, shape, bcolsT=None, bvalsT=None):
         super().__init__()
@@ -557,14 +616,16 @@ class BlockELLOperator(LinearOperator):
         return Y.reshape(nb * b, k)[:nrows]
 
     def matmat(self, X):
-        return self._product(self.bcols, self.bvals, X.to(self.dtype),
-                           self.shape[0]).to(_result_dtype(self.dtype, X))
+        return _on_parts(lambda Z: self._product(
+            self.bcols, self.bvals, Z.to(self.dtype), self.shape[0]),
+            X, self.dtype).to(_result_dtype(self.dtype, X))
 
     def rmatmat(self, X):
         if self.bcolsT is None:
             return super().rmatmat(X)
-        return self._product(self.bcolsT, self.bvalsT, X.to(self.dtype),
-                           self.shape[1]).to(_result_dtype(self.dtype, X))
+        return _on_parts(lambda Z: self._product(
+            self.bcolsT, self.bvalsT.conj(), Z.to(self.dtype),
+            self.shape[1]), X, self.dtype).to(_result_dtype(self.dtype, X))
 
     def diagonal(self):
         nb, w, b, _ = self.bvals.shape
@@ -642,9 +703,14 @@ class FunctionOperator(LinearOperator):
 def _on_host(fn, rows: int, dtype: np.dtype) -> Callable:
     """``fn`` on numpy blocks as a function on tensors: the block goes to
     the host, ``fn`` runs there and its result comes back to the block's
-    device in ``dtype`` (the reference's ``jax.pure_callback``)."""
+    device in ``dtype``, or its complex counterpart for a complex block
+    and a real ``dtype`` (the reference's ``jax.pure_callback``)."""
     def call(X):
-        Y = np.asarray(fn(X.detach().cpu().numpy()), dtype=dtype)
+        Xh = X.detach().cpu().numpy()
+        out = dtype
+        if np.iscomplexobj(Xh) and dtype.kind != "c":
+            out = np.result_type(dtype, np.complex64)
+        Y = np.asarray(fn(Xh), dtype=out)
         return torch.from_numpy(
             np.ascontiguousarray(Y.reshape(rows, X.shape[1]))).to(X.device)
     return call

@@ -4,14 +4,18 @@ stored order) and ``vals [B, n]`` row-indexed, ``vals[b, i] = A[i, i +
 offsets[b]]`` (the ends of a diagonal are padding):
 
 * matmat: ``y_i = sum_b vals[b, i] * x_{i + off_b}``;
-* rmatmat (``A^T``, real types): ``y_i = sum_b vals[b, i - off_b] *
-  x_{i - off_b}``;
+* rmatmat (``A^H``): ``y_i = sum_b conj(vals[b, i - off_b]) * x_{i -
+  off_b}``;
 
-a term whose row lies outside ``[0, n)`` counting as 0.
+a term whose row lies outside ``[0, n)`` counting as 0. Values are f32,
+f64, complex64 or complex128, each type with its own entry point.
 
 * :func:`matmat_reference`, :func:`rmatmat_reference` — plain PyTorch, the
   reference's loop (``primme_tpu/operators.py::BandedOperator``): ``out =
   0``, then ``out = out + v * shift(X)`` for each offset in stored order;
+  a complex product is computed on the real and imaginary parts, ``(vr xr
+  - vi xi, vr xi + vi xr)``, each operation rounded once, as the kernel
+  does;
 * :func:`matmat` — the kernel wrapper (``adjoint=True`` for rmatmat): on a
   CUDA tensor it launches the hand-written Hopper kernel (``csrc/dia.cu``)
   or raises; on a CPU tensor, where no kernel exists, it runs the plain
@@ -35,9 +39,10 @@ import torch
 from .stencil3d import column_group, vector_width
 
 LAUNCHES = 0         # kernel launches made by matmat
-KERNEL_LAUNCHES = {"dia_f32": 0, "dia_f64": 0}
+_ENTRY = {torch.float32: "dia_f32", torch.float64: "dia_f64",
+          torch.complex64: "dia_c64", torch.complex128: "dia_c128"}
+KERNEL_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
 VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
-_ENTRY = {torch.float32: "dia_f32", torch.float64: "dia_f64"}
 THREADS = 256        # rows of a block: the kernel's kThreads
 MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y: column groups
 
@@ -62,6 +67,18 @@ def _check(vals, offsets, X):
                          f"[{vals.shape[1]}, k]")
 
 
+def _madd(out, v, x):
+    """``out + v * x``, each operation rounded once; a complex product on
+    the parts, ``(vr xr - vi xi, vr xi + vi xr)``, then the sum part by
+    part (no fused multiply-add: the kernel's order)."""
+    if not out.is_complex():
+        return out + v * x
+    vr, vi = v.real, v.imag
+    xr, xi = x.real, x.imag
+    return torch.complex(out.real + (vr * xr - vi * xi),
+                         out.imag + (vr * xi + vi * xr))
+
+
 def matmat_reference(vals, offsets: Sequence[int], X):
     """Plain PyTorch ``Y = A X`` in the type of ``vals``: for each offset in
     stored order ``out = out + v * shift(X)``, each product and sum rounded
@@ -72,24 +89,24 @@ def matmat_reference(vals, offsets: Sequence[int], X):
                       device=X.device)
     for b, off in enumerate(offsets):
         xs = X if off == 0 else _shift_rows(X, off)
-        out = out + vals[b][:, None] * xs
+        out = _madd(out, vals[b][:, None], xs)
     return out
 
 
 def rmatmat_reference(vals, offsets: Sequence[int], X):
-    """Plain PyTorch ``Y = A^T X`` (real types): the diagonal at ``off``
-    adds ``vals[b, i - off] * x_{i - off}``, both shifted with zeros, for
+    """Plain PyTorch ``Y = A^H X``: the diagonal at ``off`` adds
+    ``conj(vals[b, i - off]) * x_{i - off}``, both shifted with zeros, for
     each offset in stored order."""
     _check(vals, offsets, X)
     X = X.to(vals.dtype)
     out = torch.zeros((X.shape[0], X.shape[1]), dtype=vals.dtype,
                       device=X.device)
     for b, off in enumerate(offsets):
+        v = vals[b][:, None].conj().resolve_conj()
         if off == 0:
-            out = out + vals[b][:, None] * X
+            out = _madd(out, v, X)
         else:
-            vs = _shift_rows(vals[b][:, None], -off)
-            out = out + vs * _shift_rows(X, -off)
+            out = _madd(out, _shift_rows(v, -off), _shift_rows(X, -off))
     return out
 
 
@@ -138,8 +155,9 @@ def _dia_fn(entry):
 
 
 def matmat(vals, offs, X, adjoint=False):
-    """``Y = A X`` (``adjoint``: ``A^T X``) for an ``[n, k]`` block in the
-    type of ``vals`` (f32 or f64), X of the same type, the offsets an i64
+    """``Y = A X`` (``adjoint``: ``A^H X``) for an ``[n, k]`` block in the
+    type of ``vals`` (f32, f64, complex64 or complex128), X of the same
+    type, the offsets an i64
     tensor ``offs [B]`` on X's device in stored order. CUDA tensors: the
     hand-written kernel of ``csrc/dia.cu`` on the current stream, launched
     as :func:`plan` says (raises on a bad argument or a refused launch).
@@ -155,8 +173,8 @@ def matmat(vals, offs, X, adjoint=False):
                          f"({vals.shape[0]},)")
     _check(vals, range(vals.shape[0]), X)
     if vals.dtype not in _ENTRY:
-        raise TypeError(f"vals has dtype {vals.dtype}, expected float32 or "
-                        "float64")
+        raise TypeError(f"vals has dtype {vals.dtype}, expected float32, "
+                        "float64, complex64 or complex128")
     for name, t, dt in (("vals", vals, vals.dtype), ("X", X, vals.dtype),
                         ("offs", offs, torch.int64)):
         if t.device != X.device:

@@ -23,9 +23,12 @@ apply it:
   hand-written Hopper kernel (``csrc/windowed_ell.cu``) or raises; on a CPU
   tensor, where no kernel exists, it runs :func:`matmat_reference`.
 
-Values are f32 or f64. The reference carries f64 as an f32x2 hi/lo pair
-(Mosaic has no 64-bit vectors); here an f64 matrix packs one f64 ``vals``
-array and its product runs the kernel's native FP64 entry point.
+Values are f32 or f64 in the packed layout. The reference carries f64 as
+an f32x2 hi/lo pair (Mosaic has no 64-bit vectors); here an f64 matrix
+packs one f64 ``vals`` array and its product runs the kernel's native FP64
+entry point. A layout built from CSR (:func:`from_csr`) may also hold
+complex64 or complex128 values, each type with its own entry point (the
+reference computes complex sparse products outside Pallas, in XLA).
 
 ``LAUNCHES`` counts the wrapper's kernel launches, and ``KERNEL_LAUNCHES``
 the same launches by entry point, so a run can show that its products went
@@ -50,9 +53,11 @@ SLICE = 32           # rows per slice of the compact layout: one warp
 
 LAUNCHES = 0         # kernel launches made by matmat
 # the same launches by entry point of csrc/windowed_ell.cu
-KERNEL_LAUNCHES = {"windowed_ell_spmm_f32": 0, "windowed_ell_spmm_f64": 0}
 _ENTRY = {torch.float32: "windowed_ell_spmm_f32",
-          torch.float64: "windowed_ell_spmm_f64"}
+          torch.float64: "windowed_ell_spmm_f64",
+          torch.complex64: "windowed_ell_spmm_c64",
+          torch.complex128: "windowed_ell_spmm_c128"}
+KERNEL_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
 
 
 class WindowedELL(NamedTuple):
@@ -192,7 +197,7 @@ class SlicedELL(NamedTuple):
     slice_ptr: np.ndarray   # [ceil(n/32) + 1] i64, first entry of each slice
     rowlen: np.ndarray      # [n] i32
     cols: np.ndarray        # [E] i32, absolute columns in [0, n)
-    vals: np.ndarray        # [E] f32 or f64
+    vals: np.ndarray        # [E] f32 or f64 (from CSR also complex)
 
 
 def compact(scal, offs, vals, meta) -> SlicedELL:
@@ -280,7 +285,8 @@ def _check_layout(slice_ptr, rowlen, cols, vals, X, ncols):
 
 def matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols=None):
     """Plain PyTorch ``Y = A X`` for an ``[ncols, k]`` block (``ncols``
-    None: a square layout), in the type of ``vals`` (f32 or f64), ``Y``
+    None: a square layout), in the type of ``vals`` (f32, f64, complex64
+    or complex128), ``Y``
     with the layout's rows: slot ``j`` at a time, rows with ``j < rowlen``
     add ``v * X[col]`` as the kernel does, in the same order. The
     counterpart of the JAX package's CPU path of ``matmat_ds``."""
@@ -312,9 +318,9 @@ def _spmm_fn(entry):
 
 
 def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None):
-    """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32
-    or f64) on the :class:`SlicedELL` arrays of an ``m x ncols`` matrix
-    (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
+    """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32,
+    f64, complex64 or complex128) on the :class:`SlicedELL` arrays of an
+    ``m x ncols`` matrix (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
     hand-written kernel of ``csrc/windowed_ell.cu`` for that type, launched
     on the current stream (raises on a bad argument or a refused launch).
     CPU tensors: :func:`matmat_reference`."""
@@ -325,8 +331,8 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None):
         raise ValueError(f"windowed-ELL matmat: unsupported device {X.device}")
     n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
     if vals.dtype not in _ENTRY:
-        raise TypeError(f"vals has dtype {vals.dtype}, expected float32 "
-                        "or float64")
+        raise TypeError(f"vals has dtype {vals.dtype}, expected float32, "
+                        "float64, complex64 or complex128")
     for name, t, dt in (("slice_ptr", slice_ptr, torch.int64),
                         ("rowlen", rowlen, torch.int32),
                         ("cols", cols, torch.int32),

@@ -20,7 +20,9 @@ decides. The solve runs on the card unless the caller passes
 ``device="cpu"``.
 
 Not served yet, each refused by name: ``mesh``, ``segment_outer``,
-``monitor``, ``return_history`` and complex input.
+``monitor`` and ``return_history``. Complex input (complex64 and
+complex128) runs on ``A^H``: the adjoint layouts hold conjugated values,
+and ``Vh`` is ``V^H``.
 """
 
 from __future__ import annotations
@@ -81,13 +83,6 @@ def _colnormalize(X, floor):
     return X / torch.clamp(n, min=floor)[None, :].to(X.dtype)
 
 
-def _is_complex(A) -> bool:
-    dt = getattr(A, "dtype", None)
-    if isinstance(dt, torch.dtype):
-        return dt.is_complex
-    return dt is not None and np.issubdtype(np.dtype(dt), np.complexfloating)
-
-
 def _method(meth):
     if isinstance(meth, str):
         return Method[meth.replace("PRIMME_", "")]
@@ -128,13 +123,8 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
             raise _unported(name)
     if return_history:
         raise _unported("return_history")
-    if _is_complex(A):
-        raise _unported("complex input")
     device = default_device(device, "svds")
-    Aop = aslinearoperator(A)
-    if Aop.dtype.is_complex:
-        raise _unported("complex input")
-    Aop = Aop.to(device)
+    Aop = aslinearoperator(A).to(device)
     m, n = Aop.shape
     kmax = min(m, n)
     if not (0 < k <= kmax):
@@ -308,7 +298,8 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
                 y = Aop.rmatmat(Aop.matmat(x.to(dt)))
                 nrm = float(torch.linalg.vector_norm(y))
                 lam = nrm / max(float(torch.linalg.vector_norm(x)), 1e-300)
-                x = (y / max(nrm, 1e-300)).to(torch.float32)
+                # the reference's astype(float32): a complex y's real part
+                x = (y / max(nrm, 1e-300)).real.to(torch.float32)
             anorm2 = float(np.sqrt(max(lam, 0.0)))
         # the final raise_for_unconverged bar reads anorm_est
         anorm_est = max(anorm_est, anorm2)

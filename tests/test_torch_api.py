@@ -41,8 +41,14 @@ def test_chooser_names_the_unported_banded_format():
     assert isinstance(top, ptt.BandedOperator) and tperm is None is jperm
     assert top.offsets == jop.offsets
     assert np.array_equal(top.vals.numpy(), np.asarray(jop.vals))
+    # complex values take the same branch as in the reference; a type
+    # neither package serves is refused by name
+    jop, _ = jrcm(_lap1d(5000).astype(np.complex64))
+    top, tperm = rcm_banded(_lap1d(5000).astype(np.complex64))
+    assert top.dtype == torch.complex64 and tperm is None
+    assert np.array_equal(top.vals.numpy(), np.asarray(jop.vals))
     with pytest.raises(NotImplementedError, match="BandedOperator"):
-        rcm_banded(_lap1d(5000).astype(np.complex64))
+        rcm_banded(_lap1d(5000).astype(np.int32))
 
 
 def test_chooser_picks_windowed_like_the_reference():

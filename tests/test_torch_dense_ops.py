@@ -79,19 +79,27 @@ def test_aslinearoperator_dense_branches(kind):
 def test_aslinearoperator_refuses_what_it_does_not_port():
     # a 1-D array is no operator (the reference's ValueError); a large
     # sparse matrix is an ELLOperator and a scipy LinearOperator a
-    # FunctionOperator, as in the reference; complex values name the format
+    # FunctionOperator, as in the reference, complex values too; a type
+    # the port does not serve (integers, half precision) names the format
     import scipy.sparse.linalg as spla
 
     with pytest.raises(ValueError, match="2-D"):
         ptt.aslinearoperator(np.ones(5))
     big = sp.identity(8193, format="csr", dtype=np.float32)
     assert isinstance(ptt.aslinearoperator(big), ptt.ELLOperator)
+    assert ptt.aslinearoperator(big.astype(np.complex64)).dtype \
+        == torch.complex64
     with pytest.raises(NotImplementedError, match="ELLOperator"):
-        ptt.aslinearoperator(big.astype(np.complex64))
+        ptt.aslinearoperator(big.astype(np.int32))
     assert isinstance(ptt.aslinearoperator(spla.aslinearoperator(np.eye(3))),
                       ptt.FunctionOperator)
+    f = ptt.aslinearoperator(spla.aslinearoperator(np.eye(3) * 1j))
+    assert f.dtype == torch.complex128
+    assert torch.equal(f.matmat(torch.ones(3, 1, dtype=torch.complex128)),
+                       torch.full((3, 1), 1j, dtype=torch.complex128))
     with pytest.raises(NotImplementedError, match="FunctionOperator"):
-        ptt.aslinearoperator(spla.aslinearoperator(np.eye(3) * 1j))
+        ptt.aslinearoperator(spla.aslinearoperator(
+            np.eye(3, dtype=np.float16)))
 
 
 def test_dense_eigsh_on_cpu_finds_smallest():

@@ -185,7 +185,8 @@ def test_ell_operator_matches_reference(k, dtype):
 def test_ell_operator_refuses():
     """A rectangular matrix, once refused, keeps its shape (its products
     on the A and A^T layouts, the reference's diagonal); complex values
-    are still refused."""
+    are served (``tests/test_torch_complex.py``), half precision is
+    refused."""
     A = sp.random(9000, 10, density=0.1, random_state=0).tocsr()
     top, jop = ptt.ELLOperator.from_scipy(A), JO.ELLOperator.from_scipy(A)
     assert top.shape == jop.shape == (9000, 10)
@@ -197,8 +198,10 @@ def test_ell_operator_refuses():
                   - np.asarray(jop.rmatmat(jnp.asarray(Y)))).max() \
         <= _tol(A.T, Y, np.float64)
     assert np.array_equal(top.diagonal().numpy(), np.asarray(jop.diagonal()))
+    assert ptt.ELLOperator.from_scipy(
+        sp.identity(10, dtype=np.complex128)).dtype == torch.complex128
     with pytest.raises(NotImplementedError, match="ELLOperator"):
-        ptt.ELLOperator.from_scipy(sp.identity(10, dtype=np.complex128))
+        ptt.ELLOperator.from_scipy(sp.identity(10, dtype=np.float16))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -2,8 +2,9 @@
 numpy inputs, on the CPU: the ``tests/test_svds.py`` fixtures of the
 hybrid (LM and SM), each stage alone, the wide (``A A^T``) case and sparse
 input, the ``SvdsParams`` reflection and ``svds_from_params`` through
-``convert.svds_params_from_jax``, and the refusals. The other fixtures of
-that file that read no file and are not complex are in
+``convert.svds_params_from_jax``, and the refusals. The complex fixture
+is in ``test_torch_complex.py``; the other fixtures of that file that
+read no file are in
 ``test_torch_svds_constraints.py``, ``test_torch_svds_targets.py`` and
 ``test_torch_svds_sm.py``, which import the helpers here.
 
@@ -183,7 +184,14 @@ def test_svds_refuses_unported_arguments(rect, kwargs):
 
 
 def test_svds_refuses_complex_input():
+    # complex input is served now (test_torch_complex.py holds it to the
+    # JAX package): the dense and the sparse matrix give numpy's values;
+    # half precision is still refused by name
     A = np.ones((10, 6)) + 1j * np.eye(10, 6)
+    sv = np.linalg.svd(A, compute_uv=False)
     for X in (A, sp.csr_matrix(A)):
-        with pytest.raises(NotImplementedError, match="complex input"):
-            ptt.svds(X, k=2, device="cpu")
+        U, s, Vh = ptt.svds(X, k=2, tol=1e-10, device="cpu")
+        assert U.dtype == Vh.dtype == np.complex128
+        assert np.abs(np.sort(s)[::-1] - sv[:2]).max() < 1e-8 * sv[0]
+    with pytest.raises(NotImplementedError, match="float16"):
+        ptt.svds(A.real.astype(np.float16), k=2, device="cpu")

@@ -15,7 +15,11 @@ phases 11-13 (the chooser's banded, DIA+ELL and ELL branches, f32, tol
 with ``ChebyshevPrecond.from_operator(A64, degree=8)``, on the closed-form
 eigenvectors of the ten smallest eigenvalues plus 1e-6 noise), traced by
 ``chip_smoke.polish_split``: the f64 stencil, the dense work and the rest,
-and the ten largest device items. Each solve runs
+and the ten largest device items. With ``--complex``: the sparse solve on
+the matrices of ``chip_smoke.py`` phases 24-26 (the magnetic Laplacian
+through the banded branch in complex64 at tol 1e-5 and complex128 at tol
+1e-10, the complex scatter through the ELL one in complex64). Each solve
+runs
 once to warm up (timed on the host clock up to a synchronise; the
 process's first solve also pays the libraries' set-up), then once under
 ``torch.profiler``. For the profiled solve it prints the host time, the
@@ -28,7 +32,7 @@ the parent commit, unpacked), so that two versions are traced in one
 call.
 
 Run: ``python3 tools/torch_profile_solve.py [--repo DIR] [--headline |
---formats | --northstar]``.
+--formats | --northstar | --complex]``.
 """
 
 import argparse
@@ -104,6 +108,8 @@ def main():
                     help="trace the banded, DIA+ELL and ELL solves")
     ap.add_argument("--northstar", action="store_true",
                     help="trace one iteration of the north star's polish")
+    ap.add_argument("--complex", action="store_true",
+                    help="trace the complex banded and ELL solves")
     args = ap.parse_args()
 
     import numpy as np
@@ -164,7 +170,15 @@ def main():
 
         trace("headline f32", solve, ("stencil3d_kernel", "jacobi_kernel"))
         return 0
-    if args.formats:
+    if args.complex:
+        from chip_smoke import (MAG_GRID, complex_scattered_matrix,
+                                magnetic_laplacian)
+
+        cases = tuple((f"magnetic {dt}", magnetic_laplacian(
+            MAG_GRID, dtype=dt)[0]) for dt in ("complex64", "complex128")) \
+            + (("complex ell", complex_scattered_matrix(GRID ** 3,
+                                                        args.seed)),)
+    elif args.formats:
         cases = (("banded", laplacian27_grid(GRID)[0]),
                  ("hybrid", hybrid_matrix(GRID, args.seed)),
                  ("ell", scattered_matrix(GRID ** 3, args.seed)))
@@ -173,7 +187,7 @@ def main():
         cases = ((np.dtype(dt).name, A.astype(dt))
                  for dt in (np.float32, np.float64))
     for label, M in cases:
-        tol = 1e-10 if M.dtype == np.float64 else 1e-5
+        tol = 1e-10 if M.dtype in (np.float64, np.complex128) else 1e-5
         rb = ptt.rcm_banded(M)
         op = (rb[0] if rb is not None else ptt.aslinearoperator(M)).to("cuda")
 

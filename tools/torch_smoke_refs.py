@@ -34,7 +34,17 @@ matrix's type, f32 unless said):
   ``chip_smoke.grounded_incidence(SVD_GRID)`` in the solve's type: each
   stage's matvecs and probe counters, the singular values and their
   largest distance from the closed form; ``--svd-grid N ...`` runs at
-  other grids, ``--svds-solve`` only the named solves.
+  other grids, ``--svds-solve`` only the named solves;
+* ``complex``: phases 24-27's calls (``--complex-solve`` only the named
+  ones): ``dia_c64`` and ``dia_c128`` the ``eigsh`` of
+  ``chip_smoke.magnetic_laplacian(MAG_GRID)`` in complex64 at tol 1e-5
+  and in complex128 at tol 1e-10 (the chooser's banded branch);
+  ``ell_c64`` and ``ell_c128`` that of
+  ``chip_smoke.complex_scattered_matrix(262144, 0)`` in each type, passed
+  as the ``ELLOperator`` its ``aslinearoperator`` builds; ``svds`` the
+  ``svds`` of ``chip_smoke.magnetic_svd_matrix(MAG_GRID)`` in complex128
+  with ``COMPLEX_SVDS_KWARGS``: counts, values and their distance from the
+  closed form (``--mag-grid N`` runs at another grid).
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -45,7 +55,9 @@ needed):
     python3 tools/torch_smoke_refs.py [--phase banded|hybrid|ell|ell_f32|
         northstar|generalized|interior|svds] [--interior-n N ...]
         [--interior-solve refined|harmonic|jdqr ...] [--svd-grid N ...]
-        [--svds-solve lm|augmented|sm ...]
+        [--svds-solve lm|augmented|sm ...] [--phase complex
+        [--complex-solve dia_c64|dia_c128|ell_c64|ell_c128|svds ...]
+        [--mag-grid N]]
 """
 
 import argparse
@@ -61,12 +73,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
                                         "ell_f32", "northstar",
-                                        "generalized", "interior", "svds"),
+                                        "generalized", "interior", "svds",
+                                        "complex"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
     ap.add_argument("--svd-grid", type=int, nargs="+")
     ap.add_argument("--svds-solve", nargs="+")
+    ap.add_argument("--complex-solve", nargs="+")
+    ap.add_argument("--mag-grid", type=int)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -81,7 +96,8 @@ def main():
 
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
-        if phase in ("northstar", "generalized", "interior", "svds"):
+        if phase in ("northstar", "generalized", "interior", "svds",
+                     "complex"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -202,6 +218,52 @@ def _svds(CS, pt, np, args):
                    "eval_err": float(np.abs(s - ref).max()),
                    "svals": [float(x) for x in s],
                    "solve_s": time.perf_counter() - t0}
+
+
+def _complex(CS, pt, np, args):
+    from primme_tpu import operators as JO
+
+    N = args.mag_grid or CS.MAG_GRID
+    solves = ("dia_c64", "dia_c128", "ell_c64", "ell_c128", "svds")
+    for name in solves:
+        if args.complex_solve and name not in args.complex_solve:
+            continue
+        t0 = time.perf_counter()
+        dtype = "complex64" if name.endswith("c64") else "complex128"
+        if name == "svds":
+            A, sv = CS.magnetic_svd_matrix(N)
+            _, s, _, st = pt.svds(A, seed=0, return_stats=True,
+                                  raise_for_unconverged=False,
+                                  **CS.COMPLEX_SVDS_KWARGS)
+            s = np.sort(np.asarray(s, np.float64))
+            yield {"solve": name, "mag_grid": N, "shape": list(A.shape),
+                   **{key: int(st[key]) for key in sorted(st)
+                      if key.endswith(("num_matvecs", "num_probe_matvecs",
+                                       "num_probe_rounds", "probe_exhausted",
+                                       "num_outer_iterations"))},
+                   "max_resnorm": float(np.max(st["resnorms"])),
+                   "eval_err": float(np.abs(s - sv[:len(s)]).max()),
+                   "svals": [float(x) for x in s],
+                   "solve_s": time.perf_counter() - t0}
+            continue
+        if name.startswith("dia"):
+            A, ev, _ = CS.magnetic_laplacian(N, dtype=dtype)
+            chosen = type(JO.rcm_banded(A)[0]).__name__
+            tol = 1e-5 if dtype == "complex64" else 1e-10
+        else:
+            A = JO.ELLOperator.from_scipy(
+                CS.complex_scattered_matrix(CS.GRID ** 3, 0, dtype=dtype))
+            chosen, ev, tol = type(A).__name__, None, 1e-5
+        w, _, st = pt.eigsh(A, tol=tol, seed=0, **CS.SOLVE_KWARGS)
+        w = np.sort(np.asarray(w, np.float64))
+        yield {"solve": name, "operator": chosen, "tol": tol,
+               "num_matvecs": int(st["num_matvecs"]),
+               "num_probe_matvecs": int(st["num_probe_matvecs"]),
+               "num_probe_rounds": int(st["num_probe_rounds"]),
+               "eval_err": (None if ev is None
+                            else float(np.abs(w - ev[:len(w)]).max())),
+               "evals": [float(x) for x in w],
+               "solve_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":
