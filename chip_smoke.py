@@ -35,7 +35,14 @@ U(1)-covariant Laplacian of lattice gauge theory; 11 diagonals) through
 the DIA kernel's complex entry points in complex64 and complex128, on a
 complex scatter through the sliced-ELL kernel's complex64 one, and
 ``svds`` on the magnetic incidence ``[D; 0.1 I]`` (1,044,480 x 262,144)
-in complex128 through both stages.
+in complex128 through both stages. Last, ``eigs`` on normal
+(non-Hermitian) operators: the periodic convection-diffusion operator of
+the 64^3 torus (velocities 0.3, 0.5, 0.7; 7 non-zeros a row), k=7 of
+smallest real part, in f64 through the sliced-ELL kernel's f64 entry
+point on the complex128 basis' real view, as the linearised complex
+Ginzburg-Landau operator in complex64 through its c64 entry point, and
+with the reference's default GD_plusK on a ``BandedOperator`` at 24^3
+through ``dia_f32`` on the complex64 basis' real view.
 
 Phases, each printing its own lines; any failed check raises:
 
@@ -232,6 +239,27 @@ Phases, each printing its own lines; any failed check raises:
     JAX package's counts come from ``python3 tools/torch_smoke_refs.py
     --phase complex``.
 
+28. ``eigs(A, k=7, which="SR", tol=1e-8, method="JDQMR")`` on
+    ``convection_diffusion(64)`` in f64 (n = 262,144, 1,835,008
+    non-zeros), the scipy matrix as a user passes it
+    (``aslinearoperator``'s ``ELLOperator``): the values set-matched to
+    the closed form's seven smallest by real part (lambda = 0 and the
+    cluster at 2 - 2 cos(2 pi / 64)), each within 1.5 tol ||A||; true
+    residuals in complex128 <= 1.5 tol ||A||; matvecs within 2x of the JAX
+    package's (``REF_NORMAL``); ``windowed_ell_spmm_f64`` launched at
+    least matvecs / block times (the complex128 basis' real view) and no
+    other kernel: no complex entry point;
+29. the same on the complex Ginzburg-Landau operator (coef 1 - 0.5i) in
+    complex64 at tol 1e-5: ``windowed_ell_spmm_c64``;
+30. GD_plusK (``eigs``' default method, one matvec an outer iteration)
+    at tol 1e-5 on the port's ``BandedOperator.from_scipy`` of the f32
+    matrix at 24^3 (13 diagonals with the periodic wraps): ``dia_f32`` on
+    the complex64 basis' real view, no other kernel. Cut from 64^3 to
+    24^3: the JAX package's GD_plusK takes 4091 matvecs at 32^3 and 2427
+    at 24^3 (``tools/torch_smoke_refs.py --phase normal``).
+    The JAX package's counts come from ``python3 tools/torch_smoke_refs.py
+    --phase normal``.
+
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -392,6 +420,28 @@ REF_CELL_EVALS = (-0.02710830291021553, 0.9702542813544441,
                   4.977048168280783, 5.980888221117151, 6.959294212297952,
                   7.910877823851053, 8.980020531189863)
 REF_CSVDS = {"stage1": (1900, 386, 2, 0), "stage2": (5299, 0, 0, 0)}
+# phases 28-30: eigs on the periodic convection-diffusion operator
+# (convection_diffusion), k=7 of smallest real part: lambda = 0 and the
+# six-member cluster at real part 2 - 2 cos(2 pi / N)
+NORMAL_VELOCITIES = (0.3, 0.5, 0.7)
+NORMAL_GRID = 64
+# phase 30: GD_plusK takes one matvec an outer iteration; the JAX
+# package's count passes 4000 at 32^3 (4091), so the phase runs at 24^3
+NORMAL_GD_GRID = 24
+NORMAL_KWARGS = dict(k=7, which="SR")
+GL_COEF = 1 - 0.5j           # phase 29: the complex Ginzburg-Landau operator
+# (name, grid, coef, the matrix's type, tol, method, the operator)
+NORMAL_SOLVES = {
+    "ell_f64": (NORMAL_GRID, 1.0, "float64", 1e-8, "JDQMR", "ell"),
+    "ell_c64": (NORMAL_GRID, GL_COEF, "complex64", 1e-5, "JDQMR", "ell"),
+    "dia_f32": (NORMAL_GD_GRID, 1.0, "float32", 1e-5, "GD_plusK", "banded"),
+}
+# the JAX package's matvecs for the same eigs calls on the CPU, seed 0
+# (python3 tools/torch_smoke_refs.py --phase normal, x64 on; 1245 s, 359 s
+# and 37 s). Its ell_f64 and ell_c64 values lie within 8.3e-15 and 1.7e-6
+# of the closed form; its dia_f32 run returns one member of the second
+# cluster in place of one of the first (ROADMAP.md Queue C)
+REF_NORMAL = {"ell_f64": 11773, "ell_c64": 4997, "dia_f32": 2427}
 
 
 def laplacian27_grid(m):
@@ -635,6 +685,58 @@ def complex_scattered_matrix(n, seed, dtype="complex64"):
                        shape=S.shape)
     D = sp.diags(np.minimum(np.arange(n, dtype=np.float64), 100.0))
     return (D + St + St.conj().T).tocsr().astype(dtype)
+
+
+def convection_diffusion(N, coef=1.0, velocities=NORMAL_VELOCITIES,
+                         dtype="float64"):
+    """The periodic convection-diffusion operator on the N^3 torus,
+    ``A = sum_d I x .. x (coef (2I - S - S^T) + c_d/2 (S - S^T)) x .. x
+    I`` with ``S`` the periodic shift (``(S x)_i = x_{i+1 mod N}``) and
+    ``c`` the velocities: 7 non-zeros a row, normal (every term is
+    circulant, so they commute) and not Hermitian. A complex ``coef``
+    (``1 - 0.5i``) makes it the linearised complex Ginzburg-Landau
+    operator. CSR of ``dtype`` in grid order, row ``(i N + j) N + l``.
+    Returns (A, its N^3 eigenvalues from the closed form ``coef sum_d (2 -
+    2 cos t_d) + i sum_d c_d sin t_d``, ``t_d = 2 pi j_d / N``, in
+    complex128 sorted by real part, ``||A||`` = their largest modulus)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    S = sp.diags([np.ones(N - 1), np.ones(1)], [1, -(N - 1)], shape=(N, N))
+    eye = sp.identity(N, format="csr")
+    A = None
+    for d, c in enumerate(velocities):
+        T = coef * (2.0 * eye - S - S.T) + 0.5 * c * (S - S.T)
+        parts = [eye] * 3
+        parts[d] = T
+        term = sp.kron(sp.kron(parts[0], parts[1]), parts[2])
+        A = term if A is None else A + term
+    A = A.tocsr().astype(dtype)
+    A.sum_duplicates()
+    t = 2.0 * np.pi * np.arange(N) / N
+    re = 2.0 - 2.0 * np.cos(t)
+    lam = sum(coef * re[idx] + 1j * c * np.sin(t)[idx]
+              for c, idx in zip(velocities, np.ix_(*[np.arange(N)] * 3)))
+    lam = np.asarray(lam, np.complex128).ravel()
+    lam = lam[np.argsort(lam.real, kind="stable")]
+    return A, lam, float(np.abs(lam).max())
+
+
+def match_values(vals, exp):
+    """Set-wise match of complex values: each of ``exp`` takes its nearest
+    remaining value of ``vals``; returns the largest distance (inf when
+    ``vals`` has fewer)."""
+    import numpy as np
+
+    vals = list(np.asarray(vals))
+    err = 0.0
+    for e in np.asarray(exp):
+        if not vals:
+            return float("inf")
+        i = int(np.argmin([abs(v - e) for v in vals]))
+        err = max(err, float(abs(vals[i] - e)))
+        vals.pop(i)
+    return err
 
 
 def stencil_modes(m, modes):
@@ -2125,6 +2227,113 @@ def complex_phases(ptt, mods, DK, WE, dev, gen, cgen, seed):
             "seconds": seconds}
 
 
+NORMAL_ENTRY = {"ell_f64": "windowed_ell_spmm_f64",
+                "ell_c64": "windowed_ell_spmm_c64", "dia_f32": "dia_f32"}
+
+
+def normal_phase(ptt, mods, name, seed):
+    """Phases 28-30: one ``eigs`` call of ``NORMAL_SOLVES[name]`` on the
+    card, k=7 of smallest real part on ``convection_diffusion``: the
+    scipy matrix as a user passes it (``aslinearoperator``'s
+    ``ELLOperator``), or for ``dia_f32`` the port's
+    ``BandedOperator.from_scipy`` of it (13 diagonals with the periodic
+    wraps). The counts are set to 0 just before the call and read just
+    after. Gates: the values set-matched to the closed form's seven
+    smallest by real part, each within 1.5 tol ||A|| of its match
+    (Bauer-Fike: a normal matrix's Ritz value lies within its residual of
+    an eigenvalue); the true residuals ``||A x - lambda x||`` on the host
+    in complex128 <= 1.5 tol ||A||; matvecs within 2x of the JAX
+    package's (``REF_NORMAL``); the path's entry point launched at least
+    matvecs / block times and no other kernel, so no complex entry point
+    serves a real matrix. Prints the seconds and the peak device
+    memory."""
+    import numpy as np
+    import torch
+
+    N, coef, dt, tol, method, fmt = NORMAL_SOLVES[name]
+    entry = NORMAL_ENTRY[name]
+    ref_mv = REF_NORMAL[name]
+    tag = f"normal {name}"
+    t0 = time.perf_counter()
+    A, lam, anorm = convection_diffusion(N, coef, dtype=dt)
+    op = A
+    if fmt == "banded":
+        op = ptt.BandedOperator.from_scipy(A)
+        check(len(op.offsets) == 13, f"{tag}: {len(op.offsets)} diagonals")
+    blk = ptt.set_method(ptt.Method[method], ptt.PrimmeParams(
+        n=A.shape[0], num_evals=NORMAL_KWARGS["k"], hermitian=False,
+        target=ptt.Target.smallest)).max_block_size
+    build_s = time.perf_counter() - t0
+    print(f"[{tag}] convection_diffusion({N}, coef={coef}) {dt}: n="
+          f"{A.shape[0]} nnz={A.nnz} ||A||={anorm:.6f}; {method}, tol "
+          f"{tol}, block {blk}, "
+          f"{'BandedOperator' if fmt == 'banded' else 'scipy CSR'}; built "
+          f"in {build_s:.2f} s", flush=True)
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES if e != entry]
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    w, V, st = ptt.eigs(op, tol=tol, method=method, seed=seed,
+                        return_stats=True, **NORMAL_KWARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    mv = st["num_matvecs"]
+    bar = 1.5 * tol * anorm
+    err = match_values(w, lam[:len(w)])
+    V64 = V.astype(np.complex128)
+    R = A.astype(np.complex128) @ V64 - V64 * w[None, :]
+    res = float(np.linalg.norm(R, axis=0).max())
+    print(f"[{tag}] eigs wall {wall:.3f} s (solve {st['elapsed_time']:.3f} "
+          f"s)  num_matvecs {mv} (reference {ref_mv})  outer "
+          f"{st['num_outer_iterations']}  inner "
+          f"{st['num_inner_iterations']}  restarts {st['num_restarts']}  "
+          f"resets {st['num_resets']}", flush=True)
+    print(f"[{tag}] launches {launches}  max|eval-closed form| {err:.3e}  "
+          f"max residual {res:.3e} (limit for both {bar:.3e})  peak device "
+          f"memory {peak} B ({before_bytes} B before)", flush=True)
+    print(f"[{tag}] values " + ", ".join(
+        f"{x.real:.9f}{x.imag:+.9f}i" for x in w), flush=True)
+    check(w.dtype == V.dtype == np.dtype(
+        "complex64" if dt in ("float32", "complex64") else "complex128"),
+        f"{tag}: values {w.dtype}, vectors {V.dtype}")
+    check(launches[entry] >= mv / blk,
+          f"{tag}: only {launches[entry]} {entry} launches for {mv} "
+          f"matvecs")
+    for other in others:
+        check(launches[other] == 0,
+              f"{tag}: {other} served this solve: {launches}")
+    check(err <= bar, f"{tag}: eigenvalue error {err:.3e} > {bar:.3e}")
+    check(res <= bar, f"{tag}: residual {res:.3e} > {bar:.3e}")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"{tag}: {mv} matvecs, not within 2x of the reference's {ref_mv}")
+    return {"wall_s": wall, "solve_s": st["elapsed_time"], "grid": N,
+            "dtype": dt, "method": method, "tol": tol, "block": blk,
+            "evals": [[float(x.real), float(x.imag)] for x in w],
+            "num_matvecs": mv,
+            "num_outer_iterations": st["num_outer_iterations"],
+            "num_inner_iterations": st["num_inner_iterations"],
+            "eval_err": err, "max_residual": res, "anorm": anorm,
+            "launches": launches, "peak_bytes": peak,
+            "bytes_before": before_bytes}
+
+
+def normal_phases(ptt, mods, seed):
+    """Phases 28-30: ``eigs`` on normal operators, each solve gated by
+    ``normal_phase``; with the phases' seconds."""
+    t0 = time.perf_counter()
+    runs = {name: normal_phase(ptt, mods, name, seed)
+            for name in NORMAL_SOLVES}
+    secs = time.perf_counter() - t0
+    each = ", ".join(f"{name} {r['wall_s']:.1f}" for name, r in runs.items())
+    print(f"[normal] phases 28-30 took {secs:.1f} s (solves {each})",
+          flush=True)
+    return {"solves": runs, "seconds": secs}
+
+
 def rect_kernel_record(name, replaces, run, per,
                        shape=f"grounded_incidence({SVD_GRID}) A layout, k=2"):
     """The record of a sliced-ELL entry point on the rectangular layouts
@@ -2356,6 +2565,9 @@ def main():
     # --- 23-27. complex Hermitian eigsh and complex svds ------------------
     cplx = complex_phases(ptt, mods, DK, WE, dev, gen, cgen, args.seed)
 
+    # --- 28-30. eigs on normal operators ----------------------------------
+    normal = normal_phases(ptt, mods, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -2389,6 +2601,7 @@ def main():
         "svds": svd["svds"], "svds_seconds": svd["seconds"],
         "complex": {"solves": cplx["solves"], "chooser": cplx["chooser"],
                     "seconds": cplx["seconds"]},
+        "normal": normal,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -2408,7 +2621,9 @@ def main():
              **{f"svds {name}": svd["svds"][name]["launches"]
                 for name in SVDS_SOLVES},
              **{f"complex {name}": cplx["solves"][name]["launches"]
-                for name in ("complex64", "complex128", "ell", "svds")}}
+                for name in ("complex64", "complex128", "ell", "svds")},
+             **{f"normal {name}": normal["solves"][name]["launches"]
+                for name in NORMAL_SOLVES}}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

@@ -38,6 +38,12 @@ sliced-ELL kernel, a small one a :class:`DenseOperator`;
 :class:`SvdsParams` and ``svds_*`` carry the reference's
 ``primme_svds_params`` reflection.
 
+:func:`eigs` finds eigenpairs of a normal (non-Hermitian) operator, with
+complex Ritz values (projected ``eig`` on the host, GD_plusK or a JD
+preset whose inner solve is a projected block GMRES), through the same
+DIA and sliced-ELL kernels: a real matrix on the real view of the
+complex basis, a complex one on the complex entry points.
+
 Complex Hermitian input (complex64 and complex128) runs as the real does:
 the DIA and sliced-ELL kernels have complex entry points (the adjoint
 ``A^H`` conjugating), ``eigsh`` returns real eigenvalues and complex
@@ -64,7 +70,7 @@ from .operators import (LinearOperator, WindowedELLOperator,  # noqa: E402
                         SumOperator, ChebyshevPrecond, dia_ell_hybrid,
                         rcm_banded, aslinearoperator, apply_precond)
 from .core.solver import solve_eigs, EigsResult, Stats  # noqa: E402
-from .api import eigsh, PrimmeError  # noqa: E402
+from .api import eigsh, eigs, PrimmeError  # noqa: E402
 from .refine import refine_eigsh  # noqa: E402
 from .svds import (svds, SvdsParams, svds_set_member,  # noqa: E402
                    svds_get_member, svds_member_info, svds_display_params,
@@ -78,7 +84,8 @@ __all__ = [
     "BandedOperator", "ELLOperator", "BlockELLOperator", "FunctionOperator",
     "SumOperator", "ChebyshevPrecond", "dia_ell_hybrid", "rcm_banded",
     "aslinearoperator", "apply_precond", "solve_eigs", "EigsResult",
-    "Stats", "eigsh", "PrimmeError", "refine_eigsh", "svds", "SvdsParams",
+    "Stats", "eigsh", "eigs", "PrimmeError", "refine_eigsh", "svds",
+    "SvdsParams",
     "svds_set_member", "svds_get_member", "svds_member_info",
     "svds_display_params", "svds_from_params", "svds_member_names",
 ]

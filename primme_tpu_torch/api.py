@@ -1,4 +1,4 @@
-"""User-facing API: scipy-style ``eigsh``.
+"""User-facing API: scipy-style ``eigsh`` and ``eigs``.
 
 PyTorch port of ``primme_tpu/api.py::eigsh`` with the surface ported so
 far: sparse routing through :func:`~primme_tpu_torch.operators.rcm_banded`
@@ -15,6 +15,9 @@ refused), the Jacobi preconditioner (``jacobi=True``, or an ``OPinv`` that is
 a port operator), ``raise_for_unconverged`` and the probe-exhaustion
 error. Arguments of the reference that the port does not serve yet raise
 ``NotImplementedError``.
+
+``eigs`` is the port of the reference's ``eigs``: eigenpairs of a normal
+(non-Hermitian) operator, complex Ritz values, with its whole surface.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from . import params as prm
 from .params import PrimmeParams, Target, Method, set_method
 from .operators import (CastOperator, JacobiPrecond, aslinearoperator,
                         default_device)
+from .core.linalg import real_dtype
 from .core.solver import solve_eigs
 
 _WHICH_TO_TARGET = {
@@ -277,6 +281,125 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         if perm is not None:
             ev = ev[np.argsort(perm), :]
         out.append(ev)
+    if return_stats:
+        out.append(stats)
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+_EIGS_WHICH = {"LM": Target.largest_abs, "SM": Target.closest_abs,
+               "LR": Target.largest, "SR": Target.smallest,
+               "CGT": Target.closest_geq, "CLT": Target.closest_leq}
+
+
+def eigs(A: Any, k: int = 6, which: str = "LM",
+         sigma: Optional[float] = None, tol: float = 0.0,
+         ncv: Optional[int] = None, maxiter: Optional[int] = None,
+         v0: Any = None, return_eigenvectors: bool = True,
+         return_stats: bool = False, method: Optional[Any] = None,
+         maxMatvecs: Optional[int] = None, OPinv: Any = None,
+         raise_for_unconverged: bool = True, seed: int = 0,
+         maxInnerIterations: Optional[int] = None,
+         segment_outer: Optional[int] = None,
+         locking: Optional[bool] = None, maxBlockSize: int = 0,
+         lock: Any = None, device: Any = None):
+    """Eigenpairs of a normal (non-Hermitian, ``A A^H = A^H A``) operator,
+    with complex Ritz values: the reference's ``eigs`` (PRIMME's
+    ``dprimme_normal``/``zprimme_normal``). ``which`` is one of LM, SM
+    (closest to ``sigma`` in modulus), LR, SR, CGT and CLT (real part at
+    or above, at or below ``sigma``); ``lock`` passes orthogonality
+    constraint vectors, ``locking`` turns on hard locking,
+    ``maxBlockSize`` sets the block. The method is GD_plusK unless
+    ``method`` names another preset; a preset with inner iterations (the
+    JD ones, such as ``"JDQMR"``) corrects with the projected block GMRES
+    of :func:`~primme_tpu_torch.core.inner.normal_inner_solve`.
+
+    ``A`` goes through :func:`aslinearoperator` (a dense matrix up to 8192
+    rows, an :class:`ELLOperator` above; a port operator as it is), with
+    no format chooser, as in the reference. The solve works in the
+    complex type of ``A``'s precision; a real operator multiplies the
+    complex block's two parts in one product. ``device`` is where the
+    solve runs: the card when it is None, which raises if there is none.
+    Returns numpy arrays: complex values, and vectors and stats when
+    asked for."""
+    if segment_outer is not None:
+        raise _unported("segment_outer")
+    device = default_device(device, "eigs")
+    Aop = aslinearoperator(A).to(device)
+    n = Aop.shape[0]
+    if Aop.shape[0] != Aop.shape[1]:
+        raise ValueError("expected square operator")
+    which = which.upper()
+    if which not in _EIGS_WHICH:
+        raise ValueError(f"which must be one of {sorted(_EIGS_WHICH)}")
+    target = _EIGS_WHICH[which]
+    shifts = ()
+    if target in (Target.closest_abs, Target.largest_abs,
+                  Target.closest_geq, Target.closest_leq):
+        shifts = (float(sigma) if sigma is not None else 0.0,)
+    cdt = torch.promote_types(Aop.dtype, torch.complex64)
+
+    p = PrimmeParams(n=n, num_evals=k, target=target, target_shifts=shifts,
+                     eps=float(tol), max_basis_size=(ncv or 0),
+                     max_block_size=maxBlockSize,
+                     locking=(prm.UNSET if locking is None else
+                              int(locking)),
+                     hermitian=False, rng_seed=seed)
+    if maxiter is not None:
+        p = p.with_(max_outer_iterations=int(maxiter))
+    if maxMatvecs is not None:
+        p = p.with_(max_matvecs=int(maxMatvecs))
+    K = aslinearoperator(OPinv).to(device) if OPinv is not None else None
+    meth = method or Method.GD_plusK
+    if isinstance(meth, str):
+        meth = Method[meth.replace("PRIMME_", "")]
+    p = set_method(meth, p, has_precond=K is not None)
+    if p.dynamic_method_switch:
+        raise _unported("DYNAMIC method switching")
+    if maxInnerIterations is not None:
+        p = p.with_(max_inner_iterations=int(maxInnerIterations))
+    inner = None
+    if p.max_inner_iterations != 0:
+        from .core.inner import normal_inner_solve
+        inner = normal_inner_solve
+
+    def block(x):
+        t = np.array(x)
+        if t.ndim == 1:
+            t = t[:, None]
+        return torch.from_numpy(np.ascontiguousarray(t)).to(device=device,
+                                                            dtype=cdt)
+
+    v0t = block(v0) if v0 is not None else None
+    oc = None
+    if lock is not None:
+        oc = block(lock)
+        if oc.ndim != 2 or oc.shape[0] != n:
+            raise ValueError(
+                f"lock= must be an [n, c] array of orthogonal-constraint "
+                f"vectors (n={n}); for hard locking pass locking=True")
+        p = prm.resolve_defaults(p.with_(num_ortho_const=int(oc.shape[1])))
+
+    t0 = time.perf_counter()
+    res = solve_eigs(Aop, p, K=K, v0=v0t, ortho_const=oc, dtype=cdt,
+                     inner_solve=inner, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.perf_counter() - t0
+
+    resnorms = res.resnorms.cpu().numpy()
+    if raise_for_unconverged:
+        anorm = float(res.stats.anorm_estimate)
+        eps_eff = p.eps if p.eps > 0 else 1e4 * float(
+            torch.finfo(real_dtype(cdt)).eps)
+        bad = int(np.sum(resnorms > 10 * eps_eff * max(anorm, 1e-300)))
+        if bad:
+            raise PrimmeError(f"{bad}/{k} pairs unconverged "
+                              f"(resnorms={resnorms})")
+    stats = dataclasses.asdict(res.stats)
+    stats["elapsed_time"] = elapsed
+    out = [res.evals.cpu().numpy()]
+    if return_eigenvectors:
+        out.append(res.evecs.cpu().numpy())
     if return_stats:
         out.append(stats)
     return tuple(out) if len(out) > 1 else out[0]

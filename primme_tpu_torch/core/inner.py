@@ -14,6 +14,11 @@ condition (any column alive) is read back once per step. With SkewQ and a
 preconditioner (JDQR) the right projector on the locked vectors is the
 skew projector ``(I - Qhat M^{-1} Q^H)``, ``Qhat = K^{-1} B Q``, with the
 small ``M = Q^H Qhat`` LU-factorized once per call.
+
+:func:`normal_inner_solve` is the port of the reference's inner solver
+for normal (non-Hermitian) operators, a projected block GMRES(m) with
+complex shifts; its Arnoldi vectors stay on the device, and its small
+Hessenberg and Givens work runs on the host.
 """
 
 from __future__ import annotations
@@ -264,3 +269,149 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)
     n_prec0 = int(valid.sum()) if K is not None else 0
     return sol, its, nmv, nprec + n_prec0
+
+
+def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
+                       evals=None):
+    """Inner correction solver for normal (non-Hermitian) operators
+    (reference ``normal_inner_solve``): projected block GMRES(m) on
+
+        (I - x x^H)(A - sigma)(I - x x^H) s = -r ,   sigma complex,
+
+    right-preconditioned by ``K`` (fixed, so no flexible variant), one
+    ``[n, blk]`` product a step. Each column stops once its GMRES residual
+    falls to ``max(0.1 res, 0.33 tol)``; a stopped column is frozen, as in
+    the reference. The Arnoldi basis ``[m+1, n, blk]`` and its two-pass
+    classical Gram-Schmidt stay on the device; the Hessenberg column and
+    its norm come to the host once a step (which also decides the loop,
+    the reference's ``fori_loop`` over all ``m`` steps, whose dead steps
+    change nothing), where the complex Givens rotations, the rotated
+    right-hand side and, at the end, the triangular solves over the steps
+    each column took run in double. The Arnoldi inner products are the
+    complex ``x^H y``.
+
+    Interface of :func:`jdqmr_inner_solve`. Returns ``(sol, its,
+    n_matvec_cols, n_precond_cols)``.
+    """
+    from ..operators import apply_precond
+
+    n, blk = X.shape
+    dtype = X.dtype
+    dev = X.device
+    rdt = real_dtype(dtype)
+    tiny = torch.finfo(rdt).tiny
+    shift = torch.where(torch.isfinite(sigma) & valid, sigma, 0).to(dtype)
+    vmaskf = valid.to(dtype)[None, :]
+
+    has_lockedQ = cfg.locking or cfg.noc > 0
+    Q = s.evecs
+    nlockq = cfg.noc + s.num_locked
+
+    def project(D):
+        if cfg.leftQ and has_lockedQ:
+            D = prefix_project(Q, Q, D, nlockq)
+        if cfg.leftX:
+            D = D - X * torch.sum(X.conj() * D, dim=0)[None, :]
+        return D
+
+    def prec(D):
+        return D if K is None else apply_precond(K, D, shift)
+
+    def op(D):
+        Z = prec(D)
+        return project(A.matmat(Z) - Z * shift[None, :])
+
+    m = cfg.max_inner if cfg.max_inner > 0 else 15
+    m = max(1, min(m, 64))
+
+    # the host side: per-column state in double
+    hdt = torch.complex128
+    valid_h = valid.cpu()
+    itol = torch.clamp(0.1 * res.detach().to("cpu", torch.float64),
+                       min=0.33 * float(tol))
+
+    V0 = project(-R * vmaskf)
+    beta = torch.sqrt(torch.clamp(_dots(V0, V0), min=0.0))
+    ok = (beta > tiny) & valid
+    V0 = torch.where(ok[None, :], V0 / torch.clamp(beta, min=tiny)[None, :]
+                     .to(dtype), 0)
+    Vk = torch.zeros((m + 1, n, blk), dtype=dtype, device=dev)
+    Vk[0] = V0
+    beta_h, ok_h = beta.cpu().to(torch.float64), ok.cpu()
+
+    Rm = torch.zeros((m, m, blk), dtype=hdt)
+    g = torch.zeros((m + 1, blk), dtype=hdt)
+    g[0] = beta_h.to(hdt)
+    cs = torch.zeros((m, blk), dtype=torch.float64)
+    sn = torch.zeros((m, blk), dtype=hdt)
+    alive = ok_h.clone()
+    steps = torch.zeros((blk,), dtype=torch.int64)
+
+    for i in range(m):
+        if not bool(alive.any()):
+            break
+        w = op(Vk[i])
+        Vi = Vk[:i + 1]
+        h = torch.zeros((i + 1, blk), dtype=dtype, device=dev)
+        for _ in range(2):
+            hp = torch.einsum("jnb,nb->jb", Vi.conj(), w)
+            w = w - torch.einsum("jnb,jb->nb", Vi, hp)
+            h = h + hp
+        hnorm = torch.sqrt(torch.clamp(_dots(w, w), min=0.0))
+        # one transfer a step: the Hessenberg column and its norm
+        hh = torch.cat([h, hnorm[None, :].to(dtype)]).cpu().to(hdt)
+        h_h, hn_h = hh[:i + 1], hh[i + 1].real
+        good = (hn_h > tiny) & alive
+        wn = torch.where((hnorm > tiny)[None, :],
+                         w / torch.clamp(hnorm, min=tiny)[None, :].to(dtype),
+                         0)
+
+        # apply the previous rotations j < i to the new column
+        hcol = torch.zeros((m + 1, blk), dtype=hdt)
+        hcol[:i + 1] = h_h
+        for j in range(i):
+            a, b_ = hcol[j].clone(), hcol[j + 1].clone()
+            hcol[j] = cs[j] * a + sn[j] * b_
+            hcol[j + 1] = -sn[j].conj() * a + cs[j] * b_
+
+        # the rotation zeroing the subdiagonal hnorm against a = h[i]:
+        # c = |a|/r (real), s = (a/|a|) b/r, rotated diagonal c a + s b
+        a = hcol[i]
+        bb = hn_h
+        absa = torch.abs(a)
+        r_ = torch.sqrt(absa ** 2 + bb ** 2)
+        nz = r_ > tiny
+        rsafe = torch.where(nz, r_, 1.0)
+        aun = torch.where(absa > tiny, a / torch.where(absa > tiny, absa,
+                                                         1.0), 1.0)
+        ci = torch.where(nz, absa / rsafe, 1.0)
+        si = torch.where(nz, aun * (bb / rsafe), 0.0)
+        gi = g[i].clone()
+        g[i + 1] = torch.where(alive, -si.conj() * gi, g[i + 1])
+        g[i] = torch.where(alive, ci * gi, gi)
+        Rm[:, i, :] = torch.where(alive[None, :], hcol[:m], Rm[:, i, :])
+        Rm[i, i, :] = torch.where(alive, ci * a + si * bb, Rm[i, i, :])
+        cs[i] = torch.where(alive, ci, cs[i])
+        sn[i] = torch.where(alive, si, sn[i])
+        Vk[i + 1] = torch.where(alive.to(dev)[None, :], wn, Vk[i + 1])
+        steps = steps + alive.to(torch.int64)
+        alive = alive & good & (torch.abs(g[i + 1]) > itol)
+
+    # y per column: backsolve the triangular system over the steps it
+    # took; unused (or numerically dead) positions get a unit diagonal
+    # and y = 0 there
+    used = torch.arange(m)[:, None] < steps[None, :]
+    diagmag = torch.abs(torch.diagonal(Rm, dim1=0, dim2=1)).T     # [m, blk]
+    fix = (~used) | (diagmag < tiny)
+    Rsolve = Rm + torch.eye(m, dtype=hdt)[:, :, None] * fix.to(hdt)[None]
+    gm = torch.where(used, g[:m], 0)
+    y = torch.linalg.solve_triangular(Rsolve.permute(2, 0, 1),
+                                      gm.T[:, :, None], upper=True)
+    y = torch.where(used, y[:, :, 0].T, 0)
+    sol = torch.einsum("jnb,jb->nb", Vk[:m], y.to(device=dev, dtype=dtype))
+    sol = prec(sol) * vmaskf
+    solnorm = torch.sqrt(_dots(sol, sol))
+    sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)
+    nmv = int(steps.sum())
+    nprec = nmv + int(valid_h.sum()) if K is not None else 0
+    return sol, int(steps.max()), nmv, nprec

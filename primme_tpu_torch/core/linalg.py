@@ -65,11 +65,22 @@ def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     complex64 basis of ``chip_smoke.py`` phase 26 (n = 262,144, ||A|| ~
     110) came out orthonormal only to 2.1e-5, against 1.7e-6 on the CPU,
     and its Ritz values 1.3e-4 off; summed in double, to 1.3e-7
-    (``ROADMAP.md`` Queue C)."""
-    wide = _WIDE.get(X.dtype)
-    if wide is None:
-        return X.mH @ Y
-    return (X.to(wide).mH @ Y.to(wide)).to(X.dtype)
+    (``ROADMAP.md`` Queue C).
+
+    A complex ``Y`` of one column on the card is multiplied the other way
+    round, ``(Y^H X)^H``: cuBLAS's conjugate-transposed matrix-vector
+    product that ``X^H y`` becomes took 17.8 ms for a complex128 ``X`` of
+    262,144 x 24 on the same card, ``y^H X`` 0.049 ms
+    (``tools/torch_gram_bench.py``)."""
+    dtype = X.dtype
+    wide = _WIDE.get(dtype)
+    if wide is not None:
+        X, Y = X.to(wide), Y.to(wide)
+    if X.is_cuda and X.is_complex() and Y.shape[1] == 1:
+        G = (Y.mH @ X).mH.resolve_conj()
+    else:
+        G = X.mH @ Y
+    return G if wide is None else G.to(dtype)
 
 
 def bcomb(V: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -197,9 +208,14 @@ def block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def target_sort_keys(w, target: Target, shifts, shift_idx: int):
-    """Sort keys so that ``argsort(keys)`` orders real Ritz values by
-    target preference; ``shifts[min(shift_idx, len-1)]`` is the shift of
-    the pair currently sought."""
+    """Sort keys so that ``argsort(keys)`` orders Ritz values by target
+    preference; ``shifts[min(shift_idx, len-1)]`` is the shift of the pair
+    currently sought. Complex values (a normal operator's) order by their
+    real part for SR/LR, by ``|w - sigma|`` for SM/LM and by the real part
+    relative to ``sigma`` for CGT/CLT; sort the keys stably, since a real
+    matrix's conjugate pairs tie."""
+    if w.is_complex():
+        return _complex_sort_keys(w, target, shifts, shift_idx)
     if target == Target.smallest:
         return w
     if target == Target.largest:
@@ -216,6 +232,29 @@ def target_sort_keys(w, target: Target, shifts, shift_idx: int):
     if target == Target.closest_leq:
         return torch.where(d <= 0, -d, big + d)
     raise ValueError(target)
+
+
+def _complex_sort_keys(w, target: Target, shifts, shift_idx: int):
+    """The reference's complex branch of ``target_sort_keys``: real keys
+    for complex Ritz values."""
+    if target == Target.smallest:
+        return w.real
+    if target == Target.largest:
+        return -w.real
+    s = shifts[min(int(shift_idx), shifts.shape[0] - 1)]
+    d = torch.abs(w - s.to(w.dtype))
+    if target == Target.closest_abs:
+        return d
+    if target == Target.largest_abs:
+        return -d
+    # geq/leq: the real part relative to the shift (modulus has no order)
+    dr = w.real - s.real.to(w.real.dtype)
+    big = torch.finfo(dr.dtype).max / 8
+    if target == Target.closest_geq:
+        return torch.where(dr >= 0, dr, big - dr)
+    if target == Target.closest_leq:
+        return torch.where(dr <= 0, -dr, big + dr)
+    raise ValueError(f"{target} unsupported for normal operators")
 
 
 class ProjectedSolution(NamedTuple):
@@ -268,6 +307,57 @@ def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int
     keys = target_sort_keys(w, target, shifts.to(w.dtype), shift_idx)
     order = torch.argsort(keys, stable=True)
     return _embed(w[order], Z[:, order], mmax, rdt)
+
+
+def complex_dtype(dtype) -> torch.dtype:
+    """The complex type of ``dtype``'s precision (a complex type itself)."""
+    return {torch.float32: torch.complex64,
+            torch.float64: torch.complex128}.get(dtype, dtype)
+
+
+def solve_H_normal(H, b: int, target: Target, shifts, shift_idx: int
+                   ) -> ProjectedSolution:
+    """Projected solve for a normal operator (reference
+    ``solve_H_normal``): ``H = V^H A V`` is not Hermitian and its Ritz
+    values are complex. As in the reference, the inactive diagonal of the
+    masked ``mmax x mmax`` matrix is ramped past the active spectrum and
+    one ``eig`` serves every ``b``; a column with more than half its mass
+    on inactive rows is a pad. The pairs are sorted by target, and QR of
+    the sorted vectors orthonormalizes them (the Schur-vector
+    equivalent). ``eig`` runs on a host copy in complex128, as the
+    reference runs numpy's on the host, and :func:`projected_eigh` solves
+    in double for the same reason; the rest follows it there and the
+    result goes back to ``H``'s device in ``H``'s complex type. Returns
+    complex ``hvals`` (pads ``finfo.max``)."""
+    mmax = H.shape[0]
+    dev = H.device
+    rdt = real_dtype(H.dtype)
+    cdt = complex_dtype(rdt)
+    amask = col_mask(mmax, b)
+    Hm = torch.where(amask[:, None] & amask[None, :],
+                     H.detach().to("cpu", torch.complex128), 0)
+    scale = 2.0 * torch.max(torch.abs(Hm)) + 1.0
+    ramp = (1.0 + torch.arange(mmax, dtype=torch.float64)) * scale
+    Hm = Hm + torch.diag(torch.where(amask, 0.0, ramp).to(torch.complex128))
+    w, Z = torch.linalg.eig(Hm)
+    mass = torch.abs(Z) ** 2
+    support_inactive = torch.sum(mass * (~amask).to(torch.float64)[:, None],
+                                 dim=0)
+    nrm2 = torch.clamp(torch.sum(mass, dim=0),
+                       min=torch.finfo(torch.float64).tiny)
+    is_pad = (support_inactive / nrm2) > 0.5
+    keys = target_sort_keys(w, target, shifts.detach().to("cpu",
+                                                          torch.float64),
+                            shift_idx)
+    keys = torch.where(is_pad, torch.finfo(torch.float64).max, keys)
+    order = torch.argsort(keys, stable=True)
+    w, Z, is_pad = w[order], Z[:, order], is_pad[order]
+    keep = (~is_pad).to(Z.dtype)[None, :]
+    Z = torch.linalg.qr(Z * keep).Q * keep
+    w = torch.where(is_pad, torch.finfo(rdt).max, w)
+    return ProjectedSolution(hvals=w.to(device=dev, dtype=cdt),
+                             hvecs=Z.to(device=dev, dtype=cdt),
+                             active=(~is_pad).to(dev))
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ standard or generalized (a mass matrix B: the basis is B-orthonormal and
 the state carries ``BV``/``Bevecs``), with orthogonality constraints
 (columns ``[0, noc)`` of ``evecs``), Rayleigh-Ritz, refined or harmonic
 extraction, GD/GD+k or JDQMR corrections, hard or soft locking, and the
-spectrum-verification probe.
+spectrum-verification probe; and for normal (non-Hermitian) operators
+(``hermitian=False``, the reference's KIND(N) axis): a complex basis,
+complex Ritz values from :func:`~.linalg.solve_H_normal`, and ``H``'s row
+panel computed rather than mirrored.
 
 The reference's fixed-shape masked state is kept so that arrays compare
 one to one: the basis is ``[n, mmax]`` with a basis size ``b`` whose
@@ -28,11 +31,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..params import PrimmeParams, Target, ConvTest, Projection, InitBasisMode
-from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask, gram,
+from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask,
+                     complex_dtype, gram,
                      real_dtype, machine_eps, solve_H_rr, block_ortho,
                      compute_residuals, target_sort_keys, prefix_project,
                      rand_block, shifted_qr_R, complement_qr_R,
-                     solve_H_refined, solve_H_harmonic,
+                     solve_H_refined, solve_H_harmonic, solve_H_normal,
                      orthonormalize_coeffs)
 
 _BIG = 1 << 20  # stable-sort priority offset
@@ -335,7 +339,9 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
     fmax = float(torch.finfo(rdt).max)
     sidx = min(s.num_locked, shifts.shape[0] - 1)
     has_B = s.BV is not None
-    if cfg.projection == Projection.refined and not has_B:
+    if not cfg.hermitian:
+        sol = solve_H_normal(s.H, s.b, cfg.target, shifts, sidx)
+    elif cfg.projection == Projection.refined and not has_B:
         # the cluster gap test's inputs (prepare_vecs,
         # solve_projection.c:878-890)
         meps = machine_eps(s.V.dtype)
@@ -388,7 +394,8 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
         passes = cands.resnorms <= tol
     is_target = (torch.arange(c, device=dev) < n_needed) & active
     conv = passes & is_target
-    if cfg.target in (Target.closest_geq, Target.closest_leq):
+    if cfg.hermitian and cfg.target in (Target.closest_geq,
+                                        Target.closest_leq):
         sh = shifts[sidx]
         lv = torch.where(active, hl_c, 0)
         if cfg.target == Target.closest_geq:
@@ -756,11 +763,19 @@ def _append_probe_block(cfg: SolveConfig, A, B, s: SolverState,
         s.BV[:, b:b + blk] = torch.where(keep, BXs, 0)
     Y = A.matmat(Xs)
     s.W[:, b:b + blk] = Y
-    hc = gram(s.V, Y)
-    s.H[:, b:b + blk] = hc
-    s.H[b:b + blk, :] = hc.mH
+    _write_panels(cfg, s, Xs, Y, b)
     stats = _replace(s.stats, num_matvecs=s.stats.num_matvecs + nc)
     return _replace(s, b=b + nc, stats=stats)
+
+
+def _write_panels(cfg: SolveConfig, s: SolverState, X, Y, b: int):
+    """Write the new columns ``V^H Y`` of ``H`` at ``b`` (``X``, ``Y = A
+    X``, already in ``V`` and ``W``) and its new rows: their mirror for a
+    Hermitian ``H``, ``X^H W`` for a normal operator's."""
+    blk = X.shape[1]
+    hc = gram(s.V, Y)
+    s.H[:, b:b + blk] = hc
+    s.H[b:b + blk, :] = hc.mH if cfg.hermitian else gram(X, s.W)
 
 
 def _unconverged_order(win: Window):
@@ -801,6 +816,9 @@ def _robust_shifts(cfg: SolveConfig, s: SolverState, win: Window,
     """Correction-equation shifts (reference ``_robust_shifts``). Returns
     ``(sigma, prev_ritz', num_prev_ritz')``."""
     lam0 = torch.where(valid, torch.where(torch.isfinite(lam), lam, 0), 0)
+    if not cfg.hermitian:
+        # a normal operator's shifts are its complex Ritz values
+        return lam0, s.prev_ritz, s.num_prev_ritz
     c = cfg.cwin
     rdt = s.prev_ritz.dtype
     big = float(torch.finfo(rdt).max) / 8
@@ -1090,22 +1108,22 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         s.BV[:, b:b + blk] = torch.where(keep, BXo, 0)
     Y = A.matmat(Xo)
     s.W[:, b:b + blk] = Y
-    hc = gram(s.V, Y)                     # [mmax, blk] new columns of H
-    s.H[:, b:b + blk] = hc
-    s.H[b:b + blk, :] = hc.mH
+    _write_panels(cfg, s, Xo, Y, b)
     st = s.stats
-    # one block_ortho, the H panel's Gram and ~5 width-blk dot products an
-    # inner QMR iteration
+    # one block_ortho, the H panels' Grams (a normal operator's row panel
+    # is a second one) and ~5 width-blk dot products an inner iteration
     ngs_bo, vol_bo = _ortho_counts(cfg, cfg.noc > 0 or cfg.locking)
+    npanel = 1 if cfg.hermitian else 2
     stats = _replace(
         st, num_outer_iterations=st.num_outer_iterations + 1,
         num_matvecs=st.num_matvecs + nc + n_mv_inner,
         num_preconds=st.num_preconds + n_prec,
         num_inner_iterations=st.num_inner_iterations + n_inner,
         num_random=st.num_random + n_random,
-        num_global_sum=st.num_global_sum + ngs_bo + 1 + 5 * n_inner,
+        num_global_sum=st.num_global_sum + ngs_bo + npanel + 5 * n_inner,
         volume_global_sum=(st.volume_global_sum + vol_bo
-                           + float(cfg.mmax * blk) + 5.0 * blk * n_inner),
+                           + float(npanel * cfg.mmax * blk)
+                           + 5.0 * blk * n_inner),
         num_ortho_inner_prods=st.num_ortho_inner_prods + vol_bo)
     return _replace(s, b=b + nc, prev_hvecs=prev, stats=stats,
                     prev_ritz=prev_ritz2, num_prev_ritz=num_prev2)
@@ -1169,10 +1187,11 @@ def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
     matrix (an operator) or None; ``ortho_const`` an ``[n, noc]`` tensor
     of constraint vectors (``p.num_ortho_const`` columns)."""
     cfg = make_config(p)
-    if not cfg.hermitian:
-        raise NotImplementedError("normal (non-Hermitian) operators are "
-                                  "not ported yet")
     dtype = dtype or A.dtype
+    if not cfg.hermitian and not dtype.is_complex:
+        # a normal operator's Ritz vectors are complex: a real basis
+        # stores them in the matching complex type, as the reference does
+        dtype = complex_dtype(dtype)
     if dtype not in (torch.float32, torch.float64, torch.complex64,
                      torch.complex128):
         raise NotImplementedError(f"working dtype {dtype} is not ported "
@@ -1217,14 +1236,17 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
                      volume_global_sum=nb0 * vol_bo + mmax * mmax,
                      num_ortho_inner_prods=nb0 * vol_bo)
 
-    def zr(m):
-        return torch.zeros((m,), dtype=rdt, device=device)
+    def zr(m, dt=rdt):
+        return torch.zeros((m,), dtype=dt, device=device)
 
+    # a normal operator's locked values are complex
+    vdt = rdt if cfg.hermitian else dtype
     return SolverState(
         V=V, W=W, BV=BV, H=H, b=b0,
         prev_hvecs=torch.zeros((mmax, max(cfg.kmax, 1)), dtype=dtype,
                                device=device),
-        evecs=evecs0, Bevecs=Bevecs0, locked_vals=zr(cfg.lockmax - cfg.noc),
+        evecs=evecs0, Bevecs=Bevecs0,
+        locked_vals=zr(cfg.lockmax - cfg.noc, vdt),
         locked_res=zr(cfg.lockmax - cfg.noc), num_locked=0,
         best_res=fmax, stall_restarts=0, restarts_since_reset=0,
         prev_ritz=zr(cfg.lockmax + cfg.cwin), num_prev_ritz=0,
@@ -1328,7 +1350,8 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
 def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
     """Final extraction: pool the locked pairs and the window pairs, order
     converged-first by target preference, return the best ``ne``. Slots
-    with no pair return NaN eigenvalue / +inf residual."""
+    with no pair return NaN eigenvalue / +inf residual. A normal
+    operator's values are complex."""
     win, stats = prepare_window(cfg, s, shifts)
     ne, c = cfg.ne, cfg.cwin
     Lw = cfg.lockmax - cfg.noc

@@ -18,7 +18,11 @@ eigenvectors of the ten smallest eigenvalues plus 1e-6 noise), traced by
 and the ten largest device items. With ``--complex``: the sparse solve on
 the matrices of ``chip_smoke.py`` phases 24-26 (the magnetic Laplacian
 through the banded branch in complex64 at tol 1e-5 and complex128 at tol
-1e-10, the complex scatter through the ELL one in complex64). Each solve
+1e-10, the complex scatter through the ELL one in complex64). With
+``--normal``: the ``eigs`` solves of ``chip_smoke.py`` phases 28-30 on
+the convection-diffusion operator (``chip_smoke.NORMAL_SOLVES``;
+``--normal-solve NAME ...`` only the named ones, ``--normal-grid N``
+each at the N^3 grid). Each solve
 runs
 once to warm up (timed on the host clock up to a synchronise; the
 process's first solve also pays the libraries' set-up), then once under
@@ -29,10 +33,19 @@ share of the host time, each hand-written kernel's total, count and mean
 and its share of the device total, and the eight largest device items.
 ``--repo DIR`` imports ``primme_tpu_torch`` from another checkout (say
 the parent commit, unpacked), so that two versions are traced in one
-call.
+call. With ``--stages`` no trace is taken: the profiled solve instead
+times the solver's stages on the host clock, each call between two
+synchronisations (the window, its projected solve again alone, the inner solve,
+``block_ortho``, the new panels of ``H``, restart and reset), and prints
+each stage's seconds and calls beside the solve's. ``--plain-gram``
+replaces ``core.linalg.gram`` for the run with the plain ``X^H Y`` (in
+double for single-precision blocks, as ``gram`` sums), without its
+route round a one-column complex product on the card, to measure what
+that route saves end to end.
 
 Run: ``python3 tools/torch_profile_solve.py [--repo DIR] [--headline |
---formats | --northstar | --complex]``.
+--formats | --northstar | --complex | --normal [--normal-solve NAME ...]
+[--normal-grid N]] [--stages] [--plain-gram]``.
 """
 
 import argparse
@@ -49,6 +62,58 @@ def device_us(e):
     """An event's self device time in microseconds."""
     t = getattr(e, "self_device_time_total", None)
     return t if t is not None else e.self_cuda_time_total
+
+
+STAGES = {"core.solver": ("prepare_window", "solve_H_normal", "_ortho",
+                           "_write_panels", "do_restart", "do_reset"),
+          "core.inner": ("jdqmr_inner_solve", "normal_inner_solve")}
+
+
+def stage_split(label, solve):
+    """A warm-up ``solve()``, then one with the solver's stages wrapped in
+    synchronised host timers; prints each stage's seconds and calls."""
+    import importlib
+
+    import torch
+
+    import primme_tpu_torch as ptt
+
+    acc = {}
+
+    def timed(fn, name):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sec, calls = acc.get(name, (0.0, 0))
+            acc[name] = (sec + time.perf_counter() - t0, calls + 1)
+            return out
+        return wrapper
+
+    solve()
+    saved = []
+    for modname, names in STAGES.items():
+        mod = importlib.import_module("primme_tpu_torch." + modname)
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed(getattr(mod, name), name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = solve()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    print(json.dumps({
+        "repo": os.path.dirname(os.path.dirname(ptt.__file__)),
+        "solve": label, "num_matvecs": st["num_matvecs"],
+        "num_outer_iterations": st.get("num_outer_iterations"),
+        "solve_s": secs,
+        "stages": {name: {"s": sec, "calls": calls}
+                   for name, (sec, calls) in acc.items()}}), flush=True)
 
 
 def trace(label, solve, kernels):
@@ -110,6 +175,14 @@ def main():
                     help="trace one iteration of the north star's polish")
     ap.add_argument("--complex", action="store_true",
                     help="trace the complex banded and ELL solves")
+    ap.add_argument("--normal", action="store_true",
+                    help="trace the eigs solves on normal operators")
+    ap.add_argument("--normal-solve", nargs="+")
+    ap.add_argument("--normal-grid", type=int)
+    ap.add_argument("--stages", action="store_true",
+                    help="time the solver's stages instead of tracing")
+    ap.add_argument("--plain-gram", action="store_true",
+                    help="run with the plain X^H Y in place of gram")
     args = ap.parse_args()
 
     import numpy as np
@@ -118,11 +191,28 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile_solve: no CUDA device", file=sys.stderr)
         return 2
+    run = trace
+    if args.stages:
+        def run(label, solve, kernels=()):
+            stage_split(label, solve)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.abspath(args.repo))
     import primme_tpu_torch as ptt
     from chip_smoke import (GRID, hybrid_matrix, laplacian27,
                             laplacian27_grid, scattered_matrix)
+    if args.plain_gram:
+        import importlib
+
+        wide = {torch.float32: torch.float64,
+                torch.complex64: torch.complex128}
+
+        def plain_gram(X, Y):
+            w = wide.get(X.dtype, X.dtype)
+            return (X.to(w).mH @ Y.to(w)).to(X.dtype)
+
+        for name in ("linalg", "solver", "inner"):
+            mod = importlib.import_module("primme_tpu_torch.core." + name)
+            mod.gram = plain_gram
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,6 +237,25 @@ def main():
                 ptt.__file__)), "solve": "northstar polish iteration",
                 **rec}), flush=True)
         return 0
+    if args.normal:
+        import chip_smoke as CS
+
+        for name, (N, coef, dt, tol, method, fmt) in \
+                CS.NORMAL_SOLVES.items():
+            if args.normal_solve and name not in args.normal_solve:
+                continue
+            N = args.normal_grid or N
+            A = CS.convection_diffusion(N, coef, dtype=dt)[0]
+            op = (ptt.BandedOperator.from_scipy(A) if fmt == "banded"
+                  else ptt.aslinearoperator(A)).to("cuda")
+
+            def solve():
+                return ptt.eigs(op, tol=tol, method=method, seed=args.seed,
+                                return_stats=True, device="cuda",
+                                **CS.NORMAL_KWARGS)[2]
+
+            run(f"normal {name} {N}^3", solve, ("ell_spmm", "dia_kernel"))
+        return 0
     if args.headline:
         from primme_tpu_torch.core.inner import jdqmr_inner_solve
         from primme_tpu_torch.core.solver import solve_eigs
@@ -168,7 +277,7 @@ def main():
                     "num_probe_matvecs": res.stats.num_probe_matvecs,
                     "num_probe_rounds": res.stats.num_probe_rounds}
 
-        trace("headline f32", solve, ("stencil3d_kernel", "jacobi_kernel"))
+        run("headline f32", solve, ("stencil3d_kernel", "jacobi_kernel"))
         return 0
     if args.complex:
         from chip_smoke import (MAG_GRID, complex_scattered_matrix,
@@ -197,7 +306,7 @@ def main():
                              ncv=24, minRestartSize=14, return_stats=True,
                              seed=args.seed, device="cuda")[2]
 
-        trace(label, solve, ("ell_spmm", "dia_kernel"))
+        run(label, solve, ("ell_spmm", "dia_kernel"))
     return 0
 
 

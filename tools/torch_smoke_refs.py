@@ -44,7 +44,15 @@ matrix's type, f32 unless said):
   as the ``ELLOperator`` its ``aslinearoperator`` builds; ``svds`` the
   ``svds`` of ``chip_smoke.magnetic_svd_matrix(MAG_GRID)`` in complex128
   with ``COMPLEX_SVDS_KWARGS``: counts, values and their distance from the
-  closed form (``--mag-grid N`` runs at another grid).
+  closed form (``--mag-grid N`` runs at another grid);
+* ``normal``: phases 28-30's calls (``--normal-solve`` only the named
+  ones): ``primme_tpu.eigs`` with ``chip_smoke.NORMAL_KWARGS`` on
+  ``chip_smoke.convection_diffusion`` for each solve of
+  ``chip_smoke.NORMAL_SOLVES`` (``ell_f64``, ``ell_c64``, ``dia_f32``),
+  passed as the ``ELLOperator`` its ``aslinearoperator`` builds or, for
+  ``dia_f32``, as ``BandedOperator.from_scipy``. Counts, the values and
+  their largest distance from the closed form (set-matched), the largest
+  residual norm (``--normal-grid N`` runs every solve at another grid).
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -57,7 +65,8 @@ needed):
         [--interior-solve refined|harmonic|jdqr ...] [--svd-grid N ...]
         [--svds-solve lm|augmented|sm ...] [--phase complex
         [--complex-solve dia_c64|dia_c128|ell_c64|ell_c128|svds ...]
-        [--mag-grid N]]
+        [--mag-grid N]] [--phase normal [--normal-solve ell_f64|ell_c64|
+        dia_f32 ...] [--normal-grid N]]
 """
 
 import argparse
@@ -74,7 +83,7 @@ def main():
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
                                         "ell_f32", "northstar",
                                         "generalized", "interior", "svds",
-                                        "complex"),
+                                        "complex", "normal"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
@@ -82,6 +91,8 @@ def main():
     ap.add_argument("--svds-solve", nargs="+")
     ap.add_argument("--complex-solve", nargs="+")
     ap.add_argument("--mag-grid", type=int)
+    ap.add_argument("--normal-solve", nargs="+")
+    ap.add_argument("--normal-grid", type=int)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -97,7 +108,7 @@ def main():
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
         if phase in ("northstar", "generalized", "interior", "svds",
-                     "complex"):
+                     "complex", "normal"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -263,6 +274,35 @@ def _complex(CS, pt, np, args):
                "eval_err": (None if ev is None
                             else float(np.abs(w - ev[:len(w)]).max())),
                "evals": [float(x) for x in w],
+               "solve_s": time.perf_counter() - t0}
+
+
+def _normal(CS, pt, np, args):
+    from primme_tpu import operators as JO
+
+    for name, (N, coef, dtype, tol, method, fmt) in \
+            CS.NORMAL_SOLVES.items():
+        if args.normal_solve and name not in args.normal_solve:
+            continue
+        N = args.normal_grid or N
+        t0 = time.perf_counter()
+        A, lam, anorm = CS.convection_diffusion(N, coef, dtype=dtype)
+        op = (JO.BandedOperator.from_scipy(A) if fmt == "banded"
+              else JO.ELLOperator.from_scipy(A))
+        w, V, st = pt.eigs(op, tol=tol, method=method, seed=0,
+                           return_stats=True, raise_for_unconverged=False,
+                           **CS.NORMAL_KWARGS)
+        w, V = np.asarray(w), np.asarray(V, np.complex128)
+        R = A.astype(np.complex128) @ V - V * w[None, :]
+        yield {"solve": name, "grid": N, "dtype": dtype, "tol": tol,
+               "method": method, "operator": type(op).__name__,
+               "num_matvecs": int(st["num_matvecs"]),
+               "num_outer_iterations": int(st["num_outer_iterations"]),
+               "num_inner_iterations": int(st["num_inner_iterations"]),
+               "anorm": anorm,
+               "eval_err": CS.match_values(w, lam[:len(w)]),
+               "max_residual": float(np.linalg.norm(R, axis=0).max()),
+               "evals": [[float(x.real), float(x.imag)] for x in w],
                "solve_s": time.perf_counter() - t0}
 
 
