@@ -260,6 +260,46 @@ Phases, each printing its own lines; any failed check raises:
     The JAX package's counts come from ``python3 tools/torch_smoke_refs.py
     --phase normal``.
 
+31. ``eigsh(method="DYNAMIC")`` (the reference's default method: measured
+    GD+k/JDQMR switching in segments of 10 outer iterations) on
+    ``bench.py``'s headline (phase 9's operator, preconditioner and
+    settings, ``v0`` from ``default_rng(seed)``), one untimed solve and one
+    timed: values within 1e-4 of the closed form, true residual <= 1.5 tol
+    ||A||, probe verified and not exhausted, matvecs at most 2x the larger
+    of the JAX package's JDQMR_ETol (1710) and GD_Olsen_plusK (2275)
+    counts, both methods in the trace, stencil launches >= matvecs / 2,
+    shifted Jacobi launches >= the matvecs outside the probe / 2, no other
+    kernel; the method trace, each method's segments, seconds and mean
+    digits a second printed (the JAX package's own DYNAMIC trace,
+    clock-dependent, printed beside it);
+32. the headline through ``solve_eigs`` twice, then with
+    ``segment_outer=10``: when the two unsegmented runs agree bit for bit,
+    the segmented one must too (values, residuals, vectors, matvecs, inner
+    iterations); otherwise the non-determinism is printed and the gate is
+    equal matvecs and values within 1e-6;
+33. the headline through ``eigsh`` with ``return_history=True`` (one record
+    an outer iteration, every key of equal length, ``sum(num_inner)`` the
+    stat) and with ``monitor_inner=True`` and a counting monitor; the
+    solve time with no monitor, with the history, with the inner replay
+    and with the profiler scopes forced open as under a profiler (min of
+    3 each, interleaved), and one scope's host cost, opened and gated
+    off, times the scopes a solve enters;
+34. the config-file driver (``primme_tpu_torch.driver.main``) on a config
+    with no method line (DEFAULT_METHOD, so DYNAMIC), the Jacobi
+    PrecChoice, eps 1e-10 and 6 smallest values of the 7-point Laplacian
+    at 32^3 in random order, written with its ``.mtx`` to a temporary
+    directory: the ``--save-x`` run and a ``checkXFile`` run against the
+    saved file each exit 0 with "solution check: OK", values within 1e-8
+    of the closed form, ``windowed_ell_spmm_f64`` launches >= matvecs / 2;
+    then an svds config (``primme_svds_hybrid``) on a 40 x 25 matrix;
+35. ``eigsh(profile="pt_", time_breakdown=True)`` on phase 10's solve:
+    ``time_source`` "measured", the four phase scopes each > 0 and with
+    ``time_other`` within 10% of the traced device busy time, the stencil
+    kernels' device time inside ``pt_matvec`` and the Jacobi kernels'
+    inside ``pt_precond``, a profile event delivered for every key of
+    ``stats["profile"]``; the split, the largest device items and the
+    profiler's post-processing seconds printed.
+
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -442,6 +482,13 @@ NORMAL_SOLVES = {
 # of the closed form; its dia_f32 run returns one member of the second
 # cluster in place of one of the first (ROADMAP.md Queue C)
 REF_NORMAL = {"ell_f64": 11773, "ell_c64": 4997, "dia_f32": 2427}
+# phase 31: the JAX package's GD_Olsen_plusK on the headline's
+# configuration at GRID (x64 off, as bench.py runs; the matvec gate is 2x
+# the larger of it and REF_HEADLINE_MATVECS), and its own DYNAMIC solve's
+# matvecs and method trace (clock-dependent, printed, not held):
+# tools/torch_smoke_refs.py --phase dynamic
+REF_DYNAMIC_GD_MATVECS = 2275
+REF_DYNAMIC = (1773, "GJGGJJGJJGJGJ")
 
 
 def laplacian27_grid(m):
@@ -2334,6 +2381,483 @@ def normal_phases(ptt, mods, seed):
     return {"solves": runs, "seconds": secs}
 
 
+def _headline_eigsh_kwargs(dev, seed, grid):
+    """``bench.py``'s headline as an ``eigsh`` call on the stencil: k=10
+    smallest, tol 1e-5, block 2, basis 24, restart 14, locking off, the
+    shift-aware Jacobi, ``v0`` from ``default_rng(seed)``."""
+    import numpy as np
+
+    v0 = np.random.default_rng(seed).normal(size=(grid ** 3, 2))
+    return dict(k=10, which="SA", tol=1e-5, ncv=24, maxBlockSize=2,
+                minRestartSize=14, locking=False, jacobi=True,
+                maxMatvecs=16000, v0=v0.astype(np.float32),
+                return_stats=True, device=dev)
+
+
+def _true_stencil_residual(grid, w, X, dev):
+    """The largest ||A x - lambda x|| of the returned pairs, in f64 with
+    the stencil's plain version."""
+    import torch
+    from primme_tpu_torch.ops import stencil3d as ST
+
+    Xt = torch.as_tensor(X, device=dev).to(torch.float64)
+    wt = torch.as_tensor(w, device=dev).to(torch.float64)
+    R = ST.matmat_reference(Xt, grid, grid, grid) - Xt * wt[None, :]
+    return float(torch.linalg.vector_norm(R, dim=0).max())
+
+
+def dynamic_phase(ptt, mods, dev, seed):
+    """31: ``eigsh(method="DYNAMIC")`` on the headline (one untimed solve,
+    then one timed), gated; the method trace and each method's segments
+    and mean digits a second printed."""
+    import numpy as np
+    import torch
+
+    grid = GRID
+    lam, anorm = stencil_eigenvalues(grid, 10)
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    kw = _headline_eigsh_kwargs(dev, seed, grid)
+    ref = 2 * max(REF_HEADLINE_MATVECS, REF_DYNAMIC_GD_MATVECS)
+    runs = []
+    for tag in ("untimed", "timed"):
+        torch.cuda.synchronize()
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        w, X, st = ptt.eigsh(A, method="DYNAMIC", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(mods)
+        mv = st["num_matvecs"]
+        err = float(np.abs(np.sort(w) - lam).max())
+        true_res = _true_stencil_residual(grid, w, X, dev)
+        trace = st["method_trace"]
+        per = {}
+        for m in ("gd", "jd"):
+            segs = [r for r in st["dynamic_segments"] if r["method"] == m]
+            per[m] = {"segments": len(segs),
+                      "seconds": sum(r["seconds"] for r in segs),
+                      "digits": sum(r["digits"] for r in segs),
+                      "matvecs": sum(r["matvecs"] for r in segs),
+                      "outer": sum(r["outer"] for r in segs),
+                      "mean_digits_per_s": (float(np.mean(
+                          [r["digits"] / r["seconds"] for r in segs]))
+                          if segs else 0.0)}
+        run = {"wall_s": wall, "num_matvecs": mv,
+               "num_outer_iterations": st["num_outer_iterations"],
+               "num_inner_iterations": st["num_inner_iterations"],
+               "num_probe_matvecs": st["num_probe_matvecs"],
+               "eval_err": err, "max_true_residual": true_res,
+               "probe_verified": st["probe_verified"],
+               "probe_exhausted": st["probe_exhausted"],
+               "method_trace": "".join("G" if t == "gd" else "J"
+                                       for t in trace),
+               "per_method": per, "launches": launches}
+        runs.append(run)
+        print(f"[dynamic {tag}] DYNAMIC headline {grid}^3: solve "
+              f"{wall:.4f} s  num_matvecs {mv} (limit {ref})  outer "
+              f"{st['num_outer_iterations']}  inner "
+              f"{st['num_inner_iterations']}  probe "
+              f"{st['num_probe_matvecs']} matvecs  max|eval-analytic| "
+              f"{err:.3e}  max true residual {true_res:.3e} (limit "
+              f"{1.5e-5 * anorm:.3e})  probe verified "
+              f"{st['probe_verified']} exhausted {st['probe_exhausted']}",
+              flush=True)
+        print(f"[dynamic {tag}] method trace {run['method_trace']} "
+              f"(G = GD_Olsen_plusK, J = JDQMR_ETol, 10 outer "
+              f"iterations a segment; the JAX package's on the CPU "
+              f"{REF_DYNAMIC[1]}, {REF_DYNAMIC[0]} matvecs); " + "; ".join(
+                  f"{m}: {v['segments']} segments, {v['outer']} outer, "
+                  f"{v['matvecs']} matvecs, {v['seconds']:.4f} s, "
+                  f"{v['digits']:.3f} digits, mean "
+                  f"{v['mean_digits_per_s']:.3f} digits/s"
+                  for m, v in per.items()) + f"; launches "
+              f"{ {e: c for e, c in launches.items() if c} }", flush=True)
+        check(err <= 1e-4, f"dynamic {tag}: eigenvalue error {err:.3e}")
+        check(true_res <= 1.5e-5 * anorm,
+              f"dynamic {tag}: true residual {true_res:.3e} > 1.5e-5*||A||")
+        check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+              f"dynamic {tag}: spectrum verification did not complete")
+        check(mv <= ref, f"dynamic {tag}: {mv} matvecs > {ref}")
+        check("gd" in trace and "jd" in trace,
+              f"dynamic {tag}: the trace {trace} misses a method")
+        # every QMR step and GD expansion applies the preconditioner; the
+        # probe's Chebyshev filter and power steps (one column, no
+        # preconditioner) do not
+        check(launches["stencil3d_f32"] >= mv / 2
+              and launches["jacobi_shifted_f32"]
+              >= (mv - st["num_probe_matvecs"]) / 2,
+              f"dynamic {tag}: the kernels did not serve the solve: "
+              f"{launches}")
+        others = {e: c for e, c in launches.items()
+                  if e not in ("stencil3d_f32", "jacobi_shifted_f32")}
+        check(not any(others.values()),
+              f"dynamic {tag}: another kernel launched: {others}")
+    return {"untimed": runs[0], "timed": runs[1],
+            "wall_s": runs[1]["wall_s"], "launches": runs[1]["launches"],
+            "ref_limit": ref}
+
+
+def _headline_solve_eigs(ptt, A, K, v0, **kw):
+    """The headline through ``solve_eigs`` (JDQMR_ETol, as phase 9)."""
+    import torch
+    from primme_tpu_torch.core.inner import jdqmr_inner_solve
+    from primme_tpu_torch.core.solver import solve_eigs
+
+    n = A.shape[0]
+    p = ptt.PrimmeParams(n=n, num_evals=10, eps=1e-5, max_basis_size=24,
+                         max_block_size=2, min_restart_size=14,
+                         max_matvecs=16000, locking=0)
+    p = ptt.set_method(ptt.Method.JDQMR_ETol, p, has_precond=True)
+    return solve_eigs(A, p, K=K, v0=v0, dtype=torch.float32,
+                      inner_solve=jdqmr_inner_solve, **kw)
+
+
+def segmented_phase(ptt, mods, dev, seed):
+    """32: the headline twice unsegmented, then with ``segment_outer=10``:
+    run to run bit for bit (the card's path is deterministic), then the
+    segmented solve bit for bit against the unsegmented one."""
+    import numpy as np
+    import torch
+
+    grid = GRID
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    K = ptt.JacobiPrecond(A.diagonal())
+    v0 = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(grid ** 3, 2)), dtype=torch.float32).to(dev)
+    runs = {}
+    for tag, kw in (("unsegmented 1", {}), ("unsegmented 2", {}),
+                    ("segment_outer=10", {"segment_outer": 10})):
+        torch.cuda.synchronize()
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        r = _headline_solve_eigs(ptt, A, K, v0, **kw)
+        torch.cuda.synchronize()
+        runs[tag] = (r, time.perf_counter() - t0, read_counts(mods))
+        print(f"[segmented] {tag}: {runs[tag][1]:.4f} s  num_matvecs "
+              f"{r.stats.num_matvecs}  outer {r.stats.num_outer_iterations}"
+              f"  inner {r.stats.num_inner_iterations}", flush=True)
+    (r1, _, _), (r2, _, _), (rs, _, ls) = runs.values()
+
+    def same(a, b):
+        return (_bitwise(a.evals, b.evals) and _bitwise(a.resnorms,
+                                                        b.resnorms)
+                and _bitwise(a.evecs, b.evecs)
+                and a.stats.num_matvecs == b.stats.num_matvecs
+                and a.stats.num_inner_iterations
+                == b.stats.num_inner_iterations)
+
+    deterministic = same(r1, r2)
+    seg_same = same(r1, rs)
+    print(f"[segmented] run to run bit for bit: {deterministic}; segmented "
+          f"against unsegmented bit for bit: {seg_same}", flush=True)
+    if deterministic:
+        check(seg_same, "segmented: the segmented headline differs from "
+              "the unsegmented one")
+    else:
+        dv = float(torch.abs(rs.evals - r1.evals).max())
+        print(f"[segmented] the card's path is not deterministic run to "
+              f"run; segmented values within {dv:.3e}", flush=True)
+        check(rs.stats.num_matvecs == r1.stats.num_matvecs and dv <= 1e-6,
+              "segmented: matvecs or values differ")
+    return {"deterministic": deterministic, "bitwise": seg_same,
+            "num_matvecs": rs.stats.num_matvecs, "launches": ls,
+            "seconds": {tag: v[1] for tag, v in runs.items()}}
+
+
+def events_phase(ptt, mods, dev, seed):
+    """33: the headline through ``eigsh`` with ``return_history=True``,
+    then with ``monitor_inner=True`` and a counting monitor, each gated on
+    the event count; then the solve time with no monitor, with the
+    history, with the inner replay and with the profiler scopes forced
+    open (min of 3 each, interleaved)."""
+    import numpy as np
+    import torch
+    from primme_tpu_torch.core import linalg
+
+    grid = GRID
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    kw = dict(_headline_eigsh_kwargs(dev, seed, grid), method="JDQMR_ETol")
+    _, _, st = ptt.eigsh(A, return_history=True, **kw)
+    h = st["hist"]
+    nev = len(h["event"])
+    lens = {key: len(v) for key, v in h.items() if key != "inner"}
+    outer = sorted(set(int(x) for x in h["num_outer"]))
+    ninner = int(np.sum(h["num_inner"]))
+    print(f"[events] history: {nev} events for {st['num_outer_iterations']}"
+          f" outer iterations and {st['num_restarts']} restarts; kinds "
+          f"{sorted(set(int(e) for e in h['event']))}; sum(num_inner) "
+          f"{ninner} (stat {st['num_inner_iterations']})", flush=True)
+    check(set(lens.values()) == {nev}, f"events: history lengths {lens}")
+    check(outer == list(range(st["num_outer_iterations"] + 1))
+          or outer == list(range(st["num_outer_iterations"])),
+          "events: an outer iteration without its event")
+    check(ninner == st["num_inner_iterations"],
+          f"events: sum(num_inner) {ninner} != "
+          f"{st['num_inner_iterations']}")
+
+    count = {"events": 0, "inner": 0, "rows": 0}
+
+    def mon(event, num_outer, num_matvecs, num_locked, num_converged,
+            basis_size, num_inner, hvals, resnorms, inner_trace=None):
+        count["events"] += 1
+        count["inner"] += int(num_inner)
+        if inner_trace is not None:
+            count["rows"] += min(int(num_inner), inner_trace.shape[0])
+
+    _, _, st2 = ptt.eigsh(A, monitor=mon, monitor_inner=True, **kw)
+    print(f"[events] monitor_inner: {count['events']} events, "
+          f"sum(num_inner) {count['inner']} (stat "
+          f"{st2['num_inner_iterations']}), {count['rows']} replayed rows",
+          flush=True)
+    check(count["inner"] == st2["num_inner_iterations"],
+          "events: the monitor's num_inner does not sum to the stat")
+    check(count["events"] >= st2["num_outer_iterations"],
+          "events: fewer events than outer iterations")
+    check(count["rows"] > 0, "events: no inner rows replayed")
+
+    # the phase scopes open only while a profiler records; "scopes on"
+    # forces them open (as if one did), the cost every solve paid when
+    # they were unconditional
+    enabled = torch.autograd._profiler_enabled
+    variants = {"no monitor": {}, "return_history": {"return_history": True},
+                "monitor_inner": {"monitor": mon, "monitor_inner": True},
+                "scopes on": {}}
+    times = {name: [] for name in variants}
+    for _ in range(3):
+        for name, extra in variants.items():
+            if name == "scopes on":
+                torch.autograd._profiler_enabled = lambda: True
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ptt.eigsh(A, **kw, **extra)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+            finally:
+                torch.autograd._profiler_enabled = enabled
+    best = {name: min(v) for name, v in times.items()}
+    print("[events] solve seconds, min of 3 (each run): " + "; ".join(
+        f"{name} {best[name]:.4f} ({', '.join(f'{t:.4f}' for t in v)})"
+        for name, v in times.items()), flush=True)
+    paired = [on / off for on, off in zip(times["scopes on"],
+                                          times["no monitor"])]
+    print("[events] scopes on / no monitor, paired by round: "
+          + ", ".join(f"{r:.4f}" for r in paired), flush=True)
+    record = linalg.record_function
+    n_scope = {"n": 0}
+
+    def counting(name):
+        n_scope["n"] += 1
+        return record(name)
+
+    linalg.record_function = counting
+    torch.autograd._profiler_enabled = lambda: True
+    try:
+        ptt.eigsh(A, **kw)
+    finally:
+        linalg.record_function = record
+        torch.autograd._profiler_enabled = enabled
+    per = {}
+    for tag, fn in (("open", record), ("gated", linalg.scope)):
+        t0 = time.perf_counter()
+        for _ in range(100000):
+            with fn("pt_matvec"):
+                pass
+        per[tag] = (time.perf_counter() - t0) / 100000
+    print(f"[events] one scope costs {per['open'] * 1e6:.3f} us of host "
+          f"time opened and {per['gated'] * 1e6:.3f} us gated off (no "
+          f"profiler running); the headline enters {n_scope['n']} scopes: "
+          f"{n_scope['n'] * per['open']:.4f} s opened, "
+          f"{n_scope['n'] * per['gated']:.4f} s gated, a solve", flush=True)
+    return {"num_events": nev, "history_lengths": lens,
+            "num_outer_iterations": st["num_outer_iterations"],
+            "monitor_inner_events": count["events"],
+            "monitor_inner_rows": count["rows"],
+            "times_s": times, "min_s": best, "scopes_on_ratio": paired,
+            "scopes_per_solve": n_scope["n"], "scope_cost_s": per}
+
+
+HARNESS_GRID = 32
+
+
+def _laplacian7(m, seed):
+    """The 7-point Dirichlet Laplacian of the m^3 grid in a random node
+    order (scipy CSR, f64)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    T = sp.diags([-np.ones(m - 1), 2 * np.ones(m), -np.ones(m - 1)],
+                 [-1, 0, 1])
+    I = sp.identity(m)
+    A = (sp.kron(sp.kron(T, I), I) + sp.kron(sp.kron(I, T), I)
+         + sp.kron(sp.kron(I, I), T)).tocsr()
+    perm = np.random.default_rng(seed).permutation(m ** 3)
+    return A[perm][:, perm].tocsr()
+
+
+def harness_phase(ptt, mods, dev, seed):
+    """34: the config-file driver on the card: a config with no method
+    line (DEFAULT_METHOD, so DYNAMIC) and the Jacobi PrecChoice on the
+    7-point Laplacian at ``HARNESS_GRID``^3 in random order, saved with
+    ``--save-x`` and checked against the saved file; then an svds config
+    (``primme_svds_hybrid``) on a small rectangular matrix."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import scipy.io as sio
+    import scipy.sparse as sp
+    from primme_tpu_torch import driver
+
+    m = HARNESS_GRID
+    lam, _ = stencil_eigenvalues(m, 6)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    out = {}
+    try:
+        sio.mmwrite(os.path.join(tmp, "lap7.mtx"), _laplacian7(m, seed))
+        base = ["driver.matrixFile    = lap7.mtx",
+                "driver.PrecChoice    = jacobi",
+                "primme.numEvals = 6", "primme.eps = 1e-10",
+                "primme.target = primme_smallest"]
+        cfg = os.path.join(tmp, "test_lap7")
+        with open(cfg, "w") as f:
+            f.write("\n".join(base) + "\n")
+        save = os.path.join(tmp, "sol_lap7")
+        where = ["--base-dir", tmp, "--device", dev.type]
+        for tag, args in (("save", [cfg, "--save-x", save] + where),
+                          ("check", None)):
+            if tag == "check":
+                shutil.copy(save, save + "_double")
+                cfg2 = os.path.join(tmp, "test_lap7_check")
+                with open(cfg2, "w") as f:
+                    f.write("\n".join(base + [
+                        "driver.checkXFile    = sol_lap7"]) + "\n")
+                args = [cfg2] + where
+            buf = io.StringIO()
+            reset_counts(*mods)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = driver.main(args)
+            wall = time.perf_counter() - t0
+            launches = read_counts(mods)
+            text = buf.getvalue()
+            mv = int(re.search(r"Matvecs: (\d+)", text).group(1))
+            evals = np.sort([float(x) for x in re.findall(
+                r"Eval\[\d+\]:\s+(\S+)", text)])
+            err = float(np.abs(evals - lam).max())
+            print(f"[harness {tag}] driver rc {rc} in {wall:.3f} s: "
+                  f"{mv} matvecs, max|eval-analytic| {err:.3e}, launches "
+                  f"{ {e: c for e, c in launches.items() if c} }; its "
+                  f"report:", flush=True)
+            print(text.rstrip(), flush=True)
+            check(rc == 0 and "solution check: OK" in text,
+                  f"harness {tag}: the solution check failed")
+            check(err <= 1e-8, f"harness {tag}: eigenvalue error {err:.3e}")
+            check(launches["windowed_ell_spmm_f64"] >= mv / 2,
+                  f"harness {tag}: {launches['windowed_ell_spmm_f64']} "
+                  f"sliced-ELL f64 launches for {mv} matvecs")
+            out[tag] = {"rc": rc, "wall_s": wall, "num_matvecs": mv,
+                        "eval_err": err, "launches": launches}
+        B = sp.random(40, 25, density=0.3, random_state=7, format="csr")
+        sio.mmwrite(os.path.join(tmp, "rectsmall.mtx"), B)
+        cfg3 = os.path.join(tmp, "test_svds")
+        with open(cfg3, "w") as f:
+            f.write("\n".join([
+                "driver.matrixFile    = rectsmall.mtx",
+                "driver.PrecChoice    = noprecond",
+                "primme_svds.numSvals = 2", "primme_svds.eps = 1e-8",
+                "primme_svds.target = primme_svds_largest",
+                "method = primme_svds_hybrid"]) + "\n")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = driver.main([cfg3] + where)
+        text = buf.getvalue()
+        svals = np.sort([float(x) for x in re.findall(
+            r"Sval\[\d+\]:\s+(\S+)", text)])
+        ref = np.sort(np.linalg.svd(B.toarray(), compute_uv=False)[:2])
+        print(f"[harness svds] driver rc {rc}: values {svals} (numpy "
+              f"{ref})", flush=True)
+        check(rc == 0 and "solution check: OK" in text
+              and np.abs(svals - ref).max() <= 1e-7 * ref[-1],
+              "harness svds: the solution check failed")
+        out["svds"] = {"rc": rc, "svals": svals.tolist()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def profile_phase(ptt, mods, dev):
+    """35: ``eigsh(profile="pt_", time_breakdown=True)`` on phase 10's
+    solve (GD_Olsen_plusK + Jacobi, the 16^3 stencil, k=4, tol 1e-4): the
+    measured split of the traced solve's device time."""
+    import numpy as np
+    import torch
+
+    grid = GD_GRID
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    v0 = np.random.default_rng(0).normal(size=(grid ** 3, 1))
+    got = []
+
+    def mon(event, *args, msg=None, time=None, **kw):
+        if int(event) == 7:
+            got.append((msg, time))
+
+    t0 = time.perf_counter()
+    w, _, st = ptt.eigsh(A, k=4, which="SA", tol=1e-4, jacobi=True,
+                         method="GD_Olsen_plusK", v0=v0.astype(np.float32),
+                         return_stats=True, time_breakdown=True,
+                         profile="pt_", monitor=mon, device=dev)
+    wall = time.perf_counter() - t0
+    keys = ("time_matvec", "time_precond", "time_ortho", "time_dense",
+            "time_other")
+    nan = float("nan")
+    parts = sum(st[k] for k in keys)
+    busy = st.get("device_busy", 0.0)
+    print(f"[profile] eigsh(profile) {wall:.3f} s (the solve, then it "
+          f"again untimed and traced); time_source {st['time_source']}; "
+          + "; ".join(f"{k} {st[k] * 1e3:.3f} ms" for k in keys)
+          + f"; sum {parts * 1e3:.3f} ms against device busy "
+          f"{busy * 1e3:.3f} ms; traced wall "
+          f"{st.get('profiled_wall', nan):.3f} s, device idle "
+          f"{st.get('device_idle', nan):.3f} s; post-processing "
+          f"{st.get('profile_post_seconds', nan):.3f} s; events delivered "
+          f"{got}", flush=True)
+    check(st["time_source"] == "measured",
+          f"profile: time_source {st['time_source']}")
+    check(all(st[k] > 0 for k in keys[:4]),
+          "profile: a phase scope measured no device time")
+    check(abs(parts - busy) <= 0.1 * busy and st["time_other"] >= 0,
+          f"profile: the split {parts:.6f} s against busy {busy:.6f} s")
+    kern = st["device_kernels"]
+    sten = sum(v for k, v in kern.items() if "stencil3d_kernel" in k)
+    jac = sum(v for k, v in kern.items() if "jacobi_kernel" in k)
+    print(f"[profile] the stencil kernels {sten * 1e3:.3f} ms, the Jacobi "
+          f"kernels {jac * 1e3:.3f} ms; the largest device items: "
+          + "; ".join(f"{k[:60]} {v * 1e3:.3f} ms"
+                      for k, v in list(kern.items())[:8]), flush=True)
+    check(sten > 0 and st["time_matvec"] >= 0.99 * sten,
+          f"profile: pt_matvec {st['time_matvec']:.6f} s does not hold the "
+          f"stencil kernels' {sten:.6f} s")
+    check(jac > 0 and st["time_precond"] >= 0.99 * jac,
+          f"profile: pt_precond {st['time_precond']:.6f} s does not hold "
+          f"the Jacobi kernels' {jac:.6f} s")
+    check(sorted(m for m, _ in got) == sorted(st["profile"]),
+          f"profile: events {got} against stats {st['profile']}")
+    return {"wall_s": wall, "split_s": {k: st[k] for k in keys},
+            "device_busy_s": busy, "device_idle_s": st.get("device_idle"),
+            "profiled_wall_s": st.get("profiled_wall"),
+            "post_processing_s": st.get("profile_post_seconds"),
+            "profile": st["profile"], "num_matvecs": st["num_matvecs"],
+            "stencil_s": sten, "jacobi_s": jac}
+
+
 def rect_kernel_record(name, replaces, run, per,
                        shape=f"grounded_incidence({SVD_GRID}) A layout, k=2"):
     """The record of a sliced-ELL entry point on the rectangular layouts
@@ -2568,6 +3092,23 @@ def main():
     # --- 28-30. eigs on normal operators ----------------------------------
     normal = normal_phases(ptt, mods, args.seed)
 
+    # --- 31. DYNAMIC on the headline (eigsh's default method) -------------
+    t0 = time.perf_counter()
+    dynamic = dynamic_phase(ptt, mods, dev, args.seed)
+
+    # --- 32. the segmented headline against the unsegmented one -----------
+    segmented = segmented_phase(ptt, mods, dev, args.seed)
+
+    # --- 33. the event stream and its cost ---------------------------------
+    events = events_phase(ptt, mods, dev, args.seed)
+
+    # --- 34. the config-file harness and driver ----------------------------
+    harness = harness_phase(ptt, mods, dev, args.seed)
+
+    # --- 35. the measured profile ------------------------------------------
+    profile = profile_phase(ptt, mods, dev)
+    print(f"[phases 31-35] {time.perf_counter() - t0:.1f} s", flush=True)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -2601,7 +3142,8 @@ def main():
         "svds": svd["svds"], "svds_seconds": svd["seconds"],
         "complex": {"solves": cplx["solves"], "chooser": cplx["chooser"],
                     "seconds": cplx["seconds"]},
-        "normal": normal,
+        "normal": normal, "dynamic": dynamic, "segmented": segmented,
+        "events": events, "harness": harness, "profile": profile,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -2623,7 +3165,11 @@ def main():
              **{f"complex {name}": cplx["solves"][name]["launches"]
                 for name in ("complex64", "complex128", "ell", "svds")},
              **{f"normal {name}": normal["solves"][name]["launches"]
-                for name in NORMAL_SOLVES}}
+                for name in NORMAL_SOLVES},
+             "dynamic": dynamic["launches"],
+             "segmented": segmented["launches"],
+             "harness save": harness["save"]["launches"],
+             "harness check": harness["check"]["launches"]}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

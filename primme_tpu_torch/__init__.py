@@ -44,6 +44,14 @@ preset whose inner solve is a projected block GMRES), through the same
 DIA and sliced-ELL kernels: a real matrix on the real view of the
 complex basis, a complex one on the complex entry points.
 
+``eigsh(method="DYNAMIC")`` (the reference's default method) switches
+between GD+k and JDQMR by measurement (:mod:`.core.dynamic`);
+``segment_outer`` resumes a solve from the host every N outer iterations;
+``monitor``/``return_history``/``printLevel`` give the solver's event
+stream and ``profile``/``time_breakdown`` its device time by phase
+(:mod:`.profiling`); ``python -m primme_tpu_torch.driver CONFIG`` runs the
+reference's config files (:mod:`.testharness`).
+
 Complex Hermitian input (complex64 and complex128) runs as the real does:
 the DIA and sliced-ELL kernels have complex entry points (the adjoint
 ``A^H`` conjugating), ``eigsh`` returns real eigenvalues and complex

@@ -13,8 +13,12 @@ complex64 or complex128 (the operators are wrapped in a ``CastOperator``
 when it differs from their own; a complex one over a real operator is
 refused), the Jacobi preconditioner (``jacobi=True``, or an ``OPinv`` that is
 a port operator), ``raise_for_unconverged`` and the probe-exhaustion
-error. Arguments of the reference that the port does not serve yet raise
-``NotImplementedError``.
+error, the reference's default method (DYNAMIC: measured GD+k/JDQMR
+switching, :func:`~primme_tpu_torch.core.dynamic.solve_eigs_dynamic`),
+``segment_outer``, the event stream (``monitor``, ``return_history``,
+``printLevel``, ``monitor_inner``) and the profile (``profile``,
+``time_breakdown``). Arguments of the reference that the port does not
+serve yet raise ``NotImplementedError``: ``mesh``, a half-precision basis.
 
 ``eigs`` is the port of the reference's ``eigs``: eigenpairs of a normal
 (non-Hermitian) operator, complex Ritz values, with its whole surface.
@@ -100,20 +104,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         raise NotImplementedError(
             "Minv is not supported (reference parity: primme.pyx:350); "
             "pass OPinv for a preconditioner")
-    for name, val in (("mesh", mesh), ("monitor", monitor),
-                      ("profile", profile)):
-        if val is not None:
-            raise _unported(name)
-    if return_history:
-        raise _unported("return_history")
-    if time_breakdown:
-        raise _unported("time_breakdown")
-    if printLevel:
-        raise _unported(f"printLevel={printLevel!r} (the monitor's reports)")
-    if segment_outer is not None:
-        raise _unported("segment_outer")
-    if monitor_inner:
-        raise _unported("monitor_inner")
+    if mesh is not None:
+        raise _unported("mesh")
     wd = _working_dtype(dtype)
     device = default_device(device, "eigsh")
 
@@ -199,8 +191,6 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         p = p.with_(projection=projection)
     p = set_method(meth, p, has_precond=K is not None,
                    has_mass=Mop is not None)
-    if p.dynamic_method_switch:
-        raise _unported("DYNAMIC method switching")
     if maxInnerIterations is not None:
         p = p.with_(max_inner_iterations=int(maxInnerIterations))
     for label_, val_ in primme_kwargs.items():
@@ -239,15 +229,60 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             device=device, dtype=Aop.dtype)
         p = prm.resolve_defaults(p.with_(num_ortho_const=int(ocn.shape[1])))
 
-    inner = None
-    if p.max_inner_iterations != 0:
-        from .core.inner import jdqmr_inner_solve
-        inner = jdqmr_inner_solve
+    history: dict = {"num_matvecs": [], "num_outer": [], "num_locked": [],
+                     "num_converged": [], "basis_size": [], "event": [],
+                     "num_inner": [], "hvals": [], "resnorms": [],
+                     "inner": []}
+    mon = monitor
+    if mon is None and printLevel >= 2:
+        mon = _text_monitor
+    if return_history and mon is None:
+        def mon(event, num_outer, num_matvecs, num_locked, num_converged,
+                basis_size, num_inner, hvals, resnorms, inner_trace=None):
+            history["event"].append(int(event))
+            history["num_outer"].append(int(num_outer))
+            history["num_matvecs"].append(int(num_matvecs))
+            history["num_locked"].append(int(num_locked))
+            history["num_converged"].append(int(num_converged))
+            history["basis_size"].append(int(basis_size))
+            history["num_inner"].append(int(num_inner))
+            history["hvals"].append(np.asarray(hvals))
+            history["resnorms"].append(np.asarray(resnorms))
+            if inner_trace is not None:
+                tr = np.asarray(inner_trace)
+                history["inner"].append(tr[:min(int(num_inner),
+                                                tr.shape[0])])
+
+    segments: list = []
+
+    def _run_solve(mon_=mon):
+        if p.dynamic_method_switch:
+            from .core.dynamic import solve_eigs_dynamic
+            segments.clear()
+            return solve_eigs_dynamic(
+                Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc, dtype=wd,
+                device=device, has_precond=K is not None, monitor=mon_,
+                convtest=convtest, segment_log=segments)
+        inner = None
+        if p.max_inner_iterations != 0:
+            from .core.inner import jdqmr_inner_solve
+            inner = jdqmr_inner_solve
+        itcap = 0
+        # printLevel >= 4 reports inner iterations, as the reference's
+        # default monitor does at primme_event_inner_iteration
+        if (monitor_inner or printLevel >= 4) and mon_ is not None \
+                and inner is not None:
+            # a bounded buffer; past the cap the last row is overwritten
+            # (the count stays exact through num_inner)
+            mi = p.max_inner_iterations
+            itcap = min(mi, 128) if mi > 0 else 128
+        return solve_eigs(Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc,
+                          inner_solve=inner, dtype=wd, device=device,
+                          convtest=convtest, monitor=mon_,
+                          segment_outer=segment_outer, inner_trace_cap=itcap)
 
     t0 = time.perf_counter()
-    res = solve_eigs(Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc,
-                     inner_solve=inner, dtype=wd, device=device,
-                     convtest=convtest)
+    res = _run_solve()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
@@ -275,6 +310,31 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     # process and broadcast (the reference's numBroadcast)
     stats["num_broadcast"] = 0
     stats["volume_broadcast"] = 0
+    if p.dynamic_method_switch:
+        # the measured segments of the method switch: their methods and,
+        # each, its seconds, digits gained, outer iterations and matvecs
+        stats["method_trace"] = [r["method"] for r in segments]
+        stats["dynamic_segments"] = list(segments)
+    if (time_breakdown and return_stats) or profile:
+        # the measured breakdown re-runs the solve once under the profiler
+        # (without the user's monitor, which would see every event twice);
+        # where the trace holds no device time, as on the CPU, the
+        # estimate of profiling.time_breakdown stands in, labelled so
+        from .profiling import measure_breakdown, time_breakdown as _tb
+        measured = measure_breakdown(lambda: _run_solve(None), device=device)
+        if not measured:
+            measured = _tb(Aop, K, stats, mmax=p.max_basis_size,
+                           blk=p.max_block_size,
+                           cwin=min(p.max_basis_size, k + p.max_block_size),
+                           dtype=(wd or Aop.dtype), n=n)
+            measured["time_source"] = "estimated"
+        if time_breakdown and return_stats:
+            stats.update(measured)
+    if profile:
+        _deliver_profile(profile, measured, stats, mon)
+    if return_history:
+        stats["hist"] = {k_: (np.asarray(v_) if v_ and not isinstance(
+            v_[0], np.ndarray) else v_) for k_, v_ in history.items()}
     out = [res.evals.cpu().numpy()]
     if return_eigenvectors:
         ev = res.evecs.cpu().numpy()
@@ -284,6 +344,75 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     if return_stats:
         out.append(stats)
     return tuple(out) if len(out) > 1 else out[0]
+
+
+# event taxonomy of the reference's primme_event enum: 0 outer_iteration,
+# 1 inner_iteration, 2 restart, 3 reset, 4 converged, 5 locked (7 profile)
+_EV = {0: "OUT", 1: "INN", 2: "RST", 3: "RES", 4: "CNV", 5: "LCK"}
+
+
+def _text_monitor(event, num_outer, num_matvecs, num_locked, num_converged,
+                  basis_size, num_inner, hvals, resnorms, inner_trace=None,
+                  msg=None, time=None):
+    """The ``printLevel >= 2`` monitor: the reference's text lines (its
+    ``default_monitor``), one per event, with per-inner-iteration ``INN``
+    lines replayed from the recorded buffer and ``PRF`` lines for profile
+    events."""
+    if int(event) == 7:   # primme_event_profile
+        print(f"PRF {msg} {float(time):.6f}s")
+        return
+    if inner_trace is not None and int(num_inner) > 0:
+        tr = np.asarray(inner_trace)
+        for i in range(min(int(num_inner), tr.shape[0])):
+            al = tr[i, :, 2] > 0
+            if not al.any():
+                continue
+            j = int(np.argmax(al))
+            print(f"INN it={int(num_outer):5d} qmr={i:3d} "
+                  f"alive={int(al.sum())} "
+                  f"val[0]={tr[i, j, 0]:+.10e} "
+                  f"eres[0]={tr[i, j, 1]:.3e}")
+    ev = _EV.get(int(event), "?")
+    print(f"{ev} it={int(num_outer):5d} mv={int(num_matvecs):6d} "
+          f"lock={int(num_locked):3d} conv={int(num_converged):3d} "
+          f"b={int(basis_size):3d} inner={int(num_inner):4d} "
+          f"val[0]={float(np.asarray(hvals)[0]):+.10e} "
+          f"res[0]={float(np.asarray(resnorms)[0]):.3e}")
+
+
+def _deliver_profile(profile: str, measured: dict, stats: dict, mon):
+    """``primme.profile``: the regex selects phase scopes; each match goes
+    into ``stats["profile"]`` with its time and, to a monitor whose
+    signature takes ``msg`` and ``time``, as a profile event (7). The
+    signature decides, as in the reference, not a caught TypeError: an
+    error inside the monitor propagates."""
+    import inspect
+    import re
+
+    pat = re.compile(profile)
+    scope_key = {"pt_matvec": "time_matvec", "pt_precond": "time_precond",
+                 "pt_ortho": "time_ortho", "pt_dense": "time_dense",
+                 "pt_other": "time_other"}
+    prof = {sc: float(measured.get(tk, 0.0))
+            for sc, tk in scope_key.items() if pat.search(sc)}
+    stats["profile"] = prof
+    stats["time_source"] = measured.get("time_source", "measured")
+    if mon is None:
+        return
+    try:
+        sig = inspect.signature(mon)
+        takes_kw = all(
+            kw in sig.parameters
+            or any(pp.kind is inspect.Parameter.VAR_KEYWORD
+                   for pp in sig.parameters.values())
+            for kw in ("msg", "time"))
+    except (TypeError, ValueError):
+        takes_kw = True   # an uninspectable callable: attempt it
+    if takes_kw:
+        z = np.zeros(0)
+        for name, secs in prof.items():
+            mon(7, 0, stats.get("num_matvecs", 0), 0, 0, 0, 0, z, z,
+                msg=name, time=secs)
 
 
 _EIGS_WHICH = {"LM": Target.largest_abs, "SM": Target.closest_abs,
@@ -320,9 +449,10 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
     complex block's two parts in one product. ``device`` is where the
     solve runs: the card when it is None, which raises if there is none.
     Returns numpy arrays: complex values, and vectors and stats when
-    asked for."""
-    if segment_outer is not None:
-        raise _unported("segment_outer")
+    asked for. ``segment_outer`` re-enters the solver's loop every
+    that-many outer iterations (:func:`~.core.solver.solve_eigs`).
+    ``method="DYNAMIC"`` runs the DYNAMIC preset's parameters through
+    ``solve_eigs`` without switching, as the reference's ``eigs`` does."""
     device = default_device(device, "eigs")
     Aop = aslinearoperator(A).to(device)
     n = Aop.shape[0]
@@ -353,8 +483,6 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
     if isinstance(meth, str):
         meth = Method[meth.replace("PRIMME_", "")]
     p = set_method(meth, p, has_precond=K is not None)
-    if p.dynamic_method_switch:
-        raise _unported("DYNAMIC method switching")
     if maxInnerIterations is not None:
         p = p.with_(max_inner_iterations=int(maxInnerIterations))
     inner = None
@@ -381,7 +509,8 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
 
     t0 = time.perf_counter()
     res = solve_eigs(Aop, p, K=K, v0=v0t, ortho_const=oc, dtype=cdt,
-                     inner_solve=inner, device=device)
+                     inner_solve=inner, device=device,
+                     segment_outer=segment_outer)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from ..params import ConvTest, Target
-from .linalg import bcomb, gram, real_dtype, machine_eps, prefix_project
+from .linalg import (bcomb, gram, real_dtype, machine_eps, prefix_project,
+                     scoped_mv)
 
 
 def _dots(X, Y):
@@ -44,7 +45,11 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     ``num_locked``, ``evecs`` and ``stats`` (``num_outer_iterations``,
     ``anorm_estimate``, ``num_matvecs``).
 
-    Returns ``(sol, n_inner_its, n_matvec_cols, n_precond_cols)``.
+    Returns ``(sol, n_inner_its, n_matvec_cols, n_precond_cols,
+    trace)``: ``trace`` is None, or with ``cfg.inner_trace_cap > 0`` the
+    ``[cap, blk, 3]`` device buffer of each step's (value, eigenresidual
+    estimate, alive) row, the last slot overwritten past the cap (the
+    reference's replay of ``primme_event_inner_iteration``).
     """
     from ..operators import apply_precond
 
@@ -81,8 +86,8 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         skew_lu = torch.linalg.lu_factor(Mq)
 
     def apply_A_proj(D):
-        W = A.matmat(D)
-        BD = B.matmat(D) if B is not None else D
+        W = scoped_mv(A, D)
+        BD = scoped_mv(B, D) if B is not None else D
         W = W - BD * shift[None, :].to(dtype)
         if cfg.leftQ and has_lockedQ:
             W = prefix_project(BQ, Q, W, nlockq)
@@ -161,6 +166,9 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     eres_prev = zr()
     its = nmv = nprec = 0
     n_alive = int(alive.sum())
+    tcap = cfg.inner_trace_cap
+    trace = (torch.zeros((tcap, blk, 3), dtype=rdt, device=dev)
+             if tcap > 0 else None)
 
     while its < max_its and n_alive > 0:
         am = alive
@@ -197,7 +205,7 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
             stop = stop | (tau < LTol)
 
         if adaptive:
-            dot_sol = _dots(sol, B.matmat(sol) if B is not None else sol)
+            dot_sol = _dots(sol, scoped_mv(B, sol) if B is not None else sol)
             Delta_n = gamma * Delta + eta * rho_prev
             Beta_n = Beta - Delta_n
             Phi_n = gamma * gamma * Phi + eta * eta * sigma_p
@@ -235,11 +243,16 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
             Gamma = Gamma_n * kf + Gamma * nkf
             eval_prev = eval_upd * kf + eval_prev * nkf
             eres_prev = eres * kf + eres_prev * nkf
+            trace_val, trace_res = eval_upd, eres
         else:
             sqit = (its + 1.0) ** 0.5
             isconv = (tau / LTol_factor) * sqit < conv_tol
             if not first:
                 stop = stop | isconv
+            trace_val, trace_res = lam, tau
+        if trace is not None:
+            trace[min(its, tcap - 1)] = torch.stack(
+                [trace_val.to(rdt), trace_res.to(rdt), am.to(rdt)], dim=-1)
 
         alive_next = am & ~stop
 
@@ -268,7 +281,7 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     solnorm = torch.sqrt(_dots(sol, sol))
     sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)
     n_prec0 = int(valid.sum()) if K is not None else 0
-    return sol, its, nmv, nprec + n_prec0
+    return sol, its, nmv, nprec + n_prec0, trace
 
 
 def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
@@ -291,7 +304,7 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     complex ``x^H y``.
 
     Interface of :func:`jdqmr_inner_solve`. Returns ``(sol, its,
-    n_matvec_cols, n_precond_cols)``.
+    n_matvec_cols, n_precond_cols, None)``: it records no steps.
     """
     from ..operators import apply_precond
 
@@ -319,7 +332,7 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
 
     def op(D):
         Z = prec(D)
-        return project(A.matmat(Z) - Z * shift[None, :])
+        return project(scoped_mv(A, Z) - Z * shift[None, :])
 
     m = cfg.max_inner if cfg.max_inner > 0 else 15
     m = max(1, min(m, 64))
@@ -414,4 +427,4 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)
     nmv = int(steps.sum())
     nprec = nmv + int(valid_h.sum()) if K is not None else 0
-    return sol, int(steps.max()), nmv, nprec
+    return sol, int(steps.max()), nmv, nprec, None

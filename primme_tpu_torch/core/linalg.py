@@ -19,12 +19,44 @@ accumulates in double precision (:func:`gram`).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..params import Target
+
+
+def scope(name: str):
+    """A ``torch.profiler`` scope named as the reference's phase scopes
+    (``pt_matvec``, ``pt_precond``, ``pt_ortho``, ``pt_dense``):
+    :func:`primme_tpu_torch.profiling.measure_breakdown` attributes the
+    device time of the kernels launched inside it to the phase. Opened
+    only while a profiler records: a solve that nobody traces pays no
+    scope."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def scoped_mv(Op, X):
+    """``Op.matmat(X)`` under the ``pt_matvec`` scope (the reference's
+    ``timeMatvec`` attribution)."""
+    with scope("pt_matvec"):
+        return Op.matmat(X)
+
+
+def _dense_scope(fn):
+    """Run ``fn`` under the ``pt_dense`` scope (the reference's
+    ``timeDense`` attribution of the projected solves)."""
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        with scope("pt_dense"):
+            return fn(*a, **k)
+    return wrapped
 
 
 def real_dtype(dtype) -> torch.dtype:
@@ -159,6 +191,17 @@ def _chol_qr(X, BX, active_bs: int, thresh2):
 def block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
                 n_iters: int = 2, locked_count: Optional[int] = None,
                 Bop=None, BV=None, BQ=None) -> OrthoResult:
+    """:func:`_block_ortho` under the ``pt_ortho`` scope (the reference's
+    ``timeOrtho`` attribution)."""
+    with scope("pt_ortho"):
+        return _block_ortho(X, V, Q, active_bs, gen, n_iters=n_iters,
+                            locked_count=locked_count, Bop=Bop, BV=BV,
+                            BQ=BQ)
+
+
+def _block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
+                 n_iters: int = 2, locked_count: Optional[int] = None,
+                 Bop=None, BV=None, BQ=None) -> OrthoResult:
     """B-orthonormalize ``X[:, :active_bs]`` against the basis ``V``
     (inactive columns exactly zero; ``BV`` its B image), the locked
     vectors ``Q`` (or None; ``BQ`` their B images) and internally:
@@ -292,6 +335,7 @@ def projected_eigh(M):
     return w.to(real_dtype(M.dtype)), Z.to(M.dtype)
 
 
+@_dense_scope
 def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int
                ) -> ProjectedSolution:
     """Rayleigh-Ritz on the active ``b x b`` block of ``H`` (reference
@@ -315,6 +359,7 @@ def complex_dtype(dtype) -> torch.dtype:
             torch.float64: torch.complex128}.get(dtype, dtype)
 
 
+@_dense_scope
 def solve_H_normal(H, b: int, target: Target, shifts, shift_idx: int
                    ) -> ProjectedSolution:
     """Projected solve for a normal operator (reference
@@ -377,13 +422,14 @@ def compute_residuals(V, W, BV, hvecs_c, hvals_c) -> Candidates:
     """Candidate Ritz vectors and residuals from the coefficient block
     ``hvecs_c`` ``[mmax, c]`` and values ``hvals_c`` ``[c]`` (padded
     entries must have zero coefficient columns)."""
-    X = bcomb(V, hvecs_c)
-    WX = bcomb(W, hvecs_c)
-    BX = X if BV is None else bcomb(BV, hvecs_c)
-    lam = torch.where(torch.isfinite(hvals_c), hvals_c, 0).to(X.dtype)
-    R = WX - BX * lam[None, :]
-    resnorms = torch.linalg.vector_norm(R, dim=0)
-    xnorms = torch.linalg.vector_norm(X, dim=0)
+    with scope("pt_dense"):
+        X = bcomb(V, hvecs_c)
+        WX = bcomb(W, hvecs_c)
+        BX = X if BV is None else bcomb(BV, hvecs_c)
+        lam = torch.where(torch.isfinite(hvals_c), hvals_c, 0).to(X.dtype)
+        R = WX - BX * lam[None, :]
+        resnorms = torch.linalg.vector_norm(R, dim=0)
+        xnorms = torch.linalg.vector_norm(X, dim=0)
     return Candidates(X=X, WX=WX, BX=BX, R=R, resnorms=resnorms.real,
                       xnorms=xnorms.real)
 
@@ -458,6 +504,7 @@ def smallest_right_svecs(C):
     return y.T.to(C.dtype), smin.to(real_dtype(C.dtype))
 
 
+@_dense_scope
 def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
                     anorm=None, conv_eps=None) -> ProjectedSolution:
     """Refined extraction (reference ``solve_H_refined``) on the active
@@ -507,6 +554,7 @@ def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
     return _embed(w[order], bcomb(hv, Z)[:, order], mmax, rdt)
 
 
+@_dense_scope
 def solve_H_harmonic(H, R, b: int, target: Target, shifts,
                      shift_idx: int) -> ProjectedSolution:
     """Harmonic Rayleigh-Ritz (reference ``solve_H_harmonic``) on the

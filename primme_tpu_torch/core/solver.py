@@ -37,7 +37,7 @@ from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask,
                      compute_residuals, target_sort_keys, prefix_project,
                      rand_block, shifted_qr_R, complement_qr_R,
                      solve_H_refined, solve_H_harmonic, solve_H_normal,
-                     orthonormalize_coeffs)
+                     orthonormalize_coeffs, scope, scoped_mv)
 
 _BIG = 1 << 20  # stable-sort priority offset
 
@@ -125,6 +125,10 @@ class SolverState:
     gen: torch.Generator
     done: bool
     stats: Stats = field(default_factory=Stats)
+    # the last expansion's inner-iteration event buffer [cap, blk, 3]
+    # (value, eigenresidual estimate, alive); None unless
+    # ``cfg.inner_trace_cap > 0``
+    inner_trace: Optional[torch.Tensor] = None
 
 
 class EigsResult(NamedTuple):
@@ -172,6 +176,11 @@ class SolveConfig(NamedTuple):
     probe_extra: int = 0
     max_probe_rounds: int = 0
     probe_unsupported: int = 0
+    # per-inner-iteration monitor events (primme_event_inner_iteration):
+    # the QMR loop records (value, eres, alive) a step into a buffer of
+    # this many rows, replayed to the monitor once per outer iteration;
+    # 0 records nothing
+    inner_trace_cap: int = 0
 
 
 def make_config(p: PrimmeParams) -> SolveConfig:
@@ -206,8 +215,28 @@ def make_config(p: PrimmeParams) -> SolveConfig:
 
 def _host(*xs):
     """Read several device scalars back in one transfer."""
-    return torch.stack([torch.as_tensor(x).to(torch.float64).reshape(())
-                        for x in xs]).tolist()
+    return _host_with(xs, ())[0]
+
+
+def _host_with(xs, vecs):
+    """Read the device scalars ``xs`` and the 1-D tensors ``vecs`` back in
+    one transfer (a complex vector as its interleaved parts). Returns the
+    scalars as floats and each vector as a numpy array of its own type."""
+    parts = [torch.stack([torch.as_tensor(x).to(torch.float64).reshape(())
+                          for x in xs])]
+    for v in vecs:
+        parts.append((torch.view_as_real(v) if v.is_complex() else v)
+                     .reshape(-1).to(torch.float64))
+    h = torch.cat(parts).cpu().numpy()
+    out, off = [], len(xs)
+    for v in vecs:
+        m = v.numel() * (2 if v.is_complex() else 1)
+        a = h[off:off + m]
+        off += m
+        ndt = str(v.dtype).replace("torch.", "")
+        out.append((a[0::2] + 1j * a[1::2]).astype(ndt) if v.is_complex()
+                   else a.astype(ndt))
+    return h[:len(xs)].tolist(), out
 
 
 def _ortho_counts(cfg: SolveConfig, has_locked: bool):
@@ -289,7 +318,7 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
         V[:, bi:bi + blk] = res.X
         if B is not None:
             BV[:, bi:bi + blk] = res.BX
-        Y = A.matmat(res.X)
+        Y = scoped_mv(A, res.X)
         W[:, bi:bi + blk] = Y
         X = Y
         nrand += res.n_random
@@ -471,7 +500,7 @@ def _filtered_rand_block(cfg: SolveConfig, A, gen, dtype, device,
     ctr, hw = (float(torch.tensor(v, dtype=rdt)) for v in (ctr, hw))
 
     def t_apply(Y):
-        return (A.matmat(Y) - ctr * Y) / hw
+        return (scoped_mv(A, Y) - ctr * Y) / hw
 
     def scale_of(y):
         return 1.0 / torch.clamp(torch.max(torch.abs(y)), min=1e-30)
@@ -508,7 +537,7 @@ def _power_extreme(A, gen, n, dtype, device, shift=None) -> float:
     v = v / torch.clamp(torch.linalg.vector_norm(v), min=tiny)
     nw = torch.zeros((), dtype=real_dtype(dtype), device=device)
     for _ in range(_POW_ITERS):
-        w = A.matmat(v)
+        w = scoped_mv(A, v)
         if shift is not None:
             w = shift * v - w
         nw = torch.linalg.vector_norm(w).real
@@ -594,7 +623,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         mv0 = deg + mvb if okf else mvb
         # filter sanity: the start must not be pinned at the far end
         nz2 = torch.sum(Z0.conj() * Z0, dim=0).real
-        AZ0 = A.matmat(Z0)
+        AZ0 = scoped_mv(A, Z0)
         rq = torch.sum(Z0.conj() * AZ0, dim=0).real / torch.clamp(nz2,
                                                                   min=tiny)
         mv0 += blk
@@ -689,7 +718,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         P[:, w:w + blk] = Xs
         if has_B:
             BP[:, w:w + blk] = torch.where(keepp, ores.BX[:, srtp], 0)
-        Y = A.matmat(Xs)
+        Y = scoped_mv(A, Xs)
         WP[:, w:w + blk] = Y
         mv += srvp
         G = gram(P, Y)                          # P already holds Xs
@@ -718,8 +747,8 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                                          min=0.0))
             xdu = torch.where(xdn > floor, xd / torch.clamp(xdn, min=floor),
                               0.0)
-            Axd = A.matmat(xdu)
-            den = torch.sum(xdu.conj() * (B.matmat(xdu) if has_B
+            Axd = scoped_mv(A, xdu)
+            den = torch.sum(xdu.conj() * (scoped_mv(B, xdu) if has_B
                                           else xdu)).real
             rqd = torch.sum(xdu.conj() * Axd).real / torch.clamp(den,
                                                                  min=tiny)
@@ -761,7 +790,7 @@ def _append_probe_block(cfg: SolveConfig, A, B, s: SolverState,
     s.V[:, b:b + blk] = Xs
     if B is not None:
         s.BV[:, b:b + blk] = torch.where(keep, BXs, 0)
-    Y = A.matmat(Xs)
+    Y = scoped_mv(A, Xs)
     s.W[:, b:b + blk] = Y
     _write_panels(cfg, s, Xs, Y, b)
     stats = _replace(s.stats, num_matvecs=s.stats.num_matvecs + nc)
@@ -980,10 +1009,12 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
     Cfull = torch.zeros((mmax, mmax), dtype=s.H.dtype, device=dev)
     Cfull[:, :ncol] = C
 
-    V = bcomb(s.V, Cfull)
-    W = bcomb(s.W, Cfull)
-    BV = bcomb(s.BV, Cfull) if has_B else None
-    H = gram(Cfull, s.H @ Cfull)
+    # the restart half of the reference's timeDense accounting
+    with scope("pt_dense"):
+        V = bcomb(s.V, Cfull)
+        W = bcomb(s.W, Cfull)
+        BV = bcomb(s.BV, Cfull) if has_B else None
+        H = gram(Cfull, s.H @ Cfull)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
 
@@ -1021,7 +1052,7 @@ def _refill_random(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     s.V[:, :blk] = res.X
     if B is not None:
         s.BV[:, :blk] = res.BX
-    Y = A.matmat(res.X)
+    Y = scoped_mv(A, res.X)
     s.W[:, :blk] = Y
     Hn = torch.zeros_like(s.H)
     Hn[:, :blk] = gram(s.V, Y)
@@ -1079,10 +1110,12 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         prev = s.prev_hvecs
 
     n_inner = n_mv_inner = n_prec = 0
+    itrace = (torch.zeros_like(s.inner_trace)
+              if s.inner_trace is not None else None)
     if force_random:
         D = rand_block(s.gen, cfg.n, blk, R.dtype, dev)
     elif cfg.max_inner != 0 and inner_solve is not None:
-        D, n_inner, n_mv_inner, n_prec = inner_solve(
+        D, n_inner, n_mv_inner, n_prec, itrace = inner_solve(
             cfg, A, B, K, s, X, BX, R, sigma, res, valid, win.tol,
             evals=lam)
     else:
@@ -1106,7 +1139,7 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
     s.V[:, b:b + blk] = Xo
     if B is not None:
         s.BV[:, b:b + blk] = torch.where(keep, BXo, 0)
-    Y = A.matmat(Xo)
+    Y = scoped_mv(A, Xo)
     s.W[:, b:b + blk] = Y
     _write_panels(cfg, s, Xo, Y, b)
     st = s.stats
@@ -1126,7 +1159,8 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                            + 5.0 * blk * n_inner),
         num_ortho_inner_prods=st.num_ortho_inner_prods + vol_bo)
     return _replace(s, b=b + nc, prev_hvecs=prev, stats=stats,
-                    prev_ritz=prev_ritz2, num_prev_ritz=num_prev2)
+                    prev_ritz=prev_ritz2, num_prev_ritz=num_prev2,
+                    inner_trace=itrace)
 
 
 # ---------------------------------------------------------------------------
@@ -1142,7 +1176,7 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
         Bq = s.Bevecs if B is not None else s.evecs
         for _ in range(2):
             V = prefix_project(s.evecs, Bq, V, cfg.noc + s.num_locked)
-    Bv = B.matmat(V) if B is not None else V
+    Bv = scoped_mv(B, V) if B is not None else V
     G = gram(V, Bv)
     G = 0.5 * (G + G.mH)
     meps = machine_eps(s.V.dtype)
@@ -1155,7 +1189,7 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     C = U * scale.to(G.dtype)[None, :]
     V = bcomb(V, C)
     BV = bcomb(Bv, C) if B is not None else None
-    W = A.matmat(V).to(s.W.dtype)
+    W = scoped_mv(A, V).to(s.W.dtype)
     H = gram(V, W)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
@@ -1182,11 +1216,15 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
 # ---------------------------------------------------------------------------
 
 def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, inner_trace_cap: int = 0):
     """Build config, target shifts and initial state. ``B`` is the mass
     matrix (an operator) or None; ``ortho_const`` an ``[n, noc]`` tensor
-    of constraint vectors (``p.num_ortho_const`` columns)."""
+    of constraint vectors (``p.num_ortho_const`` columns);
+    ``inner_trace_cap`` the rows of the inner-iteration event buffer (0:
+    none)."""
     cfg = make_config(p)
+    if inner_trace_cap:
+        cfg = cfg._replace(inner_trace_cap=int(inner_trace_cap))
     dtype = dtype or A.dtype
     if not cfg.hermitian and not dtype.is_complex:
         # a normal operator's Ritz vectors are complex: a real basis
@@ -1221,7 +1259,7 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
     if B is not None:
         Bevecs0 = torch.zeros_like(evecs0)
         if cfg.noc > 0:
-            Bevecs0[:, :cfg.noc] = B.matmat(evecs0[:, :cfg.noc])
+            Bevecs0[:, :cfg.noc] = scoped_mv(B, evecs0[:, :cfg.noc])
     if v0 is not None:
         v0 = v0.to(device=device, dtype=dtype)
     V, W, BV, H, b0, nrand0 = init_basis(A, B, cfg, gen, evecs0, Bevecs0,
@@ -1252,20 +1290,41 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
         prev_ritz=zr(cfg.lockmax + cfg.cwin), num_prev_ritz=0,
         probe_ref=fmax, probe_clean=0, probe_bnd_hi=0.0, probe_bnd_lo=0.0,
         probe_bnds_set=False, verified=cfg.probe_extra == 0,
-        give_up=False, gen=gen, done=False, stats=stats)
+        give_up=False, gen=gen, done=False, stats=stats,
+        inner_trace=(torch.zeros((cfg.inner_trace_cap, cfg.blk, 3),
+                                 dtype=rdt, device=device)
+                     if cfg.inner_trace_cap > 0 else None))
 
 
 def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
-                s: SolverState, convtest=None) -> SolverState:
+                s: SolverState, convtest=None, seg_end: Optional[int] = None,
+                monitor=None) -> SolverState:
     """The main iteration (reference ``run_segment``'s while loop, on the
-    host) until done, give-up, or the iteration/matvec limits.
+    host) until done, give-up, the iteration/matvec limits, or
+    ``num_outer_iterations >= seg_end``. Everything the loop carries lives
+    in ``s``, so a segment resumes where the last one stopped (the
+    dynamic method switch times segments on the host).
     ``convtest`` (see :func:`prepare_window`) decides every window's
     convergence, and with it what the probe takes as passing; the final
-    extraction orders by the residual test, as the reference's does."""
+    extraction orders by the residual test, as the reference's does.
+
+    ``monitor`` is called once per outer iteration with the reference's
+    event stream (``monitorFun``; the ``primme_event`` taxonomy): 0 outer
+    iteration, 1 inner iterations (aggregated per expansion), 2 restart,
+    3 reset, 4 converged, 5 locked, the most significant kind winning;
+    keyword arguments ``event``, ``num_outer``, ``num_matvecs``,
+    ``num_locked``, ``num_converged``, ``basis_size``, ``num_inner``,
+    ``hvals`` and ``resnorms`` (numpy arrays of the first ``min(cwin,
+    ne)`` window pairs) and, with ``cfg.inner_trace_cap > 0``,
+    ``inner_trace`` (the ``[cap, blk, 3]`` buffer as a numpy array).
+    The window's values and residuals come back in the loop's one read of
+    its scalars; the inner buffer, when recorded, in one more read."""
     mmax, ne, c = cfg.mmax, cfg.ne, cfg.cwin
     fmax = float(torch.finfo(real_dtype(s.H.dtype)).max)
+    end = cfg.max_outer if seg_end is None else min(seg_end, cfg.max_outer)
+    kshow = min(c, ne)
     while (not s.done and not s.give_up
-           and s.stats.num_outer_iterations < cfg.max_outer
+           and s.stats.num_outer_iterations < end
            and s.stats.num_matvecs < cfg.max_matvecs):
         win, stats = prepare_window(cfg, s, shifts, convtest)
         s = _replace(s, stats=stats)
@@ -1273,9 +1332,11 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
         n_base = min(max(ne - locked, 0), c)
         pos = torch.arange(c, device=s.V.device)
         unconv_t = ~win.conv & win.live & win.is_target
-        nconv_base, n_unconv, cur_res = _host(
-            (win.conv & (pos < n_base)).sum(), unconv_t.sum(),
-            torch.min(torch.where(unconv_t, win.cands.resnorms, fmax)))
+        scalars = ((win.conv & (pos < n_base)).sum(), unconv_t.sum(),
+                   torch.min(torch.where(unconv_t, win.cands.resnorms, fmax)))
+        shown = (() if monitor is None else
+                 (win.sol.hvals[:kshow], win.cands.resnorms[:kshow]))
+        (nconv_base, n_unconv, cur_res), shown = _host_with(scalars, shown)
         n_unconv = int(n_unconv)
         done_cand = (locked + nconv_base) >= ne and n_unconv == 0
 
@@ -1331,19 +1392,40 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
         need_restart = full or (n_unconv == 0 and not inject)
 
         s = _replace(s, best_res=best_res, stall_restarts=stall)
+        s2 = s
         if not (done or probe_injected):
             if need_restart:
-                s = do_restart(cfg, A, B, s, win)
-                s = _replace(s, stall_restarts=s.stall_restarts + 1)
+                s2 = do_restart(cfg, A, B, s2, win)
+                s2 = _replace(s2, stall_restarts=s2.stall_restarts + 1)
                 if need_reset:
-                    s = do_reset(cfg, A, B, s)
+                    s2 = do_reset(cfg, A, B, s2)
             else:
-                mv0 = s.stats.num_matvecs
-                s = do_expand(cfg, A, B, K, s, win, shifts,
-                              inner_solve=inner_solve, force_random=inject)
-                if s.stats.num_matvecs <= mv0:
-                    s = _replace(s, stall_restarts=s.stall_restarts + 1)
-        s = _replace(s, done=done, give_up=give_up)
+                s2 = do_expand(cfg, A, B, K, s2, win, shifts,
+                               inner_solve=inner_solve, force_random=inject)
+                if s2.stats.num_matvecs <= s.stats.num_matvecs:
+                    s2 = _replace(s2, stall_restarts=s2.stall_restarts + 1)
+        if monitor is not None:
+            inner_delta = (s2.stats.num_inner_iterations
+                           - s.stats.num_inner_iterations)
+            if need_reset:
+                ev = 3
+            elif s2.num_locked > s.num_locked:
+                ev = 5
+            elif need_restart and not done:
+                ev = 2
+            elif win.nconv > 0:
+                ev = 4
+            else:
+                ev = 1 if inner_delta > 0 else 0
+            kw = {}
+            if s2.inner_trace is not None:
+                kw["inner_trace"] = s2.inner_trace.cpu().numpy()
+            monitor(event=ev, num_outer=s.stats.num_outer_iterations,
+                    num_matvecs=s2.stats.num_matvecs,
+                    num_locked=s2.num_locked, num_converged=win.nconv,
+                    basis_size=s2.b, num_inner=inner_delta, hvals=shown[0],
+                    resnorms=shown[1], **kw)
+        s = _replace(s2, done=done, give_up=give_up)
     return s
 
 
@@ -1396,15 +1478,37 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
 
 def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                ortho_const=None, inner_solve=None, dtype=None,
-               device=None, convtest=None) -> EigsResult:
+               device=None, convtest=None, monitor=None,
+               segment_outer: Optional[int] = None,
+               inner_trace_cap: int = 0) -> EigsResult:
     """Run the eigensolver on a port :class:`LinearOperator` with resolved
     params (``set_method``/``resolve_defaults``). ``B`` is the mass matrix
     of a generalized problem (``A x = lambda B x``, B Hermitian positive
     definite), ``ortho_const`` an ``[n, p.num_ortho_const]`` tensor the
     returned vectors are B-orthogonal to. ``device`` defaults to the
     operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses;
-    ``convtest`` a user convergence test (:func:`prepare_window`)."""
+    ``convtest`` a user convergence test (:func:`prepare_window`);
+    ``monitor`` the event stream's callback and ``inner_trace_cap`` the
+    rows of its inner-iteration buffer (:func:`run_segment`).
+
+    ``segment_outer``: when set, the loop returns to this function every
+    that-many outer iterations and resumes from the same state, with the
+    reference's host-side copy of the loop's stop condition; the result
+    is bit-identical to the unsegmented solve's."""
     cfg, shifts, s0 = setup_solver(A, p, B=B, v0=v0, ortho_const=ortho_const,
-                                   dtype=dtype, device=device)
-    s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest)
+                                   dtype=dtype, device=device,
+                                   inner_trace_cap=inner_trace_cap)
+    if segment_outer is None:
+        s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest,
+                        monitor=monitor)
+    else:
+        s, seg_end = s0, 0
+        while True:
+            seg_end += int(segment_outer)
+            s = run_segment(cfg, A, B, K, inner_solve, shifts, s, convtest,
+                            seg_end=seg_end, monitor=monitor)
+            if (s.done or s.give_up
+                    or s.stats.num_outer_iterations >= cfg.max_outer
+                    or s.stats.num_matvecs >= cfg.max_matvecs):
+                break
     return extract_result(cfg, s, shifts)

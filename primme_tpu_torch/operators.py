@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core.linalg import real_dtype
+from .core.linalg import real_dtype, scope
 from .ops import dia as DK
 from .ops import jacobi as JK
 from .ops import stencil3d as ST
@@ -431,9 +431,10 @@ def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,
     ``applyPreconditioner_Sprimme``)."""
     if K is None:
         return X
-    if shifts is not None and hasattr(K, "matmat_shifted"):
-        return K.matmat_shifted(X, shifts)
-    return K.matmat(X)
+    with scope("pt_precond"):
+        if shifts is not None and hasattr(K, "matmat_shifted"):
+            return K.matmat_shifted(X, shifts)
+        return K.matmat(X)
 
 
 def _value_dtype(dtype, fmt: str) -> np.dtype:

@@ -19,10 +19,11 @@ rows and columns, a dense operator (``torch.matmul``), as the reference
 decides. The solve runs on the card unless the caller passes
 ``device="cpu"``.
 
-Not served yet, each refused by name: ``mesh``, ``segment_outer``,
-``monitor`` and ``return_history``. Complex input (complex64 and
-complex128) runs on ``A^H``: the adjoint layouts hold conjugated values,
-and ``Vh`` is ``V^H``.
+Each stage's solver events reach ``monitor(stage, ...)`` and, with
+``return_history``, ``stats["hist"]``, on the triplet scale;
+``segment_outer`` goes to both stages. Not served yet: ``mesh``, refused
+by name. Complex input (complex64 and complex128) runs on ``A^H``: the
+adjoint layouts hold conjugated values, and ``Vh`` is ``V^H``.
 """
 
 from __future__ import annotations
@@ -116,13 +117,15 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
     where the solve runs: the card when it is None, which raises if there
     is none; ``"cpu"`` runs on the CPU. Returns numpy arrays, like the
     reference: ``(U, s, Vh)`` (or ``s``) and, with ``return_stats``, the
-    stages' counters under ``stage1_*``/``stage2_*`` and ``resnorms``."""
-    for name, val in (("mesh", mesh), ("segment_outer", segment_outer),
-                      ("monitor", monitor)):
-        if val is not None:
-            raise _unported(name)
-    if return_history:
-        raise _unported("return_history")
+    stages' counters under ``stage1_*``/``stage2_*`` and ``resnorms``.
+    ``monitor(stage, event, num_outer, num_matvecs, num_locked,
+    num_converged, basis_size, num_inner, svals, resnorms)`` receives each
+    stage's event stream (stage 1 or 2) with values and residuals on the
+    triplet scale; ``return_history`` collects the same records into
+    ``stats["hist"]``; ``segment_outer`` goes to both stages'
+    ``solve_eigs``."""
+    if mesh is not None:
+        raise _unported("mesh")
     device = default_device(device, "svds")
     Aop = aslinearoperator(A).to(device)
     m, n = Aop.shape
@@ -150,6 +153,38 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
 
     eps = float(tol)
     stats_all: dict = {}
+
+    # per-stage monitor and history (the reference's monitor_stage1/2
+    # split): each stage's event stream, tagged with its stage, values
+    # and residuals converted to the triplet scale of its operator
+    hist: dict = {kk: [] for kk in (
+        "stage", "event", "num_outer", "num_matvecs", "num_locked",
+        "num_converged", "basis_size", "num_inner", "svals", "resnorms")}
+
+    def _mk_mon(stage, to_svals, to_resn):
+        if monitor is None and not return_history:
+            return None
+
+        def mon(event, num_outer, num_matvecs, num_locked, num_converged,
+                basis_size, num_inner, hvals, resnorms, inner_trace=None):
+            sv = to_svals(np.asarray(hvals))
+            rn = to_resn(np.asarray(resnorms), sv)
+            if monitor is not None:
+                monitor(stage, event, num_outer, num_matvecs, num_locked,
+                        num_converged, basis_size, num_inner, sv, rn)
+            if return_history:
+                hist["stage"].append(stage)
+                hist["event"].append(int(event))
+                hist["num_outer"].append(int(num_outer))
+                hist["num_matvecs"].append(int(num_matvecs))
+                hist["num_locked"].append(int(num_locked))
+                hist["num_converged"].append(int(num_converged))
+                hist["basis_size"].append(int(basis_size))
+                hist["num_inner"].append(int(num_inner))
+                hist["svals"].append(sv)
+                hist["resnorms"].append(rn)
+
+        return mon
 
     def merge_stats(st, prefix):
         for kk, vv in _dc.asdict(st).items():
@@ -260,8 +295,12 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         oc1 = None
         if noc_uv:
             oc1 = tensor(ov if use_ata else ou)
+        mon1 = _mk_mon(
+            1, lambda hv: np.sqrt(np.maximum(np.real(hv), 0.0)),
+            lambda rn, sv: rn / np.maximum(sv, np.finfo(np.float64).tiny))
         r1 = solve_eigs(Nop, p1, K=K1, v0=g0, ortho_const=oc1,
-                        inner_solve=inner1, convtest=conv_stage1)
+                        inner_solve=inner1, convtest=conv_stage1,
+                        monitor=mon1, segment_outer=segment_outer)
         merge_stats(r1.stats, "stage1")
         mv_stage1 = int(r1.stats.num_matvecs)
 
@@ -399,8 +438,11 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
                     return convtest(torch.abs(evals), resnorms * sq2f, tol,
                                     max(anorm_est, anorm2))
 
+            mon2 = _mk_mon(2, lambda hv: np.abs(np.real(hv)),
+                           lambda rn, sv: rn * sq2f)
             r2 = solve_eigs(Aug, p2, K=K2, v0=g2, ortho_const=oc,
-                            inner_solve=inner2, convtest=conv_stage2)
+                            inner_solve=inner2, convtest=conv_stage2,
+                            monitor=mon2, segment_outer=segment_outer)
             merge_stats(r2.stats, "stage2")
 
             sv2 = torch.abs(r2.evals)
@@ -444,6 +486,8 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
                               f"(resnorms={resn_h})")
 
     stats_all["resnorms"] = resn_h
+    if return_history:
+        stats_all["hist"] = hist
     out = [svals_h]
     if return_singular_vectors:
         out = [U_h, svals_h, V_h.conj().T]

@@ -388,7 +388,8 @@ def test_complex_jdqmr_inner_solve_matches_reference(method):
         _inner_state(n, cfg_t.lockmax, anorm, False), t(X), t(X), t(R),
         t(lam), t(res), t(vmask), 1e-8 * anorm, evals=t(lam))
     sol_j, its_j, nmv_j, nprec_j = (np.asarray(x) for x in out_j)
-    sol_t, its_t, nmv_t, nprec_t = out_t
+    sol_t, its_t, nmv_t, nprec_t, trace_t = out_t
+    assert trace_t is None      # no inner_trace_cap, no step buffer
     assert (int(its_j), int(nmv_j), int(nprec_j)) == (its_t, nmv_t, nprec_t)
     assert its_t > 1 and sol_t.dtype == torch.complex128
     assert np.abs(sol_t.numpy().imag).max() > 0

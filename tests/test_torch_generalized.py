@@ -176,7 +176,8 @@ def test_jdqmr_inner_solve_with_mass_matrix():
         cfg_t, _Dense(A), _Dense(B), None, st, t(X), t(BX), t(R), t(lam),
         t(res), torch.ones((blk,), dtype=torch.bool), 4e-7, evals=t(lam))
     sol_j, its_j, nmv_j, nprec_j = (np.asarray(x) for x in out_j)
-    sol_t, its_t, nmv_t, nprec_t = out_t
+    sol_t, its_t, nmv_t, nprec_t, trace_t = out_t
+    assert trace_t is None      # no inner_trace_cap, no step buffer
     assert (int(its_j), int(nmv_j), int(nprec_j)) == (its_t, nmv_t, nprec_t)
     assert its_t > 1
     assert np.abs(sol_t.numpy() - sol_j).max() <= 1e-9 * np.abs(sol_j).max()

@@ -240,7 +240,8 @@ def test_jdqr_skew_projector_inner_solve():
         t(lam), t(res), torch.ones((blk,), dtype=torch.bool), 1e-8 * 30.0,
         evals=t(lam))
     sol_j, its_j, nmv_j, nprec_j = (np.asarray(x) for x in out_j)
-    sol_t, its_t, nmv_t, nprec_t = out_t
+    sol_t, its_t, nmv_t, nprec_t, trace_t = out_t
+    assert trace_t is None      # no inner_trace_cap, no step buffer
     assert (int(its_j), int(nmv_j), int(nprec_j)) == (its_t, nmv_t, nprec_t)
     assert its_t > 1
     sol_t = sol_t.numpy()

@@ -53,6 +53,15 @@ matrix's type, f32 unless said):
   ``dia_f32``, as ``BandedOperator.from_scipy``. Counts, the values and
   their largest distance from the closed form (set-matched), the largest
   residual norm (``--normal-grid N`` runs every solve at another grid).
+* ``dynamic``: phase 31's configuration (``bench.py``'s headline: the
+  ``chip_smoke.GRID``^3 stencil with the shift-aware Jacobi, k=10, tol
+  1e-5, block 2, basis 24, restart 14, locking off, ``v0`` from
+  ``default_rng(0)``; x64 off, as ``bench.py`` runs) through the JAX
+  package's ``solve_eigs`` with GD_Olsen_plusK (the count phase 31's
+  matvec gate takes beside JDQMR_ETol's 1710) and through its own
+  ``solve_eigs_dynamic``: counts, values against the closed form and the
+  method trace, which depends on the host's clock and is printed, not
+  held (``--dynamic-grid N`` runs at another grid).
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -66,7 +75,8 @@ needed):
         [--svds-solve lm|augmented|sm ...] [--phase complex
         [--complex-solve dia_c64|dia_c128|ell_c64|ell_c128|svds ...]
         [--mag-grid N]] [--phase normal [--normal-solve ell_f64|ell_c64|
-        dia_f32 ...] [--normal-grid N]]
+        dia_f32 ...] [--normal-grid N]] [--phase dynamic
+        [--dynamic-grid N]]
 """
 
 import argparse
@@ -83,7 +93,7 @@ def main():
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
                                         "ell_f32", "northstar",
                                         "generalized", "interior", "svds",
-                                        "complex", "normal"),
+                                        "complex", "normal", "dynamic"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
@@ -93,6 +103,7 @@ def main():
     ap.add_argument("--mag-grid", type=int)
     ap.add_argument("--normal-solve", nargs="+")
     ap.add_argument("--normal-grid", type=int)
+    ap.add_argument("--dynamic-grid", type=int)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -108,7 +119,7 @@ def main():
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
         if phase in ("northstar", "generalized", "interior", "svds",
-                     "complex", "normal"):
+                     "complex", "normal", "dynamic"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -304,6 +315,46 @@ def _normal(CS, pt, np, args):
                "max_residual": float(np.linalg.norm(R, axis=0).max()),
                "evals": [[float(x.real), float(x.imag)] for x in w],
                "solve_s": time.perf_counter() - t0}
+
+
+def _dynamic(CS, pt, np, args):
+    import jax
+    import jax.numpy as jnp
+    from primme_tpu.core.dynamic import solve_eigs_dynamic
+    from primme_tpu.core.solver import solve_eigs
+
+    m = args.dynamic_grid or CS.GRID
+    n = m ** 3
+    lam, _ = CS.stencil_eigenvalues(m, 10)
+    with jax.enable_x64(False):
+        A = pt.Stencil3DOperator(m, m, m, dtype=jnp.float32)
+        K = pt.JacobiPrecond(A.diagonal())
+        p = pt.PrimmeParams(n=n, num_evals=10, eps=1e-5, max_basis_size=24,
+                            max_block_size=2, min_restart_size=14,
+                            max_matvecs=16000, locking=0)
+        v0 = jnp.asarray(np.random.default_rng(0).normal(size=(n, 2)),
+                         jnp.float32)
+        for name in ("GD_Olsen_plusK", "DYNAMIC"):
+            t0 = time.perf_counter()
+            trace = []
+            if name == "DYNAMIC":
+                r = solve_eigs_dynamic(
+                    A, p.with_(dynamic_method_switch=True), K=K, v0=v0,
+                    dtype=jnp.float32, method_trace=trace)
+            else:
+                pg = pt.set_method(pt.Method.GD_Olsen_plusK, p,
+                                   has_precond=True)
+                r = solve_eigs(A, pg, K=K, v0=v0, dtype=jnp.float32)
+            w = np.sort(np.asarray(r.evals))
+            yield {"solve": name, "grid": m,
+                   "num_matvecs": int(r.stats.num_matvecs),
+                   "num_probe_matvecs": int(r.stats.num_probe_matvecs),
+                   "num_outer_iterations":
+                       int(r.stats.num_outer_iterations),
+                   "probe_verified": bool(r.stats.probe_verified)
+                   if hasattr(r.stats, "probe_verified") else None,
+                   "eval_err": float(np.abs(w - lam).max()),
+                   "method_trace": trace, "solve_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":
