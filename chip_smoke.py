@@ -101,7 +101,8 @@ Phases, each printing its own lines; any failed check raises:
    not act), the shifted one has none (no single PyTorch call computes
    ``X[:, j] / guard(d - sigma_j)``);
 9. the headline: ``bench.py``'s configuration through ``solve_eigs``, one
-   untimed solve and then the minimum of 3 timed ones, each printed;
+   untimed solve and then the minimum of HEADLINE_TIMED (2) timed ones,
+   each printed;
    ``bench.py``'s ``ok`` (max resnorm <= 1.5e-5 * anorm_estimate,
    eigenvalues within 1e-4 of the closed form), every true residual (the
    stencil's plain version) <= 1.5e-5 * ||A||, probe verified and not
@@ -282,8 +283,8 @@ Phases, each printing its own lines; any failed check raises:
     stat) and with ``monitor_inner=True`` and a counting monitor; the
     solve time with no monitor, with the history, with the inner replay
     and with the profiler scopes forced open as under a profiler (min of
-    3 each, interleaved), and one scope's host cost, opened and gated
-    off, times the scopes a solve enters;
+    EVENT_ROUNDS (2) each, interleaved), and one scope's host cost, opened
+    and gated off, times the scopes a solve enters;
 34. the config-file driver (``primme_tpu_torch.driver.main``) on a config
     with no method line (DEFAULT_METHOD, so DYNAMIC), the Jacobi
     PrecChoice, eps 1e-10 and 6 smallest values of the 7-point Laplacian
@@ -298,7 +299,48 @@ Phases, each printing its own lines; any failed check raises:
     kernels' device time inside ``pt_matvec`` and the Jacobi kernels'
     inside ``pt_precond``, a profile event delivered for every key of
     ``stats["profile"]``; the split, the largest device items and the
-    profiler's post-processing seconds printed.
+    profiler's post-processing seconds printed;
+36. the C ABI in-process (``capi_inprocess_phase``): the port's
+    ``capi_support`` driven with numpy buffer addresses on the 7-point
+    Laplacian of the 64^3 grid in random order (n = 262,144, f64):
+    ``eigsh_csr`` (k=6 smallest, tol 1e-10) and a parameter handle
+    (numEvals, eps, jacobi 1, PRIMME_DEFAULT_METHOD) through
+    ``eigsh_run``; values within 1e-8 of the closed form, the written
+    residual norms and the host's f64 residuals of the written vectors
+    <= 1.5 tol ||A||, ``windowed_ell_spmm_f64`` in each call,
+    ``jacobi_shifted_f64`` in the second, no other kernel;
+37. the C ABI from C (``capi_c_phase``): the port's C library built from
+    ``primme_tpu_torch/native/capi.cpp``, ``capi_smoke.c`` built against
+    it and run in a subprocess on the card (PYTHONPATH the repository and
+    site-packages): ``ptpu_eigsh_csr`` and ``ptpu_eigsh_csr_`` on phase
+    36's matrix, ``ptpu_eigsh_matvec`` with the program's own CSR product
+    on the 32^3 Laplacian, ``ptpu_params_*`` + ``ptpu_eigsh_run``,
+    ``ptpu_svds_csr`` and ``ptpu_svds_params_*`` + ``ptpu_svds_run`` on
+    ``grounded_incidence(32)``, each result against the closed form as in
+    phases 36 and 20; the child seen among ``nvidia-smi``'s compute apps;
+    then the JAX package's ``native/test_capi.c``, compiled unchanged
+    against the same library: "CAPI OK";
+38. the complex Jacobi entry points (``jacobi_shifted_c64``/``_c128``,
+    ``jacobi_c64``/``_c128``) against their plain versions, bit for bit,
+    at 64^3 (k in {1, 2, 4, 8}), 256^3 k=2 and the odd-offset slice, with
+    denominators real in value and truly complex and one shift equal to a
+    diagonal entry; timed as phase 8 times, ``torch.div`` the unshifted
+    apply's ``library_ms``; and the real ``jacobi_f64`` at 32^3 k=1
+    against ``torch.div``;
+39. solves through them: ``eigsh(jacobi=True)`` on phase 24's magnetic
+    Laplacian (complex64), the same with a fixed
+    ``JacobiPrecond(use_shifts=False)`` at 32^3, ``eigs`` with a complex
+    and with a real ``JacobiPrecond`` (phases 29 and 28's operators at
+    32^3, cut from 64^3 for time), the config-file driver on the 32^3
+    magnetic Laplacian in complex128 with the Jacobi PrecChoice; each
+    gated on the closed form, residuals, launches and matvecs within 2x
+    of the JAX package's (``tools/torch_smoke_refs.py --phase jacobi``);
+40. the half-precision basis: ``eigsh(k=4)`` of phase 4's matrix with
+    ``dtype`` bf16 and f16 at tol 4 eps(half): values and vectors f32,
+    true residuals < 16 eps(half) ||A||, each value within its residual of
+    the closed form, the basis stored in the half type,
+    ``windowed_ell_spmm_f32`` >= matvecs / 2, matvecs within 2x of the JAX
+    package's (``--phase half``); peak device memory beside phase 4's.
 
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
@@ -327,6 +369,10 @@ L2_BYTES = 50e6             # H100 SXM L2 (the same data sheet)
 # Jacobi, JDQMR_ETol; solve_eigs on the CPU, x64 off as bench.py runs)
 REF_HEADLINE_MATVECS = 1710
 REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
+# timed repeats of phase 9's headline and rounds of phase 33's variants
+# (2 each, so that phases 36-40 fit the run's time limit beside them)
+HEADLINE_TIMED = 2
+EVENT_ROUNDS = 2
 GD_GRID = 16
 REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
 KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi", "dia")
@@ -489,6 +535,54 @@ REF_NORMAL = {"ell_f64": 11773, "ell_c64": 4997, "dia_f32": 2427}
 # tools/torch_smoke_refs.py --phase dynamic
 REF_DYNAMIC_GD_MATVECS = 2275
 REF_DYNAMIC = (1773, "GJGGJJGJJGJGJ")
+# phases 36-37: the C ABI. Phase 36 drives primme_tpu_torch.capi_support
+# in-process with numpy buffers on the 7-point Laplacian of the CAPI_GRID^3
+# grid in random order (n = 262,144, f64): eigsh_csr (k = CAPI_K smallest,
+# tol CAPI_TOL) and a parameter handle (numEvals CAPI_K, eps CAPI_TOL,
+# jacobi 1, the default method) through eigsh_run. Phase 37 runs the same
+# calls from the C program primme_tpu_torch/native/capi_smoke.c, with the
+# F77 twin, a host CSR matvec on the CAPI_MATVEC_GRID^3 Laplacian and the
+# svds entry points (CAPI_SVDS_K largest, tol CAPI_TOL) on
+# grounded_incidence(CAPI_SVD_GRID)
+CAPI_GRID = 64
+CAPI_MATVEC_GRID = 32
+CAPI_SVD_GRID = 32
+CAPI_K = 6
+CAPI_TOL = 1e-10
+CAPI_SVDS_K = 4
+# the JAX package's counts for phase 36's two calls, the same solves that
+# its capi_support runs (eigsh, and solve_eigs_dynamic with the Jacobi
+# preconditioner), on the CPU, seed 0 (python3 tools/torch_smoke_refs.py
+# --phase capi, x64 on; 220 s and 76 s, values within 4.8e-15 and
+# 1.2e-15 of the closed form): printed beside the port's, not held
+# (DYNAMIC's switch follows the host's clock)
+REF_CAPI = {"csr": 2142, "run": 2158}
+# phase 39: solves with the complex Jacobi kernel. "magnetic": phase 24's
+# call with jacobi=True; "magnetic_fixed": the same call on the magnetic
+# Laplacian of the JACOBI_NORMAL_GRID^3 grid with OPinv a fixed
+# JacobiPrecond(diag, use_shifts=False) (the unshifted entry point); "gl":
+# eigs on phase 29's Ginzburg-Landau operator
+# at JACOBI_NORMAL_GRID^3 with OPinv=JacobiPrecond(its complex diagonal);
+# "cd": eigs on phase 28's f64 convection-diffusion operator at that grid
+# with a real JacobiPrecond (complex Ritz shifts on a real diagonal);
+# "harness": the config-file driver in complex128 on the magnetic
+# Laplacian of the JACOBI_HARNESS_GRID^3 grid with the Jacobi PrecChoice
+JACOBI_NORMAL_GRID = 32
+JACOBI_HARNESS_GRID = 32
+# the JAX package's matvecs for the same calls on the CPU, seed 0
+# (python3 tools/torch_smoke_refs.py --phase jacobi, x64 on; 51 s, 15 s,
+# 31 s, 79 s and 37 s; values within 1.7e-7, 1.1e-7, 3.4e-7, 1.2e-14 and
+# 3.7e-15 of the closed forms)
+REF_JACOBI = {"magnetic": 2149, "magnetic_fixed": 1630, "gl": 1638,
+              "cd": 3540, "harness": 1597}
+# phase 40: the half-precision basis: eigsh(k=HALF_K) of phase 4's matrix
+# with dtype bf16 and f16, tol 4 eps(half); the JAX package's matvecs for
+# the same calls on the CPU, seed 0 (python3 tools/torch_smoke_refs.py
+# --phase half, x64 on; the chooser's RCM order of the matrix as the JAX
+# package's ELLOperator, 17 s and 34 s; its bf16 values lie 0.40 from the
+# closed form at a true residual of 0.40, its f16 values 1.7e-3 at 0.040)
+HALF_K = 4
+REF_HALF = {"bfloat16": 252, "float16": 457}
 
 
 def laplacian27_grid(m):
@@ -1224,7 +1318,7 @@ def jacobi_phase(JK, dev, gen):
 
 
 def headline_phase(ptt, dev, grid=GRID, ref_mv=REF_HEADLINE_MATVECS,
-                   timed=3):
+                   timed=HEADLINE_TIMED):
     """``bench.py``'s solve through the port's ``solve_eigs``: one untimed
     solve, then ``timed`` timed ones (each ends in a device sync); every
     solve gated. Returns the record and the launches of the first timed
@@ -2278,7 +2372,8 @@ NORMAL_ENTRY = {"ell_f64": "windowed_ell_spmm_f64",
                 "ell_c64": "windowed_ell_spmm_c64", "dia_f32": "dia_f32"}
 
 
-def normal_phase(ptt, mods, name, seed):
+def normal_phase(ptt, mods, name, seed, grid=None, jacobi=None, ref_mv=None,
+                 tag=None):
     """Phases 28-30: one ``eigs`` call of ``NORMAL_SOLVES[name]`` on the
     card, k=7 of smallest real part on ``convection_diffusion``: the
     scipy matrix as a user passes it (``aslinearoperator``'s
@@ -2293,14 +2388,17 @@ def normal_phase(ptt, mods, name, seed):
     package's (``REF_NORMAL``); the path's entry point launched at least
     matvecs / block times and no other kernel, so no complex entry point
     serves a real matrix. Prints the seconds and the peak device
-    memory."""
+    memory. Phase 39 runs the call at ``grid`` with OPinv a
+    ``JacobiPrecond`` of the matrix's diagonal, whose entry point
+    ``jacobi`` must launch, and its own ``ref_mv``."""
     import numpy as np
     import torch
 
     N, coef, dt, tol, method, fmt = NORMAL_SOLVES[name]
+    N = grid or N
     entry = NORMAL_ENTRY[name]
-    ref_mv = REF_NORMAL[name]
-    tag = f"normal {name}"
+    ref_mv = ref_mv or REF_NORMAL[name]
+    tag = tag or f"normal {name}"
     t0 = time.perf_counter()
     A, lam, anorm = convection_diffusion(N, coef, dtype=dt)
     op = A
@@ -2316,14 +2414,17 @@ def normal_phase(ptt, mods, name, seed):
           f"{tol}, block {blk}, "
           f"{'BandedOperator' if fmt == 'banded' else 'scipy CSR'}; built "
           f"in {build_s:.2f} s", flush=True)
-    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES if e != entry]
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES
+              if e not in (entry, jacobi)]
+    extra = ({} if jacobi is None else
+             {"OPinv": ptt.JacobiPrecond(A.diagonal())})
     torch.cuda.synchronize()
     before_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*mods)
     t0 = time.perf_counter()
     w, V, st = ptt.eigs(op, tol=tol, method=method, seed=seed,
-                        return_stats=True, **NORMAL_KWARGS)
+                        return_stats=True, **NORMAL_KWARGS, **extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(mods)
@@ -2350,6 +2451,8 @@ def normal_phase(ptt, mods, name, seed):
     check(launches[entry] >= mv / blk,
           f"{tag}: only {launches[entry]} {entry} launches for {mv} "
           f"matvecs")
+    check(jacobi is None or launches[jacobi] > 0,
+          f"{tag}: no {jacobi} launch")
     for other in others:
         check(launches[other] == 0,
               f"{tag}: {other} served this solve: {launches}")
@@ -2571,7 +2674,7 @@ def events_phase(ptt, mods, dev, seed):
     then with ``monitor_inner=True`` and a counting monitor, each gated on
     the event count; then the solve time with no monitor, with the
     history, with the inner replay and with the profiler scopes forced
-    open (min of 3 each, interleaved)."""
+    open (min of EVENT_ROUNDS (2) each, interleaved)."""
     import numpy as np
     import torch
     from primme_tpu_torch.core import linalg
@@ -2626,7 +2729,7 @@ def events_phase(ptt, mods, dev, seed):
                 "monitor_inner": {"monitor": mon, "monitor_inner": True},
                 "scopes on": {}}
     times = {name: [] for name in variants}
-    for _ in range(3):
+    for _ in range(EVENT_ROUNDS):
         for name, extra in variants.items():
             if name == "scopes on":
                 torch.autograd._profiler_enabled = lambda: True
@@ -2639,7 +2742,8 @@ def events_phase(ptt, mods, dev, seed):
             finally:
                 torch.autograd._profiler_enabled = enabled
     best = {name: min(v) for name, v in times.items()}
-    print("[events] solve seconds, min of 3 (each run): " + "; ".join(
+    print(f"[events] solve seconds, min of {EVENT_ROUNDS} (each run): "
+          + "; ".join(
         f"{name} {best[name]:.4f} ({', '.join(f'{t:.4f}' for t in v)})"
         for name, v in times.items()), flush=True)
     paired = [on / off for on, off in zip(times["scopes on"],
@@ -2696,6 +2800,24 @@ def _laplacian7(m, seed):
          + sp.kron(sp.kron(I, I), T)).tocsr()
     perm = np.random.default_rng(seed).permutation(m ** 3)
     return A[perm][:, perm].tocsr()
+
+
+def magnetic_config(tmp, N=JACOBI_HARNESS_GRID):
+    """Phase 39's config in ``tmp``: the complex128 magnetic Laplacian of
+    the N^3 grid (``mag.mtx``), the Jacobi PrecChoice, numEvals 6, eps
+    1e-10, smallest, the default method. Returns (its path, the closed-form
+    eigenvalues, the norm bound 12)."""
+    import scipy.io as sio
+
+    L, ev, anorm = magnetic_laplacian(N)
+    sio.mmwrite(os.path.join(tmp, "mag.mtx"), L)
+    cfg = os.path.join(tmp, "test_mag")
+    with open(cfg, "w") as f:
+        f.write("\n".join(["driver.matrixFile    = mag.mtx",
+                           "driver.PrecChoice    = jacobi",
+                           "primme.numEvals = 6", "primme.eps = 1e-10",
+                           "primme.target = primme_smallest"]) + "\n")
+    return cfg, ev, anorm
 
 
 def harness_phase(ptt, mods, dev, seed):
@@ -2856,6 +2978,610 @@ def profile_phase(ptt, mods, dev):
             "post_processing_s": st.get("profile_post_seconds"),
             "profile": st["profile"], "num_matvecs": st["num_matvecs"],
             "stencil_s": sten, "jacobi_s": jac}
+
+
+# --- phases 36-40 -----------------------------------------------------------
+
+def write_csr_bin(path, A):
+    """``A`` as ``capi_smoke.c`` reads a CSR: int64 rows, cols, nnz, then
+    int64 indptr and indices and f64 data."""
+    import numpy as np
+
+    A = A.tocsr()
+    with open(path, "wb") as f:
+        np.array([A.shape[0], A.shape[1], A.nnz], np.int64).tofile(f)
+        A.indptr.astype(np.int64).tofile(f)
+        A.indices.astype(np.int64).tofile(f)
+        A.data.astype(np.float64).tofile(f)
+
+
+def build_c_program(src, out):
+    """Compile the C program ``src`` into ``out``, linked against the
+    port's C ABI library (built at first use); returns ``out``."""
+    import shutil
+
+    from primme_tpu_torch import native
+
+    lib = native.capi_library()
+    libdir, libfile = os.path.split(lib)
+    cc = os.environ.get("CC") or shutil.which("gcc") or shutil.which("cc")
+    check(cc is not None, "no C compiler (gcc, cc or $CC)")
+    proc = subprocess.run([cc, "-O2", "-o", out, src, f"-L{libdir}",
+                           f"-l:{libfile}", f"-Wl,-rpath,{libdir}", "-lm"],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"cc {os.path.basename(src)} failed:\n"
+          f"{proc.stdout}{proc.stderr}")
+    return out
+
+
+def capi_env(platform=None):
+    """The environment of a C program that embeds the port: PYTHONPATH the
+    repository and the interpreter's site-packages (the embedded
+    interpreter does not see a virtualenv's otherwise), PTPU_PLATFORM
+    unset (the card) or ``platform``."""
+    import sysconfig
+
+    env = dict(os.environ)
+    parts = [os.path.dirname(os.path.abspath(__file__)),
+             sysconfig.get_paths()["purelib"], env.get("PYTHONPATH", "")]
+    env["PYTHONPATH"] = os.pathsep.join(p for p in parts if p)
+    env.pop("PTPU_PLATFORM", None)
+    if platform:
+        env["PTPU_PLATFORM"] = platform
+    return env
+
+
+def check_eig_output(tag, A, evals, resnorms, X, lam, anorm, tol):
+    """One eigsh result of the C ABI against the closed form: values
+    within 1e-8, the written residual norms and the host's f64 residuals
+    of the written vectors <= 1.5 tol ||A||."""
+    import numpy as np
+
+    err = float(np.abs(np.sort(evals) - lam).max())
+    res = float(np.linalg.norm(A @ X - X * evals[None, :], axis=0).max())
+    bar = 1.5 * tol * anorm
+    print(f"[{tag}] values {np.sort(evals).tolist()}  max|eval-closed form| "
+          f"{err:.3e} (limit 1e-8)  written resnorms max "
+          f"{float(resnorms.max()):.3e}, host residual {res:.3e} (limit "
+          f"{bar:.3e})", flush=True)
+    check(err <= 1e-8, f"{tag}: eigenvalue error {err:.3e}")
+    check(float(resnorms.max()) <= bar and res <= bar,
+          f"{tag}: residuals {float(resnorms.max()):.3e} / {res:.3e}")
+    return {"evals": np.sort(evals).tolist(), "eval_err": err,
+            "max_resnorm": float(resnorms.max()), "max_residual": res}
+
+
+def capi_inprocess_phase(ptt, mods, seed):
+    """36: the C ABI in-process: ``primme_tpu_torch.capi_support`` driven
+    with numpy buffer addresses, as a C caller drives it, on the 7-point
+    Laplacian of the CAPI_GRID^3 grid in random order (f64):
+    ``eigsh_csr`` (k = CAPI_K smallest, tol CAPI_TOL), then a parameter
+    handle (numEvals, eps, jacobi 1, PRIMME_DEFAULT_METHOD) through
+    ``eigsh_run``. Gates: ``check_eig_output``; the sliced-ELL f64 entry
+    point launched in each call, the shifted f64 Jacobi in the second, no
+    other kernel. The counts are set to 0 just before each call and read
+    just after."""
+    import numpy as np
+    import torch
+    from primme_tpu_torch import capi_support as cs
+
+    A = _laplacian7(CAPI_GRID, seed)
+    n, k = A.shape[0], CAPI_K
+    lam, anorm = stencil_eigenvalues(CAPI_GRID, k)
+    ip = A.indptr.astype(np.int64)
+    ix = A.indices.astype(np.int64)
+    dv = A.data.astype(np.float64)
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    out = {}
+    for tag in ("csr", "run"):
+        ev, X, rn = np.zeros(k), np.zeros(n * k), np.zeros(k)
+        torch.cuda.synchronize()
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        if tag == "csr":
+            rc = cs.eigsh_csr(n, A.nnz, ip.ctypes.data, ix.ctypes.data,
+                              dv.ctypes.data, k, "SA", CAPI_TOL, "", 0.0,
+                              ev.ctypes.data, X.ctypes.data, rn.ctypes.data)
+        else:
+            h = cs.params_create()
+            rc = cs.params_set(h, "numEvals", str(k)) \
+                | cs.params_set(h, "eps", repr(CAPI_TOL)) \
+                | cs.params_set(h, "jacobi", "1") \
+                | cs.params_set_method(h, "PRIMME_DEFAULT_METHOD")
+            check(rc == 0, f"capi {tag}: params: {cs.last_error()}")
+            rc = cs.eigsh_run(h, n, A.nnz, ip.ctypes.data, ix.ctypes.data,
+                              dv.ctypes.data, ev.ctypes.data, X.ctypes.data,
+                              rn.ctypes.data)
+            check(cs.params_free(h) == 0, f"capi {tag}: params_free")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(mods)
+        check(rc == 0, f"capi {tag}: rc {rc}: {cs.last_error()}")
+        print(f"[capi {tag}] rc {rc} in {wall:.3f} s; launches "
+              f"{ {e: c for e, c in launches.items() if c} } (the JAX "
+              f"package's matvecs for the same solve: {REF_CAPI[tag]})",
+              flush=True)
+        rec = check_eig_output(f"capi {tag}", A, ev, rn,
+                               X.reshape(n, k, order="F"), lam, anorm,
+                               CAPI_TOL)
+        need = ["windowed_ell_spmm_f64"] + (["jacobi_shifted_f64"]
+                                            if tag == "run" else [])
+        for entry in need:
+            check(launches[entry] > 0, f"capi {tag}: no {entry} launch")
+        for entry in others:
+            check(entry in need or launches[entry] == 0,
+                  f"capi {tag}: {entry} served this call: {launches}")
+        out[tag] = {"wall_s": wall, "launches": launches, **rec}
+    return out
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps``' rows now, as (pid, used
+    memory) pairs."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True)
+    rows = []
+    for line in r.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            rows.append((int(parts[0]), parts[1]))
+    return rows
+
+
+def _sample_compute_apps(proc, samples):
+    """Append :func:`compute_apps` to ``samples`` every 0.5 s until
+    ``proc`` exits."""
+    while proc.poll() is None:
+        samples.append(compute_apps())
+        time.sleep(0.5)
+
+
+def capi_c_phase(seed):
+    """37: the C ABI from C on the card: ``native.capi_library()``, then
+    ``primme_tpu_torch/native/capi_smoke.c`` built against it and run in a
+    subprocess (PYTHONPATH the repository and site-packages, PTPU_PLATFORM
+    unset) on phase 36's matrix, the CAPI_MATVEC_GRID^3 Laplacian (the C
+    program's own CSR product as the matvec callback) and
+    grounded_incidence(CAPI_SVD_GRID); ``nvidia-smi``'s compute apps
+    sampled while it runs. Gates: exit 0; each eigsh result as phase 36's
+    (``check_eig_output``), each svds result as phase 20's (values within
+    1e-8 sigma_max of the closed form, triplet residuals <= 10 tol
+    sigma_max); the child among the card's compute apps: by its pid, or,
+    where ``nvidia-smi`` sees another pid namespace (a container where
+    every row reads pid 1), as a compute app beside this
+    process's own while it runs and gone after it exits. Then the
+    JAX package's own ``native/test_capi.c``, compiled unchanged against
+    the port's library: "CAPI OK" (N = 120, a dense operator, no kernel:
+    it holds the ABI, not the card)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from primme_tpu_torch import native
+
+    missing = native.missing_build_prerequisites()
+    print(f"[capi c] Python.h and libpython: "
+          f"{'present' if not missing else 'missing ' + str(missing)}",
+          flush=True)
+    check(not missing, f"capi c: the C ABI cannot build here: {missing}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capi_")
+    try:
+        t0 = time.perf_counter()
+        prog = build_c_program(os.path.join(
+            root, "primme_tpu_torch", "native", "capi_smoke.c"),
+            os.path.join(tmp, "capi_smoke"))
+        ref_prog = build_c_program(os.path.join(root, "native", "test_capi.c"),
+                                   os.path.join(tmp, "test_capi"))
+        build_s = time.perf_counter() - t0
+        A = _laplacian7(CAPI_GRID, seed)
+        Amv = _laplacian7(CAPI_MATVEC_GRID, seed)
+        B, sv = grounded_incidence(CAPI_SVD_GRID)
+        for name, M in (("lap.bin", A), ("mv.bin", Amv), ("inc.bin", B)):
+            write_csr_bin(os.path.join(tmp, name), M)
+        print(f"[capi c] library {native.capi_library()}, capi_smoke and "
+              f"test_capi built in {build_s:.2f} s", flush=True)
+        log = os.path.join(tmp, "capi_smoke.log")
+        before, samples = compute_apps(), []
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [prog, tmp, str(CAPI_K), repr(CAPI_TOL), str(CAPI_SVDS_K)],
+                env=capi_env(), stdout=f, stderr=subprocess.STDOUT)
+            _sample_compute_apps(proc, samples)
+        wall = time.perf_counter() - t0
+        after = compute_apps()
+        with open(log) as f:
+            text = f.read()
+        print(f"[capi c] capi_smoke pid {proc.pid} exit {proc.returncode} in "
+              f"{wall:.1f} s; its output:\n{text.rstrip()}", flush=True)
+        # the child is seen on the card by its pid, or, where nvidia-smi
+        # cannot see this process's pid namespace (it then reports another
+        # pid for every process, this one included), as the compute app
+        # that is there beside this process's own only while it runs
+        mine = [r for smp in samples for r in smp if r[0] == proc.pid]
+        most = max(samples, key=len, default=[])
+        extra = len(most) - len(before)
+        print(f"[capi c] nvidia-smi compute apps before {before}, with the "
+              f"most rows while it ran {most} ({len(samples)} samples), "
+              f"after {after}; rows with the child's pid {sorted(set(mine))}",
+              flush=True)
+        check(proc.returncode == 0 and "capi_smoke OK" in text,
+              f"capi c: capi_smoke exited {proc.returncode}")
+        check(bool(mine) or (extra > 0 and len(after) == len(before)),
+              f"capi c: the child (pid {proc.pid}) was not seen on the card")
+        k, ks = CAPI_K, CAPI_SVDS_K
+        out = {"wall_s": wall, "build_s": build_s, "pid": proc.pid,
+               "smi_before": before, "smi_most": most, "smi_after": after,
+               "smi_pid_rows": sorted(set(mine))}
+        for name, M, grid in (("csr", A, CAPI_GRID), ("f77", A, CAPI_GRID),
+                              ("matvec", Amv, CAPI_MATVEC_GRID),
+                              ("run", A, CAPI_GRID)):
+            raw = np.fromfile(os.path.join(tmp, f"out_{name}.bin"))
+            n = M.shape[0]
+            lam, anorm = stencil_eigenvalues(grid, k)
+            out[name] = check_eig_output(
+                f"capi c {name}", M, raw[:k], raw[k:2 * k],
+                raw[2 * k:].reshape(n, k, order="F"), lam, anorm, CAPI_TOL)
+        m, n = B.shape
+        smax = float(sv[-1])
+        for name in ("svds", "svds_run"):
+            raw = np.fromfile(os.path.join(tmp, f"out_{name}.bin"))
+            s = raw[:ks]
+            off = 2 * ks if name == "svds_run" else ks
+            U = raw[off:off + m * ks].reshape(m, ks, order="F")
+            V = raw[off + m * ks:].reshape(n, ks, order="F")
+            err = float(np.abs(np.sort(s) - sv[-ks:]).max())
+            res = float(np.sqrt(
+                np.linalg.norm(B @ V - U * s[None, :], axis=0) ** 2
+                + np.linalg.norm(B.T @ U - V * s[None, :], axis=0) ** 2
+            ).max())
+            print(f"[capi c {name}] values {np.sort(s).tolist()}  max|sval-"
+                  f"closed form| {err:.3e} (limit {1e-8 * smax:.3e})  max "
+                  f"triplet residual {res:.3e} (limit "
+                  f"{10 * CAPI_TOL * smax:.3e})", flush=True)
+            check(err <= 1e-8 * smax, f"capi c {name}: value error {err:.3e}")
+            check(res <= 10 * CAPI_TOL * smax,
+                  f"capi c {name}: triplet residual {res:.3e}")
+            out[name] = {"svals": np.sort(s).tolist(), "sval_err": err,
+                         "max_triplet_residual": res}
+        t0 = time.perf_counter()
+        r = subprocess.run([ref_prog], env=capi_env(), capture_output=True,
+                           text=True, timeout=600)
+        print(f"[capi c] native/test_capi.c (unchanged) against the port's "
+              f"library: exit {r.returncode} in {time.perf_counter() - t0:.1f}"
+              f" s:\n{r.stdout.rstrip()}", flush=True)
+        check(r.returncode == 0 and "CAPI OK" in r.stdout,
+              f"capi c: test_capi failed: {r.stdout}{r.stderr}")
+        out["test_capi"] = "CAPI OK"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+JACOBI_COMPLEX = (("c64", "complex64"), ("c128", "complex128"))
+JACOBI_COMPLEX_SHAPES = ([(GRID, k, None) for k in (1, 2, 4, 8)]
+                         + [(256, 2, None), (GRID, 2, 1)])
+
+
+def complex_jacobi_phase(JK, dev, gen):
+    """38: the complex Jacobi entry points against their plain versions at
+    ``JACOBI_COMPLEX_SHAPES`` (phase 8's 64^3 shapes, 256^3 at k=2 and the
+    odd-offset slice), complex64 and complex128, shifted and unshifted, in
+    two cases: ``d - sigma`` real in value (a complex Hermitian matrix's
+    diagonal and real shifts) and truly complex (``d`` and ``sigma`` with
+    imaginary parts, ``eigs``' Ritz shifts); the first shift equals ``d``
+    of the middle row, so the eps guard fires there. Gate: bit for bit
+    (the kernel and the plain version both divide as ``c10::complex``,
+    each operation rounded once). Timed in the complex case as phase 8
+    times: with and without the spin, the plain version, ``copy_ms``, the
+    bound ((4 n k + 2 n + 2 k) reals shifted, 4 n k + 2 n unshifted, over
+    3.35 TB/s) and, for the unshifted apply, ``torch.div(X, d[:, None])``
+    as ``library_ms`` (the shifted one has no single call). Last, the real
+    unshifted f64 apply at phase 34's k=1 shape against ``torch.div``."""
+    import torch
+
+    out = {}
+    for suffix, tname in JACOBI_COMPLEX:
+        dtype = getattr(torch, tname)
+        rdt = torch.float32 if suffix == "c64" else torch.float64
+        size = torch.finfo(rdt).bits // 8
+        res = {"jacobi_shifted_" + suffix: {}, "jacobi_" + suffix: {}}
+        for side, k, off in JACOBI_COMPLEX_SHAPES:
+            n, label = side ** 3, shape_label(side, k, off)
+            X = kernel_block(side, k, off, dtype, dev, gen)
+            dre = 1.0 + 10.0 * torch.rand(n, generator=gen, dtype=rdt,
+                                          device=dev)
+            sre = torch.rand(k, generator=gen, dtype=rdt, device=dev)
+            cases = {
+                "real": (torch.complex(dre, torch.zeros_like(dre)),
+                         torch.complex(sre, torch.zeros_like(sre))),
+                "complex": (torch.complex(dre, torch.randn(
+                    n, generator=gen, dtype=rdt, device=dev)),
+                    torch.complex(sre, torch.randn(k, generator=gen,
+                                                   dtype=rdt, device=dev)))}
+            Yc = torch.empty((n, k), dtype=dtype, device=dev)
+            eps = 1e-10
+            for case, (d, s) in cases.items():
+                s[0] = d[n // 2]
+                pairs = (
+                    ("jacobi_shifted_" + suffix,
+                     lambda: JK.shifted(X, d, s, eps),
+                     lambda: JK.shifted_reference(X, d, s, eps), 2 * k, None),
+                    ("jacobi_" + suffix, lambda: JK.unshifted(X, d, eps),
+                     lambda: JK.unshifted_reference(X, d, eps), 0,
+                     lambda: torch.div(X, d[:, None])))
+                for name, kern, plain, nsig, library in pairs:
+                    y, yref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err = float((y - yref).abs().max())
+                    bit = _bitwise(torch.view_as_real(y),
+                                   torch.view_as_real(yref))
+                    rec = {"max_abs_err": err, "bitwise": bit,
+                           "blocks": JK.complex_blocks(n, k)}
+                    if case == "complex":
+                        t = _times(kern, plain,
+                                   (4 * n * k + 2 * n + nsig) * size,
+                                   lambda: Yc.copy_(X), library)
+                        rec.update(t)
+                        print(f"[{name}] {label} {case} max|y-yref|={err:.3e}"
+                              f" bit for bit {bit}; kernel {t['ms']:.5f} ms "
+                              f"(without the spin {t['nospin_ms']:.5f})  "
+                              f"plain {t['plain_ms']:.5f} ms  copy "
+                              f"{t['copy_ms']:.5f} ms  bound "
+                              f"{t['bound_ms']:.5f} ms (bytes; share "
+                              f"{t['bound_share']:.3f}"
+                              + (", L2-resident" if t["l2_resident"] else "")
+                              + ")" + ("" if library is None else
+                                       f"  library (torch.div) "
+                                       f"{t['library_ms']:.5f} ms"),
+                              flush=True)
+                    else:
+                        print(f"[{name}] {label} {case} max|y-yref|={err:.3e}"
+                              f" bit for bit {bit}", flush=True)
+                    check(bit, f"{name}: kernel differs from its plain "
+                          f"version at {label}, {case} denominators")
+                    check(bool(torch.isfinite(y).all()),
+                          f"{name}: non-finite output at {label}")
+                    res[name].setdefault(label, {})[case] = rec
+            del X, Yc, cases
+        out.update(res)
+    # the real unshifted f64 apply at phase 34's shape (the harness's fixed
+    # Jacobi, k=1 on the 32^3 Laplacian, n = 32,768) against torch.div
+    # (ROADMAP.md Queue B5)
+    n = HARNESS_GRID ** 3
+    X = torch.randn((n, 1), generator=gen, dtype=torch.float64, device=dev)
+    d = 1.0 + 10.0 * torch.rand(n, generator=gen, dtype=torch.float64,
+                                device=dev)
+    Yc = torch.empty_like(X)
+    y, yref = JK.unshifted(X, d, 1e-10), JK.unshifted_reference(X, d, 1e-10)
+    torch.cuda.synchronize()
+    bit = _bitwise(y, yref)
+    t = _times(lambda: JK.unshifted(X, d, 1e-10),
+               lambda: JK.unshifted_reference(X, d, 1e-10), 3 * n * 8,
+               lambda: Yc.copy_(X), lambda: torch.div(X, d[:, None]))
+    label = f"{HARNESS_GRID}^3 k=1"
+    _print_times("jacobi_f64", label, float((y - yref).abs().max()), bit, t,
+                 JK.card_plan(X), f"  library (torch.div) "
+                 f"{t['library_ms']:.5f} ms")
+    check(bit, f"jacobi_f64: kernel differs from its plain version at {label}")
+    out["jacobi_f64 " + label] = {"bitwise": bit, **t}
+    return out
+
+
+def jacobi_solves_phase(ptt, mods, dev, seed):
+    """39: solves with the complex Jacobi kernel (``REF_JACOBI``'s names):
+    ``magnetic`` phase 24's call with ``jacobi=True`` under phase 24's
+    gates (``format_solve``) and ``jacobi_shifted_c64`` launched;
+    ``magnetic_fixed`` the same call at JACOBI_NORMAL_GRID^3 with OPinv a
+    fixed ``JacobiPrecond(diag, use_shifts=False)`` (``jacobi_c64``);
+    ``gl`` and ``cd`` phase 29's and phase 28's ``eigs`` at
+    JACOBI_NORMAL_GRID^3 with OPinv a ``JacobiPrecond`` of the operator's
+    diagonal (``normal_phase``'s gates; the complex shifted entry point
+    launched: complex64 for the complex diagonal, complex128 for the real
+    f64 one given complex Ritz shifts); ``harness`` the config-file driver
+    in complex128 on ``magnetic_config`` (DYNAMIC, the Jacobi PrecChoice:
+    ``jacobi_c128``): rc 0, "solution check: OK", values within 1.5 tol
+    ||A|| of the closed form, its recomputed residual norms as well, the
+    sliced-ELL complex128 launches >= matvecs / 2. Every solve's matvecs
+    within 2x of the JAX package's."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from primme_tpu_torch import driver
+
+    t0 = time.perf_counter()
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    runs = {}
+    L, ev, anorm = magnetic_laplacian(MAG_GRID, dtype="complex64")
+    runs["magnetic"] = format_solve(
+        ptt, mods, L, seed, "jacobi magnetic", ev, 1e-4, anorm,
+        REF_JACOBI["magnetic"], need=("dia_c64",),
+        forbid=[e for e in others if e not in ("dia_c64",
+                                               "jacobi_shifted_c64")],
+        kwargs=dict(SOLVE_KWARGS, jacobi=True))
+    L32, ev32, _ = magnetic_laplacian(JACOBI_NORMAL_GRID, dtype="complex64")
+    runs["magnetic_fixed"] = format_solve(
+        ptt, mods, L32, seed, "jacobi magnetic fixed", ev32, 1e-4, anorm,
+        REF_JACOBI["magnetic_fixed"], need=("dia_c64",),
+        forbid=[e for e in others if e not in ("dia_c64", "jacobi_c64")],
+        kwargs=dict(SOLVE_KWARGS, OPinv=ptt.JacobiPrecond(
+            L32.diagonal(), use_shifts=False)))
+    for name, entry in (("magnetic", "jacobi_shifted_c64"),
+                        ("magnetic_fixed", "jacobi_c64")):
+        check(runs[name]["launches"][entry] > 0,
+              f"jacobi {name}: no {entry} launch")
+    for name, base, entry in (("gl", "ell_c64", "jacobi_shifted_c64"),
+                              ("cd", "ell_f64", "jacobi_shifted_c128")):
+        runs[name] = normal_phase(ptt, mods, base, seed,
+                                  grid=JACOBI_NORMAL_GRID, jacobi=entry,
+                                  ref_mv=REF_JACOBI[name],
+                                  tag=f"jacobi {name}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jacobi_")
+    try:
+        cfg, evh, anh = magnetic_config(tmp)
+        buf = io.StringIO()
+        reset_counts(*mods)
+        th = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = driver.main([cfg, "--base-dir", tmp, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - th
+        launches = read_counts(mods)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = buf.getvalue()
+    print(f"[jacobi harness] driver rc {rc} in {wall:.3f} s; launches "
+          f"{ {e: c for e, c in launches.items() if c} }; its report:\n"
+          f"{text.rstrip()}", flush=True)
+    check(rc == 0 and "solution check: OK" in text,
+          "jacobi harness: the solution check failed")
+    mv = int(re.search(r"Matvecs: (\d+)", text).group(1))
+    found = re.findall(r"Eval\[\d+\]:\s+(\S+)\s+rnorm:\s+(\S+)", text)
+    w = np.sort([float(x) for x, _ in found])
+    rn = max(float(r) for _, r in found)
+    bar = 1.5 * 1e-10 * anh
+    err = float(np.abs(w - evh[:len(w)]).max())
+    ref_mv = REF_JACOBI["harness"]
+    print(f"[jacobi harness] {mv} matvecs (reference {ref_mv})  "
+          f"max|eval-closed form| {err:.3e}  max rnorm {rn:.3e} (limit for "
+          f"both {bar:.3e})", flush=True)
+    check(err <= bar and rn <= bar,
+          f"jacobi harness: value error {err:.3e}, rnorm {rn:.3e}")
+    check(launches["jacobi_c128"] > 0, "jacobi harness: no jacobi_c128")
+    check(launches["windowed_ell_spmm_c128"] >= mv / 2,
+          f"jacobi harness: {launches['windowed_ell_spmm_c128']} sliced-ELL"
+          f" complex128 launches for {mv} matvecs")
+    check(ref_mv / 2 <= mv <= 2 * ref_mv,
+          f"jacobi harness: {mv} matvecs, not within 2x of {ref_mv}")
+    runs["harness"] = {"rc": rc, "wall_s": wall, "num_matvecs": mv,
+                       "eval_err": err, "max_rnorm": rn,
+                       "launches": launches}
+    secs = time.perf_counter() - t0
+    print(f"[jacobi] phase 39 took {secs:.1f} s", flush=True)
+    return {"solves": runs, "seconds": secs}
+
+
+def half_phase(ptt, mods, dev, seed, solve32):
+    """40: the half-precision basis: ``eigsh(k=HALF_K)`` of phase 4's
+    permuted 27-point Laplacian in f32 with ``dtype`` bf16 and f16, tol 4
+    eps(half), the chooser's windowed operator passed in (the true
+    residuals on the host with the matrix in its order). Gates, those of
+    ``tests/test_eigsh.py``'s half-precision test: values and vectors f32,
+    every true residual < 16 eps(half) ||A||, each value within its own
+    true residual of the closed form (the Hermitian residual bound); the
+    basis stored in the half type (read from the solver state as it is
+    built); ``windowed_ell_spmm_f32`` launches >= matvecs / 2 and no other
+    kernel; matvecs within 2x of the JAX package's. Prints the peak device
+    memory beside phase 4's f32 solve's."""
+    import numpy as np
+    import torch
+    from primme_tpu_torch.core import solver
+
+    A, ev = laplacian27(GRID, seed)
+    op, perm = ptt.rcm_banded(A)
+    op = op.to(dev)
+    Ap = A[perm][:, perm].astype(np.float64)
+    anorm = float(np.abs(ev).max())
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    kw = {key: v for key, v in SOLVE_KWARGS.items() if key != "k"}
+    build = solver._build_state
+    out = {}
+    for half in (torch.bfloat16, torch.float16):
+        name = str(half).replace("torch.", "")
+        heps = float(torch.finfo(half).eps)
+        tol = 4 * heps
+        basis = []
+
+        def recording(*a, **k):
+            s = build(*a, **k)
+            basis.append(s.V.dtype)
+            return s
+
+        solver._build_state = recording
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(*mods)
+            t0 = time.perf_counter()
+            w, X, st = ptt.eigsh(op, k=HALF_K, tol=tol, seed=seed,
+                                 dtype=half, device=dev,
+                                 raise_for_unconverged=False, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            solver._build_state = build
+        launches = read_counts(mods)
+        peak = torch.cuda.max_memory_allocated()
+        mv = st["num_matvecs"]
+        X64 = X.astype(np.float64)
+        xn = np.linalg.norm(X64, axis=0)
+        R = Ap @ X64 - X64 * w[None, :].astype(np.float64)
+        rn = np.linalg.norm(R, axis=0)
+        dist = np.abs(ev[None, :] - w[:, None].astype(np.float64)).min(axis=1)
+        floor = 16 * heps * anorm
+        ref_mv = REF_HALF[name]
+        print(f"[half {name}] eigsh wall {wall:.3f} s  basis {basis}  values "
+              f"{w.dtype}, vectors {X.dtype}: {np.sort(w).tolist()}  "
+              f"num_matvecs {mv} (reference {ref_mv})  launches "
+              f"{ {e: c for e, c in launches.items() if c} }  max true "
+              f"residual {float(rn.max()):.3e} (limit {floor:.3e})  "
+              f"distance to the spectrum / residual "
+              f"{(dist * xn / rn).tolist()}  peak device memory {peak} B "
+              f"(phase 4's f32 solve {solve32['peak_bytes']} B)", flush=True)
+        check(w.dtype == X.dtype == np.float32,
+              f"half {name}: values {w.dtype}, vectors {X.dtype}")
+        check(basis == [half], f"half {name}: the basis was {basis}")
+        check(float(rn.max()) < floor,
+              f"half {name}: residual {float(rn.max()):.3e} >= {floor:.3e}")
+        check(bool(np.all(dist <= rn / xn)),
+              f"half {name}: a value lies farther from the spectrum than "
+              "its residual")
+        check(launches["windowed_ell_spmm_f32"] >= mv / 2,
+              f"half {name}: {launches['windowed_ell_spmm_f32']} launches "
+              f"for {mv} matvecs")
+        for entry in others:
+            check(entry == "windowed_ell_spmm_f32" or launches[entry] == 0,
+                  f"half {name}: {entry} served this solve: {launches}")
+        check(ref_mv / 2 <= mv <= 2 * ref_mv,
+              f"half {name}: {mv} matvecs, not within 2x of {ref_mv}")
+        out[name] = {"wall_s": wall, "solve_s": st["elapsed_time"],
+                     "tol": tol, "num_matvecs": mv,
+                     "evals": np.sort(w).tolist(),
+                     "max_residual": float(rn.max()), "floor": floor,
+                     "launches": launches, "peak_bytes": peak,
+                     "f32_peak_bytes": solve32["peak_bytes"]}
+    return out
+
+
+def jacobi_complex_record(name, replaces, per_shape, path, launches):
+    """The record of a complex Jacobi entry point (phase 38's numbers at
+    ``HEADLINE_SHAPE``, complex denominators), its launches those of the
+    phase 39 path ``path``."""
+    keys = ("ms", "nospin_ms", "plain_ms", "copy_ms", "library_ms",
+            "bound_ms", "bound_share", "max_abs_err", "bitwise")
+    top = per_shape[HEADLINE_SHAPE]["complex"]
+    return {"name": name, "route": "cuda",
+            "source": "primme_tpu_torch/csrc/jacobi.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_path": path,
+            "max_abs_err": max(c["max_abs_err"] for v in per_shape.values()
+                               for c in v.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "copy_ms": top["copy_ms"],
+            "bound_share": top["bound_share"],
+            "library_call": ("torch.div(X, d[:, None])"
+                             if top["library_ms"] is not None else None),
+            "shapes": {label: {case: {key: c.get(key) for key in keys}
+                               for case, c in v.items()}
+                       for label, v in per_shape.items()}}
 
 
 def rect_kernel_record(name, replaces, run, per,
@@ -3109,6 +3835,31 @@ def main():
     profile = profile_phase(ptt, mods, dev)
     print(f"[phases 31-35] {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 36-37. the C ABI: in-process, then from a C program -------------
+    t0 = time.perf_counter()
+    capi = capi_inprocess_phase(ptt, mods, args.seed)
+    t1 = time.perf_counter()
+    capi_c = capi_c_phase(args.seed)
+    t2 = time.perf_counter()
+
+    # --- 38. the complex Jacobi entry points against their plain versions -
+    cjac = complex_jacobi_phase(JK, dev, cgen)
+    t3 = time.perf_counter()
+
+    # --- 39. solves with the complex Jacobi --------------------------------
+    jsolves = jacobi_solves_phase(ptt, mods, dev, args.seed)
+    t4 = time.perf_counter()
+
+    # --- 40. the half-precision basis ---------------------------------------
+    half = half_phase(ptt, mods, dev, args.seed, solve32)
+    t5 = time.perf_counter()
+    seconds36 = {"phase36": t1 - t0, "phase37": t2 - t1, "phase38": t3 - t2,
+                 "phase39": t4 - t3, "phase40": t5 - t4, "total": t5 - t0}
+    print("[phases 36-40] " + ", ".join(f"{key} {v:.1f} s"
+                                         for key, v in seconds36.items()),
+          flush=True)
+    jl = {name: r["launches"] for name, r in jsolves["solves"].items()}
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -3131,7 +3882,22 @@ def main():
                          "primme_tpu/operators.py:671", banded["solve"],
                          banded["kernel"],
                          {"dia_f64": "primme_tpu/operators.py:671"}),
-        *svd["kernels"], *cplx["kernels"]],
+        *svd["kernels"], *cplx["kernels"],
+        jacobi_complex_record(
+            "jacobi_shifted_c64", "primme_tpu/operators.py:484",
+            cjac["jacobi_shifted_c64"], "jacobi magnetic",
+            jl["magnetic"]["jacobi_shifted_c64"]),
+        jacobi_complex_record(
+            "jacobi_c64", "primme_tpu/operators.py:481", cjac["jacobi_c64"],
+            "jacobi magnetic fixed", jl["magnetic_fixed"]["jacobi_c64"]),
+        jacobi_complex_record(
+            "jacobi_shifted_c128", "primme_tpu/operators.py:484",
+            cjac["jacobi_shifted_c128"], "jacobi cd",
+            jl["cd"]["jacobi_shifted_c128"]),
+        jacobi_complex_record(
+            "jacobi_c128", "primme_tpu/operators.py:481",
+            cjac["jacobi_c128"], "jacobi harness",
+            jl["harness"]["jacobi_c128"])],
         "solve": {**solve32, "f64": solve64},
         "headline": headline, "gdk": gdk,
         "banded": {k: v for k, v in banded.items() if k != "kernel"},
@@ -3144,6 +3910,8 @@ def main():
                     "seconds": cplx["seconds"]},
         "normal": normal, "dynamic": dynamic, "segmented": segmented,
         "events": events, "harness": harness, "profile": profile,
+        "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
+        "half": half, "seconds_36_40": seconds36,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -3169,7 +3937,12 @@ def main():
              "dynamic": dynamic["launches"],
              "segmented": segmented["launches"],
              "harness save": harness["save"]["launches"],
-             "harness check": harness["check"]["launches"]}
+             "harness check": harness["check"]["launches"],
+             "capi csr": capi["csr"]["launches"],
+             "capi run": capi["run"]["launches"],
+             **{"jacobi " + name.replace("_", " "): counts
+                for name, counts in jl.items()},
+             **{f"half {name}": r["launches"] for name, r in half.items()}}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

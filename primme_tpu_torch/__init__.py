@@ -52,10 +52,20 @@ stream and ``profile``/``time_breakdown`` its device time by phase
 (:mod:`.profiling`); ``python -m primme_tpu_torch.driver CONFIG`` runs the
 reference's config files (:mod:`.testharness`).
 
+The C/Fortran ABI (``ptpu_*``: CSR, matvec callback and parameter-handle
+entry points, F77 bindings) embeds CPython and forwards into
+:mod:`.capi_support`; :func:`primme_tpu_torch.native.capi_library` builds
+``libprimme_tpu_torch_capi``, whose solves run on the card unless
+``PTPU_PLATFORM=cpu``. :mod:`.io` and :mod:`.native` read MatrixMarket
+files. ``eigsh(dtype=torch.bfloat16 or torch.float16)`` stores the basis
+in half precision and computes in f32.
+
 Complex Hermitian input (complex64 and complex128) runs as the real does:
 the DIA and sliced-ELL kernels have complex entry points (the adjoint
-``A^H`` conjugating), ``eigsh`` returns real eigenvalues and complex
-vectors, ``svds`` returns ``Vh = V^H``. A real operator multiplies a
+``A^H`` conjugating), and so has the Jacobi kernel (a complex
+:class:`JacobiPrecond`, or a real one given ``eigs``' complex Ritz
+shifts); ``eigsh`` returns real eigenvalues and complex vectors, ``svds``
+returns ``Vh = V^H``. A real operator multiplies a
 complex block's two parts in one launch of its real product.
 
 f32 products run in full f32: TF32 is disabled at import, the
@@ -70,7 +80,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .params import (PrimmeParams, Target, Projection, InitBasisMode,  # noqa: E402
                      ConvTest, Method, Projectors, set_method,
-                     resolve_defaults)
+                     resolve_defaults, set_member, get_member, member_info,
+                     member_names, display_params)
 from .operators import (LinearOperator, WindowedELLOperator,  # noqa: E402
                         CastOperator, Stencil3DOperator, JacobiPrecond,
                         DenseOperator, DiagonalOperator, BandedOperator,
@@ -83,10 +94,14 @@ from .refine import refine_eigsh  # noqa: E402
 from .svds import (svds, SvdsParams, svds_set_member,  # noqa: E402
                    svds_get_member, svds_member_info, svds_display_params,
                    svds_from_params, svds_member_names)
+from . import io, native, profiling, testharness  # noqa: E402
+
+__version__ = "0.1.0"
 
 __all__ = [
     "PrimmeParams", "Target", "Projection", "InitBasisMode", "ConvTest",
-    "Method", "Projectors", "set_method", "resolve_defaults",
+    "Method", "Projectors", "set_method", "resolve_defaults", "set_member",
+    "get_member", "member_info", "member_names", "display_params",
     "LinearOperator", "WindowedELLOperator", "CastOperator",
     "Stencil3DOperator", "JacobiPrecond", "DenseOperator", "DiagonalOperator",
     "BandedOperator", "ELLOperator", "BlockELLOperator", "FunctionOperator",
@@ -96,4 +111,5 @@ __all__ = [
     "SvdsParams",
     "svds_set_member", "svds_get_member", "svds_member_info",
     "svds_display_params", "svds_from_params", "svds_member_names",
+    "__version__",
 ]

@@ -17,8 +17,11 @@ error, the reference's default method (DYNAMIC: measured GD+k/JDQMR
 switching, :func:`~primme_tpu_torch.core.dynamic.solve_eigs_dynamic`),
 ``segment_outer``, the event stream (``monitor``, ``return_history``,
 ``printLevel``, ``monitor_inner``) and the profile (``profile``,
-``time_breakdown``). Arguments of the reference that the port does not
-serve yet raise ``NotImplementedError``: ``mesh``, a half-precision basis.
+``time_breakdown``), and a half-precision basis (``dtype`` bf16 or f16:
+the basis stored in half, every product and the projected problem in f32,
+Rayleigh-Ritz against the basis' explicit Gram, the convergence bar
+relaxed to ``4 eps(half)``). Arguments of the reference that the port does
+not serve yet raise ``NotImplementedError``: ``mesh``.
 
 ``eigs`` is the port of the reference's ``eigs``: eigenpairs of a normal
 (non-Hermitian) operator, complex Ritz values, with its whole surface.
@@ -56,18 +59,21 @@ def _unported(what: str) -> NotImplementedError:
                                "yet (see ROADMAP.md)")
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _working_dtype(dtype: Any) -> Optional[torch.dtype]:
-    """The solver's working dtype from a torch, numpy or named dtype; f32,
-    f64, complex64 and complex128 are served."""
+    """The solver's working dtype from a torch, numpy or named dtype
+    (``"bfloat16"``, or the JAX package's ``jnp.bfloat16``, name bf16); f32,
+    f64, complex64, complex128 and the half-precision basis (bf16, f16)
+    are served."""
     if dtype is None:
         return None
     if not isinstance(dtype, torch.dtype):
         name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
         dtype = getattr(torch, name, None)
-    if dtype in (torch.bfloat16, torch.float16):
-        raise _unported(f"the half-precision basis (dtype={dtype})")
     if dtype not in (torch.float32, torch.float64, torch.complex64,
-                     torch.complex128):
+                     torch.complex128, *_HALF):
         raise _unported(f"a working dtype of {dtype}")
     return dtype
 
@@ -291,6 +297,9 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     anorm = float(res.stats.anorm_estimate)
     eps_eff = p.eps if p.eps > 0 else 1e4 * float(
         torch.finfo(res.evals.dtype).eps)
+    if wd in _HALF:
+        # a half-precision basis cannot resolve residuals below its eps
+        eps_eff = max(eps_eff, 4 * float(torch.finfo(wd).eps))
     unconv = int(np.sum(~(resnorms <= 10 * max(eps_eff * max(anorm, 1e-300),
                                                1e-300))))
     if unconv > 0 and raise_for_unconverged:

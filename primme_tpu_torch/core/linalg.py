@@ -71,8 +71,17 @@ _LOW_PREC = (torch.bfloat16, torch.float16)
 
 
 def compute_dtype(dtype) -> torch.dtype:
-    """Accumulation dtype for a storage dtype: f32 for half precision."""
+    """Accumulation dtype for a storage dtype: f32 for half precision
+    (bf16 or f16, the reference's half-precision basis: stored in half,
+    every product and small dense solve in f32)."""
     return torch.float32 if dtype in _LOW_PREC else dtype
+
+
+def _compute_of(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
+    """The compute dtype of an operation on ``a`` and ``b``: their promoted
+    type, f32 where that is a half type (a half basis against an f32
+    block)."""
+    return compute_dtype(torch.promote_types(a.dtype, b.dtype))
 
 
 def col_mask(width: int, active: int, device=None) -> torch.Tensor:
@@ -89,8 +98,10 @@ _WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 
 def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """X^H Y at full precision, returned in X's type. Single-precision
-    blocks (f32, complex64) are summed in double precision: the card's
+    """X^H Y at full precision, returned in the compute type of X's and Y's
+    (their promoted type; f32 for a half-precision block, as the
+    reference's ``compute_dtype``). Single-precision blocks (f32,
+    complex64, and so a half basis) are summed in double precision: the card's
     GEMM sums the basis' n-long columns in f32 less accurately than the
     host's, and the block Krylov start and its orthogonalization amplify
     that. Summed in f32 on an NVIDIA H100 80GB HBM3 (700 W), the
@@ -104,10 +115,9 @@ def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     product that ``X^H y`` becomes took 17.8 ms for a complex128 ``X`` of
     262,144 x 24 on the same card, ``y^H X`` 0.049 ms
     (``tools/torch_gram_bench.py``)."""
-    dtype = X.dtype
+    dtype = _compute_of(X, Y)
     wide = _WIDE.get(dtype)
-    if wide is not None:
-        X, Y = X.to(wide), Y.to(wide)
+    X, Y = X.to(wide or dtype), Y.to(wide or dtype)
     if X.is_cuda and X.is_complex() and Y.shape[1] == 1:
         G = (Y.mH @ X).mH.resolve_conj()
     else:
@@ -116,8 +126,11 @@ def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 
 
 def bcomb(V: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """Basis combination V @ C at full precision."""
-    return V @ C
+    """Basis combination V @ C at full precision, in the compute type of
+    the two (a half basis combines in f32; rounding back to storage is the
+    caller's store, as in the reference)."""
+    cd = _compute_of(V, C)
+    return V.to(cd) @ C.to(cd)
 
 
 def prefix_project(P, C, X, count: int):
@@ -169,22 +182,23 @@ def _chol_qr(X, BX, active_bs: int, thresh2):
     inverse so the numerics match). Returns (X, BX, bad_mask)."""
     bs = X.shape[1]
     G = gram(X, BX)
+    cd = G.dtype            # a half block's small matrices are f32
     d = torch.diagonal(G).real
     amask = col_mask(bs, active_bs, X.device)
     bad = ((d <= thresh2) | ~torch.isfinite(d)) & amask
     inact = bad | ~amask
-    unit = torch.where(inact, 1.0, 0.0).to(X.dtype)
-    keep = (~inact).to(X.dtype)
+    unit = torch.where(inact, 1.0, 0.0).to(cd)
+    keep = (~inact).to(cd)
     Gs = G * keep[:, None] * keep[None, :] + torch.diag(unit)
     L, info = torch.linalg.cholesky_ex(Gs)
     # a failed factorization yields NaNs, as jnp.linalg.cholesky does
     L = torch.where(info == 0, L, torch.nan)
-    eye = torch.eye(bs, dtype=X.dtype, device=X.device)
+    eye = torch.eye(bs, dtype=cd, device=X.device)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     C = Linv.mH
     Xn = bcomb(X, C)
     BXn = Xn if BX is X else bcomb(BX, C)
-    good = (amask & ~bad).to(X.dtype)
+    good = (amask & ~bad).to(cd)
     return Xn * good[None, :], BXn * good[None, :], bad
 
 
@@ -336,17 +350,36 @@ def projected_eigh(M):
 
 
 @_dense_scope
-def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int
-               ) -> ProjectedSolution:
+def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int,
+               G=None) -> ProjectedSolution:
     """Rayleigh-Ritz on the active ``b x b`` block of ``H`` (reference
     ``solve_H_rr``). The reference decouples the inactive diagonal with a
     sentinel ramp so that one fixed-shape ``eigh`` serves every ``b``; the
     basis size is a host integer here, so the block is solved alone. The
     result is the same, and it keeps the small eigenvalues accurate where
     the ramp (up to ~mmax times ||H||) costs cuSOLVER's f32 ``eigh`` digits
-    that interior targets need (:func:`projected_eigh`)."""
+    that interior targets need (:func:`projected_eigh`).
+
+    ``G`` is the explicit Gram ``V^H B V`` of the basis (the reference's
+    ``orth=explicit_I``): a half-precision basis is orthonormal only to
+    its storage eps, so the projected problem is the pencil ``H y = theta
+    G y``, whitened through the Cholesky factor ``L`` of ``G`` (a small
+    perturbation of I) and the vectors brought back as ``L^-H z``; in
+    double precision for a single-precision ``H``, as the ``eigh``."""
     mmax = H.shape[0]
     rdt = real_dtype(H.dtype)
+    if G is not None:
+        wide = _WIDE.get(H.dtype, H.dtype)
+        Gb = G[:b, :b].to(wide)
+        L = torch.linalg.cholesky(0.5 * (Gb + Gb.mH))
+        Hm = torch.linalg.solve_triangular(L, H[:b, :b].to(wide), upper=False)
+        Hm = torch.linalg.solve_triangular(L, Hm.mH, upper=False).mH
+        w, Z = torch.linalg.eigh(0.5 * (Hm + Hm.mH))
+        Z = torch.linalg.solve_triangular(L.mH, Z, upper=True)
+        w, Z = w.to(rdt), Z.to(H.dtype)
+        keys = target_sort_keys(w, target, shifts.to(w.dtype), shift_idx)
+        order = torch.argsort(keys, stable=True)
+        return _embed(w[order], Z[:, order], mmax, rdt)
     w, Z = projected_eigh(H[:b, :b])
     keys = target_sort_keys(w, target, shifts.to(w.dtype), shift_idx)
     order = torch.argsort(keys, stable=True)

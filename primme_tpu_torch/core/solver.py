@@ -32,7 +32,7 @@ import torch
 
 from ..params import PrimmeParams, Target, ConvTest, Projection, InitBasisMode
 from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask,
-                     complex_dtype, gram,
+                     compute_dtype, gram,
                      real_dtype, machine_eps, solve_H_rr, block_ortho,
                      compute_residuals, target_sort_keys, prefix_project,
                      rand_block, shifted_qr_R, complement_qr_R,
@@ -181,6 +181,13 @@ class SolveConfig(NamedTuple):
     # this many rows, replayed to the monitor once per outer iteration;
     # 0 records nothing
     inner_trace_cap: int = 0
+    # a half-precision basis (set by setup_solver from the storage dtype):
+    # the projected problem is the pencil H y = theta (V^H B V) y, since a
+    # bf16/f16 basis is orthonormal only to its storage eps (the
+    # reference's orth=explicit_I), and the convergence tolerance floors at
+    # 4 eps of the storage type
+    orth_explicit_I: bool = False
+    eps_floor: float = 0.0
 
 
 def make_config(p: PrimmeParams) -> SolveConfig:
@@ -287,6 +294,7 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
         b0 = max(min(cfg.mrs, mmax), min(blk, mmax))
     nb = -(-b0 // blk)
     mal = max(mmax, nb * blk)
+    cdt = compute_dtype(dtype)     # block math runs here; stores round
     V = torch.zeros((n, mal), dtype=dtype, device=device)
     W = torch.zeros((n, mal), dtype=dtype, device=device)
     BV = None if B is None else torch.zeros((n, mal), dtype=dtype,
@@ -299,17 +307,17 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
     if v0 is not None:
         k0g = min(v0.shape[1], b0)
         ngb = -(-k0g // blk)
-        v0pad = torch.zeros((n, ngb * blk), dtype=dtype, device=device)
-        v0pad[:, :k0g] = v0[:, :k0g].to(dtype)
+        v0pad = torch.zeros((n, ngb * blk), dtype=cdt, device=device)
+        v0pad[:, :k0g] = v0[:, :k0g].to(cdt)
         X = v0pad[:, :blk]
     else:
-        X = rand_block(gen, n, blk, dtype, device)
+        X = rand_block(gen, n, blk, cdt, device)
 
     nrand = 0
     for i in range(nb):
         bi = i * blk
         if cfg.init_random or cfg.init_user:
-            X = rand_block(gen, n, blk, dtype, device)
+            X = rand_block(gen, n, blk, cdt, device)
         if v0pad is not None and i < ngb:
             X = v0pad[:, bi:bi + blk]
         nact = min(blk, b0 - bi)
@@ -320,7 +328,7 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
             BV[:, bi:bi + blk] = res.BX
         Y = scoped_mv(A, res.X)
         W[:, bi:bi + blk] = Y
-        X = Y
+        X = Y.to(cdt)
         nrand += res.n_random
     V, W = V[:, :mmax].contiguous(), W[:, :mmax].contiguous()
     if B is not None:
@@ -348,9 +356,11 @@ class Window(NamedTuple):
 
 
 def _tolerance(cfg: SolveConfig, anorm: float, rdt) -> float:
-    """||r|| < max(eps, 2 macheps) * problemNorm."""
+    """||r|| < max(eps, 2 macheps) * problemNorm; ``cfg.eps_floor`` is a
+    half-precision basis' resolution, below which residuals cannot go."""
     meps = machine_eps(rdt)
     eps = cfg.eps if cfg.eps > 0 else 1e4 * meps
+    eps = max(eps, cfg.eps_floor)
     return max(eps, 2 * meps) * anorm
 
 
@@ -386,7 +396,9 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
         R = shifted_qr_R(s.W, s.BV if has_B else s.V, s.b, shifts[sidx])
         sol = solve_H_harmonic(s.H, R, s.b, cfg.target, shifts, sidx)
     else:
-        sol = solve_H_rr(s.H, s.b, cfg.target, shifts, sidx)
+        G = (gram(s.V, s.BV if has_B else s.V) if cfg.orth_explicit_I
+             else None)
+        sol = solve_H_rr(s.H, s.b, cfg.target, shifts, sidx, G=G)
     hv_c = sol.hvecs[:, :c]
     hl_c = sol.hvals[:c]
     cands = compute_residuals(s.V, s.W, s.BV, hv_c, hl_c)
@@ -447,9 +459,12 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
     st = s.stats
     stats = _replace(
         st, anorm_estimate=anorm_est,
-        num_global_sum=st.num_global_sum + 2 + (1 if has_locked else 0),
+        num_global_sum=(st.num_global_sum + 2 + (1 if has_locked else 0)
+                        + (1 if cfg.orth_explicit_I else 0)),
         volume_global_sum=(st.volume_global_sum + 2.0 * c
-                           + (float(cfg.lockmax * c) if has_locked else 0.0)),
+                           + (float(cfg.lockmax * c) if has_locked else 0.0)
+                           + (float(cfg.mmax * cfg.mmax)
+                              if cfg.orth_explicit_I else 0.0)),
         flops_dense=(st.flops_dense
                      + 2.0 * cfg.n * cfg.mmax * c * (3 if has_B else 2)
                      + 3.0 * cfg.n * c),
@@ -1011,9 +1026,9 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
 
     # the restart half of the reference's timeDense accounting
     with scope("pt_dense"):
-        V = bcomb(s.V, Cfull)
-        W = bcomb(s.W, Cfull)
-        BV = bcomb(s.BV, Cfull) if has_B else None
+        V = bcomb(s.V, Cfull).to(s.V.dtype)
+        W = bcomb(s.W, Cfull).to(s.W.dtype)
+        BV = bcomb(s.BV, Cfull).to(s.BV.dtype) if has_B else None
         H = gram(Cfull, s.H @ Cfull)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
@@ -1046,7 +1061,8 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
 
 
 def _refill_random(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
-    X = rand_block(s.gen, cfg.n, cfg.blk, s.V.dtype, s.V.device)
+    X = rand_block(s.gen, cfg.n, cfg.blk, compute_dtype(s.V.dtype),
+                   s.V.device)
     res = _ortho(cfg, B, s, X, cfg.blk)
     blk = cfg.blk
     s.V[:, :blk] = res.X
@@ -1187,8 +1203,8 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     good = (lam > 64.0 * meps * lmax) & torch.isfinite(lam)
     scale = torch.where(good, torch.rsqrt(torch.clamp(lam, min=meps)), 0.0)
     C = U * scale.to(G.dtype)[None, :]
-    V = bcomb(V, C)
-    BV = bcomb(Bv, C) if B is not None else None
+    V = bcomb(V, C).to(s.V.dtype)
+    BV = bcomb(Bv, C).to(s.V.dtype) if B is not None else None
     W = scoped_mv(A, V).to(s.W.dtype)
     H = gram(V, W)
     if cfg.hermitian:
@@ -1225,18 +1241,29 @@ def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
     cfg = make_config(p)
     if inner_trace_cap:
         cfg = cfg._replace(inner_trace_cap=int(inner_trace_cap))
-    dtype = dtype or A.dtype
+    dtype = dtype or A.dtype            # the basis' storage dtype
     if not cfg.hermitian and not dtype.is_complex:
         # a normal operator's Ritz vectors are complex: a real basis
         # stores them in the matching complex type, as the reference does
-        dtype = complex_dtype(dtype)
+        dtype = torch.promote_types(dtype, torch.complex64)
     if dtype not in (torch.float32, torch.float64, torch.complex64,
-                     torch.complex128):
+                     torch.complex128, torch.bfloat16, torch.float16):
         raise NotImplementedError(f"working dtype {dtype} is not ported "
-                                  "(f32, f64, complex64 and complex128 "
-                                  "only)")
+                                  "(f32, f64, complex64, complex128 and the "
+                                  "bf16/f16 basis only)")
+    cdt = compute_dtype(dtype)
+    if cdt != dtype:
+        # a half-precision basis: the generalized projected solve against
+        # the explicit V^H B V and a tolerance floor at the storage
+        # resolution; the reference serves it with Rayleigh-Ritz only
+        if cfg.projection != Projection.RR:
+            raise ValueError(
+                f"projection={cfg.projection} requires f32+ working "
+                "precision; half-precision basis supports RR only")
+        cfg = cfg._replace(orth_explicit_I=True,
+                           eps_floor=4.0 * machine_eps(dtype))
     device = torch.device(device) if device is not None else A.device
-    rdt = real_dtype(dtype)
+    rdt = real_dtype(cdt)
     ts = p.target_shifts if p.target_shifts else (0.0,)
     shifts = torch.tensor(ts, dtype=rdt, device=device)
     gen = torch.Generator().manual_seed(int(p.rng_seed))
@@ -1247,7 +1274,8 @@ def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
 def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
                  device) -> SolverState:
     n, mmax = cfg.n, cfg.mmax
-    rdt = real_dtype(dtype)
+    cdt = compute_dtype(dtype)
+    rdt = real_dtype(cdt)
     fmax = float(torch.finfo(rdt).max)
     evecs0 = torch.zeros((n, cfg.lockmax), dtype=dtype, device=device)
     if ortho_const is not None:
@@ -1261,7 +1289,7 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
         if cfg.noc > 0:
             Bevecs0[:, :cfg.noc] = scoped_mv(B, evecs0[:, :cfg.noc])
     if v0 is not None:
-        v0 = v0.to(device=device, dtype=dtype)
+        v0 = v0.to(device=device, dtype=cdt)
     V, W, BV, H, b0, nrand0 = init_basis(A, B, cfg, gen, evecs0, Bevecs0,
                                          v0, dtype, device)
     # the initial basis: one block_ortho a block of the reference's b0,
@@ -1278,10 +1306,10 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
         return torch.zeros((m,), dtype=dt, device=device)
 
     # a normal operator's locked values are complex
-    vdt = rdt if cfg.hermitian else dtype
+    vdt = rdt if cfg.hermitian else cdt
     return SolverState(
         V=V, W=W, BV=BV, H=H, b=b0,
-        prev_hvecs=torch.zeros((mmax, max(cfg.kmax, 1)), dtype=dtype,
+        prev_hvecs=torch.zeros((mmax, max(cfg.kmax, 1)), dtype=cdt,
                                device=device),
         evecs=evecs0, Bevecs=Bevecs0,
         locked_vals=zr(cfg.lockmax - cfg.noc, vdt),

@@ -1,5 +1,5 @@
-// Shift-aware Jacobi preconditioner apply for Hopper (sm_90a), in f32 and
-// f64:
+// Shift-aware Jacobi preconditioner apply for Hopper (sm_90a), in f32, f64,
+// complex64 and complex128:
 //   jacobi_shifted_*:  Y[r, c] = X[r, c] / den,  den = d[r] - sigma[c]
 //   jacobi_*:          Y[r, c] = (1 / den) * X[r, c],  den = d[r]
 // where a den with |den| < eps is replaced by eps (a NaN den stays NaN).
@@ -38,6 +38,23 @@
 // whatever the division flags), the unshifted one a reciprocal and then a
 // product. Both compare |den| < eps as the reference does, so a NaN den
 // propagates.
+//
+// The complex entry points (jacobi_shifted_c64/_c128, jacobi_c64/_c128)
+// take X, d and sigma complex, each element its real and imaginary parts
+// side by side (float2 or double2, torch's complex64 and complex128): the
+// reference's complex JacobiPrecond (a complex diagonal, or a real one
+// given complex Ritz shifts on the eigs paths). |den| is hypot(re, im),
+// and a den under eps becomes eps + 0i. The division is the one of
+// torch's complex type (c10::complex's operator/, Smith's two branches on
+// |re(den)| >= |im(den)|), the unshifted form's reciprocal that division
+// of 1 + 0i followed by a complex product (re: xr*ir - xi*ii, im: xr*ii +
+// xi*ir in that order), every operation rounded once and no fma, so the
+// kernel equals its plain version (ops/jacobi.py, which computes on the
+// parts in the same order) bit for bit. A simple kernel: a thread an
+// element of the [n, k] block in a grid-stride loop, X, d and sigma read
+// as 8- or 16-byte loads (one complex value each), Y written the same way;
+// bound by device memory as the real forms are, with 4 n k + 2 n + 2 k
+// reals moved.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +63,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // rows a thread has in flight
 
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
 __device__ __forceinline__ float sub_rn(float a, float b) {
   return __fsub_rn(a, b);
 }
@@ -189,6 +212,93 @@ int launch(const T* X, const T* d, const T* sigma, T* Y, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- complex64 and complex128 -------------------------------------------
+
+template <typename C> struct Real;
+template <> struct Real<float2> { using type = float; };
+template <> struct Real<double2> { using type = double; };
+
+__device__ __forceinline__ float hyp(float a, float b) { return hypotf(a, b); }
+__device__ __forceinline__ double hyp(double a, double b) { return hypot(a, b); }
+
+// (a + i b) / (c + i d) as c10::complex divides: Smith's branch on
+// |c| >= |d|, every operation rounded once
+template <typename R>
+__device__ __forceinline__ void cdiv(R a, R b, R c, R d, R& re, R& im) {
+  const R ac = fabs(c), ad = fabs(d);
+  if (ac >= ad) {
+    if (ac == R(0) && ad == R(0)) {
+      re = div_rn(a, ac);
+      im = div_rn(b, ad);
+    } else {
+      const R rat = div_rn(d, c);
+      const R scl = div_rn(R(1), add_rn(c, mul_rn(d, rat)));
+      re = mul_rn(add_rn(a, mul_rn(b, rat)), scl);
+      im = mul_rn(sub_rn(b, mul_rn(a, rat)), scl);
+    }
+  } else {
+    const R rat = div_rn(c, d);
+    const R scl = div_rn(R(1), add_rn(d, mul_rn(c, rat)));
+    re = mul_rn(add_rn(mul_rn(a, rat), b), scl);
+    im = mul_rn(sub_rn(mul_rn(b, rat), a), scl);
+  }
+}
+
+// Y[r, c] = X[r, c] / guard(d[r] - sigma[c]) (kShifted) or
+// (1 / guard(d[r])) * X[r, c], for the n k elements of the block, row by
+// row, in a grid-stride loop
+template <typename C, bool kShifted>
+__global__ void __launch_bounds__(kThreads)
+    jacobi_complex_kernel(const C* __restrict__ X, const C* __restrict__ d,
+                          const C* __restrict__ sigma, C* __restrict__ Y,
+                          long long n, int k, long long ldx,
+                          typename Real<C>::type eps) {
+  using R = typename Real<C>::type;
+  const long long total = n * k;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < total; i += stride) {
+    const long long r = i / k;
+    const int c = static_cast<int>(i - r * k);
+    const C x = __ldg(X + r * ldx + c);
+    C den = __ldg(d + r);
+    if constexpr (kShifted) {
+      const C s = __ldg(sigma + c);
+      den.x = sub_rn(den.x, s.x);
+      den.y = sub_rn(den.y, s.y);
+    }
+    if (hyp(den.x, den.y) < eps) {
+      den.x = eps;
+      den.y = R(0);
+    }
+    C y;
+    if constexpr (kShifted) {
+      cdiv(x.x, x.y, den.x, den.y, y.x, y.y);
+    } else {
+      R ir, ii;
+      cdiv(R(1), R(0), den.x, den.y, ir, ii);
+      y.x = sub_rn(mul_rn(ir, x.x), mul_rn(ii, x.y));
+      y.y = add_rn(mul_rn(ir, x.y), mul_rn(ii, x.x));
+    }
+    Y[i] = y;
+  }
+}
+
+template <typename C, bool kShifted>
+int launch_complex(const C* X, const C* d, const C* sigma, C* Y, long long n,
+                   int k, long long ldx, typename Real<C>::type eps,
+                   int blocks, void* stream) {
+  if (n < 1 || k < 1 || ldx < k || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  jacobi_complex_kernel<C, kShifted>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          X, d, sigma, Y, n, k, ldx, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The wrapper (primme_tpu_torch/ops/jacobi.py) plans the launch: kc columns
@@ -224,4 +334,38 @@ extern "C" int jacobi_f64(const double* X, const double* d, double* Y, int n,
                           int blocks, void* stream) {
   return launch<double, false>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,
                                blocks, stream);
+}
+
+// The complex entry points: X [n, k] with rows ldx complex elements apart,
+// d [n], sigma [k], Y a new contiguous [n, k]; `blocks` blocks of 256
+// threads walk the n k elements (the wrapper plans it). Each returns the
+// CUDA error of its launch as an int (0: none).
+extern "C" int jacobi_shifted_c64(const float2* X, const float2* d,
+                                  const float2* sigma, float2* Y, long long n,
+                                  int k, long long ldx, float eps, int blocks,
+                                  void* stream) {
+  return launch_complex<float2, true>(X, d, sigma, Y, n, k, ldx, eps, blocks,
+                                      stream);
+}
+
+extern "C" int jacobi_shifted_c128(const double2* X, const double2* d,
+                                   const double2* sigma, double2* Y,
+                                   long long n, int k, long long ldx,
+                                   double eps, int blocks, void* stream) {
+  return launch_complex<double2, true>(X, d, sigma, Y, n, k, ldx, eps, blocks,
+                                       stream);
+}
+
+extern "C" int jacobi_c64(const float2* X, const float2* d, float2* Y,
+                          long long n, int k, long long ldx, float eps,
+                          int blocks, void* stream) {
+  return launch_complex<float2, false>(X, d, nullptr, Y, n, k, ldx, eps,
+                                       blocks, stream);
+}
+
+extern "C" int jacobi_c128(const double2* X, const double2* d, double2* Y,
+                           long long n, int k, long long ldx, double eps,
+                           int blocks, void* stream) {
+  return launch_complex<double2, false>(X, d, nullptr, Y, n, k, ldx, eps,
+                                        blocks, stream);
 }

@@ -229,18 +229,17 @@ class JacobiPrecond(LinearOperator):
     ``d - shifts[j]`` (or is ``matmat`` when ``use_shifts`` is False); a
     denominator under ``eps`` in magnitude becomes ``eps``. Both run the
     hand-written kernel of ``csrc/jacobi.cu`` on the card (the plain
-    version on the CPU), each rounding as the reference writes it."""
+    version on the CPU), each rounding as the reference writes it. The
+    diagonal is real (f32, f64) or complex (complex64, complex128, e.g. a
+    complex Hermitian matrix's, real in value); a real diagonal given
+    complex shifts (the Ritz values of ``eigs``) divides by the complex
+    ``d - shifts[j]``, as the reference promotes them."""
 
     def __init__(self, diag, eps: float = 1e-10, use_shifts: bool = True):
         super().__init__()
         # contiguous, as the kernel takes it (a DenseOperator's diagonal is
         # a strided view)
         d = _as_tensor(diag).contiguous()
-        if d.is_complex():
-            raise NotImplementedError(
-                f"a JacobiPrecond of dtype {d.dtype} is not ported to "
-                "primme_tpu_torch (f32 and f64 diagonals only; see "
-                "ROADMAP.md)")
         self.register_buffer("d", d)
         self.eps = float(eps)
         self.use_shifts = bool(use_shifts)
@@ -251,15 +250,25 @@ class JacobiPrecond(LinearOperator):
         return self.d.dtype
 
     def matmat(self, X):
+        if self.dtype.is_complex:
+            return JK.unshifted(_kernel_block(X, self.dtype), self.d,
+                                self.eps)
         return _on_parts(
             lambda Z: JK.unshifted(_kernel_block(Z, self.dtype), self.d,
                                    self.eps), X, self.dtype)
 
     def matmat_shifted(self, X, shifts):
-        """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])`` (a
-        complex X's two parts of column j both by ``d - shifts[j]``)."""
+        """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])``. A
+        real diagonal divides a complex X's two parts by the real ``d -
+        shifts[j]`` where the shifts are real, and X by the complex one
+        where they are complex."""
         if not self.use_shifts:
             return self.matmat(X)
+        if self.dtype.is_complex or shifts.is_complex():
+            cdt = _COMPLEX.get(self.dtype, self.dtype)
+            return JK.shifted(_kernel_block(X, cdt), self.d.to(cdt),
+                              shifts.to(device=self.d.device, dtype=cdt),
+                              self.eps)
         sh = shifts.to(device=self.d.device, dtype=self.dtype)
         if X.is_complex():
             sh = sh.repeat_interleave(2)

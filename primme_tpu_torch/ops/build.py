@@ -5,6 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 then loaded with ``ctypes``. The hash is of the source and the flags, so an
 edited source rebuilds and a built one is reused. Nothing here runs at
 import time: the machine without a CUDA toolkit imports this module too.
+:func:`build_once` is the same build step for any compiler
+(``primme_tpu_torch/native.py`` builds its host C++ libraries with it).
 """
 
 from __future__ import annotations
@@ -40,11 +42,39 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+def hashed_path(src: str, flags, stem: str) -> str:
+    """``_build/lib<stem>-<hash>.so``, the hash of ``src``'s bytes and the
+    flags it is built with."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build_once(out: str, command, what: str) -> str:
+    """Build ``out`` unless it exists: ``command(tmp)`` is the compiler's
+    command line writing ``tmp``, a private name in ``BUILD_DIR`` that is
+    renamed to ``out`` once it is whole, so a concurrent build never sees
+    a half-written library. Raises RuntimeError with the compiler's output
+    when it fails."""
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(command(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def library_path(name: str) -> str:
+    return hashed_path(os.path.join(CSRC, name + ".cu"), NVCC_FLAGS, name)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -52,25 +82,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # compile to a private name, then rename: a concurrent build
-        # never sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, name + ".cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+    src = os.path.join(CSRC, name + ".cu")
+    out = build_once(library_path(name),
+                     lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                     f"nvcc for {name}.cu")
     lib = ctypes.CDLL(out)
     _LOADED[name] = lib
     return lib

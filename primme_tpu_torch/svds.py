@@ -21,9 +21,10 @@ decides. The solve runs on the card unless the caller passes
 
 Each stage's solver events reach ``monitor(stage, ...)`` and, with
 ``return_history``, ``stats["hist"]``, on the triplet scale;
-``segment_outer`` goes to both stages. Not served yet: ``mesh``, refused
-by name. Complex input (complex64 and complex128) runs on ``A^H``: the
-adjoint layouts hold conjugated values, and ``Vh`` is ``V^H``.
+``segment_outer`` goes to both stages. Not served yet: ``mesh`` and a
+half-precision (bf16, f16) matrix, refused by name. Complex input
+(complex64 and complex128) runs on ``A^H``: the adjoint layouts hold
+conjugated values, and ``Vh`` is ``V^H``.
 """
 
 from __future__ import annotations
@@ -134,6 +135,9 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         raise ValueError(f"k={k} out of range for {m}x{n}")
     use_ata = n <= m
     dt = Aop.dtype
+    if dt in (torch.bfloat16, torch.float16):
+        raise _unported(f"svds of a {dt} matrix (eigsh serves the "
+                        "half-precision basis)")
     rdt = real_dtype(dt)
     tiny = float(torch.finfo(rdt).tiny)
     meps = float(torch.finfo(rdt).eps)

@@ -78,17 +78,18 @@ def test_aslinearoperator_passes_port_operators_only():
                       ptt.FunctionOperator)
 
 
-# M, lock and projection are served, and since the eleventh slice the
+# M, lock and projection are served, since the eleventh slice the
 # event stream (monitor, return_history, printLevel, monitor_inner),
-# the profile (profile, time_breakdown), DYNAMIC and segment_outer: their
-# cases keep their places (and ids) and check that the call runs (a lock
-# vector of unit norm: the constraints are used as given, orthonormal, as
-# in the reference; ``print`` as a monitor receives the reference's
-# keyword arguments, which it does not take). mesh and the bf16 basis
-# stay refused.
+# the profile (profile, time_breakdown), DYNAMIC and segment_outer, and
+# since the twelfth the bf16 basis (dtype): their cases keep their places
+# (and ids) and check that the call runs (a lock vector of unit norm: the
+# constraints are used as given, orthonormal, as in the reference;
+# ``print`` as a monitor receives the reference's keyword arguments, which
+# it does not take; the bf16 solve returns f32 values and vectors, as the
+# reference's). mesh stays refused.
 SERVED = ("M", "lock", "projection", "monitor", "return_history",
           "time_breakdown", "profile", "method", "printLevel",
-          "segment_outer", "monitor_inner")
+          "segment_outer", "monitor_inner", "dtype")
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -113,6 +114,8 @@ def test_eigsh_refuses_unported_arguments(kwargs):
         assert w.shape == (2,) and np.all(np.isfinite(w))
         if name == "lock":      # orthogonal to the unit constraint
             assert np.abs(X.sum(axis=0) / 64.0).max() <= 1e-5
+        if name == "dtype":     # stored in bf16, returned in f32
+            assert w.dtype == X.dtype == np.float32
         return
     with pytest.raises(NotImplementedError):
         call()

@@ -436,15 +436,25 @@ def test_complex_working_types():
     assert st["num_matvecs"] <= 2 * sj["num_matvecs"]
     # a complex working type over a real operator is refused by name (the
     # reference's cast drops the block's imaginary part and its solve does
-    # not converge); so is a real one over a complex operator, and a
-    # complex JacobiPrecond
+    # not converge); so is a real one over a complex operator
     with pytest.raises(NotImplementedError, match="working dtype"):
         ptt.eigsh(H.real.copy(), k=2, dtype=np.complex64, device="cpu")
     with pytest.raises(NotImplementedError, match="working dtype"):
         ptt.eigsh(H, k=2, dtype=np.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="JacobiPrecond"):
-        ptt.eigsh(sp.csr_matrix(H), k=2, jacobi=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="half-precision"):
+    # since the twelfth slice a complex JacobiPrecond is served: the
+    # complex diagonal's solve runs as the reference's (the same values,
+    # matvecs and preconditioner applies)
+    kj = dict(k=2, which="SA", tol=1e-8, return_stats=True)
+    wt, _, st = ptt.eigsh(sp.csr_matrix(H), jacobi=True, device="cpu", **kj)
+    wj, _, sj = primme_tpu.eigsh(sp.csr_matrix(H), jacobi=True, **kj)
+    assert np.abs(np.sort(wt) - ref[:2]).max() <= 1e-7 * np.abs(ref).max()
+    assert np.abs(np.sort(wt) - np.sort(wj)).max() <= 1e-7 * np.abs(ref).max()
+    assert st["num_preconds"] > 0
+    assert st["num_matvecs"] <= 2 * sj["num_matvecs"]
+    # the bf16 basis over a complex operator: the reference casts the
+    # block to the real half type and drops its imaginary part (its values
+    # miss the spectrum); the port refuses the real/complex mix by name
+    with pytest.raises(NotImplementedError, match="working dtype"):
         ptt.eigsh(H, k=2, dtype=torch.bfloat16, device="cpu")
 
 

@@ -62,6 +62,23 @@ matrix's type, f32 unless said):
   ``solve_eigs_dynamic``: counts, values against the closed form and the
   method trace, which depends on the host's clock and is printed, not
   held (``--dynamic-grid N`` runs at another grid).
+* ``capi``: phase 36's two calls as the JAX package's ``capi_support``
+  runs them (``eigsh_csr``'s ``eigsh`` and ``eigsh_run``'s
+  ``solve_eigs_dynamic`` with the Jacobi preconditioner and the handle's
+  calls replayed, numEvals, eps and the default method, on
+  ``chip_smoke._laplacian7(CAPI_GRID, 0)``), with their counts, which the
+  C surface does not return.
+* ``jacobi``: phase 39's five calls (``chip_smoke.REF_JACOBI``'s names):
+  phase 24's ``eigsh`` with ``jacobi=True``; the same at
+  ``JACOBI_NORMAL_GRID``^3 with a fixed ``JacobiPrecond(diag,
+  use_shifts=False)`` as ``OPinv``; ``eigs`` with a
+  ``JacobiPrecond`` of the operator's diagonal on the Ginzburg-Landau and
+  the f64 convection-diffusion operators at ``JACOBI_NORMAL_GRID``^3;
+  ``testharness.run_config`` of ``chip_smoke.magnetic_config``.
+* ``half``: phase 40's ``eigsh(k=HALF_K, dtype=bf16 | f16)`` of
+  ``chip_smoke.laplacian27(GRID, 0)`` in the chooser's RCM order (the
+  matrix phase 40 hands the solver) at tol 4 eps(half), as the JAX
+  package's ``ELLOperator``.
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -76,7 +93,7 @@ needed):
         [--complex-solve dia_c64|dia_c128|ell_c64|ell_c128|svds ...]
         [--mag-grid N]] [--phase normal [--normal-solve ell_f64|ell_c64|
         dia_f32 ...] [--normal-grid N]] [--phase dynamic
-        [--dynamic-grid N]]
+        [--dynamic-grid N]] [--phase capi|jacobi|half]
 """
 
 import argparse
@@ -93,7 +110,8 @@ def main():
     ap.add_argument("--phase", choices=("banded", "hybrid", "ell",
                                         "ell_f32", "northstar",
                                         "generalized", "interior", "svds",
-                                        "complex", "normal", "dynamic"),
+                                        "complex", "normal", "dynamic",
+                                        "capi", "jacobi", "half"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
@@ -119,7 +137,8 @@ def main():
     for phase in args.phase or ("banded", "hybrid", "ell", "ell_f32"):
         t0 = time.perf_counter()
         if phase in ("northstar", "generalized", "interior", "svds",
-                     "complex", "normal", "dynamic"):
+                     "complex", "normal", "dynamic", "capi", "jacobi",
+                     "half"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -355,6 +374,129 @@ def _dynamic(CS, pt, np, args):
                    if hasattr(r.stats, "probe_verified") else None,
                    "eval_err": float(np.abs(w - lam).max()),
                    "method_trace": trace, "solve_s": time.perf_counter() - t0}
+
+
+
+def _capi(CS, pt, np, args):
+    from primme_tpu import operators as JO
+    from primme_tpu.capi_support import _params_build
+    from primme_tpu.core.dynamic import solve_eigs_dynamic
+    from primme_tpu.params import resolve_defaults
+
+    A = CS._laplacian7(CS.CAPI_GRID, 0)
+    lam, _ = CS.stencil_eigenvalues(CS.CAPI_GRID, CS.CAPI_K)
+    t0 = time.perf_counter()
+    w, _, st = pt.eigsh(A, k=CS.CAPI_K, which="SA", tol=CS.CAPI_TOL,
+                        raise_for_unconverged=False, return_stats=True)
+    w = np.sort(np.asarray(w))
+    yield {"solve": "csr", "num_matvecs": int(st["num_matvecs"]),
+           "method_trace": st.get("method_trace"),
+           "eval_err": float(np.abs(w - lam).max()),
+           "solve_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    Aop = JO.aslinearoperator(A)
+    # the handle's calls, replayed as capi_support's eigsh_run replays them
+    st = {"ops": [("set", ("numEvals", str(CS.CAPI_K))),
+                  ("set", ("eps", str(CS.CAPI_TOL))),
+                  ("method", "PRIMME_DEFAULT_METHOD")],
+          "jacobi": True, "n": 0}
+    p = resolve_defaults(_params_build(st, A.shape[0]))
+    r = solve_eigs_dynamic(Aop, p, K=JO.JacobiPrecond(Aop.diagonal()),
+                           has_precond=True)
+    w = np.sort(np.asarray(r.evals))
+    yield {"solve": "run", "operator": type(Aop).__name__,
+           "dynamic": bool(p.dynamic_method_switch),
+           "num_matvecs": int(r.stats.num_matvecs),
+           "eval_err": float(np.abs(w - lam).max()),
+           "solve_s": time.perf_counter() - t0}
+
+
+def _jacobi(CS, pt, np, args):
+    import tempfile
+
+    from primme_tpu import operators as JO
+    from primme_tpu import testharness
+
+    t0 = time.perf_counter()
+    L, ev, _ = CS.magnetic_laplacian(CS.MAG_GRID, dtype="complex64")
+    w, _, st = pt.eigsh(L, tol=1e-5, seed=0, jacobi=True, **CS.SOLVE_KWARGS)
+    w = np.sort(np.asarray(w, np.float64))
+    yield {"solve": "magnetic", "num_matvecs": int(st["num_matvecs"]),
+           "num_preconds": int(st["num_preconds"]),
+           "eval_err": float(np.abs(w - ev[:len(w)]).max()),
+           "solve_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    L, ev, _ = CS.magnetic_laplacian(CS.JACOBI_NORMAL_GRID,
+                                     dtype="complex64")
+    w, _, st = pt.eigsh(L, tol=1e-5, seed=0,
+                        OPinv=JO.JacobiPrecond(L.diagonal(),
+                                               use_shifts=False),
+                        **CS.SOLVE_KWARGS)
+    w = np.sort(np.asarray(w, np.float64))
+    yield {"solve": "magnetic_fixed", "grid": CS.JACOBI_NORMAL_GRID,
+           "num_matvecs": int(st["num_matvecs"]),
+           "num_preconds": int(st["num_preconds"]),
+           "eval_err": float(np.abs(w - ev[:len(w)]).max()),
+           "solve_s": time.perf_counter() - t0}
+    N = CS.JACOBI_NORMAL_GRID
+    for name, coef, dtype, tol in (("gl", CS.GL_COEF, "complex64", 1e-5),
+                                   ("cd", 1.0, "float64", 1e-8)):
+        t0 = time.perf_counter()
+        A, lam, anorm = CS.convection_diffusion(N, coef, dtype=dtype)
+        op = JO.ELLOperator.from_scipy(A)
+        w, V, st = pt.eigs(op, tol=tol, method="JDQMR", seed=0,
+                           OPinv=JO.JacobiPrecond(op.diagonal()),
+                           return_stats=True, raise_for_unconverged=False,
+                           **CS.NORMAL_KWARGS)
+        w, V = np.asarray(w), np.asarray(V, np.complex128)
+        R = A.astype(np.complex128) @ V - V * w[None, :]
+        yield {"solve": name, "grid": N, "dtype": dtype, "tol": tol,
+               "num_matvecs": int(st["num_matvecs"]),
+               "num_preconds": int(st["num_preconds"]),
+               "eval_err": CS.match_values(w, lam[:len(w)]),
+               "max_residual": float(np.linalg.norm(R, axis=0).max()),
+               "anorm": anorm, "solve_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, ev, _ = CS.magnetic_config(tmp)
+        r = testharness.run_config(cfg, base_dir=tmp)
+    w = np.sort(np.asarray(r.evals, np.float64))
+    yield {"solve": "harness", "ok": bool(r.ok),
+           "num_matvecs": int(r.stats.num_matvecs),
+           "eval_err": float(np.abs(w - ev[:len(w)]).max()),
+           "solve_s": time.perf_counter() - t0}
+
+
+def _half(CS, pt, np, args):
+    import jax.numpy as jnp
+
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from primme_tpu import operators as JO
+
+    A, ev = CS.laplacian27(CS.GRID, 0)
+    # the matrix phase 40 solves: the chooser's RCM order of A, passed as
+    # the operator (the JAX package's own windowed operator of it takes
+    # tens of GB on the CPU); the JAX package's ELLOperator of it
+    perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+    A = A[perm][:, perm].tocsr()
+    op = JO.ELLOperator.from_scipy(A)
+    kw = dict(CS.SOLVE_KWARGS, k=CS.HALF_K)
+    for half in ("bfloat16", "float16"):
+        t0 = time.perf_counter()
+        tol = 4 * float(jnp.finfo(jnp.dtype(half)).eps)
+        w, X, st = pt.eigsh(op, tol=tol, seed=0, dtype=jnp.dtype(half),
+                            return_stats=True, raise_for_unconverged=False,
+                            **{k: v for k, v in kw.items()
+                               if k != "return_stats"})
+        w, X = np.asarray(w), np.asarray(X, np.float64)
+        R = A.astype(np.float64) @ X - X * w[None, :]
+        yield {"solve": half, "tol": tol,
+               "num_matvecs": int(st["num_matvecs"]),
+               "values_dtype": str(w.dtype),
+               "max_residual": float(np.linalg.norm(R, axis=0).max()),
+               "eval_err": float(np.abs(np.sort(w) - ev[:len(w)]).max()),
+               "solve_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":
