@@ -342,6 +342,46 @@ Phases, each printing its own lines; any failed check raises:
     ``windowed_ell_spmm_f32`` >= matvecs / 2, matvecs within 2x of the JAX
     package's (``--phase half``); peak device memory beside phase 4's.
 
+Phases 41-45, the row-partitioned solve (``mesh=``, over
+``torch.distributed``). The card is one: P ranks share it over a gloo
+group (NCCL refuses two ranks on one device), so no time here is a
+scaling number. The extensions are built (phase 2) before any rank is
+spawned; the ranks load them. Each world of ranks is spawned once (the
+``spawn`` start method); an exception in a rank fails the run.
+
+41. the halo product at P = 2 and 4: ``HaloELLOperator.from_scipy`` of
+    phase 3's permuted 64^3 27-point Laplacian (RCM kept where it shrinks
+    the halo) and of a banded scatter of ``tests/test_distributed.py``'s
+    kind at n = 262,144 (``band_scatter``), k = 2: ``h`` and ``hrows``;
+    the elements each rank sends a product (``h k`` a neighbour, ``2 h
+    k`` on an inner rank) and no all-gather; the gathered product within
+    1e-5 max|y| of the port's unsharded product and of scipy's f64 one;
+    the sliced-ELL launches a product on each rank, each layout's launch
+    into its row slice (``out=``) equal bit for bit to its launch into a
+    block of its own; the median host time of a sharded product beside
+    the unsharded kernel's device time (P ranks on one card: not a
+    scaling number);
+42. the headline (phase 9's settings, probe on) through
+    ``eigsh(mesh=)`` on 2 ranks: values within 1e-4 of the closed form,
+    true residuals <= 1.5 tol ||A||, probe verified, matvecs within 2x of
+    1710, ``stencil3d_f32`` and ``jacobi_shifted_f32`` launches >=
+    matvecs / 2 on every rank, both ranks' values equal bit for bit; then
+    ``distributed.dryrun_multichip`` inside the 2-rank and the 4-rank
+    worlds with its asserts;
+43. the sparse chooser under a mesh on 2 ranks: phase 4's call must take
+    ``HaloELLOperator`` in the RCM order, every product the sliced-ELL
+    kernel (its launches the layouts' count times the exchanges), gated
+    as phase 4 (matvecs within 2x of 1385); phase 11's grid-order matrix
+    must keep ``BandedOperator`` (``dia_f32`` on the window), gated as
+    phase 11;
+44. ``svds(mesh=)`` on 2 ranks: phases 20 and 22's calls on
+    ``grounded_incidence(32)``, their closed-form gates, each stage's
+    matvecs within 2x of the unsharded port's same call;
+45. NCCL on the card: a one-rank NCCL group (``init_device_mesh("cuda",
+    (1,))``, which takes the unsharded path) runs one all-reduce and
+    phase 42's call at 32^3; the backend printed, the values against the
+    unsharded run's. NCCL with several ranks needs several cards.
+
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -583,6 +623,12 @@ REF_JACOBI = {"magnetic": 2149, "magnetic_fixed": 1630, "gl": 1638,
 # closed form at a true residual of 0.40, its f16 values 1.7e-3 at 0.040)
 HALF_K = 4
 REF_HALF = {"bfloat16": 252, "float16": 457}
+# phases 41-45: the row-partitioned solve on P ranks sharing the card
+SHARD_RANKS = (2, 4)
+SHARD_K = 2                   # the product's columns (the headline's block)
+BAND_SCATTER = (GRID ** 3, 150, 3)    # n, half band, entries a row
+SHARD_SVD_GRID = 32
+SHARD_NCCL_GRID = 32
 
 
 def laplacian27_grid(m):
@@ -919,10 +965,15 @@ def spin_cycles_per_ms():
     return _SPIN_CYCLES_PER_MS
 
 
+_LAST_TIMED = 0.0    # when median_ms last finished (host clock)
+
+
 def median_ms(fn, reps=21, per=10, spin=True):
     """Median over ``reps`` samples of the device time of one call. Each
     sample times ``per`` back-to-back calls between two CUDA events. Calls
-    run for 0.2 s first, so that the card's clocks have risen. With
+    run for 0.2 s first, so that the card's clocks have risen, or for 0.02 s
+    (the spin's measure of a batch) where another timing ended less than a
+    second before and the clocks are still up. With
     ``spin``, each sample is queued behind a spin kernel
     (``torch.cuda._sleep``) that lasts twice the host time of a warm batch,
     so that the card runs the calls without gaps and neither launch latency
@@ -932,14 +983,16 @@ def median_ms(fn, reps=21, per=10, spin=True):
     ``spin`` the host's pace counts wherever it is slower than the card."""
     import torch
 
+    global _LAST_TIMED
     t0 = time.perf_counter()
+    warm = 0.02 if t0 - _LAST_TIMED < 1.0 else 0.2
     batches = 0
     while True:
         for _ in range(per):
             fn()
         torch.cuda.synchronize()
         batches += 1
-        if time.perf_counter() - t0 >= 0.2:
+        if time.perf_counter() - t0 >= warm and batches >= 2:
             break
     spin_ms = 2e3 * (time.perf_counter() - t0) / batches
     for _ in range(4):
@@ -958,6 +1011,7 @@ def median_ms(fn, reps=21, per=10, spin=True):
             b.synchronize()
             times.append(a.elapsed_time(b) / per)
         if not spin or not late:
+            _LAST_TIMED = time.perf_counter()
             return statistics.median(times)
         spin_ms *= 2
     raise RuntimeError(f"chip_smoke: {late} of {reps} samples queued "
@@ -3560,6 +3614,406 @@ def half_phase(ptt, mods, dev, seed, solve32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 41-45: the row-partitioned solve (mesh=) over torch.distributed
+# ---------------------------------------------------------------------------
+
+def band_scatter(n, halfband, per_row, seed=0):
+    """``tests/test_distributed.py``'s ``_band_matrix`` at size ``n``: a
+    symmetric matrix with ``per_row`` scattered entries a row (and their
+    transposes) inside ``|i - j| <= halfband`` and a diagonal ramp, f32;
+    too many distinct offsets for the DIA path, a small halo for the row
+    partition."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rows + rng.integers(-halfband, halfband + 1, size=rows.size)
+    keep = (cols >= 0) & (cols < n)
+    A = sp.coo_matrix((rng.normal(size=keep.sum()),
+                       (rows[keep], cols[keep])), shape=(n, n))
+    A = A + A.T + sp.diags(np.linspace(1, 50, n) + 2 * per_row)
+    return A.tocsr().astype(np.float32)
+
+
+def _world_rank(rank, P, store, fn, args, out):
+    """One spawned rank: join the gloo group, make the 1-D ``"cuda"`` mesh,
+    run ``fn(mesh, *args)`` and write its record for the parent."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from primme_tpu_torch.distributed import TIMEOUT
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", store=dist.FileStore(store, P),
+                            rank=rank, world_size=P, timeout=TIMEOUT)
+    try:
+        mesh = init_device_mesh("cuda", (P,))
+        res = globals()[fn](mesh, *args)
+        torch.cuda.synchronize()
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(P, fn, *args):
+    """``fn(mesh, *args)`` on ``P`` ranks sharing the card over gloo
+    (``torch.multiprocessing.spawn``; what a rank raises, this raises);
+    the ranks' records in rank order."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out:
+        mp.spawn(_world_rank, args=(P, os.path.join(out, "store"), fn, args,
+                                    out), nprocs=P, join=True)
+        recs = []
+        for r in range(P):
+            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                recs.append(pickle.load(f))
+    return recs
+
+
+def _rank_tag(mesh, phase):
+    import torch.distributed as dist
+    return f"{phase} P={mesh.size()} rank {dist.get_rank()}"
+
+
+def halo_product(mesh, A, name, seed):
+    """Phase 41 on this rank for the matrix ``A`` (``name``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from primme_tpu_torch import distributed as D
+    from primme_tpu_torch.core import comm as cm
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    tag = _rank_tag(mesh, f"41 {name}")
+    dev = D.mesh_device(mesh)
+    t0 = time.perf_counter()
+    op, perm = D.HaloELLOperator.from_scipy(A, mesh)
+    pack_s = time.perf_counter() - t0
+    comm = op.comm
+    Ap = A if perm is None else A[perm][:, perm].tocsr()
+    X = np.random.default_rng(seed).normal(
+        size=(A.shape[0], SHARD_K)).astype(np.float32)
+    x = torch.as_tensor(comm.rows(X)).to(dev)
+    op(x[:, :1])                      # the first call pays the set-up
+    torch.cuda.synchronize()
+    sent0, l0 = cm.SENT_ELEMENTS, dict(WE.KERNEL_LAUNCHES)
+    gathers = []
+    orig = dist.all_gather
+    dist.all_gather = lambda *a, **k: gathers.append(1) or orig(*a, **k)
+    try:
+        y = op.matmat(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_gather = orig
+    sent = cm.SENT_ELEMENTS - sent0
+    launches = {e: WE.KERNEL_LAUNCHES[e] - l0[e] for e in l0}
+    n_nb = (comm.rank > 0) + (comm.rank < comm.size - 1)
+    check(sent == n_nb * op.halo * SHARD_K and not gathers,
+          f"{tag}: {sent} elements sent ({n_nb} neighbours, h={op.halo}, "
+          f"k={SHARD_K}), {len(gathers)} all-gathers")
+    per_product = launches["windowed_ell_spmm_f32"]
+    check(per_product == (3 if op.split else 1)
+          and sum(launches.values()) == per_product,
+          f"{tag}: launches {launches} for one product")
+    # each layout's launch into its row slice against its own block
+    bitwise = True
+    if op.split:
+        hr, nl = op.hrows, op.nl
+        Ys = torch.full_like(y, float("nan"))
+        op.interior(x, Ys)
+        own = op._run("int", x, None)
+        bitwise = bool(torch.equal(Ys[hr:nl - hr], own)
+                       and torch.equal(Ys[hr:nl - hr], y[hr:nl - hr]))
+        check(bitwise, f"{tag}: the interior launch into its row slice "
+              "differs from its launch into its own block")
+    Yg = comm.all_gather_rows(y).cpu().numpy().astype(np.float64)
+    ref = Ap.astype(np.float64) @ X.astype(np.float64)
+    ymax = float(np.abs(ref).max())
+    err_sp = float(np.abs(Yg - ref).max())
+    # the port's unsharded product of the same matrix, on this card
+    op1, _ = D.HaloELLOperator.from_scipy(Ap, None, try_rcm=False,
+                                          device=dev)
+    Xd = torch.as_tensor(X).to(dev)
+    Y1 = op1.matmat(Xd)
+    err_un = float(np.abs(Yg - Y1.cpu().numpy()).max())
+    check(err_sp <= 1e-5 * ymax and err_un <= 1e-5 * ymax,
+          f"{tag}: max|y - scipy| {err_sp:.3e}, max|y - unsharded| "
+          f"{err_un:.3e} (limit {1e-5 * ymax:.3e})")
+    # the sharded product's host time, every rank together; then the
+    # unsharded kernel's device time on rank 0 alone
+    dist.barrier()
+    walls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        op.matmat(x)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    dist.barrier()
+    un_ms = median_ms(lambda: op1.matmat(Xd)) if comm.rank == 0 else None
+    dist.barrier()
+    rec = {"n": A.shape[0], "nnz": int(A.nnz), "halo": op.halo,
+           "hrows": op.hrows, "split": op.split, "rcm": perm is not None,
+           "rows": [comm.lo, comm.hi], "sent_elements": sent,
+           "neighbours": int(n_nb), "all_gathers": len(gathers),
+           "launches": launches, "out_slice_bitwise": bitwise,
+           "max_err_scipy": err_sp, "max_err_unsharded": err_un,
+           "max_abs_y": ymax, "sharded_host_ms": statistics.median(walls),
+           "unsharded_kernel_ms": un_ms, "pack_s": pack_s}
+    print(f"[{tag}] n={A.shape[0]} h={op.halo} hrows={op.hrows} rcm="
+          f"{perm is not None} rows [{comm.lo}, {comm.hi}) sent {sent} "
+          f"elements ({n_nb} x h x k) launches {launches} max|y-scipy| "
+          f"{err_sp:.3e} max|y-unsharded| {err_un:.3e} (max|y| {ymax:.3e}) "
+          f"sharded product {rec['sharded_host_ms']:.4f} ms host"
+          + (f", unsharded kernel {un_ms:.5f} ms device" if un_ms else "")
+          + f" (P ranks on one card: not a scaling number); pack "
+          f"{pack_s:.2f} s", flush=True)
+    return rec
+
+
+def world_products(mesh, seed):
+    """Phase 41 on this rank, both matrices; then, in the world of the
+    same size, ``dryrun_multichip`` (phase 42's second half)."""
+    from primme_tpu_torch import distributed as D
+
+    A, _ = laplacian27(GRID, seed)
+    out = {"laplacian27": halo_product(mesh, A, "laplacian27", seed),
+           "band_scatter": halo_product(mesh, band_scatter(*BAND_SCATTER),
+                                        "band_scatter", seed)}
+    t0 = time.perf_counter()
+    dry = D.dryrun_multichip(mesh.size(), device="cuda")
+    out["dryrun"] = {"evals": [float(v) for v in dry["evals"]],
+                     "max_resnorm": float(dry["resnorms"].max()),
+                     "matvecs": int(dry["matvecs"]),
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def world_solves(mesh, seed, svd_refs):
+    """Phases 42-44 on this rank (2 ranks)."""
+    import numpy as np
+    import torch
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch.core import comm as cm
+    from primme_tpu_torch.ops import dia as DK
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    import primme_tpu_torch.distributed as D
+    mods = (DK, WE, ST, JK)
+    dev = D.mesh_device(mesh)
+    out = {}
+
+    # --- 42. the headline under eigsh(mesh=) ---
+    tag = _rank_tag(mesh, "42 headline")
+    lam, anorm = stencil_eigenvalues(GRID, 10)
+    A = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=torch.float32,
+                              device=dev)
+    kw = _headline_eigsh_kwargs(dev, seed, GRID)
+    torch.cuda.synchronize()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    w, V, st = ptt.eigsh(A, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    mv = st["num_matvecs"]
+    err = float(np.abs(np.sort(w) - lam).max())
+    res = _true_stencil_residual(GRID, w, V, dev)
+    print(f"[{tag}] wall {wall:.3f} s matvecs {mv} (reference "
+          f"{REF_HEADLINE_MATVECS}) max|eval-analytic| {err:.3e} true "
+          f"residual {res:.3e} (limit {1.5e-5 * anorm:.3e}) probe verified "
+          f"{st['probe_verified']} exhausted {st['probe_exhausted']} "
+          f"global sums {st['num_global_sum']} launches {launches}",
+          flush=True)
+    check(err <= 1e-4, f"{tag}: eigenvalue error {err:.3e}")
+    check(res <= 1.5e-5 * anorm, f"{tag}: true residual {res:.3e}")
+    check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+          f"{tag}: spectrum verification did not complete")
+    check(REF_HEADLINE_MATVECS / 2 <= mv <= 2 * REF_HEADLINE_MATVECS,
+          f"{tag}: {mv} matvecs")
+    for e in ("stencil3d_f32", "jacobi_shifted_f32"):
+        check(launches[e] >= mv / 2, f"{tag}: {launches[e]} {e} launches")
+    check(not any(v for e, v in launches.items()
+                  if e not in ("stencil3d_f32", "jacobi_shifted_f32")),
+          f"{tag}: another kernel served the headline: {launches}")
+    out["headline"] = {"wall_s": wall, "num_matvecs": mv, "eval_err": err,
+                       "max_true_residual": res, "evals": w,
+                       "num_global_sum": st["num_global_sum"],
+                       "volume_global_sum": st["volume_global_sum"],
+                       "probe_verified": st["probe_verified"],
+                       "launches": launches}
+
+    # --- 43. the sparse chooser under the mesh ---
+    forbid = [e for m in mods for e in m.KERNEL_LAUNCHES]
+    A27, ev = laplacian27(GRID, seed)
+    ex0 = cm.EXCHANGES
+    run = format_solve(ptt, mods, A27, seed, _rank_tag(mesh, "43 sparse"),
+                       ev, 1e-4, float(np.abs(ev).max()), REF_MATVECS,
+                       need=("windowed_ell_spmm_f32",),
+                       forbid=[e for e in forbid
+                               if e != "windowed_ell_spmm_f32"],
+                       kwargs={**SOLVE_KWARGS, "mesh": mesh})
+    pk = D.pack(A27, mesh.size())
+    nl = A27.shape[0] // mesh.size()
+    split = pk.halo > 0 and 0 < pk.hrows and 2 * pk.hrows < nl
+    exchanges = cm.EXCHANGES - ex0
+    check(pk.perm is not None and exchanges > 0
+          and run["launches"]["windowed_ell_spmm_f32"]
+          == (3 if split else 1) * exchanges,
+          f"43: the halo operator in the RCM order did not serve every "
+          f"product: perm {pk.perm is not None}, {exchanges} exchanges, "
+          f"{run['launches']}")
+    run["exchanges"], run["halo"], run["hrows"] = exchanges, pk.halo, \
+        pk.hrows
+    out["sparse"] = run
+    Ag, evg = laplacian27_grid(GRID)
+    ex0 = cm.EXCHANGES
+    run = format_solve(ptt, mods, Ag, seed, _rank_tag(mesh, "43 banded"),
+                       evg, 1e-4, float(np.abs(evg).max()),
+                       REF_BANDED_MATVECS, need=("dia_f32",),
+                       forbid=[e for e in forbid if e != "dia_f32"],
+                       kwargs={**SOLVE_KWARGS, "mesh": mesh})
+    run["exchanges"] = cm.EXCHANGES - ex0
+    check(run["exchanges"] > 0, "43 banded: no halo exchange")
+    out["banded"] = run
+
+    # --- 44. svds under the mesh ---
+    mats = {"float64": grounded_incidence(SHARD_SVD_GRID)}
+    out["svds"] = {}
+    for name in ("lm", "sm"):
+        kw, dt = SVDS_SOLVES[name]
+        refs = svd_refs[name]
+        spec = dict(kw={**kw, "mesh": mesh}, dtype=dt, refs=refs,
+                    value_bar=SVDS_VALUE_BAR[name], res_bar=10,
+                    launch_floor=1, total_floor=True)
+        r = svds_phase(ptt, mods, dev, name, seed, mats, spec)
+        for g, ref in refs.items():
+            got = r["stages"][g]["num_matvecs"]
+            if name == "sm" and g == "stage2":
+                # phase 22's rule for this stage (svds_phase holds it: a
+                # count > 0, the total within 2x): the SM stage 2 refines a
+                # triple-degenerate cluster, and its count moves with the
+                # rounding of its start
+                continue
+            check(ref[0] / 2 <= got <= 2 * ref[0],
+                  f"44 svds {name}: {g} {got} matvecs against the unsharded "
+                  f"port's {ref[0]}")
+        out["svds"][name] = {key: r[key] for key in (
+            "wall_s", "svals", "eval_err", "max_triplet_residual",
+            "num_matvecs", "ref_num_matvecs", "stages", "launches")}
+    return out
+
+
+def nccl_phase(ptt, mods, dev, seed):
+    """Phase 45: a one-rank NCCL group on the card."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from primme_tpu_torch.distributed import TIMEOUT
+
+    grid = SHARD_NCCL_GRID
+    kw = _headline_eigsh_kwargs(dev, seed, grid)
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
+                              device=dev)
+    w0, _, st0 = ptt.eigsh(A, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            timeout=TIMEOUT)
+        try:
+            mesh = init_device_mesh("cuda", (1,))
+            backend = str(dist.get_backend(mesh.get_group()))
+            t = torch.arange(4, dtype=torch.float32, device=dev)
+            dist.all_reduce(t, group=mesh.get_group())
+            torch.cuda.synchronize()
+            reduced = t.cpu().tolist()
+            reset_counts(*mods)
+            w, _, st = ptt.eigsh(A, mesh=mesh, **kw)
+            launches = read_counts(mods)
+        finally:
+            dist.destroy_process_group()
+    diff = float(np.abs(np.sort(w) - np.sort(w0)).max())
+    print(f"[45 nccl] backend {backend}; all_reduce on the card -> "
+          f"{reduced}; eigsh(mesh=1-rank NCCL mesh) at {grid}^3: matvecs "
+          f"{st['num_matvecs']} (unsharded {st0['num_matvecs']}), max|w - "
+          f"unsharded w| {diff:.3e}, bitwise {bool(np.array_equal(w, w0))}; "
+          "NCCL with several ranks needs several cards (it refuses two "
+          "ranks on one device), not verified here", flush=True)
+    check(backend == "nccl", f"45: backend {backend}")
+    check(reduced == [0.0, 1.0, 2.0, 3.0], f"45: all_reduce gave {reduced}")
+    check(diff <= 1e-6 * float(np.abs(w0).max()),
+          f"45: values {diff:.3e} from the unsharded run's")
+    return {"backend": backend, "all_reduce": reduced, "grid": grid,
+            "num_matvecs": st["num_matvecs"],
+            "unsharded_num_matvecs": st0["num_matvecs"], "max_diff": diff,
+            "bitwise": bool(np.array_equal(w, w0)), "launches": launches}
+
+
+def sharded_phases(ptt, mods, dev, seed):
+    """Phases 41-45 and their seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    # the unsharded port's svds counts at phase 44's size, for its gates
+    A32, _ = grounded_incidence(SHARD_SVD_GRID)
+    svd_refs = {}
+    for name in ("lm", "sm"):
+        kw, _ = SVDS_SOLVES[name]
+        _, _, _, st = ptt.svds(A32, seed=seed, return_stats=True,
+                               device=dev, **kw)
+        svd_refs[name] = {g: (int(st[f"{g}_num_matvecs"]), 0, 0, 0)
+                          for g in ("stage1", "stage2")
+                          if f"{g}_num_matvecs" in st}
+        print(f"[44 unsharded] svds {name} at {SHARD_SVD_GRID}^3: "
+              f"{svd_refs[name]}", flush=True)
+    t1 = time.perf_counter()
+    worlds = {}
+    for P in SHARD_RANKS:
+        worlds[P] = run_world(P, "world_products", seed)
+    t2 = time.perf_counter()
+    solves = run_world(2, "world_solves", seed, svd_refs)
+    t3 = time.perf_counter()
+    h = [r["headline"] for r in solves]
+    check(all(np.array_equal(r["evals"], h[0]["evals"]) for r in h[1:]),
+          "42: the ranks' headline values differ")
+    for r in h:
+        r["evals"] = [float(v) for v in r["evals"]]
+    nccl = nccl_phase(ptt, mods, dev, seed)
+    t4 = time.perf_counter()
+    secs = {"svds_refs": t1 - t0, "products_and_dryruns": t2 - t1,
+            "solves": t3 - t2, "nccl": t4 - t3, "total": t4 - t0}
+    for P, recs in worlds.items():
+        for name in ("laplacian27", "band_scatter"):
+            r = [rec[name] for rec in recs]
+            print(f"[41 P={P} {name}] h={r[0]['halo']} hrows="
+                  f"{r[0]['hrows']} sent a product by rank "
+                  f"{[x['sent_elements'] for x in r]} (2 h k = "
+                  f"{2 * r[0]['halo'] * SHARD_K}); sharded product "
+                  f"{r[0]['sharded_host_ms']:.4f} ms host against the "
+                  f"unsharded kernel's {r[0]['unsharded_kernel_ms']:.5f} ms "
+                  f"device (P ranks on one card over gloo: not a scaling "
+                  f"number)", flush=True)
+        print(f"[42 dryrun_multichip({P})] {recs[0]['dryrun']}", flush=True)
+    print("[phases 41-45] " + ", ".join(f"{key} {v:.1f} s"
+                                         for key, v in secs.items()),
+          flush=True)
+    return {"products": {P: [{k: v for k, v in rec.items()}
+                             for rec in recs]
+                         for P, recs in worlds.items()},
+            "solves": solves, "nccl": nccl, "seconds": secs,
+            "svds_unsharded": svd_refs}
+
+
 def jacobi_complex_record(name, replaces, per_shape, path, launches):
     """The record of a complex Jacobi entry point (phase 38's numbers at
     ``HEADLINE_SHAPE``, complex denominators), its launches those of the
@@ -3860,6 +4314,9 @@ def main():
           flush=True)
     jl = {name: r["launches"] for name, r in jsolves["solves"].items()}
 
+    # --- 41-45. the row-partitioned solve on ranks sharing the card -------
+    sharded = sharded_phases(ptt, mods, dev, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228",
@@ -3911,7 +4368,7 @@ def main():
         "normal": normal, "dynamic": dynamic, "segmented": segmented,
         "events": events, "harness": harness, "profile": profile,
         "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
-        "half": half, "seconds_36_40": seconds36,
+        "half": half, "seconds_36_40": seconds36, "sharded": sharded,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -3942,7 +4399,19 @@ def main():
              "capi run": capi["run"]["launches"],
              **{"jacobi " + name.replace("_", " "): counts
                 for name, counts in jl.items()},
-             **{f"half {name}": r["launches"] for name, r in half.items()}}
+             **{f"half {name}": r["launches"] for name, r in half.items()},
+             **{f"halo product P={P} {name} rank {r}": rec[name]["launches"]
+                for P, recs in sharded["products"].items()
+                for r, rec in enumerate(recs)
+                for name in ("laplacian27", "band_scatter")},
+             **{f"sharded {name} rank {r}": rec[name]["launches"]
+                for r, rec in enumerate(sharded["solves"])
+                for name in ("headline", "sparse", "banded")},
+             **{f"sharded svds {name} rank {r}":
+                rec["svds"][name]["launches"]
+                for r, rec in enumerate(sharded["solves"])
+                for name in ("lm", "sm")},
+             "nccl headline": sharded["nccl"]["launches"]}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

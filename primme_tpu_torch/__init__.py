@@ -68,6 +68,12 @@ shifts); ``eigsh`` returns real eigenvalues and complex vectors, ``svds``
 returns ``Vh = V^H``. A real operator multiplies a
 complex block's two parts in one launch of its real product.
 
+``eigsh(mesh=)`` and ``svds(mesh=)`` run the row-partitioned solve over
+``torch.distributed`` (a 1-D ``DeviceMesh``; :mod:`.distributed`'s
+halo-exchange ``HaloELLOperator`` and ``dryrun_multichip``): every
+reduction over rows summed over the ranks, the reference's ``nLocal``
+model.
+
 f32 products run in full f32: TF32 is disabled at import, the
 counterpart of the reference's ``Precision.HIGHEST``; Grams of f32 and
 complex64 blocks are summed in double.

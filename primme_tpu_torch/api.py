@@ -20,8 +20,8 @@ switching, :func:`~primme_tpu_torch.core.dynamic.solve_eigs_dynamic`),
 ``time_breakdown``), and a half-precision basis (``dtype`` bf16 or f16:
 the basis stored in half, every product and the projected problem in f32,
 Rayleigh-Ritz against the basis' explicit Gram, the convergence bar
-relaxed to ``4 eps(half)``). Arguments of the reference that the port does
-not serve yet raise ``NotImplementedError``: ``mesh``.
+relaxed to ``4 eps(half)``), and the row-partitioned solve (``mesh``, a
+1-D ``DeviceMesh``: :mod:`~primme_tpu_torch.distributed`).
 
 ``eigs`` is the port of the reference's ``eigs``: eigenpairs of a normal
 (non-Hermitian) operator, complex Ritz values, with its whole surface.
@@ -40,6 +40,7 @@ from . import params as prm
 from .params import PrimmeParams, Target, Method, set_method
 from .operators import (CastOperator, JacobiPrecond, aslinearoperator,
                         default_device)
+from .core.comm import allgather_rows
 from .core.linalg import real_dtype
 from .core.solver import solve_eigs
 
@@ -102,39 +103,66 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     (the reference's ``eigsh``, scipy calling convention with the PRIMME
     extensions). ``device`` is where the solve runs: the card
     (``"cuda"``) when it is None, which raises if there is no card; a
-    solve on the CPU asks for ``device="cpu"``. Returns numpy arrays,
-    like the reference."""
+    solve on the CPU asks for ``device="cpu"``. ``mesh``, a 1-D
+    ``DeviceMesh``, runs the row-partitioned solve: every rank of it calls
+    with the same arguments, the mesh's device type places the blocks,
+    and every rank returns the same arrays
+    (:mod:`~primme_tpu_torch.distributed`). Returns numpy arrays, like the
+    reference."""
     if mode != "normal":
         raise ValueError(f"only mode='normal' is supported (got {mode!r})")
     if Minv is not None:
         raise NotImplementedError(
             "Minv is not supported (reference parity: primme.pyx:350); "
             "pass OPinv for a preconditioner")
-    if mesh is not None:
-        raise _unported("mesh")
     wd = _working_dtype(dtype)
-    device = default_device(device, "eigsh")
+    if mesh is not None:
+        from . import distributed as D
+        device = D.mesh_device(mesh, device)
+        sharded = mesh.size() > 1
+    else:
+        device = default_device(device, "eigsh")
+        sharded = False
 
     perm = None
     import scipy.sparse as _sp
 
     if _sp.issparse(A):
-        from .operators import rcm_banded
+        from .operators import rcm_banded, BandedOperator
         # with a mass matrix both operators keep the caller's order
-        rb = rcm_banded(A) if M is None else None
+        rb = None
+        if M is None and sharded:
+            # the JAX package's chooser under a mesh: the pure banded
+            # layout (its shifts become neighbour exchanges), else the
+            # halo-exchange row partition, else the gathered format
+            cand = rcm_banded(A)
+            if cand is not None and isinstance(cand[0], BandedOperator):
+                rb = cand
+            else:
+                rb = D.HaloELLOperator.from_scipy(A, mesh, device=device)
+        elif M is None:
+            rb = rcm_banded(A)
         if rb is not None:
             Aop, perm = rb
         else:
             Aop = aslinearoperator(A)
     else:
         Aop = aslinearoperator(A)
-    Aop = Aop.to(device)
     n = Aop.shape[0]
+    comm = D.mesh_comm(mesh, n, device) if sharded else None
+    if comm is not None and _sp.issparse(A) and rb is None:
+        # each rank packs only its own rows of the gathered format
+        Aop = D.GatheredOperator.from_scipy(A, comm)
+    Aop = Aop.to(device)
     if Aop.shape[0] != Aop.shape[1]:
         raise ValueError("expected square operator")
     if not (0 < k <= n):
         raise ValueError(f"k={k} out of range for n={n}")
     Mop = aslinearoperator(M).to(device) if M is not None else None
+    if comm is not None:
+        Aop = D.shard_operator(Aop, comm)
+        if Mop is not None:
+            Mop = D.shard_operator(Mop, comm)
 
     if isinstance(which, str) and which.upper() in _WHICH_TO_TARGET:
         which = which.upper()
@@ -172,6 +200,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     K = None
     if OPinv is not None:
         K = aslinearoperator(OPinv).to(device)
+        if comm is not None:
+            K = D.shard_operator(K, comm)
     elif jacobi:
         d = Aop.diagonal()
         if d is None:
@@ -215,6 +245,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             v0n = v0n[:, None]
         if perm is not None:
             v0n = v0n[perm, :]
+        if comm is not None:
+            v0n = comm.rows(v0n)
         v0t = torch.as_tensor(np.ascontiguousarray(v0n)).to(
             device=device, dtype=Aop.dtype)
     oc = None
@@ -231,7 +263,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
                 f"Got shape {np.shape(lock)}")
         if perm is not None:
             ocn = ocn[perm, :]
-        oc = torch.as_tensor(np.ascontiguousarray(ocn)).to(
+        oc = torch.as_tensor(np.ascontiguousarray(
+            ocn if comm is None else comm.rows(ocn))).to(
             device=device, dtype=Aop.dtype)
         p = prm.resolve_defaults(p.with_(num_ortho_const=int(ocn.shape[1])))
 
@@ -268,7 +301,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             return solve_eigs_dynamic(
                 Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc, dtype=wd,
                 device=device, has_precond=K is not None, monitor=mon_,
-                convtest=convtest, segment_log=segments)
+                convtest=convtest, segment_log=segments, comm=comm)
         inner = None
         if p.max_inner_iterations != 0:
             from .core.inner import jdqmr_inner_solve
@@ -285,7 +318,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         return solve_eigs(Aop, p, B=Mop, K=K, v0=v0t, ortho_const=oc,
                           inner_solve=inner, dtype=wd, device=device,
                           convtest=convtest, monitor=mon_,
-                          segment_outer=segment_outer, inner_trace_cap=itcap)
+                          segment_outer=segment_outer, inner_trace_cap=itcap,
+                          comm=comm)
 
     t0 = time.perf_counter()
     res = _run_solve()
@@ -335,7 +369,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             measured = _tb(Aop, K, stats, mmax=p.max_basis_size,
                            blk=p.max_block_size,
                            cwin=min(p.max_basis_size, k + p.max_block_size),
-                           dtype=(wd or Aop.dtype), n=n)
+                           dtype=(wd or Aop.dtype),
+                           n=n if comm is None else comm.nl)
             measured["time_source"] = "estimated"
         if time_breakdown and return_stats:
             stats.update(measured)
@@ -346,7 +381,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             v_[0], np.ndarray) else v_) for k_, v_ in history.items()}
     out = [res.evals.cpu().numpy()]
     if return_eigenvectors:
-        ev = res.evecs.cpu().numpy()
+        ev = allgather_rows(res.evecs, comm).cpu().numpy()
         if perm is not None:
             ev = ev[np.argsort(perm), :]
         out.append(ev)

@@ -139,6 +139,22 @@ def chebyshev_from_jax(K, A, device=None) -> ChebyshevPrecond:
                device)
 
 
+def halo_ell_from_jax(op, mesh=None):
+    """A ``primme_tpu.distributed.HaloELLOperator`` as the port's on this
+    rank of ``mesh`` (a 1-D ``DeviceMesh``; None: one rank): its global
+    arrays carried across as numpy, this rank's rows kept, on the mesh's
+    device. The partition is the port's (``mesh``), which must have as
+    many ranks as the operator was packed for."""
+    from .distributed import HaloELLOperator, HaloPack, mesh_comm
+
+    cols = np.asarray(op.cols)
+    pk = HaloPack(cols, np.asarray(op.vals), np.asarray(op.diag),
+                  int(op.halo), int(op.hrows or 0), None)
+    comm = None if mesh is None else mesh_comm(mesh, cols.shape[0])
+    out = HaloELLOperator.from_pack(pk, comm)
+    return out if comm is None else out.to(comm.device)
+
+
 def block_from_numpy(X, device, dtype=None) -> torch.Tensor:
     """An ``[n, k]`` numpy block as a tensor on ``device``."""
     t = torch.from_numpy(np.ascontiguousarray(X))

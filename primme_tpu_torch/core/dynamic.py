@@ -23,9 +23,10 @@ import numpy as np
 import torch
 
 from ..params import PrimmeParams, Method, set_method
+from . import comm as cm
 from .linalg import block_ortho
-from .solver import (EigsResult, setup_solver, extract_result, make_config,
-                     prepare_window, run_segment)
+from .solver import (EigsResult, counted_sums, setup_solver, extract_result,
+                     make_config, prepare_window, run_segment)
 
 
 _SEG_OUTER = 10          # outer iterations a measured segment
@@ -74,14 +75,29 @@ def _warm(cfg, A, B, K, s, shifts):
 def solve_eigs_dynamic(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                        ortho_const=None, dtype=None, device=None,
                        has_precond=None, monitor=None, convtest=None,
-                       segment_log=None) -> EigsResult:
+                       segment_log=None, comm=None) -> EigsResult:
     """Eigensolve with runtime GD+k <-> JDQMR switching (reference
     ``solve_eigs_dynamic``). ``monitor`` and ``convtest`` pass through to
     every segment (:func:`~.solver.run_segment`). ``segment_log``: an
     optional list; a record of every measured segment is appended: its
     ``method`` (``"gd"`` or ``"jd"``; over the records, the reference's
     ``method_trace``), ``seconds``, ``digits`` gained, and the ``outer``
-    iterations and ``matvecs`` it ran."""
+    iterations and ``matvecs`` it ran.
+
+    ``comm`` runs the row-sharded solve (:func:`~.solver.solve_eigs`).
+    Each rank times its own segments, so the ranks' clocks disagree: rank
+    0 chooses the next method and every rank follows its choice."""
+    with cm.installed(comm):
+        n0 = comm.num_global_sum if comm is not None else 0
+        v0_ = comm.volume_global_sum if comm is not None else 0
+        res = _solve_dynamic(A, p, B, K, v0, ortho_const, dtype, device,
+                             has_precond, monitor, convtest, segment_log,
+                             comm)
+    return counted_sums(res, comm, n0, v0_)
+
+
+def _solve_dynamic(A, p, B, K, v0, ortho_const, dtype, device, has_precond,
+                   monitor, convtest, segment_log, comm) -> EigsResult:
     from .inner import jdqmr_inner_solve
 
     if has_precond is None:
@@ -170,5 +186,8 @@ def solve_eigs_dynamic(A, p: PrimmeParams, *, B=None, K=None, v0=None,
             segs_since_probe = 0
         else:
             segs_since_probe += 1
+        if comm is not None:
+            current = ("gd", "jd")[comm.broadcast_int(
+                ("gd", "jd").index(current))]
 
     return extract_result(cfg_gd, s, shifts)

@@ -26,13 +26,15 @@ from __future__ import annotations
 import torch
 
 from ..params import ConvTest, Target
+from .comm import col_dots, global_sum
 from .linalg import (bcomb, gram, real_dtype, machine_eps, prefix_project,
                      scoped_mv)
 
 
 def _dots(X, Y):
-    """Per-column Re(x_j^H y_j)."""
-    return torch.sum(X.conj() * Y, dim=0).real
+    """Per-column Re(x_j^H y_j), summed over the ranks of a sharded
+    solve."""
+    return col_dots(X, Y).real
 
 
 def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
@@ -92,12 +94,12 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         if cfg.leftQ and has_lockedQ:
             W = prefix_project(BQ, Q, W, nlockq)
         if cfg.leftX:
-            W = W - BX * torch.sum(X.conj() * W, dim=0)[None, :]
+            W = W - BX * col_dots(X, W)[None, :]
         return W
 
     if K is not None and cfg.skewX:
         KinvBx = apply_precond(K, BX, shift)
-        xKinvBx = torch.sum(X.conj() * KinvBx, dim=0)
+        xKinvBx = col_dots(X, KinvBx)
         xKinvBx = torch.where(torch.abs(xKinvBx) < tiny, 1.0, xKinvBx)
     else:
         KinvBx = None
@@ -111,10 +113,10 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         elif cfg.rightQ and has_lockedQ:
             Y = prefix_project(BQ, Q, Y, nlockq)
         if KinvBx is not None:
-            ov = torch.sum(X.conj() * Y, dim=0)
+            ov = col_dots(X, Y)
             Y = Y - KinvBx * (ov / xKinvBx)[None, :]
         elif cfg.olsen:
-            Y = Y - BX * torch.sum(X.conj() * Y, dim=0)[None, :]
+            Y = Y - BX * col_dots(X, Y)[None, :]
         return Y
 
     # --- stopping configuration (inner_solve.c:211-252) ---------------------
@@ -324,7 +326,7 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         if cfg.leftQ and has_lockedQ:
             D = prefix_project(Q, Q, D, nlockq)
         if cfg.leftX:
-            D = D - X * torch.sum(X.conj() * D, dim=0)[None, :]
+            D = D - X * col_dots(X, D)[None, :]
         return D
 
     def prec(D):
@@ -367,7 +369,7 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         Vi = Vk[:i + 1]
         h = torch.zeros((i + 1, blk), dtype=dtype, device=dev)
         for _ in range(2):
-            hp = torch.einsum("jnb,nb->jb", Vi.conj(), w)
+            hp = global_sum(torch.einsum("jnb,nb->jb", Vi.conj(), w))
             w = w - torch.einsum("jnb,jb->nb", Vi, hp)
             h = h + hp
         hnorm = torch.sqrt(torch.clamp(_dots(w, w), min=0.0))

@@ -28,6 +28,8 @@ import torch
 from torch.profiler import record_function
 
 from ..params import Target
+from . import comm as cm
+from .comm import col_dots, col_norms
 
 
 def scope(name: str):
@@ -114,7 +116,23 @@ def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     round, ``(Y^H X)^H``: cuBLAS's conjugate-transposed matrix-vector
     product that ``X^H y`` becomes took 17.8 ms for a complex128 ``X`` of
     262,144 x 24 on the same card, ``y^H X`` 0.049 ms
-    (``tools/torch_gram_bench.py``)."""
+    (``tools/torch_gram_bench.py``).
+
+    ``X`` and ``Y`` are row-sharded blocks: under a sharded solve the
+    local product is summed over the ranks, before the cast back from
+    double. :func:`small_gram` is the same product of small replicated
+    matrices."""
+    return _gram(X, Y, True)
+
+
+def small_gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``X^H Y`` of two small replicated matrices (the projected problem's
+    coefficient blocks) at :func:`gram`'s precision, with no sum over
+    ranks."""
+    return _gram(X, Y, False)
+
+
+def _gram(X, Y, rows: bool):
     dtype = _compute_of(X, Y)
     wide = _WIDE.get(dtype)
     X, Y = X.to(wide or dtype), Y.to(wide or dtype)
@@ -122,6 +140,8 @@ def gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         G = (Y.mH @ X).mH.resolve_conj()
     else:
         G = X.mH @ Y
+    if rows:
+        G = cm.global_sum(G)
     return G if wide is None else G.to(dtype)
 
 
@@ -158,12 +178,14 @@ def rand_block(gen: torch.Generator, n: int, bs: int, dtype, device):
     """Standard normal ``[n, bs]`` block drawn from the CPU generator
     ``gen`` and moved to ``device``, so the CPU and GPU streams agree. A
     complex block draws its real part, then its imaginary part, each
-    standard normal (the reference's ``_rand_block``)."""
+    standard normal (the reference's ``_rand_block``). ``n`` is the global
+    row count: under a sharded solve every rank draws the global block and
+    keeps its own rows, so the stream is the unsharded solve's."""
     rdt = real_dtype(dtype)
     X = torch.randn((n, bs), generator=gen, dtype=rdt)
     if dtype.is_complex:
         X = torch.complex(X, torch.randn((n, bs), generator=gen, dtype=rdt))
-    return X.to(device=device, dtype=dtype)
+    return cm.rows_of(X).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +246,7 @@ def _block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
     vectors from ``gen`` (reference ``block_ortho``). Without ``Bop`` the
     B images are the vectors themselves. Random numbers are drawn only
     when a column is replaced."""
-    n = X.shape[0]
+    n = cm.global_rows(X.shape[0])
     rdt = real_dtype(X.dtype)
     meps = max(machine_eps(X.dtype), machine_eps(V.dtype))
     same = Bop is None
@@ -239,8 +261,7 @@ def _block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
         return X, BX
 
     BX = X if same else Bop.matmat(X)
-    nrm0_2 = torch.clamp(torch.sum(X.conj() * BX, dim=0).real,
-                         min=torch.finfo(rdt).tiny)
+    nrm0_2 = torch.clamp(col_dots(X, BX).real, min=torch.finfo(rdt).tiny)
     thresh2 = (meps ** 2 * 64.0) * nrm0_2
 
     total_bad = 0
@@ -461,8 +482,8 @@ def compute_residuals(V, W, BV, hvecs_c, hvals_c) -> Candidates:
         BX = X if BV is None else bcomb(BV, hvecs_c)
         lam = torch.where(torch.isfinite(hvals_c), hvals_c, 0).to(X.dtype)
         R = WX - BX * lam[None, :]
-        resnorms = torch.linalg.vector_norm(R, dim=0)
-        xnorms = torch.linalg.vector_norm(X, dim=0)
+        resnorms = col_norms(R)
+        xnorms = col_norms(X)
     return Candidates(X=X, WX=WX, BX=BX, R=R, resnorms=resnorms.real,
                       xnorms=xnorms.real)
 
@@ -485,11 +506,24 @@ def _mask2(m: int, b: int, device):
 
 def _r_factor(S, mmax: int):
     """R of the QR of the tall ``S`` (``[n, mmax]``), padded with zero rows
-    when n < mmax."""
+    when n < mmax. A row-sharded ``S`` (a sharded solve): the R of the
+    QR of every rank's R stacked in rank order (TSQR), its rows signed so
+    that its diagonal is not negative. It differs from the unsharded R by
+    such signs only, which the extractions do not see (they read ``R^H
+    R`` and the singular vectors of ``R``-stacked blocks)."""
     R = torch.linalg.qr(S, mode="r").R
     if R.shape[0] < mmax:
         R = torch.cat([R, R.new_zeros((mmax - R.shape[0], mmax))], dim=0)
-    return R
+    comm = cm.active()
+    if comm is None:
+        return R
+    # one sum over the ranks stacks them: each rank's R in its own rows
+    # of a zero [P mmax, mmax] block (adding zeros is exact)
+    stack = R.new_zeros((comm.size * mmax, mmax))
+    stack[comm.rank * mmax:(comm.rank + 1) * mmax] = R
+    R = torch.linalg.qr(cm.global_sum(stack), mode="r").R
+    sgn = torch.where(torch.diagonal(R).real < 0, -1.0, 1.0).to(R.dtype)
+    return sgn[:, None] * R
 
 
 def shifted_qr_R(W, BV, b: int, tau):
@@ -575,7 +609,7 @@ def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
         brk[1:] = torch.abs(smin[1:] - smin[:-1]) >= min_diff
     cid = torch.cumsum(brk.to(torch.int64), 0) - 1
 
-    S = gram(hv, Hb @ hv)
+    S = small_gram(hv, Hb @ hv)
     S = 0.5 * (S + S.mH)
     w, Z = projected_eigh(torch.where(cid[:, None] == cid[None, :], S, 0))
     # the matrix is block diagonal: each eigenvector lies in one cluster
@@ -633,7 +667,7 @@ def orthonormalize_coeffs(C, valid, dtype_eps: float):
     ``orthonormalize_coeffs``, restart after refined/harmonic
     extraction). Returns ``(Q, ok)``."""
     C = C * valid.to(C.dtype)[None, :]
-    G = gram(C, C)
+    G = small_gram(C, C)
     w, U = torch.linalg.eigh(G)
     wmax = torch.clamp(torch.max(w), min=1.0)
     ok = w > 64.0 * dtype_eps * wmax

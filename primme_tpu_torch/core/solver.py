@@ -31,8 +31,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..params import PrimmeParams, Target, ConvTest, Projection, InitBasisMode
+from . import comm as cm
+from .comm import all_finite, col_dots, col_norms, dot, global_max, norm
 from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask,
-                     compute_dtype, gram,
+                     compute_dtype, gram, small_gram,
                      real_dtype, machine_eps, solve_H_rr, block_ortho,
                      compute_residuals, target_sort_keys, prefix_project,
                      rand_block, shifted_qr_R, complement_qr_R,
@@ -287,6 +289,7 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
     each A-application doubles as the W panel of its block. Returns
     ``(V, W, BV, H, b0, n_random)``."""
     n, mmax, blk = cfg.n, cfg.mmax, cfg.blk
+    nl = cm.local_rows(n)
     if cfg.init_user:
         nguess = v0.shape[1] if v0 is not None else 0
         b0 = min(max(nguess, blk), mmax)
@@ -295,9 +298,9 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
     nb = -(-b0 // blk)
     mal = max(mmax, nb * blk)
     cdt = compute_dtype(dtype)     # block math runs here; stores round
-    V = torch.zeros((n, mal), dtype=dtype, device=device)
-    W = torch.zeros((n, mal), dtype=dtype, device=device)
-    BV = None if B is None else torch.zeros((n, mal), dtype=dtype,
+    V = torch.zeros((nl, mal), dtype=dtype, device=device)
+    W = torch.zeros((nl, mal), dtype=dtype, device=device)
+    BV = None if B is None else torch.zeros((nl, mal), dtype=dtype,
                                             device=device)
     Q = evecs if cfg.noc > 0 else None
     BQ = Bevecs if (Q is not None and B is not None) else Q
@@ -307,7 +310,7 @@ def init_basis(A, B, cfg: SolveConfig, gen, evecs, Bevecs, v0, dtype,
     if v0 is not None:
         k0g = min(v0.shape[1], b0)
         ngb = -(-k0g // blk)
-        v0pad = torch.zeros((n, ngb * blk), dtype=cdt, device=device)
+        v0pad = torch.zeros((nl, ngb * blk), dtype=cdt, device=device)
         v0pad[:, :k0g] = v0[:, :k0g].to(cdt)
         X = v0pad[:, :blk]
     else:
@@ -448,7 +451,7 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
         # practically converged (check_practical_convergence)
         Rp = prefix_project(s.Bevecs if has_B else s.evecs, s.evecs,
                             cands.R, cfg.noc + s.num_locked)
-        projres = torch.linalg.vector_norm(Rp, dim=0).real
+        projres = col_norms(Rp).real
         attainable = math.sqrt(1.0 + cfg.noc + s.num_locked) * tol
         practical = (projres <= tol) & (cands.resnorms <= attainable)
         weak_only = practical & is_target & ~conv
@@ -518,7 +521,8 @@ def _filtered_rand_block(cfg: SolveConfig, A, gen, dtype, device,
         return (scoped_mv(A, Y) - ctr * Y) / hw
 
     def scale_of(y):
-        return 1.0 / torch.clamp(torch.max(torch.abs(y)), min=1e-30)
+        return 1.0 / torch.clamp(global_max(torch.max(torch.abs(y))),
+                                 min=1e-30)
 
     y0, y1 = x, t_apply(x)
     tail = min(blk - 1, degree - 1)
@@ -534,8 +538,8 @@ def _filtered_rand_block(cfg: SolveConfig, A, gen, dtype, device,
     y0, y1 = y0 * sc, y1 * sc
     if blk == 1:
         return y1
-    buf = torch.cat([torch.zeros((n, blk - 1), dtype=dtype, device=device),
-                     y1], dim=1)
+    buf = torch.cat([torch.zeros((cm.local_rows(n), blk - 1), dtype=dtype,
+                                 device=device), y1], dim=1)
     for _ in range(tail):
         y2 = 2.0 * t_apply(y1) - y0
         sc = scale_of(y2)
@@ -549,13 +553,13 @@ def _power_extreme(A, gen, n, dtype, device, shift=None) -> float:
     iterations; returns the last norm growth."""
     tiny = float(torch.finfo(real_dtype(dtype)).tiny)
     v = rand_block(gen, n, 1, dtype, device)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=tiny)
+    v = v / torch.clamp(norm(v), min=tiny)
     nw = torch.zeros((), dtype=real_dtype(dtype), device=device)
     for _ in range(_POW_ITERS):
         w = scoped_mv(A, v)
         if shift is not None:
             w = shift * v - w
-        nw = torch.linalg.vector_norm(w).real
+        nw = norm(w).real
         v = w / torch.clamp(nw, min=tiny)
     return float(nw)
 
@@ -608,7 +612,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         Z0 = (_filtered_rand_block(cfg, A, gen, cdt, dev, s_lo, s_hi, deg)
               if okf else rand_block(gen, n, blk, cdt, dev))
         mv0 = deg if okf else 0
-        valid0 = bool(torch.isfinite(Z0).all())
+        valid0 = bool(all_finite(Z0))
         fast_start = okf and deg < 512
     else:
         emin, emax = s.stats.est_min_eval, s.stats.est_max_eval
@@ -637,14 +641,13 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
               if okf else rand_block(gen, n, blk, cdt, dev))
         mv0 = deg + mvb if okf else mvb
         # filter sanity: the start must not be pinned at the far end
-        nz2 = torch.sum(Z0.conj() * Z0, dim=0).real
+        nz2 = col_dots(Z0, Z0).real
         AZ0 = scoped_mv(A, Z0)
-        rq = torch.sum(Z0.conj() * AZ0, dim=0).real / torch.clamp(nz2,
-                                                                  min=tiny)
+        rq = col_dots(Z0, AZ0).real / torch.clamp(nz2, min=tiny)
         mv0 += blk
         qtr = 0.25 * (s_hi - s_lo)
         rq_min, rq_max, fin = _host(torch.min(rq), torch.max(rq),
-                                    torch.isfinite(Z0).all())
+                                    all_finite(Z0))
         if cfg.target == Target.smallest:
             valid0 = rq_min < s_hi - qtr
         else:
@@ -653,9 +656,10 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         bnds_set = valid0
         fast_start = okf and deg < 512
 
-    P = torch.zeros((n, pw), dtype=cdt, device=dev)
-    WP = torch.zeros((n, pw), dtype=cdt, device=dev)
-    BP = torch.zeros((n, pw), dtype=cdt, device=dev) if has_B else None
+    nl = cm.local_rows(n)
+    P = torch.zeros((nl, pw), dtype=cdt, device=dev)
+    WP = torch.zeros((nl, pw), dtype=cdt, device=dev)
+    BP = torch.zeros((nl, pw), dtype=cdt, device=dev) if has_B else None
     Hp = torch.zeros((pw, pw), dtype=cdt, device=dev)
     V = s.V
     BVd = s.BV if has_B else V
@@ -666,8 +670,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         return Z - bcomb(V, gram(BVd, Z))
 
     def colnorm(Y):
-        return torch.sqrt(torch.clamp(torch.sum(Y.conj() * Y, dim=0).real,
-                                      min=0.0))
+        return torch.sqrt(torch.clamp(col_dots(Y, Y).real, min=0.0))
 
     def renorm(Y):
         yn = colnorm(Y)
@@ -676,7 +679,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
 
     w = t = 0
     found = False
-    Xb = torch.zeros((n, blk), dtype=cdt, device=dev)
+    Xb = torch.zeros((nl, blk), dtype=cdt, device=dev)
     Z = Z0
     mv, npc = mv0, 0
     prev_key = float(torch.finfo(rdt).max)
@@ -708,9 +711,8 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         for j in range(blk):
             zj = Zd[:, j:j + 1]
             for zi in cols:
-                zj = zj - zi * torch.sum(zi.conj() * zj)
-            zjn = torch.sqrt(torch.clamp(torch.sum(zj.conj() * zj).real,
-                                         min=0.0))
+                zj = zj - zi * dot(zi, zj)
+            zjn = torch.sqrt(torch.clamp(dot(zj, zj).real, min=0.0))
             cols.append(torch.where(zjn > 1e-4,
                                     zj / torch.clamp(zjn, min=floor), 0.0))
         Zd = torch.cat(cols, dim=1)
@@ -722,9 +724,9 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
             cert = ores.X - bcomb(V, gram(BVd, ores.X))
             if Q is not None:
                 cert = prefix_project(BQ, Q, cert, lcount)
-            cn2p = torch.sum(cert.conj() * cert, dim=0).real
+            cn2p = col_dots(cert, cert).real
         else:
-            cn2p = torch.sum(ores.X.conj() * ores.X, dim=0).real
+            cn2p = col_dots(ores.X, ores.X).real
         okp = cn2p >= 0.25                      # NaN -> dropped
         srtp = torch.argsort(ar + _BIG * (~okp).to(ar.dtype), stable=True)
         srvp = int(okp.sum())
@@ -745,7 +747,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         keys = target_sort_keys(hb, cfg.target, shifts, sidx)
         Cb = sol.hvecs[:, :blk]
         Xb = bcomb(P, Cb)
-        xb0_t = torch.linalg.vector_norm(Xb[:, 0]).real
+        xb0_t = norm(Xb[:, 0]).real
         act0, xb0, key0 = _host(sol.active[0], xb0_t, keys[0])
         pre_found = bool(act0) and xb0 > 0.5 and key0 < bar - margin
         found2 = False
@@ -758,15 +760,12 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                 xd = xd - bcomb(V, gram(BVd, xd))
                 if Q is not None:
                     xd = prefix_project(BQ, Q, xd, lcount)
-            xdn = torch.sqrt(torch.clamp(torch.sum(xd.conj() * xd).real,
-                                         min=0.0))
+            xdn = torch.sqrt(torch.clamp(dot(xd, xd).real, min=0.0))
             xdu = torch.where(xdn > floor, xd / torch.clamp(xdn, min=floor),
                               0.0)
             Axd = scoped_mv(A, xdu)
-            den = torch.sum(xdu.conj() * (scoped_mv(B, xdu) if has_B
-                                          else xdu)).real
-            rqd = torch.sum(xdu.conj() * Axd).real / torch.clamp(den,
-                                                                 min=tiny)
+            den = dot(xdu, scoped_mv(B, xdu) if has_B else xdu).real
+            rqd = dot(xdu, Axd).real / torch.clamp(den, min=tiny)
             ckey = target_sort_keys(rqd[None], cfg.target, shifts, sidx)[0]
             xdn_h, ckey_h = _host(xdn, ckey)
             found2 = xdn_h > 0.5 * xb0 and ckey_h < bar - margin
@@ -848,8 +847,8 @@ def gd_correction(cfg: SolveConfig, K, R, X, sigma, valid):
     if not cfg.olsen:
         return KR * vm
     KX = apply_precond(K, X, sigma)
-    num = torch.sum(X.conj() * KR, dim=0)
-    den = torch.sum(X.conj() * KX, dim=0)
+    num = col_dots(X, KR)
+    den = col_dots(X, KX)
     den = torch.where(torch.abs(den) < torch.finfo(real_dtype(R.dtype)).tiny,
                       1.0, den)
     return (KR - KX * (num / den)[None, :]) * vm
@@ -927,9 +926,9 @@ def _robust_shifts(cfg: SolveConfig, s: SolverState, win: Window,
 def _ortho_span_coeff(P, C, tol):
     """Orthonormalize small coefficient block ``P`` against orthonormal
     ``C`` and internally (eigh-based, rank-revealing)."""
-    P = P - bcomb(C, gram(C, P))
-    P = P - bcomb(C, gram(C, P))
-    G = gram(P, P)
+    P = P - bcomb(C, small_gram(C, P))
+    P = P - bcomb(C, small_gram(C, P))
+    G = small_gram(P, P)
     w, U = torch.linalg.eigh(G)
     wmax = torch.clamp(torch.max(w), min=1.0)
     valid = w > tol * wmax
@@ -1029,7 +1028,7 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
         V = bcomb(s.V, Cfull).to(s.V.dtype)
         W = bcomb(s.W, Cfull).to(s.W.dtype)
         BV = bcomb(s.BV, Cfull).to(s.BV.dtype) if has_B else None
-        H = gram(Cfull, s.H @ Cfull)
+        H = small_gram(Cfull, s.H @ Cfull)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
 
@@ -1089,7 +1088,7 @@ def _survivors(o):
     X = o.X
     blk = X.shape[1]
     ar = torch.arange(blk, device=X.device)
-    ok = torch.sum(X.conj() * X, dim=0).real >= 0.25
+    ok = col_dots(X, X).real >= 0.25
     srt = torch.argsort(ar + _BIG * (~ok).to(ar.dtype), stable=True)
     Xc = X[:, srt]
     return (Xc, Xc if o.BX is X else o.BX[:, srt]), int(ok.sum())
@@ -1277,7 +1276,8 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
     cdt = compute_dtype(dtype)
     rdt = real_dtype(cdt)
     fmax = float(torch.finfo(rdt).max)
-    evecs0 = torch.zeros((n, cfg.lockmax), dtype=dtype, device=device)
+    evecs0 = torch.zeros((cm.local_rows(n), cfg.lockmax), dtype=dtype,
+                         device=device)
     if ortho_const is not None:
         if ortho_const.shape[1] != cfg.noc:
             raise ValueError(f"{ortho_const.shape[1]} constraint columns, "
@@ -1508,7 +1508,7 @@ def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                ortho_const=None, inner_solve=None, dtype=None,
                device=None, convtest=None, monitor=None,
                segment_outer: Optional[int] = None,
-               inner_trace_cap: int = 0) -> EigsResult:
+               inner_trace_cap: int = 0, comm=None) -> EigsResult:
     """Run the eigensolver on a port :class:`LinearOperator` with resolved
     params (``set_method``/``resolve_defaults``). ``B`` is the mass matrix
     of a generalized problem (``A x = lambda B x``, B Hermitian positive
@@ -1522,21 +1522,42 @@ def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
     ``segment_outer``: when set, the loop returns to this function every
     that-many outer iterations and resumes from the same state, with the
     reference's host-side copy of the loop's stop condition; the result
-    is bit-identical to the unsegmented solve's."""
-    cfg, shifts, s0 = setup_solver(A, p, B=B, v0=v0, ortho_const=ortho_const,
-                                   dtype=dtype, device=device,
-                                   inner_trace_cap=inner_trace_cap)
-    if segment_outer is None:
-        s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest,
-                        monitor=monitor)
-    else:
-        s, seg_end = s0, 0
-        while True:
-            seg_end += int(segment_outer)
-            s = run_segment(cfg, A, B, K, inner_solve, shifts, s, convtest,
-                            seg_end=seg_end, monitor=monitor)
-            if (s.done or s.give_up
-                    or s.stats.num_outer_iterations >= cfg.max_outer
-                    or s.stats.num_matvecs >= cfg.max_matvecs):
-                break
-    return extract_result(cfg, s, shifts)
+    is bit-identical to the unsegmented solve's.
+
+    ``comm``: a :class:`~.comm.RowComm` runs the row-sharded solve (the
+    reference's ``nLocal`` partition): ``A``, ``B`` and ``K`` take and
+    return this rank's rows, ``v0`` and ``ortho_const`` hold them, every
+    reduction over rows is summed over the ranks, and the returned
+    vectors are this rank's rows. The stats count the sums made."""
+    with cm.installed(comm):
+        n0 = comm.num_global_sum if comm is not None else 0
+        v0_ = comm.volume_global_sum if comm is not None else 0
+        cfg, shifts, s0 = setup_solver(
+            A, p, B=B, v0=v0, ortho_const=ortho_const, dtype=dtype,
+            device=device, inner_trace_cap=inner_trace_cap)
+        if segment_outer is None:
+            s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest,
+                            monitor=monitor)
+        else:
+            s, seg_end = s0, 0
+            while True:
+                seg_end += int(segment_outer)
+                s = run_segment(cfg, A, B, K, inner_solve, shifts, s,
+                                convtest, seg_end=seg_end, monitor=monitor)
+                if (s.done or s.give_up
+                        or s.stats.num_outer_iterations >= cfg.max_outer
+                        or s.stats.num_matvecs >= cfg.max_matvecs):
+                    break
+        res = extract_result(cfg, s, shifts)
+    return counted_sums(res, comm, n0, v0_)
+
+
+def counted_sums(res: EigsResult, comm, n0: int, v0: float) -> EigsResult:
+    """``res`` with the sums over ranks that ``comm`` made since it had
+    made ``n0`` of ``v0`` scalars in place of the analytic counts (the
+    unsharded result as it is)."""
+    if comm is None:
+        return res
+    return res._replace(stats=_replace(
+        res.stats, num_global_sum=comm.num_global_sum - n0,
+        volume_global_sum=float(comm.volume_global_sum - v0)))

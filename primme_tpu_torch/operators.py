@@ -764,6 +764,14 @@ class SumOperator(LinearOperator):
         return total
 
 
+def densified(A) -> bool:
+    """Whether :func:`aslinearoperator` makes the scipy sparse ``A`` a
+    dense operator (the reference's rule: up to 8192 rows and columns and
+    256 MB)."""
+    nr, mc = A.shape
+    return max(nr, mc) <= 8192 and nr * mc * A.dtype.itemsize <= (256 << 20)
+
+
 def aslinearoperator(A: Any) -> LinearOperator:
     """Coerce a port :class:`LinearOperator` (passed through), a scipy
     sparse matrix (densified up to 8192 rows and columns and 256 MB, as
@@ -778,8 +786,7 @@ def aslinearoperator(A: Any) -> LinearOperator:
     import scipy.sparse.linalg as spla
 
     if sp.issparse(A):
-        nr, mc = A.shape
-        if max(nr, mc) <= 8192 and nr * mc * A.dtype.itemsize <= (256 << 20):
+        if densified(A):
             return DenseOperator(A.toarray())
         return ELLOperator.from_scipy(A)
     if isinstance(A, spla.LinearOperator):

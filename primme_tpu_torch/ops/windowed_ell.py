@@ -317,16 +317,19 @@ def _spmm_fn(entry):
     return fn
 
 
-def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None):
+def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None):
     """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32,
     f64, complex64 or complex128) on the :class:`SlicedELL` arrays of an
     ``m x ncols`` matrix (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
     hand-written kernel of ``csrc/windowed_ell.cu`` for that type, launched
     on the current stream (raises on a bad argument or a refused launch).
-    CPU tensors: :func:`matmat_reference`."""
+    CPU tensors: :func:`matmat_reference`. ``out``: a contiguous ``[m,
+    k]`` tensor the product is written into and returned (a row slice of a
+    larger block: the halo operator writes its layouts' rows in place)."""
     global LAUNCHES
     if X.device.type == "cpu":
-        return matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols)
+        Y = matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols)
+        return Y if out is None else out.copy_(Y)
     if X.device.type != "cuda":
         raise ValueError(f"windowed-ELL matmat: unsupported device {X.device}")
     n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
@@ -347,7 +350,15 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None):
         if t.data_ptr() % 16:       # the kernel copies them in bulk
             raise ValueError(f"{name} is not 16-byte aligned")
     k = X.shape[1]
-    Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
+    if out is None:
+        Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
+    else:
+        if (tuple(out.shape) != (n, k) or out.dtype != X.dtype
+                or out.device != X.device or not out.is_contiguous()):
+            raise ValueError(f"out is {tuple(out.shape)} {out.dtype} on "
+                             f"{out.device}, expected a contiguous "
+                             f"[{n}, {k}] {X.dtype} on {X.device}")
+        Y = out
     if Y.numel() == 0:
         return Y
     entry = _ENTRY[X.dtype]

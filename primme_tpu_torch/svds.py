@@ -21,8 +21,10 @@ decides. The solve runs on the card unless the caller passes
 
 Each stage's solver events reach ``monitor(stage, ...)`` and, with
 ``return_history``, ``stats["hist"]``, on the triplet scale;
-``segment_outer`` goes to both stages. Not served yet: ``mesh`` and a
-half-precision (bf16, f16) matrix, refused by name. Complex input
+``segment_outer`` goes to both stages. ``mesh`` (a 1-D ``DeviceMesh``)
+runs both stages row-sharded over the same ranks
+(:mod:`~primme_tpu_torch.distributed`). Not served yet: a half-precision
+(bf16, f16) matrix, refused by name. Complex input
 (complex64 and complex128) runs on ``A^H``: the adjoint layouts hold
 conjugated values, and ``Vh`` is ``V^H``.
 """
@@ -38,6 +40,7 @@ import torch
 
 from . import params as prm
 from .api import PrimmeError, _unported
+from .core.comm import allgather_rows
 from .core.linalg import real_dtype
 from .core.solver import solve_eigs
 from .operators import (FunctionOperator, LinearOperator, aslinearoperator,
@@ -55,20 +58,48 @@ def _normal_op(A: LinearOperator, use_ata: bool) -> FunctionOperator:
                             (m, m), A.dtype, device=A.device)
 
 
-def _aug_op(A: LinearOperator) -> FunctionOperator:
+def _aug_op(A: LinearOperator, pad_to: int = 1) -> FunctionOperator:
     """Augmented [[0, A^H], [A, 0]] acting on stacked [v; u] (v: n rows,
-    u: m rows), on A's device (the reference's ``pad_to=1``)."""
+    u: m rows), on A's device. ``pad_to`` > 1 (the ranks of a mesh): each
+    half is zero-padded to a multiple of it, as the reference pads them
+    for its shard-aligned split; the pad slots are null directions of the
+    operator, which the closest_geq floor shift sorts out of SM solves."""
     m, n = A.shape
+    n_p = -(-n // pad_to) * pad_to
+    m_p = -(-m // pad_to) * pad_to
 
     def f(X):
-        return torch.cat([A.rmatmat(X[n:]), A.matmat(X[:n])], dim=0)
+        top, bot = A.rmatmat(X[n_p:][:m]), A.matmat(X[:n_p][:n])
+        if n_p > n:
+            top = torch.cat([top, top.new_zeros((n_p - n, top.shape[1]))])
+        if m_p > m:
+            bot = torch.cat([bot, bot.new_zeros((m_p - m, bot.shape[1]))])
+        return torch.cat([top, bot], dim=0)
 
-    return FunctionOperator(f, (m + n, m + n), A.dtype, device=A.device)
+    return FunctionOperator(f, (m_p + n_p, m_p + n_p), A.dtype,
+                            device=A.device)
 
 
-def _aug_stack(Vv, U):
-    """Stack [v; u]/sqrt(2) into the augmented coordinates."""
-    return torch.cat([Vv, U], dim=0) / float(np.sqrt(2.0))
+def _aug_stack(Vv, U, n_p: int, m_p: int):
+    """Stack [v; u]/sqrt(2) into the (padded) augmented coordinates."""
+    n, m = Vv.shape[0], U.shape[0]
+    Vp = torch.cat([Vv, Vv.new_zeros((n_p - n, Vv.shape[1]))]) \
+        if n_p > n else Vv
+    Up = torch.cat([U, U.new_zeros((m_p - m, U.shape[1]))]) \
+        if m_p > m else U
+    return torch.cat([Vp, Up], dim=0) / float(np.sqrt(2.0))
+
+
+def _sharded(op, comm, K, v0, oc):
+    """A stage's operator, preconditioner, start block and constraints on
+    this rank's rows (all of them as they are without ``comm``)."""
+    if comm is None:
+        return op, K, v0, oc
+    from . import distributed as D
+    return (D.GatheredOperator(op, comm, op.shape),
+            None if K is None else D.shard_operator(K, comm),
+            None if v0 is None else comm.rows(v0),
+            None if oc is None else comm.rows(oc))
 
 
 def _true_resnorms(A, U, V, svals):
@@ -124,11 +155,22 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
     stage's event stream (stage 1 or 2) with values and residuals on the
     triplet scale; ``return_history`` collects the same records into
     ``stats["hist"]``; ``segment_outer`` goes to both stages'
-    ``solve_eigs``."""
+    ``solve_eigs``. ``mesh`` (a 1-D ``DeviceMesh``) runs both stages
+    row-sharded over its ranks, each half of the augmented block padded to
+    a multiple of their number; every rank calls with the same arguments
+    and returns the same arrays."""
+    comm0 = None
     if mesh is not None:
-        raise _unported("mesh")
-    device = default_device(device, "svds")
-    Aop = aslinearoperator(A).to(device)
+        from . import distributed as D
+        device = D.mesh_device(mesh, device)
+        Aop = aslinearoperator(A).to(device)
+        # both stages run under the same ranks: one group, each stage's
+        # communicator over its own row count
+        comm0 = D.mesh_comm(mesh, 1, device)
+    else:
+        device = default_device(device, "svds")
+        Aop = aslinearoperator(A).to(device)
+    nsh = 1 if comm0 is None else comm0.size
     m, n = Aop.shape
     kmax = min(m, n)
     if not (0 < k <= kmax):
@@ -302,9 +344,13 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         mon1 = _mk_mon(
             1, lambda hv: np.sqrt(np.maximum(np.real(hv), 0.0)),
             lambda rn, sv: rn / np.maximum(sv, np.finfo(np.float64).tiny))
-        r1 = solve_eigs(Nop, p1, K=K1, v0=g0, ortho_const=oc1,
+        comm1 = None if comm0 is None else comm0.with_rows(nn)
+        Nop1, K1, g0, oc1 = _sharded(Nop, comm1, K1, g0, oc1)
+        r1 = solve_eigs(Nop1, p1, K=K1, v0=g0, ortho_const=oc1,
                         inner_solve=inner1, convtest=conv_stage1,
-                        monitor=mon1, segment_outer=segment_outer)
+                        monitor=mon1, segment_outer=segment_outer,
+                        comm=comm1)
+        r1 = r1._replace(evecs=allgather_rows(r1.evecs, comm1))
         merge_stats(r1.stats, "stage1")
         mv_stage1 = int(r1.stats.num_matvecs)
 
@@ -362,17 +408,19 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
 
         ne2 = int(len(rest_idx))
         if ne2 > 0:
-            Aug = _aug_op(Aop)
+            Aug = _aug_op(Aop, pad_to=nsh)
+            n_p = -(-n // nsh) * nsh
+            m_p = -(-m // nsh) * nsh
             oc = g2 = None
             if svh is not None:
-                stack = _aug_stack(Vv, U)
+                stack = _aug_stack(Vv, U, n_p, m_p)
                 if len(conv_idx):
                     oc = stack[:, torch.as_tensor(conv_idx, device=device)]
                 g2 = stack[:, torch.as_tensor(rest_idx, device=device)]
             if noc_uv:
                 # external constraints lead, then the stage-1-converged
                 # triplets (the reference's svecs layout)
-                base_oc = _aug_stack(tensor(ov), tensor(ou))
+                base_oc = _aug_stack(tensor(ov), tensor(ou), n_p, m_p)
                 oc = base_oc if oc is None else torch.cat([base_oc, oc], 1)
 
             if which == "LM":
@@ -399,7 +447,7 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
                 tgt2, tsh2 = Target.closest_abs, shifts
 
             p2 = PrimmeParams(
-                n=m + n, num_evals=ne2, target=tgt2, target_shifts=tsh2,
+                n=m_p + n_p, num_evals=ne2, target=tgt2, target_shifts=tsh2,
                 eps=eps, max_block_size=maxBlockSize,
                 num_ortho_const=(0 if oc is None else int(oc.shape[1])),
                 a_norm=anorm2, rng_seed=seed + 1)
@@ -444,14 +492,18 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
 
             mon2 = _mk_mon(2, lambda hv: np.abs(np.real(hv)),
                            lambda rn, sv: rn * sq2f)
+            comm2 = None if comm0 is None else comm0.with_rows(m_p + n_p)
+            Aug, K2, g2, oc = _sharded(Aug, comm2, K2, g2, oc)
             r2 = solve_eigs(Aug, p2, K=K2, v0=g2, ortho_const=oc,
                             inner_solve=inner2, convtest=conv_stage2,
-                            monitor=mon2, segment_outer=segment_outer)
+                            monitor=mon2, segment_outer=segment_outer,
+                            comm=comm2)
             merge_stats(r2.stats, "stage2")
 
             sv2 = torch.abs(r2.evals)
-            V2 = _colnormalize(r2.evecs[:n], 1e-30)
-            U2 = _colnormalize(r2.evecs[n:], 1e-30)
+            ev2 = allgather_rows(r2.evecs, comm2)
+            V2 = _colnormalize(ev2[:n_p][:n], 1e-30)
+            U2 = _colnormalize(ev2[n_p:][:m], 1e-30)
             res2 = _true_resnorms(Aop, U2, V2, sv2)
             if tgt2 == Target.closest_geq:
                 # a null vector of the augmented operator (|m - n| of them)

@@ -86,7 +86,9 @@ def test_aslinearoperator_passes_port_operators_only():
 # constraints are used as given, orthonormal, as in the reference;
 # ``print`` as a monitor receives the reference's keyword arguments, which
 # it does not take; the bf16 solve returns f32 values and vectors, as the
-# reference's). mesh stays refused.
+# reference's). mesh is served since the thirteenth slice
+# (tests/test_torch_sharding.py): its case keeps its place and id and
+# checks that a value that is not a 1-D DeviceMesh is refused by name.
 SERVED = ("M", "lock", "projection", "monitor", "return_history",
           "time_breakdown", "profile", "method", "printLevel",
           "segment_outer", "monitor_inner", "dtype")
@@ -107,6 +109,10 @@ def test_eigsh_refuses_unported_arguments(kwargs):
         raise_for_unconverged=False, **kwargs)
     if name == "monitor":
         with pytest.raises(TypeError, match="'event' is an invalid keyword"):
+            call()
+        return
+    if name == "mesh":
+        with pytest.raises(TypeError, match="mesh must be a one-dimensional"):
             call()
         return
     if name in SERVED:

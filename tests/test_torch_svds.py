@@ -176,7 +176,9 @@ def test_svds_from_params_parity(rect):
 
 # the per-stage event stream (monitor, return_history) and segment_outer
 # are served since the eleventh slice: their cases keep their places (and
-# ids) and check the served call; mesh stays refused
+# ids) and check the served call; mesh is served since the thirteenth
+# slice, and its case checks that a value that is not a 1-D DeviceMesh is
+# refused by name
 SVDS_SERVED = ("monitor", "return_history", "segment_outer")
 
 
@@ -193,7 +195,7 @@ def test_svds_refuses_unported_arguments(rect, kwargs):
         if name == "return_history":
             assert len(st["hist"]["stage"]) > 0
         return
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(TypeError, match="mesh must be a one-dimensional"):
         ptt.svds(rect[0], k=2, device="cpu", **kwargs)
 
 
