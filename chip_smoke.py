@@ -65,7 +65,11 @@ Phases, each printing its own lines; any failed check raises:
    kernel also without the spin; the plain version, which reads its
    longest row to the host each call, only without it); and the bound, the bytes the product
    needs (each non-zero's value and column, X and Y, once) over
-   3.35 TB/s;
+   3.35 TB/s. The kernel runs on the path the wrapper's rule gives the
+   layout (the ring, or the direct path where the mean slice width is at
+   most ``NARROW_WIDTH``), printed with that width; the other path is
+   timed beside it and must equal it bit for bit (as in every phase that
+   compares the sliced-ELL kernel: 5, 12, 13, 19 and 23);
 4. f32 solve: the kernel's launch count during the solve (at least one
    per two matvecs, no other kernel), eigenvalues within 1e-4 of the
    closed-form spectrum, every true residual (A in f64 on the host) <=
@@ -190,7 +194,9 @@ Phases, each printing its own lines; any failed check raises:
     rows) and ``A^T`` layout (n rows, X of m rows), f32 and f64, at k in
     {1, 2, 4, 8}: against the plain version (1e-5 and 1e-13 of max|y|),
     timed as phase 3 with ``copy_ms``, the bound counting values, columns,
-    X and Y once;
+    X and Y once, each layout's path printed and the other path timed;
+    the svds solves (20-22, 27) launch each path that the rule gives one
+    of their two layouts, and no other;
 20. ``svds(A, k=10, which="LM", tol=1e-10)`` (hybrid) on the f64 matrix:
     singular values within 1e-8 sigma_max of the closed form ``sqrt(mu_a
     + mu_b + mu_c + 0.01)``, the host's f64 triplet residual <= 10 tol
@@ -324,7 +330,8 @@ Phases, each printing its own lines; any failed check raises:
     ``jacobi_c64``/``_c128``) against their plain versions, bit for bit,
     at 64^3 (k in {1, 2, 4, 8}), 256^3 k=2 and the odd-offset slice, with
     denominators real in value and truly complex and one shift equal to a
-    diagonal entry; timed as phase 8 times, ``torch.div`` the unshifted
+    diagonal entry; the launch plan printed (row group, load width,
+    columns a thread); timed as phase 8 times, ``torch.div`` the unshifted
     apply's ``library_ms``; and the real ``jacobi_f64`` at 32^3 k=1
     against ``torch.div``;
 39. solves through them: ``eigsh(jacobi=True)`` on phase 24's magnetic
@@ -1027,16 +1034,19 @@ def reset_counts(*mods):
     for mod in mods:
         mod.LAUNCHES = 0
         for counts in (mod.KERNEL_LAUNCHES,
-                       getattr(mod, "VECTOR_LAUNCHES", {})):
+                       getattr(mod, "VECTOR_LAUNCHES", {}),
+                       getattr(mod, "DIRECT_LAUNCHES", {})):
             for name in counts:
                 counts[name] = 0
 
 
-def read_counts(mods):
-    """Every entry point's launches since ``reset_counts``."""
+def read_counts(mods, counts="KERNEL_LAUNCHES"):
+    """Every entry point's launches since ``reset_counts`` (with
+    ``counts="DIRECT_LAUNCHES"``, those that took the sliced ELL's direct
+    path)."""
     launches = {}
     for mod in mods:
-        launches.update(mod.KERNEL_LAUNCHES)
+        launches.update(getattr(mod, counts, {}))
     return launches
 
 
@@ -1068,6 +1078,15 @@ def layout_phase(WE, op, Ap, dtype, tag):
     check(nbytes <= limit, f"{tag}: operator takes {nbytes} B > {limit:.0f}")
     return {"pack_s": t1 - t0, "compact_s": t2 - t1, "entries": E,
             "entries_per_nnz": E / nnz, "operator_bytes": nbytes}
+
+
+def direct_need(WE, op, suffix):
+    """``(entry,)`` where the wrapper's rule puts ``op``'s sliced-ELL
+    layout on the direct path (``format_solve``'s ``need_direct``), else
+    ``()``."""
+    if WE.choose_path(op.slice_ptr, op.cols) != "direct":
+        return ()
+    return ("windowed_ell_spmm_" + suffix,)
 
 
 def csr_on_card(Ap, dtype, dev):
@@ -1103,6 +1122,9 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
     rows, nnz = arrays[1].shape[0], A_csr._nnz()
     ncols = A_csr.shape[1]
     size = arrays[3].element_size()
+    width = WE.mean_width(arrays[0], arrays[2])
+    path = WE.choose_path(arrays[0], arrays[2])
+    other = next(p for p in WE.PATHS if p != path)
     per_k = {}
     for k in ks:
         X = torch.randn((ncols, k), generator=gen, dtype=op.dtype).to(op.device)
@@ -1112,12 +1134,17 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
         libs = {"A_csr @ X": lambda: A_csr @ X,
                 "torch.sparse.mm(A_csr, X)": lambda: torch.sparse.mm(A_csr, X),
                 "A_csr @ X, X column-major": lambda: A_csr @ Xcm}
+        y_other = WE.matmat(*arrays, X, ncols, path=other)
         torch.cuda.synchronize()
         err = float((y - yref).abs().max())
         ymax = float(yref.abs().max())
+        as_real = torch.view_as_real if y.is_complex() else (lambda t: t)
+        paths_bit = _bitwise(as_real(y), as_real(y_other))
         ms = median_ms(lambda: WE.matmat(*arrays, X, ncols))
         nospin_ms = median_ms(lambda: WE.matmat(*arrays, X, ncols),
                               spin=False)
+        other_ms = median_ms(lambda: WE.matmat(*arrays, X, ncols,
+                                               path=other))
         # the plain version reads its longest row to the host once per
         # call: no spin can queue it ahead, and its host pace is its cost
         plain_ms = median_ms(lambda: WE.matmat_reference(*arrays, X, ncols),
@@ -1138,15 +1165,19 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
                     "nospin_ms": nospin_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library_call": library_call,
                     "library": lib, "bound_ms": bound_ms,
-                    "bound_share": bound_ms / ms}
+                    "bound_share": bound_ms / ms, "path": path,
+                    "mean_width": width, "other_path": other,
+                    "other_path_ms": other_ms, "paths_bitwise": paths_bit}
         extra = ""
         if copy:
             Xc = torch.empty_like(X)
             per_k[k]["copy_ms"] = median_ms(lambda: Xc.copy_(X))
             extra = f"  copy {per_k[k]['copy_ms']:.4f} ms"
         print(f"[{tag}] k={k} max|y-yref|={err:.3e} (limit "
-              f"{rel * ymax:.3e}) kernel {ms:.4f} ms (without the spin "
-              f"{nospin_ms:.4f})  plain {plain_ms:.4f} ms  bound "
+              f"{rel * ymax:.3e}) kernel {ms:.4f} ms on the {path} path "
+              f"(mean slice width {width:.2f}; without the spin "
+              f"{nospin_ms:.4f})  {other} path {other_ms:.4f} ms (bit for "
+              f"bit with it {paths_bit})  plain {plain_ms:.4f} ms  bound "
               f"{bound_ms:.4f} ms (bytes; share {bound_ms / ms:.3f})" + extra,
               flush=True)
         print(f"[{tag}] k={k} library: " + "; ".join(
@@ -1155,6 +1186,7 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
             flush=True)
         check(np.isfinite(err) and err <= rel * ymax,
               f"{tag}: kernel disagrees with matmat_reference at k={k}")
+        check(paths_bit, f"{tag}: the ring and direct paths differ at k={k}")
     return per_k
 
 
@@ -1561,7 +1593,8 @@ def gershgorin(A):
 
 
 def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
-                 need, forbid=(), tol=1e-5, kwargs=None, M=None):
+                 need, forbid=(), tol=1e-5, kwargs=None, M=None,
+                 need_direct=()):
     """One gated eigsh of ``A`` (with the mass matrix ``M``, if any) at
     ``tol`` with ``kwargs`` (``SOLVE_KWARGS`` by default). ``A`` and
     ``M`` are scipy matrices (the chooser inside) or operators that carry
@@ -1571,8 +1604,9 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
     with ``M``, ``X^T M X = I`` to
     1e-4; probe verified and not exhausted where the probe covers the
     target; matvecs within 2x of ``ref_mv``; each entry point of ``need``
-    at least matvecs / 2 launches, none of ``forbid``. The counts are set
-    to 0 just before the call and read just after it."""
+    at least matvecs / 2 launches, none of ``forbid``; each of
+    ``need_direct`` as many on the sliced ELL's direct path. The counts
+    are set to 0 just before the call and read just after it."""
     import numpy as np
     import torch
 
@@ -1584,9 +1618,8 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
     w, V, st = solve(ptt, A, seed, tol, kwargs, M)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, vector = read_counts(mods), {}
-    for mod in mods:
-        vector.update(getattr(mod, "VECTOR_LAUNCHES", {}))
+    launches, vector = read_counts(mods), read_counts(mods, "VECTOR_LAUNCHES")
+    direct = read_counts(mods, "DIRECT_LAUNCHES")
     peak = torch.cuda.max_memory_allocated()
     mv = st["num_matvecs"]
     err_ev = float(np.abs(np.sort(w) - np.asarray(ev_ref)[:len(w)]).max())
@@ -1615,9 +1648,15 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
              "1e-4)")
           + f"  peak device memory {peak} B ({before_bytes} B before)",
           flush=True)
+    if any(direct.values()):
+        print(f"[{tag}] on the sliced ELL's direct path: "
+              f"{ {e: c for e, c in direct.items() if c} }", flush=True)
     for entry in need:
         check(launches[entry] >= mv / 2, f"{tag}: only {launches[entry]} "
               f"{entry} launches for {mv} matvecs")
+    for entry in need_direct:
+        check(direct[entry] >= mv / 2, f"{tag}: only {direct[entry]} "
+              f"{entry} launches on the direct path for {mv} matvecs")
     for entry in forbid:
         check(launches[entry] == 0,
               f"{tag}: {entry} served this solve: {launches}")
@@ -1635,8 +1674,8 @@ def format_solve(ptt, mods, A, seed, tag, ev_ref, ev_tol, anorm, ref_mv,
             "num_matvecs": mv, "num_probe_matvecs": st["num_probe_matvecs"],
             "num_probe_rounds": st["num_probe_rounds"], "eval_err": err_ev,
             "max_residual": res, "anorm": anorm, "launches": launches,
-            "vector_launches": vector, "peak_bytes": peak,
-            "bytes_before": before_bytes,
+            "vector_launches": vector, "direct_launches": direct,
+            "peak_bytes": peak, "bytes_before": before_bytes,
             **({} if M is None else {"mtm_err": mtm})}
 
 
@@ -1769,7 +1808,8 @@ def hybrid_phase(ptt, mods, DK, WE, dev, gen, seed):
                           1e-5, "hybrid ell", ks=(1, 2, 8))
     run = format_solve(ptt, mods, A, seed, "hybrid", REF_HYBRID_EVALS, 1e-4,
                        gershgorin(A), REF_HYBRID_MATVECS,
-                       need=("dia_f32", "windowed_ell_spmm_f32"))
+                       need=("dia_f32", "windowed_ell_spmm_f32"),
+                       need_direct=direct_need(WE, ell, "f32"))
     return {"chooser": chooser, "remainder_nnz": rem.nnz,
             "layout_entries": len(ell.cols), "solve": run, "ell_kernel": kern}
 
@@ -1796,7 +1836,8 @@ def ell_phase(ptt, mods, WE, dev, gen, seed):
                           "ell", ks=(1, 2, 8))
     run = format_solve(ptt, mods, A, seed, "ell", REF_ELL_EVALS, 1e-4,
                        gershgorin(A), REF_ELL_MATVECS,
-                       need=("windowed_ell_spmm_f32",))
+                       need=("windowed_ell_spmm_f32",),
+                       need_direct=direct_need(WE, op, "f32"))
     return {"chooser": chooser, "solve": run, "ell_kernel": kern}
 
 
@@ -2176,7 +2217,10 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
     (stage 2 of SM: its count > 0, with the total within 2x); the probe
     verified and not exhausted in each stage it covers; the sliced-ELL
     entry point of the matrix's type launched at least once a matvec,
-    every other kernel never. ``spec`` gives another solve, a dict of
+    every other kernel never, some launches on the direct path if and
+    only if the wrapper's rule gives it one of the operator's two layouts
+    (``A``, ``A^H``), some on the ring if and only if it gives the ring
+    one. ``spec`` gives another solve, a dict of
     ``kw`` (svds arguments), ``dtype`` (the matrix's type), ``refs`` (the
     JAX package's counts as in REF_SVDS), ``value_bar`` (in sigma_max),
     ``res_bar`` (in tol ||A||), ``launch_floor`` (launches a matvec) and
@@ -2185,6 +2229,7 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
     orthonormality in complex128."""
     import numpy as np
     import torch
+    from primme_tpu_torch.ops import windowed_ell as WE
 
     if spec is None:
         kw, dt = SVDS_SOLVES[name]
@@ -2199,6 +2244,10 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
                                     "complex64": "c64",
                                     "complex128": "c128"}[dt]
     tag = f"svds {name}"
+    # the paths the wrapper's rule gives the operator's A and A^H layouts
+    paths = {WE.choose_path(lay.slice_ptr, lay.cols)
+             for lay in (WE.from_csr(A, dt),
+                         WE.from_csr(A.conj().T.tocsr(), dt))}
     torch.cuda.synchronize()
     before_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2209,6 +2258,7 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(mods)
+    direct = read_counts(mods, "DIRECT_LAUNCHES")
     peak = torch.cuda.max_memory_allocated()
     ref = sv[-len(s):] if kw["which"] == "LM" else sv[:len(s)]
     err = float(np.abs(np.sort(s) - ref).max())
@@ -2239,8 +2289,9 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
           f"{err:.3e} (limit {value_bar * smax:.3e})  max "
           f"triplet residual {res:.3e} (limit {res_bar * tol * smax:.3e})  "
           f"orthonormality {orth:.3e} (limit {orth_bar})  launches "
-          f"{launches}  peak device memory {peak} B ({before_bytes} B "
-          "before)", flush=True)
+          f"{launches} ({direct[entry]} on the direct path; the layouts' "
+          f"paths {sorted(paths)})  peak device memory {peak} B "
+          f"({before_bytes} B before)", flush=True)
     check(err <= value_bar * smax,
           f"{tag}: singular values {err:.3e} from the closed form")
     check(res <= res_bar * tol * smax, f"{tag}: triplet residual {res:.3e}")
@@ -2262,6 +2313,10 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
           f"{tag}: {mv} matvecs, not within 2x of the JAX package's {ref_mv}")
     check(launches[entry] >= spec["launch_floor"] * mv,
           f"{tag}: {launches[entry]} {entry} launches for {mv} matvecs")
+    check((direct[entry] > 0) == ("direct" in paths)
+          and (launches[entry] > direct[entry]) == ("ring" in paths),
+          f"{tag}: {direct[entry]} of {launches[entry]} launches on the "
+          f"direct path, the layouts' paths {sorted(paths)}")
     for other, count in launches.items():
         check(other == entry or count == 0,
               f"{tag}: {other} served this solve: {launches}")
@@ -2270,7 +2325,8 @@ def svds_phase(ptt, mods, dev, name, seed, mats, spec=None):
             "max_triplet_residual": res, "anorm": smax,
             "orthonormality": orth, "num_matvecs": mv,
             "ref_num_matvecs": ref_mv, "stages": per_stage,
-            "launches": launches, "peak_bytes": peak,
+            "launches": launches, "direct_launches": direct,
+            "layout_paths": sorted(paths), "peak_bytes": peak,
             "bytes_before": before_bytes}
 
 
@@ -2357,6 +2413,7 @@ def complex_phases(ptt, mods, DK, WE, dev, gen, cgen, seed):
           f" s: {ell_layout}", flush=True)
     ell = compare_kernel(WE, op, csr_on_card(S, np.complex64, dev), gen,
                          1e-5, "complex ell", copy=True)
+    need26 = direct_need(WE, op, "c64")
     del op
     A27, sv = magnetic_svd_matrix(MAG_GRID)
     mats27 = {"complex128": (A27, sv)}
@@ -2378,7 +2435,8 @@ def complex_phases(ptt, mods, DK, WE, dev, gen, cgen, seed):
     runs["ell"] = format_solve(
         ptt, mods, S, seed, "complex64 ell", REF_CELL_EVALS, 1e-4,
         gershgorin(S), REF_CELL_MATVECS, need=("windowed_ell_spmm_c64",),
-        forbid=[e for e in others if e != "windowed_ell_spmm_c64"])
+        forbid=[e for e in others if e != "windowed_ell_spmm_c64"],
+        need_direct=need26)
     t26 = time.perf_counter()
     # --- 27. svds on the magnetic incidence, complex128, both stages ----
     # launches: stage 1 multiplies blocks of up to four columns, two
@@ -2409,8 +2467,7 @@ def complex_phases(ptt, mods, DK, WE, dev, gen, cgen, seed):
         for name, tname in DIA_COMPLEX]
     kernels.append(dict(
         kernel_record("windowed_ell_spmm_c64", "primme_tpu/operators.py:198",
-                      runs["ell"]["launches"]["windowed_ell_spmm_c64"], ell,
-                      ell_layout),
+                      runs["ell"], ell, ell_layout),
         copy_ms=ell[2]["copy_ms"],
         shape=f"complex_scattered_matrix({GRID ** 3}), k=2"))
     kernels.append(rect_kernel_record(
@@ -3372,15 +3429,19 @@ def complex_jacobi_phase(JK, dev, gen):
                     err = float((y - yref).abs().max())
                     bit = _bitwise(torch.view_as_real(y),
                                    torch.view_as_real(yref))
+                    p = JK.card_plan(X)
                     rec = {"max_abs_err": err, "bitwise": bit,
-                           "blocks": JK.complex_blocks(n, k)}
+                           "plan": p._asdict(), "vector_path": p.vw > 1}
                     if case == "complex":
                         t = _times(kern, plain,
                                    (4 * n * k + 2 * n + nsig) * size,
                                    lambda: Yc.copy_(X), library)
                         rec.update(t)
                         print(f"[{name}] {label} {case} max|y-yref|={err:.3e}"
-                              f" bit for bit {bit}; kernel {t['ms']:.5f} ms "
+                              f" bit for bit {bit}; plan kc={p.kc} vw={p.vw}"
+                              f" cols={p.cols} blocks {p.blocks} ("
+                              f"{'vector' if p.vw > 1 else 'scalar'} path); "
+                              f"kernel {t['ms']:.5f} ms "
                               f"(without the spin {t['nospin_ms']:.5f})  "
                               f"plain {t['plain_ms']:.5f} ms  copy "
                               f"{t['copy_ms']:.5f} ms  bound "
@@ -4045,10 +4106,13 @@ def rect_kernel_record(name, replaces, run, per,
     the ``A`` layout's k=2, its launches those of the svds path ``run``."""
     top = per["per_k"]["A"][2]
     keys = ("ms", "nospin_ms", "plain_ms", "copy_ms", "library_ms",
-            "library_call", "bound_ms", "bound_share", "max_abs_err")
+            "library_call", "bound_ms", "bound_share", "max_abs_err",
+            *PATH_KEYS)
     return {"name": name, "route": "cuda",
             "source": "primme_tpu_torch/csrc/windowed_ell.cu",
             "replaces": replaces, "launches": run["launches"][name],
+            "direct_launches": run["direct_launches"][name],
+            "path": top["path"],
             "max_abs_err": max(v["max_abs_err"] for lay in per["per_k"].values()
                                for v in lay.values()),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -4063,11 +4127,20 @@ def rect_kernel_record(name, replaces, run, per,
                       for label, lay in per["per_k"].items()}}
 
 
-def kernel_record(name, replaces, launches, per_k, layout):
+# a sliced-ELL timing's path, the other path's time and their agreement
+PATH_KEYS = ("path", "mean_width", "other_path", "other_path_ms",
+             "paths_bitwise")
+
+
+def kernel_record(name, replaces, run, per_k, layout):
+    """The record of a sliced-ELL entry point on one square layout (its
+    top-level numbers at k=2), its launches those of the solve ``run``."""
     k2 = per_k[2]
     return {"name": name, "route": "cuda",
             "source": "primme_tpu_torch/csrc/windowed_ell.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": run["launches"][name],
+            "direct_launches": run["direct_launches"][name],
+            "path": k2["path"],
             "max_abs_err": max(v["max_abs_err"] for v in per_k.values()),
             "ms": k2["ms"], "plain_ms": k2["plain_ms"],
             "bound_ms": k2["bound_ms"], "bound_by": "bytes",
@@ -4075,7 +4148,7 @@ def kernel_record(name, replaces, launches, per_k, layout):
             "library_call": k2["library_call"], "layout": layout,
             "per_k": {str(k): {key: v[key] for key in (
                 "ms", "nospin_ms", "plain_ms", "library_ms", "library_call",
-                "bound_ms", "bound_share", "max_abs_err")}
+                "bound_ms", "bound_share", "max_abs_err", *PATH_KEYS)}
                 for k, v in per_k.items()}}
 
 
@@ -4319,13 +4392,11 @@ def main():
 
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
-                      "primme_tpu/ops/pallas_windowed.py:228",
-                      solve32["launches"]["windowed_ell_spmm_f32"], per_k,
-                      layout32),
+                      "primme_tpu/ops/pallas_windowed.py:228", solve32,
+                      per_k, layout32),
         kernel_record("windowed_ell_spmm_f64",
-                      "primme_tpu/ops/pallas_windowed.py:363",
-                      solve64["launches"]["windowed_ell_spmm_f64"], per_k64,
-                      layout64),
+                      "primme_tpu/ops/pallas_windowed.py:363", solve64,
+                      per_k64, layout64),
         main_path_record("stencil3d_f32", "primme_tpu_torch/csrc/stencil3d.cu",
                          "primme_tpu/operators.py:379", hl_run, sten,
                          {"stencil3d_f64": "primme_tpu/operators.py:379"}),

@@ -50,18 +50,22 @@
 // of 1 + 0i followed by a complex product (re: xr*ir - xi*ii, im: xr*ii +
 // xi*ir in that order), every operation rounded once and no fma, so the
 // kernel equals its plain version (ops/jacobi.py, which computes on the
-// parts in the same order) bit for bit. A simple kernel: a thread an
-// element of the [n, k] block in a grid-stride loop, X, d and sigma read
-// as 8- or 16-byte loads (one complex value each), Y written the same way;
-// bound by device memory as the real forms are, with 4 n k + 2 n + 2 k
-// reals moved.
+// parts in the same order) bit for bit. They are instances of the same
+// kernel, the element operation the only difference, with 4 n k + 2 n +
+// 2 k reals moved, 32-bit row indices and no division by k. A complex
+// thread holds 16 bytes of its row group in one row (Shape): two
+// complex64 columns, as one float4 where kc, ldx and X's address allow,
+// else two float2 loads, or one complex128 column as a double2; kc / that
+// many threads share a wider group. The unshifted form takes the guard and
+// the complex reciprocal of d[row] (two IEEE divisions, most of an
+// element's arithmetic) once for the thread's columns: one reciprocal a
+// row for complex64 at k <= 2, where it was one an element.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;  // rows a thread has in flight
 
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
@@ -95,12 +99,29 @@ __device__ __forceinline__ double guard(double den, double eps) {
   return fabs(den) < eps ? eps : den;
 }
 
+// The real type of an element, and whether it is complex
+template <typename T> struct Real {
+  using type = T;
+  static constexpr bool kComplex = false;
+};
+template <> struct Real<float2> {
+  using type = float;
+  static constexpr bool kComplex = true;
+};
+template <> struct Real<double2> {
+  using type = double;
+  static constexpr bool kComplex = true;
+};
+
 template <typename T, int W> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
 template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<float2, 1> { using type = float2; };
+template <> struct Vec<float2, 2> { using type = float4; };
+template <> struct Vec<double2, 1> { using type = double2; };
 
 // W adjacent elements at p (aligned to W elements) into out / from in
 template <typename T, int W>
@@ -120,104 +141,6 @@ __device__ __forceinline__ void st_vec(T* p, const T* in) {
   for (int c = 0; c < W; ++c) e[c] = in[c];
   *reinterpret_cast<V*>(p) = v;
 }
-
-// kParts = KC / VW threads share a row, a vector of VW columns each, so that
-// a warp's loads and stores cover adjacent memory. A block takes kRows
-// runs of kThreads / kParts adjacent rows; each thread loads its kRows
-// rows before it computes any, so that as many loads are in flight.
-template <typename T, int KC, int VW, bool kShifted>
-__global__ void __launch_bounds__(kThreads)
-    jacobi_kernel(const T* __restrict__ X, const T* __restrict__ d,
-                  const T* __restrict__ sigma, T* __restrict__ Y, int n, int k,
-                  long long ldx, T eps) {
-  constexpr int kParts = KC / VW;
-  constexpr int kRun = kThreads / kParts;  // rows of one run
-  const int c = (threadIdx.x % kParts) * VW;  // the thread's columns
-  const int r0 = blockIdx.x * kRun * kRows + threadIdx.x / kParts;
-  T sg[VW];
-  for (int c0 = 0; c0 < k; c0 += KC) {
-    T xv[kRows][VW], dv[kRows];
-#pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      // a row past the last reads the last and stores nothing
-      const int r = min(r0 + u * kRun, n - 1);
-      dv[u] = __ldg(d + r);
-      ldg_vec<T, VW>(X + static_cast<long long>(r) * ldx + c0 + c, xv[u]);
-    }
-    if constexpr (kShifted) {
-#pragma unroll
-      for (int e = 0; e < VW; ++e) sg[e] = __ldg(sigma + c0 + c + e);
-    }
-#pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const int r = r0 + u * kRun;
-      if (r >= n) break;
-      T yv[VW];
-      if constexpr (kShifted) {
-#pragma unroll
-        for (int e = 0; e < VW; ++e) {
-          yv[e] = div_rn(xv[u][e], guard(sub_rn(dv[u], sg[e]), eps));
-        }
-      } else {
-        const T inv = div_rn(T(1), guard(dv[u], eps));
-#pragma unroll
-        for (int e = 0; e < VW; ++e) yv[e] = mul_rn(inv, xv[u][e]);
-      }
-      st_vec<T, VW>(Y + static_cast<long long>(r) * k + c0 + c, yv);
-    }
-  }
-}
-
-template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, long long,
-                        T);
-
-template <typename T, int KC, bool kShifted>
-Kernel<T> pick_vw(int vw) {
-  if (vw == 1) return jacobi_kernel<T, KC, 1, kShifted>;
-  if constexpr (KC >= 2) {
-    if (vw == 2) return jacobi_kernel<T, KC, 2, kShifted>;
-  }
-  if constexpr (KC >= 4 && sizeof(T) == 4) {
-    if (vw == 4) return jacobi_kernel<T, KC, 4, kShifted>;
-  }
-  return nullptr;
-}
-
-// The instance for kc columns a thread loaded vw at a time; nullptr for a
-// pair the wrapper never plans.
-template <typename T, bool kShifted>
-Kernel<T> pick(int kc, int vw) {
-  switch (kc) {
-    case 1: return pick_vw<T, 1, kShifted>(vw);
-    case 2: return pick_vw<T, 2, kShifted>(vw);
-    case 4: return pick_vw<T, 4, kShifted>(vw);
-    case 8: return pick_vw<T, 8, kShifted>(vw);
-    default: return nullptr;
-  }
-}
-
-template <typename T, bool kShifted>
-int launch(const T* X, const T* d, const T* sigma, T* Y, int n, int k,
-           long long ldx, T eps, int kc, int vw, int blocks, void* stream) {
-  const Kernel<T> fn = pick<T, kShifted>(kc, vw);
-  // every row once, with row indices in 32 bits
-  const long long rows = static_cast<long long>(kThreads) / (kc / vw) * kRows;
-  if (fn == nullptr || k % kc != 0 || blocks != (n + rows - 1) / rows ||
-      blocks * rows > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, d, sigma, Y, n, k, ldx, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// ---- complex64 and complex128 -------------------------------------------
-
-template <typename C> struct Real;
-template <> struct Real<float2> { using type = float; };
-template <> struct Real<double2> { using type = double; };
 
 __device__ __forceinline__ float hyp(float a, float b) { return hypotf(a, b); }
 __device__ __forceinline__ double hyp(double a, double b) { return hypot(a, b); }
@@ -245,127 +168,250 @@ __device__ __forceinline__ void cdiv(R a, R b, R c, R d, R& re, R& im) {
   }
 }
 
-// Y[r, c] = X[r, c] / guard(d[r] - sigma[c]) (kShifted) or
-// (1 / guard(d[r])) * X[r, c], for the n k elements of the block, row by
-// row, in a grid-stride loop
-template <typename C, bool kShifted>
+// The element operations. Shifted: x / guard(d - s). Unshifted: the
+// reciprocal of guard(d), once a row, then its product with each x.
+template <typename R>
+__device__ __forceinline__ R shifted_op(R x, R d, R s, R eps) {
+  return div_rn(x, guard(sub_rn(d, s), eps));
+}
+template <typename R>
+__device__ __forceinline__ R reciprocal(R d, R eps) {
+  return div_rn(R(1), guard(d, eps));
+}
+template <typename R>
+__device__ __forceinline__ R scale(R inv, R x) {
+  return mul_rn(inv, x);
+}
+
+// a complex den, eps + 0i where |den| < eps (a NaN stays)
+template <typename C, typename R>
+__device__ __forceinline__ C cguard(C den, R eps) {
+  if (hyp(den.x, den.y) < eps) {
+    den.x = eps;
+    den.y = R(0);
+  }
+  return den;
+}
+template <typename C, typename R>
+__device__ __forceinline__ C cshifted(C x, C d, C s, R eps) {
+  C den;
+  den.x = sub_rn(d.x, s.x);
+  den.y = sub_rn(d.y, s.y);
+  den = cguard(den, eps);
+  C y;
+  cdiv(x.x, x.y, den.x, den.y, y.x, y.y);
+  return y;
+}
+template <typename C, typename R>
+__device__ __forceinline__ C creciprocal(C d, R eps) {
+  const C den = cguard(d, eps);
+  C inv;
+  cdiv(R(1), R(0), den.x, den.y, inv.x, inv.y);
+  return inv;
+}
+template <typename C>
+__device__ __forceinline__ C cscale(C inv, C x) {
+  C y;
+  y.x = sub_rn(mul_rn(inv.x, x.x), mul_rn(inv.y, x.y));
+  y.y = add_rn(mul_rn(inv.x, x.y), mul_rn(inv.y, x.x));
+  return y;
+}
+__device__ __forceinline__ float2 shifted_op(float2 x, float2 d, float2 s,
+                                             float eps) {
+  return cshifted(x, d, s, eps);
+}
+__device__ __forceinline__ double2 shifted_op(double2 x, double2 d, double2 s,
+                                              double eps) {
+  return cshifted(x, d, s, eps);
+}
+__device__ __forceinline__ float2 reciprocal(float2 d, float eps) {
+  return creciprocal(d, eps);
+}
+__device__ __forceinline__ double2 reciprocal(double2 d, double eps) {
+  return creciprocal(d, eps);
+}
+__device__ __forceinline__ float2 scale(float2 inv, float2 x) {
+  return cscale(inv, x);
+}
+__device__ __forceinline__ double2 scale(double2 inv, double2 x) {
+  return cscale(inv, x);
+}
+
+// The part of the block a thread takes: kCols columns of its row group
+// of KC, loaded VW at a time, in each of kRows rows. A real thread holds
+// one vector (16 bytes at most) in four rows. A complex thread holds 16
+// bytes of its group (two complex64 columns, as one float4 or two float2
+// loads; one complex128 column) in one row: its divisions are many, and
+// more threads in flight beat more rows a thread (on an H100 SXM at
+// 700 W, 64^3 k=2 complex64 shifted: 0.00495 ms at one row a thread,
+// 0.00593 at four; 32 bytes a complex128 thread, two columns to one
+// reciprocal, 0.7-1% slower; tools/torch_kernel_variants.py).
+template <typename T, int KC, int VW>
+struct Shape {
+  static constexpr int kCols =
+      !Real<T>::kComplex ? VW
+                         : (KC < int(16 / sizeof(T)) ? KC
+                                                     : int(16 / sizeof(T)));
+  static constexpr int kRows = Real<T>::kComplex ? 1 : 4;
+};
+
+// kParts = KC / COLS threads share a row, COLS columns each, loaded VW at
+// a time, so that a warp's loads and stores cover adjacent memory. A
+// block takes ROWS runs of kThreads / kParts adjacent rows; each thread
+// loads its ROWS rows before it computes any, so that as many loads are
+// in flight.
+template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted>
 __global__ void __launch_bounds__(kThreads)
-    jacobi_complex_kernel(const C* __restrict__ X, const C* __restrict__ d,
-                          const C* __restrict__ sigma, C* __restrict__ Y,
-                          long long n, int k, long long ldx,
-                          typename Real<C>::type eps) {
-  using R = typename Real<C>::type;
-  const long long total = n * k;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const long long r = i / k;
-    const int c = static_cast<int>(i - r * k);
-    const C x = __ldg(X + r * ldx + c);
-    C den = __ldg(d + r);
+    jacobi_kernel(const T* __restrict__ X, const T* __restrict__ d,
+                  const T* __restrict__ sigma, T* __restrict__ Y, int n, int k,
+                  long long ldx, typename Real<T>::type eps) {
+  constexpr int kParts = KC / COLS;
+  constexpr int kRun = kThreads / kParts;  // rows of one run
+  const int c = (threadIdx.x % kParts) * COLS;  // the thread's columns
+  const int r0 = blockIdx.x * kRun * ROWS + threadIdx.x / kParts;
+  T sg[COLS];
+  for (int c0 = 0; c0 < k; c0 += KC) {
+    T xv[ROWS][COLS], dv[ROWS];
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      // a row past the last reads the last and stores nothing
+      const int r = min(r0 + u * kRun, n - 1);
+      dv[u] = __ldg(d + r);
+#pragma unroll
+      for (int v = 0; v < COLS; v += VW) {
+        ldg_vec<T, VW>(X + static_cast<long long>(r) * ldx + c0 + c + v,
+                       xv[u] + v);
+      }
+    }
     if constexpr (kShifted) {
-      const C s = __ldg(sigma + c);
-      den.x = sub_rn(den.x, s.x);
-      den.y = sub_rn(den.y, s.y);
+#pragma unroll
+      for (int e = 0; e < COLS; ++e) sg[e] = __ldg(sigma + c0 + c + e);
     }
-    if (hyp(den.x, den.y) < eps) {
-      den.x = eps;
-      den.y = R(0);
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      const int r = r0 + u * kRun;
+      if (r >= n) break;
+      T yv[COLS];
+      if constexpr (kShifted) {
+#pragma unroll
+        for (int e = 0; e < COLS; ++e) {
+          yv[e] = shifted_op(xv[u][e], dv[u], sg[e], eps);
+        }
+      } else {
+        const T inv = reciprocal(dv[u], eps);
+#pragma unroll
+        for (int e = 0; e < COLS; ++e) yv[e] = scale(inv, xv[u][e]);
+      }
+#pragma unroll
+      for (int v = 0; v < COLS; v += VW) {
+        st_vec<T, VW>(Y + static_cast<long long>(r) * k + c0 + c + v, yv + v);
+      }
     }
-    C y;
-    if constexpr (kShifted) {
-      cdiv(x.x, x.y, den.x, den.y, y.x, y.y);
-    } else {
-      R ir, ii;
-      cdiv(R(1), R(0), den.x, den.y, ir, ii);
-      y.x = sub_rn(mul_rn(ir, x.x), mul_rn(ii, x.y));
-      y.y = add_rn(mul_rn(ir, x.y), mul_rn(ii, x.x));
-    }
-    Y[i] = y;
   }
 }
 
-template <typename C, bool kShifted>
-int launch_complex(const C* X, const C* d, const C* sigma, C* Y, long long n,
-                   int k, long long ldx, typename Real<C>::type eps,
-                   int blocks, void* stream) {
-  if (n < 1 || k < 1 || ldx < k || blocks < 1) {
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, long long,
+                        typename Real<T>::type);
+
+// A kernel instance and the rows a block of it takes
+template <typename T>
+struct Launch {
+  Kernel<T> fn;
+  int rows;
+};
+
+template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted>
+Launch<T> instance() {
+  return {jacobi_kernel<T, KC, VW, COLS, ROWS, kShifted>,
+          kThreads / (KC / COLS) * ROWS};
+}
+
+// VW elements of T in one load of at most 16 bytes, VW dividing KC
+template <typename T, int KC, int VW>
+constexpr bool fits() {
+  return KC % VW == 0 && sizeof(T) * VW <= 16;
+}
+
+template <typename T, int KC, int VW, bool kShifted>
+Launch<T> shaped() {
+  using S = Shape<T, KC, VW>;
+  return instance<T, KC, VW, S::kCols, S::kRows, kShifted>();
+}
+
+template <typename T, int KC, bool kShifted>
+Launch<T> pick_vw(int vw) {
+  if (vw == 1) return shaped<T, KC, 1, kShifted>();
+  if constexpr (fits<T, KC, 2>()) {
+    if (vw == 2) return shaped<T, KC, 2, kShifted>();
+  }
+  if constexpr (fits<T, KC, 4>()) {
+    if (vw == 4) return shaped<T, KC, 4, kShifted>();
+  }
+  return {nullptr, 0};
+}
+
+// The instance for row groups of kc columns loaded vw at a time; a null
+// kernel for a pair the wrapper never plans.
+template <typename T, bool kShifted>
+Launch<T> pick(int kc, int vw) {
+  switch (kc) {
+    case 1: return pick_vw<T, 1, kShifted>(vw);
+    case 2: return pick_vw<T, 2, kShifted>(vw);
+    case 4: return pick_vw<T, 4, kShifted>(vw);
+    case 8: return pick_vw<T, 8, kShifted>(vw);
+    default: return {nullptr, 0};
+  }
+}
+
+template <typename T>
+int run(Launch<T> L, const T* X, const T* d, const T* sigma, T* Y, int n,
+        int k, long long ldx, typename Real<T>::type eps, int kc, int blocks,
+        void* stream) {
+  // every row once, with row indices in 32 bits
+  if (L.fn == nullptr || n < 1 || k % kc != 0 || ldx < k ||
+      blocks != (n + L.rows - 1) / L.rows ||
+      static_cast<long long>(blocks) * L.rows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  jacobi_complex_kernel<C, kShifted>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          X, d, sigma, Y, n, k, ldx, eps);
+  L.fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      X, d, sigma, Y, n, k, ldx, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kShifted>
+int launch(const T* X, const T* d, const T* sigma, T* Y, int n, int k,
+           long long ldx, typename Real<T>::type eps, int kc, int vw,
+           int blocks, void* stream) {
+  return run<T>(pick<T, kShifted>(kc, vw), X, d, sigma, Y, n, k, ldx, eps,
+                kc, blocks, stream);
 }
 
 }  // namespace
 
-// The wrapper (primme_tpu_torch/ops/jacobi.py) plans the launch: kc columns
-// a row group, X loaded vw elements at a time, `blocks` blocks of 256
-// threads, as many as the rows need; another grid is refused.
+// The wrapper (primme_tpu_torch/ops/jacobi.py::plan) plans the launch: kc
+// columns a row group, X loaded vw elements at a time, `blocks` blocks of
+// 256 threads, as many as the rows need; another grid is refused.
+// X [n, k] with rows ldx elements apart, d [n], sigma [k], Y a new
+// contiguous [n, k], in the entry point's type (complex: (re, im) pairs).
 // Each entry point returns the CUDA error of its launch as an int (0:
 // none). The unshifted ones take no sigma.
-extern "C" int jacobi_shifted_f32(const float* X, const float* d,
-                                  const float* sigma, float* Y, int n, int k,
-                                  long long ldx, float eps, int kc, int vw,
-                                  int blocks, void* stream) {
-  return launch<float, true>(X, d, sigma, Y, n, k, ldx, eps, kc, vw, blocks,
-                             stream);
-}
+#define JACOBI_ENTRIES(T, R, SUFFIX)                                         \
+  extern "C" int jacobi_shifted_##SUFFIX(const T* X, const T* d,             \
+                                         const T* sigma, T* Y, int n, int k, \
+                                         long long ldx, R eps, int kc,       \
+                                         int vw, int blocks, void* stream) { \
+    return launch<T, true>(X, d, sigma, Y, n, k, ldx, eps, kc, vw, blocks,   \
+                           stream);                                          \
+  }                                                                          \
+  extern "C" int jacobi_##SUFFIX(const T* X, const T* d, T* Y, int n, int k, \
+                                 long long ldx, R eps, int kc, int vw,       \
+                                 int blocks, void* stream) {                 \
+    return launch<T, false>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,        \
+                            blocks, stream);                                 \
+  }
 
-extern "C" int jacobi_shifted_f64(const double* X, const double* d,
-                                  const double* sigma, double* Y, int n, int k,
-                                  long long ldx, double eps, int kc, int vw,
-                                  int blocks, void* stream) {
-  return launch<double, true>(X, d, sigma, Y, n, k, ldx, eps, kc, vw, blocks,
-                              stream);
-}
-
-extern "C" int jacobi_f32(const float* X, const float* d, float* Y, int n,
-                          int k, long long ldx, float eps, int kc, int vw,
-                          int blocks, void* stream) {
-  return launch<float, false>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw, blocks,
-                              stream);
-}
-
-extern "C" int jacobi_f64(const double* X, const double* d, double* Y, int n,
-                          int k, long long ldx, double eps, int kc, int vw,
-                          int blocks, void* stream) {
-  return launch<double, false>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,
-                               blocks, stream);
-}
-
-// The complex entry points: X [n, k] with rows ldx complex elements apart,
-// d [n], sigma [k], Y a new contiguous [n, k]; `blocks` blocks of 256
-// threads walk the n k elements (the wrapper plans it). Each returns the
-// CUDA error of its launch as an int (0: none).
-extern "C" int jacobi_shifted_c64(const float2* X, const float2* d,
-                                  const float2* sigma, float2* Y, long long n,
-                                  int k, long long ldx, float eps, int blocks,
-                                  void* stream) {
-  return launch_complex<float2, true>(X, d, sigma, Y, n, k, ldx, eps, blocks,
-                                      stream);
-}
-
-extern "C" int jacobi_shifted_c128(const double2* X, const double2* d,
-                                   const double2* sigma, double2* Y,
-                                   long long n, int k, long long ldx,
-                                   double eps, int blocks, void* stream) {
-  return launch_complex<double2, true>(X, d, sigma, Y, n, k, ldx, eps, blocks,
-                                       stream);
-}
-
-extern "C" int jacobi_c64(const float2* X, const float2* d, float2* Y,
-                          long long n, int k, long long ldx, float eps,
-                          int blocks, void* stream) {
-  return launch_complex<float2, false>(X, d, nullptr, Y, n, k, ldx, eps,
-                                       blocks, stream);
-}
-
-extern "C" int jacobi_c128(const double2* X, const double2* d, double2* Y,
-                           long long n, int k, long long ldx, double eps,
-                           int blocks, void* stream) {
-  return launch_complex<double2, false>(X, d, nullptr, Y, n, k, ldx, eps,
-                                        blocks, stream);
-}
+JACOBI_ENTRIES(float, float, f32)
+JACOBI_ENTRIES(double, double, f64)
+JACOBI_ENTRIES(float2, float, c64)
+JACOBI_ENTRIES(double2, double, c128)

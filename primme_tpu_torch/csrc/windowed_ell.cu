@@ -47,6 +47,26 @@
 // complex128 entry takes 20 bytes of the ring, so its stages hold half
 // as many slots (kChunk 8) and the ring stays under 227 KB.
 //
+// Narrow slices (the direct path). Where slices hold a few slots (rows of
+// 1-2 entries: svds' incidence A; of ~10 scattered ones: the scatters), a
+// group is one or two short stages and a block's single producer reads
+// slice_ptr before it can issue each group's copies, while the ring's
+// 4 x 40-49 KB and
+// __launch_bounds__(..., 1) leave one block (8 consumer warps) on an SM:
+// every group is a chain of dependent latencies (slice_ptr, the barrier,
+// the X gathers, the store) with little else in flight. The direct path
+// takes the ring away: blocks of kDirectWarps warps, one slice a warp,
+// each lane reading its row's cols/vals straight from device memory
+// (coalesced: entry j of a slice's 32 rows is one line), no shared
+// memory, so up to 64 warps sit on an SM and their chains overlap. It
+// runs the same consumer loop (accumulate) in the same slot order, so
+// the two paths give the same sums bit for bit. The wrapper
+// (ops/windowed_ell.py::choose_path) picks the path per layout from its
+// mean slice width, E / (32 slices), known from the arrays' shapes; wide
+// layouts keep the ring. On both paths a row's last entries (fewer than
+// the gathers a step holds) go in halving steps, not one a slot: a row of
+// 7 takes three rounds of gathers, not seven.
+//
 // What was dropped from the TPU kernels: their eight shifted copies of X
 // and [8,128] lane-shuffle scan existed because a lane shuffle is the
 // TPU's only gather, and matmat_ds carried f64 as f32 hi/lo streams with
@@ -71,6 +91,7 @@ constexpr int kChunkOf = sizeof(T) > 8 ? 8 : 16;
 constexpr int kStages = 4;              // depth of the ring
 constexpr int kMaxKC = 8;               // columns of X per launch
 constexpr int kMaxDevices = 64;         // occupancy cached per device below
+constexpr int kDirectWarps = 8;         // slices of a direct-path block
 static_assert(kWarps <= kSlice, "a group's widths are reduced in one warp");
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
@@ -169,9 +190,18 @@ __device__ __forceinline__ void store_row(T* p, int kc, const T* v) {
   }
 }
 
+// How a lane reads its cols/vals: plain loads, from the ring's shared
+// memory or (the direct path) from device memory. Streaming, read-only
+// and L2-only loads measured no better on the direct path
+// (tools/torch_kernel_variants.py, which instantiates them).
+struct Plain {
+  template <typename E>
+  static __device__ __forceinline__ E ld(const E* p) { return *p; }
+};
+
 // U entries at once: their cols/vals first, then U independent gathers of
 // X, then the fmas in slot order.
-template <typename T, int KC, int V, int U>
+template <typename T, int KC, int V, int U, typename Ld>
 __device__ __forceinline__ void step(const int* c, const T* v, const T* X,
                                      long k, int kc, T* acc) {
   int cc[U];
@@ -179,8 +209,8 @@ __device__ __forceinline__ void step(const int* c, const T* v, const T* X,
   T xx[U][KC];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    cc[u] = c[u * kSlice];
-    vv[u] = v[u * kSlice];
+    cc[u] = Ld::ld(c + u * kSlice);
+    vv[u] = Ld::ld(v + u * kSlice);
   }
 #pragma unroll
   for (int u = 0; u < U; ++u)
@@ -191,18 +221,35 @@ __device__ __forceinline__ void step(const int* c, const T* v, const T* X,
     for (int q = 0; q < KC; ++q) acc[q] = fma_t(vv[u], xx[u][q], acc[q]);
 }
 
+// The last r < 2 U entries of a row: U of them if r >= U, then the rest
+// in steps of U / 2, U / 4, ..., 1, so that a remainder of r entries
+// takes at most log2(U) + 1 rounds of gathers, not r (a step of U held
+// for every remainder would hold its registers and cost occupancy).
+template <typename T, int KC, int V, int U, typename Ld>
+__device__ __forceinline__ void tail(const int* c, const T* v, int r,
+                                     const T* X, long k, int kc, T* acc) {
+  if (r >= U) {
+    step<T, KC, V, U, Ld>(c, v, X, k, kc, acc);
+    c += U * kSlice;
+    v += U * kSlice;
+    r -= U;
+  }
+  if constexpr (U > 1) tail<T, KC, V, U / 2, Ld>(c, v, r, X, k, kc, acc);
+}
+
 // Adds cnt entries of this lane's row to acc; c and v point at the
 // lane's first entry, the next one kSlice further (slot-major).
-template <typename T, int KC, int V>
+template <typename T, int KC, int V, typename Ld = Plain>
 __device__ __forceinline__ void accumulate(const int* c, const T* v, int cnt,
                                            const T* X, long k, int kc,
                                            T* acc) {
   constexpr int U = KC <= 2 ? 8 : (KC == 4 ? 4 : 2);   // gathers in flight
   int j = 0;
   for (; j + U <= cnt; j += U)
-    step<T, KC, V, U>(c + j * kSlice, v + j * kSlice, X, k, kc, acc);
-  for (; j < cnt; ++j)
-    step<T, KC, V, 1>(c + j * kSlice, v + j * kSlice, X, k, kc, acc);
+    step<T, KC, V, U, Ld>(c + j * kSlice, v + j * kSlice, X, k, kc, acc);
+  if (j < cnt)
+    tail<T, KC, V, U / 2, Ld>(c + j * kSlice, v + j * kSlice, cnt - j, X, k,
+                              kc, acc);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -358,10 +405,37 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
   }
 }
 
+// The direct path: warp `w` of block b sums slice b * kDirectWarps + w,
+// each lane its row, reading cols/vals from device memory through Ld.
+template <typename T, int KC, int V, typename Ld = Plain>
+__global__ void __launch_bounds__(kDirectWarps * 32)
+sliced_ell_direct(const long long* __restrict__ slice_ptr,
+                  const int* __restrict__ rowlen, const int* __restrict__ cols,
+                  const T* __restrict__ vals, const T* __restrict__ X,
+                  T* __restrict__ Y, int n, int k, int kc) {
+  const int i = blockIdx.x * kDirectWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = i * kSlice + lane;
+  if (row >= n) return;
+  const long long e = slice_ptr[i] + lane;
+  T acc[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) acc[q] = zero<T>();
+  accumulate<T, KC, V, Ld>(cols + e, vals + e, rowlen[row], X, k, kc, acc);
+  store_row<T, KC, V>(Y + (long)row * k, kc, acc);
+}
+
 template <typename T, int KC, int V>
 cudaError_t launch(const long long* slice_ptr, const int* rowlen,
                    const int* cols, const T* vals, const T* X, T* Y, int n,
-                   int k, int kc, cudaStream_t st) {
+                   int k, int kc, bool direct, cudaStream_t st) {
+  if (direct) {
+    const int nslices = (n + kSlice - 1) / kSlice;
+    sliced_ell_direct<T, KC, V>
+        <<<(nslices + kDirectWarps - 1) / kDirectWarps, kDirectWarps * 32, 0,
+           st>>>(slice_ptr, rowlen, cols, vals, X, Y, n, k, kc);
+    return cudaGetLastError();
+  }
   auto kern = sliced_ell_spmm<T, KC, V>;
   constexpr int kThreads = (kWarps + 1) * 32;
   int dev = 0, sms = 0;
@@ -390,15 +464,17 @@ cudaError_t launch(const long long* slice_ptr, const int* rowlen,
   return cudaGetLastError();
 }
 
-// One launch per chunk of up to kMaxKC columns; vector gathers (V > 1)
-// where the chunk is whole and every row of X and Y is V-aligned (none for
-// complex128, whose one column is 16 bytes).
+// One launch per chunk of up to kMaxKC columns, on the direct path or the
+// ring; vector gathers (V > 1) where the chunk is whole and every row of X
+// and Y is V-aligned (none for complex128, whose one column is 16 bytes).
 template <typename T>
 int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
-         const T* vals, const T* X, T* Y, int n, int k, void* stream) {
+         const T* vals, const T* X, T* Y, int n, int k, int direct,
+         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int kVec = 16 / sizeof(T);    // elements in 16 bytes
   constexpr int kV2 = kVec < 2 ? kVec : 2;
+  const bool d = direct != 0;
   for (int j0 = 0; j0 < k; j0 += kMaxKC) {
     const int kc = k - j0 < kMaxKC ? k - j0 : kMaxKC;
     const T* Xc = X + j0;
@@ -410,22 +486,23 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
                      reinterpret_cast<uintptr_t>(Yc) % (v * sizeof(T)) == 0;
     cudaError_t err;
     if (kc == 1)
-      err = launch<T, 1, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k, kc, st);
+      err = launch<T, 1, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k, kc,
+                            d, st);
     else if (kc == 2)
       err = vec ? launch<T, 2, kV2>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                    k, kc, st)
+                                    k, kc, d, st)
                 : launch<T, 2, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, st);
+                                  kc, d, st);
     else if (kc <= 4)
       err = vec ? launch<T, 4, kVec>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                     k, kc, st)
+                                     k, kc, d, st)
                 : launch<T, 4, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, st);
+                                  kc, d, st);
     else
       err = vec ? launch<T, 8, kVec>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                     k, kc, st)
+                                     k, kc, d, st)
                 : launch<T, 8, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, st);
+                                  kc, d, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -434,32 +511,19 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
 }  // namespace
 
 // X and Y are row-major [n, k] in the type of vals (complex: interleaved
-// (re, im) pairs); each entry point returns the first CUDA error of its
-// launches as an int (0: none).
-extern "C" int windowed_ell_spmm_f32(const long long* slice_ptr,
-                                     const int* rowlen, const int* cols,
-                                     const float* vals, const float* X,
-                                     float* Y, int n, int k, void* stream) {
-  return spmm<float>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
-}
+// (re, im) pairs); `direct` nonzero runs the direct path, 0 the ring. Each
+// entry point returns the first CUDA error of its launches as an int (0:
+// none).
+#define SPMM_ENTRY(T, SUFFIX)                                                \
+  extern "C" int windowed_ell_spmm_##SUFFIX(                                 \
+      const long long* slice_ptr, const int* rowlen, const int* cols,        \
+      const T* vals, const T* X, T* Y, int n, int k, int direct,             \
+      void* stream) {                                                        \
+    return spmm<T>(slice_ptr, rowlen, cols, vals, X, Y, n, k, direct,        \
+                   stream);                                                  \
+  }
 
-extern "C" int windowed_ell_spmm_f64(const long long* slice_ptr,
-                                     const int* rowlen, const int* cols,
-                                     const double* vals, const double* X,
-                                     double* Y, int n, int k, void* stream) {
-  return spmm<double>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
-}
-
-extern "C" int windowed_ell_spmm_c64(const long long* slice_ptr,
-                                     const int* rowlen, const int* cols,
-                                     const float2* vals, const float2* X,
-                                     float2* Y, int n, int k, void* stream) {
-  return spmm<float2>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
-}
-
-extern "C" int windowed_ell_spmm_c128(const long long* slice_ptr,
-                                      const int* rowlen, const int* cols,
-                                      const double2* vals, const double2* X,
-                                      double2* Y, int n, int k, void* stream) {
-  return spmm<double2>(slice_ptr, rowlen, cols, vals, X, Y, n, k, stream);
-}
+SPMM_ENTRY(float, f32)
+SPMM_ENTRY(double, f64)
+SPMM_ENTRY(float2, c64)
+SPMM_ENTRY(double2, c128)

@@ -19,8 +19,8 @@ plain version agree bit for bit whatever the card's contraction of
 * :func:`shifted`, :func:`unshifted` — the kernel wrappers: on a CUDA tensor
   they launch the hand-written Hopper kernel (``csrc/jacobi.cu``) or raise;
   on a CPU tensor, where no kernel exists, they run the plain version;
-* :func:`plan` — the real kernel's launch: columns of a row group, load
-  width and grid; :func:`complex_blocks` — the complex kernel's grid.
+* :func:`plan` — the kernel's launch for every type: columns of a row
+  group, load width, columns a thread holds and grid.
 
 The kernels take X's row stride; its columns must be adjacent.
 ``LAUNCHES`` counts the wrappers' kernel launches, ``KERNEL_LAUNCHES`` the
@@ -48,8 +48,8 @@ _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
            torch.complex64: ("c64", ctypes.c_float),
            torch.complex128: ("c128", ctypes.c_double)}
 THREADS = 256        # threads a block: the kernel's kThreads
-ROWS = 4             # rows a thread loads at once: the kernel's kRows
-MAX_COMPLEX_BLOCKS = 1 << 20   # the complex kernel's grid-stride grid cap
+ROWS = 4             # rows a real thread loads at once (a complex one: 1)
+COMPLEX_BYTES = 16   # bytes of its row group a complex thread holds
 
 
 def _eps(eps, dtype):
@@ -114,60 +114,54 @@ def unshifted_reference(X, d, eps):
 class Plan(NamedTuple):
     kc: int        # columns of a row group (divides k)
     vw: int        # elements of X per load; 1 is the scalar path
-    blocks: int    # blocks of THREADS threads, kc / vw of them a row, each
-                   # thread ROWS rows
+    blocks: int    # blocks of THREADS threads, kc / cols of them a row
+    cols: int      # columns of its row group a thread holds: vw for a real
+                   # type, COMPLEX_BYTES of the group for a complex one
+    rows: int      # rows a thread takes: ROWS for a real type, 1 complex
 
 
-def plan(n, k, ldx, align, size) -> Plan:
+def plan(n, k, ldx, align, size, is_complex=False) -> Plan:
     """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
     elements apart at an address with ``align = data_ptr % 16``, ``size``
-    bytes an element: ``kc / vw`` threads to a row, one vector each,
-    ``ROWS`` rows a thread, in one pass over as many blocks as the rows
-    need. Raises ValueError on a shape the kernel does not take (its row
-    index is 32-bit)."""
+    bytes an element (4 or 8 real, 8 or 16 complex with ``is_complex``):
+    ``kc / cols`` threads to a row, ``rows`` rows a thread, in one pass
+    over as many blocks as the rows need. A real thread holds one vector
+    of ``vw`` columns in ``ROWS`` rows; a complex one ``COMPLEX_BYTES`` of
+    its group, ``vw`` columns a load, in one row (the kernel's ``Shape``).
+    Raises ValueError on a shape the kernel does not take (its row index
+    is 32-bit; an address must hold whole elements)."""
     if n < 1 or k < 1:
         raise ValueError(f"an [{n}, {k}] block has no element to launch for")
+    if align % size:
+        raise ValueError(f"X's address is {align} bytes past 16, not a "
+                         f"multiple of its {size}-byte elements")
     kc = column_group(k)
     vw = vector_width(kc, ldx, align, size)
-    rows = THREADS // (kc // vw) * ROWS   # rows a block takes
-    blocks = -(-n // rows)
-    if k >= 2 ** 31 or blocks * rows >= 2 ** 31:
+    cols = min(kc, COMPLEX_BYTES // size) if is_complex else vw
+    rows = 1 if is_complex else ROWS
+    per_block = THREADS // (kc // cols) * rows
+    blocks = -(-n // per_block)
+    if k >= 2 ** 31 or blocks * per_block >= 2 ** 31:
         raise ValueError(f"an [{n}, {k}] block is outside the kernel's range "
                          "(n < 2**31 rounded up to whole blocks, k < 2**31)")
-    return Plan(kc, vw, blocks)
-
-
-def complex_blocks(n, k) -> int:
-    """Blocks of ``THREADS`` threads the complex kernel walks the ``n k``
-    elements with: one an element up to ``MAX_COMPLEX_BLOCKS`` blocks, a
-    grid-stride loop past it."""
-    if n < 1 or k < 1:
-        raise ValueError(f"an [{n}, {k}] block has no element to launch for")
-    return min(-(-n * k // THREADS), MAX_COMPLEX_BLOCKS)
+    return Plan(kc, vw, blocks, cols, rows)
 
 
 def card_plan(X) -> Plan:
     """The plan :func:`shifted` or :func:`unshifted` launches X with."""
     return plan(X.shape[0], X.shape[1], max(X.stride(0), 1),
-                X.data_ptr() % 16, X.element_size())
+                X.data_ptr() % 16, X.element_size(), X.is_complex())
 
 
-def _jacobi_fn(entry, eps_type, shifted_form, complex_form):
+def _jacobi_fn(entry, eps_type, shifted_form):
     """The C entry point ``entry`` of ``csrc/jacobi.cu``."""
     from . import build
     fn = getattr(build.load("jacobi"), entry)
     if fn.argtypes is None:
-        ptrs = [ctypes.c_void_p] * (4 if shifted_form else 3)
-        if complex_form:
-            # X, d, [sigma,] Y; n; k; ldx; eps; blocks; stream
-            fn.argtypes = ptrs + [ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_longlong, eps_type, ctypes.c_int,
-                                  ctypes.c_void_p]
-        else:
-            # X, d, [sigma,] Y; n, k; ldx; eps; kc, vw, blocks; stream
-            fn.argtypes = ptrs + [ctypes.c_int] * 2 \
-                + [ctypes.c_longlong, eps_type] + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
+        # X, d, [sigma,] Y; n, k; ldx; eps; kc, vw, blocks; stream
+        fn.argtypes = [ctypes.c_void_p] * (4 if shifted_form else 3) \
+            + [ctypes.c_int] * 2 + [ctypes.c_longlong, eps_type] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -206,27 +200,20 @@ def _launch(X, d, sigma, eps):
         return Y
     suffix, eps_type = _SUFFIX[X.dtype]
     shifted_form = sigma is not None
-    complex_form = X.is_complex()
     entry = ("jacobi_shifted_" if shifted_form else "jacobi_") + suffix
-    fn = _jacobi_fn(entry, eps_type, shifted_form, complex_form)
+    fn = _jacobi_fn(entry, eps_type, shifted_form)
     ptrs = [X.data_ptr(), d.data_ptr()] \
         + ([sigma.data_ptr()] if shifted_form else []) + [Y.data_ptr()]
+    p = card_plan(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if complex_form:
-            vector = False
-            rc = fn(*ptrs, n, k, max(ldx, 1), float(eps),
-                    complex_blocks(n, k), stream)
-        else:
-            p = card_plan(X)
-            vector = p.vw > 1
-            rc = fn(*ptrs, n, k, max(ldx, 1), float(eps), p.kc, p.vw,
-                    p.blocks, stream)
+        rc = fn(*ptrs, n, k, max(ldx, 1), float(eps), p.kc, p.vw, p.blocks,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
-    VECTOR_LAUNCHES[entry] += vector
+    VECTOR_LAUNCHES[entry] += p.vw > 1
     return Y
 
 

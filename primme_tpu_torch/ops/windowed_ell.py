@@ -30,9 +30,18 @@ entry point. A layout built from CSR (:func:`from_csr`) may also hold
 complex64 or complex128 values, each type with its own entry point (the
 reference computes complex sparse products outside Pallas, in XLA).
 
-``LAUNCHES`` counts the wrapper's kernel launches, and ``KERNEL_LAUNCHES``
+The kernel has two paths (:data:`PATHS`): ``"ring"`` streams each group
+of slices through a shared-memory ring (one block an SM), ``"direct"``
+lets each warp read its slice straight from device memory (small blocks,
+many an SM). :func:`choose_path` picks one per layout from its mean slice
+width, which the arrays' shapes give (``len(cols) / (32 slices)``,
+fixed when :func:`compact` or :func:`from_csr` builds the layout): narrow
+layouts, up to :data:`NARROW_WIDTH` slots a slice, take the direct path.
+
+``LAUNCHES`` counts the wrapper's kernel launches, ``KERNEL_LAUNCHES``
 the same launches by entry point, so a run can show that its products went
-through the kernel of its precision.
+through the kernel of its precision, and ``DIRECT_LAUNCHES`` those of them
+that took the direct path.
 """
 
 from __future__ import annotations
@@ -58,6 +67,13 @@ _ENTRY = {torch.float32: "windowed_ell_spmm_f32",
           torch.complex64: "windowed_ell_spmm_c64",
           torch.complex128: "windowed_ell_spmm_c128"}
 KERNEL_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
+DIRECT_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
+PATHS = ("ring", "direct")
+# mean slots a slice at or under which a layout takes the direct path: the
+# smoke's layouts up to 17.9 (rows of 1-2, 7, the scatters' 16.7) ran
+# faster on it at k = 1 and 2, the permuted 27-point Laplacian (26.6)
+# slower at k >= 2 (tools/torch_ell_paths.py, tools/torch_kernel_variants.py)
+NARROW_WIDTH = 20.0
 
 
 class WindowedELL(NamedTuple):
@@ -305,19 +321,35 @@ def matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols=None):
     return y
 
 
+def mean_width(slice_ptr, cols) -> float:
+    """Slots a slice on average: the layout's ``E`` entries (``len(cols)``)
+    over 32 times its slices (``len(slice_ptr) - 1``); 0 for no slice.
+    Shapes alone: no array is read, wherever it lies."""
+    slices = slice_ptr.shape[0] - 1
+    return cols.shape[0] / (SLICE * slices) if slices > 0 else 0.0
+
+
+def choose_path(slice_ptr, cols) -> str:
+    """The kernel's path for a layout: ``"direct"`` where its
+    :func:`mean_width` is at most ``NARROW_WIDTH``, else ``"ring"``."""
+    return "direct" if mean_width(slice_ptr, cols) <= NARROW_WIDTH \
+        else "ring"
+
+
 def _spmm_fn(entry):
     """The C entry point ``entry`` of ``csrc/windowed_ell.cu``."""
     from . import build
     fn = getattr(build.load("windowed_ell"), entry)
     if fn.argtypes is None:
-        # slice_ptr, rowlen, cols, vals, X, Y; n, k; stream
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        # slice_ptr, rowlen, cols, vals, X, Y; n, k, direct; stream
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None):
+def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None,
+           path=None):
     """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32,
     f64, complex64 or complex128) on the :class:`SlicedELL` arrays of an
     ``m x ncols`` matrix (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
@@ -325,8 +357,12 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None):
     on the current stream (raises on a bad argument or a refused launch).
     CPU tensors: :func:`matmat_reference`. ``out``: a contiguous ``[m,
     k]`` tensor the product is written into and returned (a row slice of a
-    larger block: the halo operator writes its layouts' rows in place)."""
+    larger block: the halo operator writes its layouts' rows in place).
+    ``path``: one of :data:`PATHS`, the layout's :func:`choose_path` when
+    None (both give the same result bit for bit)."""
     global LAUNCHES
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path {path!r} is not one of {PATHS}")
     if X.device.type == "cpu":
         Y = matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols)
         return Y if out is None else out.copy_(Y)
@@ -349,6 +385,8 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None):
     for name, t in (("cols", cols), ("vals", vals)):
         if t.data_ptr() % 16:       # the kernel copies them in bulk
             raise ValueError(f"{name} is not 16-byte aligned")
+    if path is None:
+        path = choose_path(slice_ptr, cols)
     k = X.shape[1]
     if out is None:
         Y = torch.empty((n, k), dtype=X.dtype, device=X.device)
@@ -366,9 +404,11 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None):
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(slice_ptr.data_ptr(), rowlen.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), X.data_ptr(), Y.data_ptr(), n, k, stream)
+                vals.data_ptr(), X.data_ptr(), Y.data_ptr(), n, k,
+                int(path == "direct"), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
+    DIRECT_LAUNCHES[entry] += path == "direct"
     return Y

@@ -171,6 +171,55 @@ def test_sliced_ell_complex_kernel_matches_plain(card, dtype):
                 <= 10 * REL[dtype] * np.abs(yh).max(), (name, k)
 
 
+def _path_layouts(npdt):
+    """A narrow layout (the magnetic incidence at N = 8 with 0.1 I under
+    it: rows of 1-2 entries) and a wide one (the 27-point Laplacian at 8^3
+    in a random order, 27 a row inside), complex ones given random phases,
+    each with the path the wrapper's rule gives it."""
+    rng = np.random.default_rng(4)
+    A = CS.magnetic_svd_matrix(8)[0]
+    L = CS.laplacian27(8, 0)[0].astype(np.float64).tocoo()
+    if np.iscomplexobj(np.zeros(1, npdt)):
+        L = sp.coo_matrix((L.data * np.exp(2j * np.pi * rng.random(L.nnz)),
+                           (L.row, L.col)), shape=L.shape)
+    else:
+        A = A.real
+    return {"narrow": (A.astype(npdt).tocsr(), "direct"),
+            "wide": (L.astype(npdt).tocsr(), "ring")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CTYPES + [torch.float32, torch.float64])
+def test_sliced_ell_paths_agree(card, dtype):
+    """Both paths of the sliced-ELL kernel, forced through the wrapper, on
+    a narrow and a wide layout: bit for bit with each other (the same
+    consumer loop, the same slot order) and within the type's bar of the
+    plain version; the wrapper's own choice is the layout's rule."""
+    npdt = np.dtype(str(dtype).replace("torch.", ""))
+    entry = WE._ENTRY[dtype]
+    for name, (A, path) in _path_layouts(npdt).items():
+        lay = WE.from_csr(A, npdt)
+        arrays = [torch.as_tensor(getattr(lay, f)).to(card)
+                  for f in WE.SlicedELL._fields]
+        assert WE.choose_path(arrays[0], arrays[2]) == path, name
+        for k in WIDTHS:
+            X = torch.randn((A.shape[1], k), dtype=dtype, device=card)
+            ys = {}
+            for p in WE.PATHS:
+                before = WE.KERNEL_LAUNCHES[entry], WE.DIRECT_LAUNCHES[entry]
+                ys[p] = WE.matmat(*arrays, X, A.shape[1], path=p)
+                assert WE.KERNEL_LAUNCHES[entry] == before[0] + 1
+                assert WE.DIRECT_LAUNCHES[entry] == before[1] + (
+                    p == "direct")
+            before = WE.DIRECT_LAUNCHES[entry]
+            y = WE.matmat(*arrays, X, A.shape[1])
+            assert WE.DIRECT_LAUNCHES[entry] == before + (path == "direct")
+            assert _same(ys["ring"], ys["direct"]), (name, k)
+            assert _same(y, ys[path]), (name, k)
+            ref = WE.matmat_reference(*arrays, X, A.shape[1])
+            assert _close(y, ref, dtype), (name, k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 def test_complex_formats_on_the_card(card, dtype):

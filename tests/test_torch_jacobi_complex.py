@@ -15,6 +15,8 @@ reciprocal and a product, or one real division of each part, and agree to
 the same bound. Solves: values within their solver's tolerance of the
 dense spectrum, matvecs within 2x of the JAX package's."""
 
+import itertools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -124,6 +126,82 @@ def test_complex_divide_follows_smiths_branches():
     for i in (0, 1, 3):
         assert abs(complex(re[i], im[i]) - z[i]) <= 4e-16 * abs(z[i])
     assert not np.isfinite(re[2].item())
+
+
+COMPLEX_SIZES = (8, 16)      # complex64, complex128 bytes an element
+
+
+@pytest.mark.parametrize("size", COMPLEX_SIZES)
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 8, 24])
+def test_complex_plan_widths_and_columns(size, k):
+    """The complex launch plan as a pure function: the row group is the
+    real plan's (``kc``, the largest of 8, 4, 2, 1 dividing k), loaded in
+    16-byte vectors only where kc, the row stride and X's address allow
+    (two complex64 columns a load; a complex128 column is already 16
+    bytes), and a thread holds 16 bytes of the group in one row."""
+    for extra, align in itertools.product(range(4), range(0, 16, size)):
+        ldx = k + extra
+        p = JK.plan(4097, k, ldx, align, size, is_complex=True)
+        kc = max(c for c in (1, 2, 4, 8) if k % c == 0)
+        vector = (size == 8 and kc % 2 == 0 and ldx % 2 == 0
+                  and align == 0)
+        assert p.kc == kc and p.vw == (2 if vector else 1)
+        assert p.cols == min(kc, 16 // size) and p.cols % p.vw == 0
+        assert p.rows == 1
+        assert p.blocks == -(-4097 // (JK.THREADS // (kc // p.cols)))
+        # the real plan of elements as wide: the same loads, one vector a
+        # thread in ROWS rows
+        r = JK.plan(4097, k, ldx, align, size)
+        assert (r.kc, r.vw, r.cols, r.rows) == (kc, p.vw, p.vw, JK.ROWS)
+
+
+@pytest.mark.parametrize("size", COMPLEX_SIZES)
+def test_complex_plan_reaches_every_element_once(size):
+    # block b, thread t takes columns (t % parts) cols .. + cols of rows
+    # b R rows + u R + t / parts, u < rows, R = THREADS / parts, in every
+    # row group of kc; one reciprocal a row where parts is 1
+    n = 2500
+    for k, ldx, align in [(1, 1, 0), (2, 2, 0), (2, 24, 8), (3, 5, 0),
+                          (4, 4, 0), (8, 8, 0), (8, 9, 8), (24, 24, 0)]:
+        if align % size:
+            continue
+        p = JK.plan(n, k, ldx, align, size, is_complex=True)
+        parts = p.kc // p.cols
+        assert (parts == 1) == (p.kc * size <= 16)
+        run = JK.THREADS // parts
+        seen = np.zeros((n, k), np.int32)
+        for b, t, u in itertools.product(range(p.blocks), range(JK.THREADS),
+                                         range(p.rows)):
+            r = b * run * p.rows + u * run + t // parts
+            c = (t % parts) * p.cols
+            if r < n:
+                for c0 in range(0, k, p.kc):
+                    seen[r, c0 + c:c0 + c + p.cols] += 1
+        assert (seen == 1).all(), (k, ldx, align)
+
+
+@pytest.mark.parametrize("size", COMPLEX_SIZES)
+def test_complex_plan_refuses(size):
+    for n, k in [(0, 2), (4, 0), (2 ** 31 - 100, 1), (10, 2 ** 31)]:
+        with pytest.raises(ValueError):
+            JK.plan(n, k, max(k, 1), 0, size, is_complex=True)
+    # an address inside an element: a complex value is loaded whole
+    for align in range(1, 16):
+        if align % size:
+            with pytest.raises(ValueError, match="not a multiple"):
+                JK.plan(100, 2, 2, align, size, is_complex=True)
+
+
+def test_complex_card_plan_of_tensors():
+    # card_plan reads the shape, the stride, the address and the type
+    X = torch.zeros((300, 24), dtype=torch.complex64)
+    for off, vw in ((0, 2), (1, 1), (2, 2)):
+        p = JK.card_plan(X[:, off:off + 2])
+        assert (p.kc, p.vw, p.cols, p.rows) == (2, vw, 2, 1)
+    p = JK.card_plan(torch.zeros((300, 8), dtype=torch.complex128))
+    assert (p.kc, p.vw, p.cols, p.rows) == (8, 1, 1, 1)
+    p = JK.card_plan(torch.zeros((300, 8), dtype=torch.float64))
+    assert (p.kc, p.vw, p.cols, p.rows) == (8, 2, 2, JK.ROWS)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

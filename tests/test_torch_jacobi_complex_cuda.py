@@ -65,9 +65,18 @@ def _inputs(n, k, dtype, dev, real_den, off=None, seed=0):
 @pytest.mark.parametrize("n,k,off", [(1, 1, None), (1000, 1, None),
                                      (4097, 2, None), (4097, 3, None),
                                      (70000, 8, None), (5000, 13, None),
-                                     (3001, 2, 1), (3001, 5, 3)])
+                                     (3001, 2, 1), (3001, 5, 3),
+                                     (4097, 7, None), (2000, 4, None),
+                                     (3001, 2, 2), (3001, 4, 2),
+                                     (2000, 4, 1), (2000, 8, 3)])
 def test_complex_kernels_bit_for_bit(card, dtype, real_den, n, k, off):
+    # odd k (3, 5, 7, 13: row groups of one column), rows ldx = 24 > k
+    # apart (the column slices), and complex64 slices at an odd offset, 8
+    # bytes off 16: the scalar path, one complex value a load
     X, d, s = _inputs(n, k, dtype, card, real_den, off)
+    p = JK.card_plan(X)
+    vector = dtype == torch.complex64 and k % 2 == 0 and (off or 0) % 2 == 0
+    assert (p.vw > 1) == vector, (p, off)
     X[n // 4, 0] = complex(float("nan"), 1.0)
     for eps in (1e-10, 0.5):
         for kern, plain, name in (
@@ -77,9 +86,10 @@ def test_complex_kernels_bit_for_bit(card, dtype, real_den, n, k, off):
                 (lambda: JK.unshifted(X, d, eps),
                  lambda: JK.unshifted_reference(X, d, eps), "jacobi_")):
             entry = name + ("c64" if dtype == torch.complex64 else "c128")
-            before = JK.KERNEL_LAUNCHES[entry]
+            before = JK.KERNEL_LAUNCHES[entry], JK.VECTOR_LAUNCHES[entry]
             y = kern()
-            assert JK.KERNEL_LAUNCHES[entry] == before + 1
+            assert JK.KERNEL_LAUNCHES[entry] == before[0] + 1
+            assert JK.VECTOR_LAUNCHES[entry] == before[1] + vector
             yref = plain()
             torch.cuda.synchronize()
             assert y.dtype == dtype and y.is_contiguous()

@@ -133,6 +133,53 @@ def test_matmat_counts_no_launch_on_cpu(dtype):
     assert WE.LAUNCHES == before and WE.KERNEL_LAUNCHES == by_kernel
 
 
+def _path_layouts():
+    """Small layouts of the smoke's matrices, each with the path the rule
+    must give it: the incidence matrices' ``A`` (rows of 1-2 entries) are
+    narrow, the 27-point Laplacian (27 a row inside) is wide, as the
+    windowed pack's compact layout and from CSR."""
+    import chip_smoke as CS
+
+    L = CS.laplacian27_grid(8)[0]
+    return {
+        "magnetic incidence A": (WE.from_csr(
+            CS.magnetic_svd_matrix(8)[0], np.complex128), "direct"),
+        "grounded incidence A": (WE.from_csr(
+            CS.grounded_incidence(8)[0], np.float64), "direct"),
+        "27-point from_csr": (WE.from_csr(L, np.float32), "ring"),
+        "27-point compact": (WindowedELLOperator.from_scipy(L), "ring")}
+
+
+@pytest.mark.parametrize("case", ["magnetic incidence A",
+                                  "grounded incidence A",
+                                  "27-point from_csr", "27-point compact"])
+def test_path_rule_from_layout(case):
+    lay, path = _path_layouts()[case]
+    sp_, cols = lay.slice_ptr, lay.cols
+    slices = sp_.shape[0] - 1
+    # the mean slice width, from the arrays' shapes alone
+    width = WE.mean_width(sp_, cols)
+    assert width == cols.shape[0] / (WE.SLICE * slices)
+    assert width == float(np.diff(np.asarray(sp_)).mean()) / WE.SLICE
+    assert WE.choose_path(sp_, cols) == path
+    assert (width <= WE.NARROW_WIDTH) == (path == "direct")
+
+
+def test_path_argument_on_cpu():
+    # either path on CPU tensors is the plain version, with no launch; a
+    # path that does not exist raises
+    lay = WE.from_csr(band_matrix(300, bw=20, seed=3), np.float64)
+    arrays = [torch.as_tensor(getattr(lay, f)) for f in WE.SlicedELL._fields]
+    X = torch.as_tensor(np.random.default_rng(0).normal(size=(300, 3)))
+    ref = WE.matmat_reference(*arrays, X)
+    before = (WE.LAUNCHES, dict(WE.KERNEL_LAUNCHES), dict(WE.DIRECT_LAUNCHES))
+    for path in (None,) + WE.PATHS:
+        assert torch.equal(WE.matmat(*arrays, X, path=path), ref)
+    assert (WE.LAUNCHES, WE.KERNEL_LAUNCHES, WE.DIRECT_LAUNCHES) == before
+    with pytest.raises(ValueError, match="path"):
+        WE.matmat(*arrays, X, path="plain")
+
+
 @pytest.mark.parametrize("k", [1, 3, 8])
 def test_f64_matmat_reference_matches_jax_and_scipy(k):
     n = 3000

@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
-"""The stencil and Jacobi kernels of this checkout against those of another
-checkout (say the parent commit, unpacked with ``git archive`` into the
-git-ignored ``_work/parent``), in turns on one card.
+"""The stencil, Jacobi and sliced-ELL kernels of this checkout against those
+of another checkout (say the parent commit, unpacked with ``git archive``
+into the git-ignored ``_work/parent``), in turns on one card.
 
 For every shape of ``chip_smoke.KERNEL_SHAPES`` (64^3 at k in {1, 2, 4, 8},
 128^3 and 256^3 at k in {2, 8}, a k=2 column slice at offset 1 of a
 24-wide block), in f32 and f64, for the stencil and both Jacobi entry
-points: the two versions' outputs on the same input must agree bit for
-bit (NaN for NaN); then each is timed with ``chip_smoke.median_ms``
+points; for the four complex Jacobi entry points at
+``chip_smoke.JACOBI_COMPLEX_SHAPES`` (complex denominators, the first shift
+on a diagonal entry, as phase 38 has them); and for the sliced-ELL kernel
+at k in {1, 2, 4, 8} on the complex scatter (complex64, phase 26), the
+magnetic incidence's ``A`` and ``A^H`` (complex128, phase 27), the
+grounded incidence's ``A`` in f32 and f64 (phase 19) and the permuted
+27-point Laplacian in f32 and f64 (phases 3 and 5), each wrapper on its
+default path: the two versions' outputs on the same input must agree bit
+for bit (NaN for NaN); then each is timed with ``chip_smoke.median_ms``
 (behind the spin) in the order old, new, new, old, so that a drift of the
 card's clocks falls on both. The other checkout's ``primme_tpu_torch/ops``
 is imported under another name and builds its own sources into its own
@@ -38,7 +45,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def load_ops(checkout, name):
     """``primme_tpu_torch/ops`` of ``checkout`` as the package ``name``;
-    returns its stencil3d and jacobi modules."""
+    returns its stencil3d, jacobi and windowed_ell modules."""
     pkg = os.path.join(os.path.abspath(checkout), "primme_tpu_torch", "ops")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"),
@@ -46,8 +53,8 @@ def load_ops(checkout, name):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(name + ".stencil3d"),
-            importlib.import_module(name + ".jacobi"))
+    return tuple(importlib.import_module(f"{name}.{mod}")
+                 for mod in ("stencil3d", "jacobi", "windowed_ell"))
 
 
 def turns(old, new, median_ms):
@@ -56,6 +63,108 @@ def turns(old, new, median_ms):
     return {"turns_ms": t, "old_ms": (t[0] + t[3]) / 2,
             "new_ms": (t[1] + t[2]) / 2, "old_spread_ms": abs(t[0] - t[3]),
             "new_spread_ms": abs(t[1] - t[2])}
+
+
+def compare(entry, label, new_call, old_call, median_ms, bitwise, check,
+            **info):
+    """One case: bit for bit, then timed in turns; its row, printed."""
+    same = bitwise(new_call(), old_call())
+    check(same, f"{entry} at {label}: the two checkouts' kernels differ")
+    row = {"entry": entry, "shape": label, **info, "bitwise": same,
+           **turns(old_call, new_call, median_ms)}
+    print(f"[turns] {entry} {label} "
+          + " ".join(f"{k}={v}" for k, v in info.items()) + ": old "
+          + " ".join(f"{t:.5f}" for t in row["turns_ms"][::3])
+          + " ms, new " + " ".join(f"{t:.5f}" for t in row["turns_ms"][1:3])
+          + f" ms -> {row['old_ms']:.5f} / {row['new_ms']:.5f}"
+          f" = {row['old_ms'] / row['new_ms']:.3f}x", flush=True)
+    return row
+
+
+def complex_jacobi(CS, JK, OJK, dev, gen):
+    """The complex Jacobi entry points of both checkouts at
+    ``JACOBI_COMPLEX_SHAPES``."""
+    import torch
+
+    def bitwise(a, b):
+        return CS._bitwise(torch.view_as_real(a), torch.view_as_real(b))
+
+    rows = []
+    for suffix, tname in CS.JACOBI_COMPLEX:
+        dtype = getattr(torch, tname)
+        rdt = torch.float32 if suffix == "c64" else torch.float64
+        for side, k, off in CS.JACOBI_COMPLEX_SHAPES:
+            n, label = side ** 3, CS.shape_label(side, k, off)
+            X = CS.kernel_block(side, k, off, dtype, dev, gen)
+            d = torch.complex(
+                1.0 + 10.0 * torch.rand(n, generator=gen, dtype=rdt,
+                                        device=dev),
+                torch.randn(n, generator=gen, dtype=rdt, device=dev))
+            s = torch.complex(
+                torch.rand(k, generator=gen, dtype=rdt, device=dev),
+                torch.randn(k, generator=gen, dtype=rdt, device=dev))
+            s[0] = d[n // 2]
+            p = JK.card_plan(X)
+            for entry, call in (
+                    ("jacobi_shifted_" + suffix,
+                     lambda m: m.shifted(X, d, s, 1e-10)),
+                    ("jacobi_" + suffix, lambda m: m.unshifted(X, d, 1e-10))):
+                rows.append(compare(
+                    entry, label, lambda: call(JK), lambda: call(OJK),
+                    CS.median_ms, bitwise, CS.check,
+                    plan=f"kc{p.kc}/vw{p.vw}/cols{p.cols}"))
+            del X, d
+    return rows
+
+
+def ell_layouts(CS, seed):
+    """``(name, arrays, ncols)`` of the sliced-ELL layouts timed here."""
+    import numpy as np
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    C = CS.complex_scattered_matrix(CS.GRID ** 3, seed)
+    yield "complex scatter", WE.from_csr(C, np.complex64), C.shape[1]
+    G = CS.magnetic_svd_matrix(CS.MAG_GRID)[0]
+    yield "magnetic incidence A", WE.from_csr(G, np.complex128), G.shape[1]
+    GH = G.conj().T.tocsr()
+    yield "magnetic incidence A^H", WE.from_csr(GH, np.complex128), \
+        GH.shape[1]
+    for dt in ("float32", "float64"):
+        M = CS.grounded_incidence(CS.SVD_GRID, dtype=dt)[0]
+        yield f"svds A {dt}", WE.from_csr(M, dt), M.shape[1]
+    A, _ = CS.laplacian27(CS.GRID, seed)
+    for dt in (np.float32, np.float64):
+        op, _ = ptt.rcm_banded(A.astype(dt))
+        yield (f"27-point {np.dtype(dt).name}",
+               [getattr(op, f) for f in WE.SlicedELL._fields], A.shape[1])
+
+
+def sliced_ell(CS, WE, OWE, dev, gen, seed):
+    """The sliced-ELL kernel of both checkouts on ``ell_layouts``, at k in
+    {1, 2, 4, 8}; this checkout's wrapper on the path its rule picks."""
+    import torch
+
+    def bitwise(a, b):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        return CS._bitwise(a, b)
+
+    rows = []
+    for name, lay, ncols in ell_layouts(CS, seed):
+        arrays = [torch.as_tensor(a).to(dev) for a in lay]
+        path = WE.choose_path(arrays[0], arrays[2])
+        for k in (1, 2, 4, 8):
+            X = torch.randn((ncols, k), generator=gen, dtype=arrays[3].dtype,
+                            device=dev)
+            rows.append(compare(
+                "windowed_ell_spmm", f"{name} k={k}",
+                lambda: WE.matmat(*arrays, X, ncols),
+                lambda: OWE.matmat(*arrays, X, ncols), CS.median_ms, bitwise,
+                CS.check, path=path,
+                mean_width=round(WE.mean_width(arrays[0], arrays[2]), 3)))
+        del arrays
+    return rows
 
 
 def column_groups(ST, X, g, label, entry_of, median_ms, bitwise, check):
@@ -106,8 +215,9 @@ def main():
     import chip_smoke as CS
     from primme_tpu_torch.ops import jacobi as JK
     from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
 
-    OST, OJK = load_ops(args.parent, "parent_ops")
+    OST, OJK, OWE = load_ops(args.parent, "parent_ops")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
@@ -135,27 +245,17 @@ def main():
                 ("jacobi_" + suffix, lambda m: m.unshifted(X, d, 1e-10),
                  JK, OJK, JK.card_plan(X)))
             for entry, call, mod, old_mod, plan in cases:
-                same = CS._bitwise(call(mod), call(old_mod))
-                CS.check(same, f"{entry} at {label}: the two checkouts' "
-                         "kernels differ")
-                row = {"entry": entry, "shape": label,
-                       "vector_path": plan.vw > 1, "bitwise": same,
-                       **turns(lambda: call(old_mod), lambda: call(mod),
-                               CS.median_ms)}
-                rows.append(row)
-                print(f"[turns] {entry} {label} "
-                      f"({'vector' if plan.vw > 1 else 'scalar'} path)"
-                      ": old "
-                      + " ".join(f"{t:.5f}" for t in row["turns_ms"][::3])
-                      + " ms, new " + " ".join(
-                          f"{t:.5f}" for t in row["turns_ms"][1:3])
-                      + f" ms -> {row['old_ms']:.5f} / {row['new_ms']:.5f}"
-                      f" = {row['old_ms'] / row['new_ms']:.3f}x", flush=True)
+                rows.append(compare(
+                    entry, label, lambda: call(mod), lambda: call(old_mod),
+                    CS.median_ms, CS._bitwise, CS.check,
+                    vector_path=plan.vw > 1))
             if args.groups:
                 rows += column_groups(ST, X, g, label, entry_of=suffix,
                                       median_ms=CS.median_ms,
                                       bitwise=CS._bitwise, check=CS.check)
             del X, d
+    rows += complex_jacobi(CS, JK, OJK, dev, gen)
+    rows += sliced_ell(CS, WE, OWE, dev, gen, args.seed)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "parent": os.path.abspath(args.parent),
