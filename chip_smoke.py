@@ -389,6 +389,21 @@ spawned; the ranks load them. Each world of ranks is spawned once (the
     phase 42's call at 32^3; the backend printed, the values against the
     unsharded run's. NCCL with several ranks needs several cards.
 
+Phase 46, the last surface, at small sizes: ``to_dense()`` of the 8^3
+stencil (f32, f64), a ``BandedOperator`` (f32, f64, complex64),
+``ELLOperator.from_coo`` (f32, square and 300 x 170), a
+``WindowedELLOperator`` and a ``JacobiPrecond`` on the card, each within
+1e-6 (single) or 1e-14 (double) of scipy's ``toarray()`` or the closed
+form, relative to its largest entry, and its kernel launched;
+``solve_eigs`` on ``ELLOperator.from_scipy(A).to("cuda")`` (the 16^3
+7-point Laplacian in random order, k=4) with no ``device=``: state on the
+card, ``windowed_ell_spmm_f32`` >= matvecs / 2, values within 1e-4 of the
+closed form, probe verified; the same call on the CPU operator refused,
+naming ``.to(device)`` and ``device="cpu"``; ``io.load_operator`` on the
+card; ``debug=True``: a line with the reference's fields a monitor event,
+values and matvecs those of the solve without it; ``PTPU_PROBE_DEBUG=1``
+in a child process: a line a probe round.
+
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -636,6 +651,10 @@ SHARD_K = 2                   # the product's columns (the headline's block)
 BAND_SCATTER = (GRID ** 3, 150, 3)    # n, half band, entries a row
 SHARD_SVD_GRID = 32
 SHARD_NCCL_GRID = 32
+SURFACE_GRID = 8              # phase 46's to_dense: the 8^3 grid
+SURFACE_SOLVE_GRID = 16       # phase 46's solves: n = 4096
+SURFACE_DEBUG_FIELDS = ("it", "b", "lock", "nconv", "nunc", "res0", "hv0",
+                        "mincol", "VtQ", "minQ", "minconvX")
 
 
 def laplacian27_grid(m):
@@ -2900,7 +2919,8 @@ HARNESS_GRID = 32
 
 def _laplacian7(m, seed):
     """The 7-point Dirichlet Laplacian of the m^3 grid in a random node
-    order (scipy CSR, f64)."""
+    order from ``seed`` (scipy CSR, f64); in grid order, the stencil's,
+    when ``seed`` is None."""
     import numpy as np
     import scipy.sparse as sp
 
@@ -2909,6 +2929,8 @@ def _laplacian7(m, seed):
     I = sp.identity(m)
     A = (sp.kron(sp.kron(T, I), I) + sp.kron(sp.kron(I, T), I)
          + sp.kron(sp.kron(I, I), T)).tocsr()
+    if seed is None:
+        return A
     perm = np.random.default_rng(seed).permutation(m ** 3)
     return A[perm][:, perm].tocsr()
 
@@ -4075,6 +4097,207 @@ def sharded_phases(ptt, mods, dev, seed):
             "svds_unsharded": svd_refs}
 
 
+_PROBE_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as CS
+import primme_tpu_torch as ptt
+from primme_tpu_torch.core.inner import jdqmr_inner_solve
+A = CS._laplacian7(CS.SURFACE_SOLVE_GRID, int(sys.argv[2]))
+op = ptt.ELLOperator.from_scipy(A.astype("float32")).to("cuda")
+r = ptt.solve_eigs(op, CS.surface_params(ptt, A.shape[0]),
+                   inner_solve=jdqmr_inner_solve)
+print("PROBE_ROUNDS", r.stats.num_probe_rounds, flush=True)
+"""
+
+
+def surface_params(ptt, n):
+    """Phase 46's solves: k=4 smallest, JDQMR_ETol, block 2, basis 24,
+    restart 14, tol 1e-5, the probe on."""
+    return ptt.set_method(ptt.Method.JDQMR_ETol, ptt.PrimmeParams(
+        n=n, num_evals=4, eps=1e-5, max_basis_size=24, max_block_size=2,
+        min_restart_size=14, max_matvecs=16000))
+
+
+def surface_phase(ptt, mods, dev, seed):
+    """46: the port's last surface on the card, at small sizes. ``to_dense``
+    of the stencil (8^3, f32 and f64), a ``BandedOperator`` (f32, f64,
+    c64), ``ELLOperator.from_coo`` (f32, square and rectangular), a
+    ``WindowedELLOperator`` and a ``JacobiPrecond``, each against scipy's
+    ``toarray()`` or the closed form, its kernel launched; ``solve_eigs``
+    on ``ELLOperator.from_scipy(A).to("cuda")`` with no ``device=`` (state
+    on the card, the sliced-ELL kernel >= matvecs / 2), the same call on
+    the CPU operator refused, ``io.load_operator`` on the card,
+    ``debug=True`` (one line a monitor event, the values bit for bit those
+    of the solve without it) and ``PTPU_PROBE_DEBUG=1`` in a child
+    process (a line a probe round)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import scipy.io as sio
+    import scipy.sparse as sp
+    import torch
+    from primme_tpu_torch.core.inner import jdqmr_inner_solve
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    m = SURFACE_GRID
+    L = _laplacian7(m, None)
+    Lc = L.tocoo()
+    R = sp.random(300, 170, density=0.02, random_state=seed, format="coo")
+    nb = 512
+    offs = (-9, -1, 0, 2, 30)
+    band = sp.diags([rng.normal(size=nb - abs(o)) for o in offs], offs,
+                    format="csr")
+    band_c = (band + 1j * sp.diags([rng.normal(size=nb - abs(o))
+                                    for o in offs], offs)).tocsr()
+    wide = sp.diags([2 * np.ones(256), -np.ones(255), -np.ones(255),
+                     0.5 * np.ones(249), 0.5 * np.ones(249)],
+                    [0, 1, -1, 7, -7], format="csr").astype(np.float32)
+    d = rng.uniform(0.5, 2.0, size=300).astype(np.float32)
+    d[::2] *= -1
+    cases = {
+        "stencil f32": (lambda: ptt.Stencil3DOperator(
+            m, m, m, dtype=torch.float32, device=dev), L, "stencil3d_f32"),
+        "stencil f64": (lambda: ptt.Stencil3DOperator(
+            m, m, m, dtype=torch.float64, device=dev), L, "stencil3d_f64"),
+        "banded f32": (lambda: ptt.BandedOperator.from_scipy(
+            band.astype(np.float32)).to(dev), band, "dia_f32"),
+        "banded f64": (lambda: ptt.BandedOperator.from_scipy(band).to(dev),
+                       band, "dia_f64"),
+        "banded c64": (lambda: ptt.BandedOperator.from_scipy(
+            band_c.astype(np.complex64)).to(dev), band_c, "dia_c64"),
+        "from_coo f32": (lambda: ptt.ELLOperator.from_coo(
+            Lc.row, Lc.col, Lc.data.astype(np.float32), L.shape).to(dev),
+            L, "windowed_ell_spmm_f32"),
+        "from_coo f32 300x170": (lambda: ptt.ELLOperator.from_coo(
+            R.row, R.col, R.data.astype(np.float32), R.shape).to(dev),
+            R, "windowed_ell_spmm_f32"),
+        "windowed f32": (lambda: ptt.WindowedELLOperator.from_scipy(
+            wide).to(dev), wide, "windowed_ell_spmm_f32"),
+        "jacobi f32": (lambda: ptt.JacobiPrecond(d).to(dev),
+                       sp.diags(1.0 / d), "jacobi_f32"),
+    }
+    dense = {}
+    for tag, (build, truth, entry) in cases.items():
+        op = build()
+        check(op.device.type == "cuda", f"46 {tag}: operator on {op.device}")
+        reset_counts(*mods)
+        D = op.to_dense()
+        torch.cuda.synchronize()
+        launches = read_counts(mods)[entry]
+        T = truth.toarray()
+        single = D.dtype in (torch.float32, torch.complex64)
+        tol = 1e-6 if single else 1e-14
+        err = float(np.abs(D.cpu().numpy() - T).max() / np.abs(T).max())
+        print(f"[46 to_dense] {tag}: {tuple(D.shape)} {D.dtype} on "
+              f"{D.device}, max rel err {err:.3e} (tol {tol:g}), {entry} "
+              f"{launches} launches", flush=True)
+        check(D.device.type == "cuda" and tuple(D.shape) == T.shape,
+              f"46 {tag}: to_dense {tuple(D.shape)} on {D.device}")
+        check(err <= tol, f"46 {tag}: to_dense off by {err:.3e}")
+        check(launches > 0, f"46 {tag}: {entry} not launched")
+        dense[tag] = {"entry": entry, "launches": launches,
+                      "max_rel_err": err, "shape": list(T.shape)}
+    to_dense_launches = {}
+    for r in dense.values():
+        to_dense_launches[r["entry"]] = (to_dense_launches.get(r["entry"], 0)
+                                         + r["launches"])
+    t1 = time.perf_counter()
+
+    # solve_eigs with no device=: the card
+    g = SURFACE_SOLVE_GRID
+    A = _laplacian7(g, seed).astype(np.float32)
+    n = A.shape[0]
+    lam, anorm = stencil_eigenvalues(g, 4)
+    p = surface_params(ptt, n)
+    op = ptt.ELLOperator.from_scipy(A).to("cuda")
+    reset_counts(*mods)
+    res = ptt.solve_eigs(op, p, inner_solve=jdqmr_inner_solve)
+    torch.cuda.synchronize()
+    launches = dict(read_counts(mods))
+    mv = res.stats.num_matvecs
+    w = res.evals.cpu().numpy()
+    err = float(np.abs(np.sort(w) - lam).max())
+    need = launches["windowed_ell_spmm_f32"]
+    print(f"[46 solve] solve_eigs(ELLOperator.from_scipy(A).to('cuda')) "
+          f"n={n}: state on {res.evecs.device}, {mv} matvecs, "
+          f"windowed_ell_spmm_f32 {need} launches, probe verified "
+          f"{res.stats.probe_verified}, eval err {err:.2e}", flush=True)
+    check(res.evecs.device.type == "cuda" and res.evals.device.type == "cuda",
+          f"46: solve_eigs returned on {res.evecs.device}")
+    check(need >= mv / 2, f"46: {need} sliced-ELL launches for {mv} matvecs")
+    check(err <= 1e-4, f"46: eigenvalues off by {err:.2e}")
+    check(res.stats.probe_verified == 1, "46: the probe did not verify")
+    try:
+        ptt.solve_eigs(ptt.ELLOperator.from_scipy(A), p,
+                       inner_solve=jdqmr_inner_solve)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"[46 solve] the CPU operator without device=: {refused!r}",
+          flush=True)
+    check(".to(device)" in refused and 'device="cpu"' in refused,
+          "46: solve_eigs took an operator on the CPU without a word")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lap.mtx")
+        sio.mmwrite(path, A)
+        lop = ptt.io.load_operator(path)
+    print(f"[46 io] load_operator -> {type(lop).__name__} on {lop.device}",
+          flush=True)
+    check(lop.device.type == "cuda", f"46: load_operator on {lop.device}")
+
+    # debug=True: a line an outer iteration, nothing else changed
+    events = []
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rd = ptt.solve_eigs(op, p, inner_solve=jdqmr_inner_solve, debug=True,
+                            monitor=lambda **kw: events.append(kw["event"]))
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("it=")]
+    fields_ok = all(tuple(k for k, _ in (f.split("=", 1)
+                                         for f in ln.split()))
+                    == SURFACE_DEBUG_FIELDS for ln in lines)
+    same = (torch.equal(rd.evals, res.evals)
+            and rd.stats.num_matvecs == mv)
+    print(f"[46 debug] {len(lines)} lines for {len(events)} monitor events "
+          f"({rd.stats.num_outer_iterations} outer iterations); first "
+          f"{lines[0] if lines else None!r}; values and matvecs as without "
+          f"debug: {same}", flush=True)
+    check(len(lines) == len(events) > 0 and fields_ok,
+          f"46: debug printed {len(lines)} lines for {len(events)} events")
+    check(same, "46: debug=True changed the solve")
+
+    # PTPU_PROBE_DEBUG=1 in a child process
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE_CHILD, here, str(seed)],
+        env=dict(os.environ, PTPU_PROBE_DEBUG="1"), capture_output=True,
+        text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"46: the probe-debug child failed:\n{proc.stderr[-2000:]}")
+    out = proc.stdout.splitlines()
+    rounds = [ln for ln in out if ln.startswith("probe round ")]
+    nr = int(next(ln for ln in out if ln.startswith("PROBE_ROUNDS")).split()[1])
+    print(f"[46 probe debug] child: {len(rounds)} probe-round lines for "
+          f"{nr} rounds; first {rounds[0] if rounds else None!r}",
+          flush=True)
+    check(len(rounds) == nr > 0, "46: PTPU_PROBE_DEBUG printed "
+          f"{len(rounds)} lines for {nr} probe rounds")
+    secs = time.perf_counter() - t0
+    print(f"[phase 46] {secs:.1f} s (to_dense {t1 - t0:.1f} s)", flush=True)
+    return {"to_dense": dense, "to_dense_launches": to_dense_launches,
+            "solve": {"n": n, "matvecs": mv, "launches": launches,
+                      "eval_err": err, "device": str(res.evecs.device),
+                      "refused": refused},
+            "debug": {"lines": len(lines), "events": len(events),
+                      "unchanged": same},
+            "probe_debug": {"lines": len(rounds), "rounds": nr},
+            "seconds": secs}
+
+
 def jacobi_complex_record(name, replaces, per_shape, path, launches):
     """The record of a complex Jacobi entry point (phase 38's numbers at
     ``HEADLINE_SHAPE``, complex denominators), its launches those of the
@@ -4390,6 +4613,9 @@ def main():
     # --- 41-45. the row-partitioned solve on ranks sharing the card -------
     sharded = sharded_phases(ptt, mods, dev, args.seed)
 
+    # --- 46. the last surface: to_dense, from_coo, the device rule, debug -
+    surface = surface_phase(ptt, mods, dev, args.seed)
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228", solve32,
@@ -4440,6 +4666,7 @@ def main():
         "events": events, "harness": harness, "profile": profile,
         "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
         "half": half, "seconds_36_40": seconds36, "sharded": sharded,
+        "surface": surface,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -4482,7 +4709,9 @@ def main():
                 rec["svds"][name]["launches"]
                 for r, rec in enumerate(sharded["solves"])
                 for name in ("lm", "sm")},
-             "nccl headline": sharded["nccl"]["launches"]}
+             "nccl headline": sharded["nccl"]["launches"],
+             "surface to_dense": surface["to_dense_launches"],
+             "surface solve": surface["solve"]["launches"]}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

@@ -73,9 +73,10 @@ def _warm(cfg, A, B, K, s, shifts):
 
 
 def solve_eigs_dynamic(A, p: PrimmeParams, *, B=None, K=None, v0=None,
-                       ortho_const=None, dtype=None, device=None,
-                       has_precond=None, monitor=None, convtest=None,
-                       segment_log=None, comm=None) -> EigsResult:
+                       ortho_const=None, generator=None, dtype=None,
+                       device=None, has_precond=None, debug: bool = False,
+                       monitor=None, convtest=None, segment_log=None,
+                       comm=None) -> EigsResult:
     """Eigensolve with runtime GD+k <-> JDQMR switching (reference
     ``solve_eigs_dynamic``). ``monitor`` and ``convtest`` pass through to
     every segment (:func:`~.solver.run_segment`). ``segment_log``: an
@@ -84,20 +85,23 @@ def solve_eigs_dynamic(A, p: PrimmeParams, *, B=None, K=None, v0=None,
     ``method_trace``), ``seconds``, ``digits`` gained, and the ``outer``
     iterations and ``matvecs`` it ran.
 
+    ``device``, ``generator`` and ``debug`` are :func:`~.solver.solve_eigs`'s:
+    the card unless ``device="cpu"`` is asked, the operators on that device.
     ``comm`` runs the row-sharded solve (:func:`~.solver.solve_eigs`).
     Each rank times its own segments, so the ranks' clocks disagree: rank
     0 chooses the next method and every rank follows its choice."""
     with cm.installed(comm):
         n0 = comm.num_global_sum if comm is not None else 0
         v0_ = comm.volume_global_sum if comm is not None else 0
-        res = _solve_dynamic(A, p, B, K, v0, ortho_const, dtype, device,
-                             has_precond, monitor, convtest, segment_log,
-                             comm)
+        res = _solve_dynamic(A, p, B, K, v0, ortho_const, generator, dtype,
+                             device, has_precond, debug, monitor, convtest,
+                             segment_log, comm)
     return counted_sums(res, comm, n0, v0_)
 
 
-def _solve_dynamic(A, p, B, K, v0, ortho_const, dtype, device, has_precond,
-                   monitor, convtest, segment_log, comm) -> EigsResult:
+def _solve_dynamic(A, p, B, K, v0, ortho_const, generator, dtype, device,
+                   has_precond, debug, monitor, convtest, segment_log,
+                   comm) -> EigsResult:
     from .inner import jdqmr_inner_solve
 
     if has_precond is None:
@@ -119,17 +123,18 @@ def _solve_dynamic(A, p, B, K, v0, ortho_const, dtype, device, has_precond,
 
     cfg_gd = make_config(p_gd)
     cfg_jd = make_config(p_jd)
-    cfg, shifts, s = setup_solver(A, p_gd, B=B, v0=v0,
+    cfg, shifts, s = setup_solver(A, p_gd, B=B, K=K, v0=v0,
                                   ortho_const=ortho_const, dtype=dtype,
-                                  device=device)
+                                  device=device, generator=generator)
     dev = s.V.device
 
     def _run(meth, s, end):
         if meth == "gd":
             return run_segment(cfg_gd, A, B, K, None, shifts, s, convtest,
-                               seg_end=end, monitor=monitor)
+                               seg_end=end, monitor=monitor, debug=debug)
         return run_segment(cfg_jd, A, B, K, jdqmr_inner_solve, shifts, s,
-                           convtest, seg_end=end, monitor=monitor)
+                           convtest, seg_end=end, monitor=monitor,
+                           debug=debug)
 
     _warm(cfg_gd, A, B, K, s, shifts)
 

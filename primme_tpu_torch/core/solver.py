@@ -18,13 +18,19 @@ inactive columns are exactly zero. Its ``lax.while_loop``/``cond``/
 arrays on the device, and each branch reads back what it needs. Where the
 reference rebuilt an ``[n, mmax]`` array to change a few columns, the port
 writes those columns in place. Random numbers come from one CPU
-``torch.Generator`` seeded from ``rng_seed`` and are moved to the device.
+``torch.Generator``, the caller's or one seeded from ``rng_seed``, and
+are moved to the device.
+
+``PTPU_PROBE_ITERS`` (read at import, default 32) caps the probe
+subsolve's iterations; ``PTPU_PROBE_DEBUG`` prints a line a probe round
+(any value) and one a probe iteration (``2``), as the reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
@@ -496,7 +502,7 @@ def _kth_best_key(cfg: SolveConfig, s: SolverState, win: Window,
 
 
 # Probe subsolve budget: iterations of the out-of-band deflated Davidson.
-_PROBE_ITERS = 32
+_PROBE_ITERS = int(os.environ.get("PTPU_PROBE_ITERS", "32"))
 # Power iterations for the filter-band spectral bounds.
 _POW_ITERS = 12
 
@@ -783,6 +789,9 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         improved = (prev_key - key0) > 0.10 * max(gap, margin)
         stall = 0 if improved else stall + 1
         clean_conv = gap > margin and stall >= 3 and t >= 8 and fast_start
+        if os.environ.get("PTPU_PROBE_DEBUG") == "2":
+            print(f"  it {t}: key0={key0} bar={bar} stall={stall} "
+                  f"srvp={srvp}", flush=True)
         t = _PROBE_ITERS if (srvp == 0 or clean_conv) else t + 1
         found = found or found2
         prev_key = min(prev_key, key0)
@@ -1230,13 +1239,55 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
-                 dtype=None, device=None, inner_trace_cap: int = 0):
+def _operator_device(op) -> Optional[torch.device]:
+    """The device an operator's arrays live on; None for an operator that
+    does not say (one that is not a port operator)."""
+    try:
+        d = op.device
+    except (AttributeError, TypeError):
+        return None
+    return None if d is None else torch.device(d)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return ((a.index if a.index is not None else cur)
+            == (b.index if b.index is not None else cur))
+
+
+def _check_operator_devices(device: torch.device, **ops) -> None:
+    """Raise where an operator of ``ops`` lives on another device than
+    ``device``: nothing is moved or copied quietly."""
+    for name, op in ops.items():
+        d = None if op is None else _operator_device(op)
+        if d is not None and not _same_device(d, device):
+            raise ValueError(
+                f"the solve runs on {device} and {name} lives on {d}: move "
+                f"it there with {name}.to(device), or pass "
+                f"device=\"{d.type}\" to solve where it lives (the solve "
+                "runs on the card unless device=\"cpu\" is asked)")
+
+
+def setup_solver(A, p: PrimmeParams, *, B=None, K=None, v0=None,
+                 ortho_const=None, dtype=None, device=None,
+                 inner_trace_cap: int = 0,
+                 generator: Optional[torch.Generator] = None):
     """Build config, target shifts and initial state. ``B`` is the mass
     matrix (an operator) or None; ``ortho_const`` an ``[n, noc]`` tensor
     of constraint vectors (``p.num_ortho_const`` columns);
     ``inner_trace_cap`` the rows of the inner-iteration event buffer (0:
-    none)."""
+    none). ``device`` None means the card (raising when there is none);
+    ``A``, ``B`` and the preconditioner ``K`` must live there.
+    ``generator`` (a CPU ``torch.Generator``) draws every random block in
+    place of one seeded from ``p.rng_seed``."""
+    from ..operators import default_device
+
+    device = default_device(device, "solve_eigs")
+    _check_operator_devices(device, A=A, B=B, K=K)
     cfg = make_config(p)
     if inner_trace_cap:
         cfg = cfg._replace(inner_trace_cap=int(inner_trace_cap))
@@ -1261,11 +1312,11 @@ def setup_solver(A, p: PrimmeParams, *, B=None, v0=None, ortho_const=None,
                 "precision; half-precision basis supports RR only")
         cfg = cfg._replace(orth_explicit_I=True,
                            eps_floor=4.0 * machine_eps(dtype))
-    device = torch.device(device) if device is not None else A.device
     rdt = real_dtype(cdt)
     ts = p.target_shifts if p.target_shifts else (0.0,)
     shifts = torch.tensor(ts, dtype=rdt, device=device)
-    gen = torch.Generator().manual_seed(int(p.rng_seed))
+    gen = (generator if generator is not None
+           else torch.Generator().manual_seed(int(p.rng_seed)))
     s0 = _build_state(cfg, A, B, v0, ortho_const, gen, dtype, device)
     return cfg, shifts, s0
 
@@ -1326,7 +1377,7 @@ def _build_state(cfg: SolveConfig, A, B, v0, ortho_const, gen, dtype,
 
 def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
                 s: SolverState, convtest=None, seg_end: Optional[int] = None,
-                monitor=None) -> SolverState:
+                monitor=None, debug: bool = False) -> SolverState:
     """The main iteration (reference ``run_segment``'s while loop, on the
     host) until done, give-up, the iteration/matvec limits, or
     ``num_outer_iterations >= seg_end``. Everything the loop carries lives
@@ -1346,7 +1397,11 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
     ne)`` window pairs) and, with ``cfg.inner_trace_cap > 0``,
     ``inner_trace`` (the ``[cap, blk, 3]`` buffer as a numpy array).
     The window's values and residuals come back in the loop's one read of
-    its scalars; the inner buffer, when recorded, in one more read."""
+    its scalars; the inner buffer, when recorded, in one more read.
+
+    ``debug`` prints the reference's diagnostic line once per outer
+    iteration (:func:`_debug_line`), one more read; off, it costs
+    nothing."""
     mmax, ne, c = cfg.mmax, cfg.ne, cfg.cwin
     fmax = float(torch.finfo(real_dtype(s.H.dtype)).max)
     end = cfg.max_outer if seg_end is None else min(seg_end, cfg.max_outer)
@@ -1397,6 +1452,10 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
                     num_preconds=st.num_preconds + pr.num_preconds,
                     num_probe_rounds=st.num_probe_rounds + 1,
                     probe_exhausted=0 if now_verified else st.probe_exhausted)
+                if os.environ.get("PTPU_PROBE_DEBUG"):
+                    print(f"probe round {st.num_probe_rounds}: "
+                          f"found={pr.found} valid={pr.valid} clean={clean2} "
+                          f"mv={pr.num_matvecs} bar={newkth}", flush=True)
                 s = _replace(s, stats=st, probe_clean=clean2,
                              probe_ref=newkth, probe_bnd_hi=pr.bnd_hi,
                              probe_bnd_lo=pr.bnd_lo,
@@ -1419,6 +1478,8 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
         inject = n_unconv == 0 and not done and not full and not lockable
         need_restart = full or (n_unconv == 0 and not inject)
 
+        if debug:
+            _debug_line(cfg, s, win, n_unconv)
         s = _replace(s, best_res=best_res, stall_restarts=stall)
         s2 = s
         if not (done or probe_injected):
@@ -1455,6 +1516,34 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
                     resnorms=shown[1], **kw)
         s = _replace(s2, done=done, give_up=give_up)
     return s
+
+
+def _debug_line(cfg: SolveConfig, s: SolverState, win: Window,
+                n_unconv: int) -> None:
+    """The reference's ``debug`` line: the basis size, locked and
+    converged counts, the leading residual and Ritz value, the smallest
+    active column norm of ``V``, ``max|evecs^H V|``, the smallest norm of
+    the constraint and locked columns and of the converged candidates;
+    computed on the device and read in one transfer."""
+    dev = s.V.device
+    big = torch.tensor(1e9, dtype=real_dtype(s.H.dtype), device=dev)
+    cn = col_norms(s.V)
+    mincn = torch.min(torch.where(torch.arange(cfg.mmax, device=dev) < s.b,
+                                  cn, big))
+    vtq = torch.max(torch.abs(gram(s.evecs, s.V)))
+    qn = col_norms(s.evecs)
+    minqn = torch.min(torch.where(
+        torch.arange(cfg.lockmax, device=dev) < cfg.noc + s.num_locked,
+        qn, big))
+    xn = col_norms(win.cands.X)
+    minxn = torch.min(torch.where(win.conv, xn, big))
+    (r0, mc, vq, mq, mx), (h0,) = _host_with(
+        (win.cands.resnorms[0], mincn, vtq, minqn, minxn),
+        (win.sol.hvals[:1],))
+    print(f"it={s.stats.num_outer_iterations} b={s.b} lock={s.num_locked} "
+          f"nconv={win.nconv} nunc={n_unconv} res0={r0:.2e} "
+          f"hv0={h0[0]:.3e} mincol={mc:.2e} VtQ={vq:.2e} minQ={mq:.2e} "
+          f"minconvX={mx:.2e}", flush=True)
 
 
 def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
@@ -1505,7 +1594,8 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
 
 
 def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
-               ortho_const=None, inner_solve=None, dtype=None,
+               ortho_const=None, generator: Optional[torch.Generator] = None,
+               inner_solve=None, dtype=None, debug: bool = False,
                device=None, convtest=None, monitor=None,
                segment_outer: Optional[int] = None,
                inner_trace_cap: int = 0, comm=None) -> EigsResult:
@@ -1513,11 +1603,20 @@ def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
     params (``set_method``/``resolve_defaults``). ``B`` is the mass matrix
     of a generalized problem (``A x = lambda B x``, B Hermitian positive
     definite), ``ortho_const`` an ``[n, p.num_ortho_const]`` tensor the
-    returned vectors are B-orthogonal to. ``device`` defaults to the
-    operator's; ``v0`` is an ``[n, k]`` tensor of initial guesses;
-    ``convtest`` a user convergence test (:func:`prepare_window`);
-    ``monitor`` the event stream's callback and ``inner_trace_cap`` the
-    rows of its inner-iteration buffer (:func:`run_segment`).
+    returned vectors are B-orthogonal to. ``device`` None runs on the card
+    and raises when there is none; ``device="cpu"`` runs on the CPU. ``A``,
+    ``B`` and ``K`` must live on that device (an operator built on the CPU
+    moves with ``.to(device)``): one that lives elsewhere raises. ``v0`` is
+    an ``[n, k]`` tensor of initial guesses; ``convtest`` a user
+    convergence test (:func:`prepare_window`); ``monitor`` the event
+    stream's callback and ``inner_trace_cap`` the rows of its
+    inner-iteration buffer (:func:`run_segment`).
+
+    ``generator``: a CPU ``torch.Generator`` that draws every random block
+    (the initial basis, ``block_ortho``'s replacements, the probe), the
+    counterpart of the reference's ``key``; one seeded ``s`` gives the
+    results of ``rng_seed=s`` bit for bit. The solve advances it. ``debug`` prints the reference's diagnostic line once per outer
+    iteration (:func:`run_segment`).
 
     ``segment_outer``: when set, the loop returns to this function every
     that-many outer iterations and resumes from the same state, with the
@@ -1533,17 +1632,19 @@ def solve_eigs(A, p: PrimmeParams, *, B=None, K=None, v0=None,
         n0 = comm.num_global_sum if comm is not None else 0
         v0_ = comm.volume_global_sum if comm is not None else 0
         cfg, shifts, s0 = setup_solver(
-            A, p, B=B, v0=v0, ortho_const=ortho_const, dtype=dtype,
-            device=device, inner_trace_cap=inner_trace_cap)
+            A, p, B=B, K=K, v0=v0, ortho_const=ortho_const, dtype=dtype,
+            device=device, inner_trace_cap=inner_trace_cap,
+            generator=generator)
         if segment_outer is None:
             s = run_segment(cfg, A, B, K, inner_solve, shifts, s0, convtest,
-                            monitor=monitor)
+                            monitor=monitor, debug=debug)
         else:
             s, seg_end = s0, 0
             while True:
                 seg_end += int(segment_outer)
                 s = run_segment(cfg, A, B, K, inner_solve, shifts, s,
-                                convtest, seg_end=seg_end, monitor=monitor)
+                                convtest, seg_end=seg_end, monitor=monitor,
+                                debug=debug)
                 if (s.done or s.give_up
                         or s.stats.num_outer_iterations >= cfg.max_outer
                         or s.stats.num_matvecs >= cfg.max_matvecs):

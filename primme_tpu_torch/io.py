@@ -29,10 +29,12 @@ def read_mtx(path: str, dense: bool = False):
     return np.asarray(A)
 
 
-def load_operator(path: str):
-    """Load a ``.mtx`` file as an :class:`ELLOperator` on the CPU (the
-    reference driver's native CSR setup, ``tests/driver.c``); ``.to(device)``
-    moves it."""
-    from .operators import ELLOperator
+def load_operator(path: str, device=None):
+    """Load a ``.mtx`` file as an :class:`ELLOperator` (the reference
+    driver's native CSR setup, ``tests/driver.c``) on ``device``: None
+    means the card, and raises when there is none; ``"cpu"`` keeps it on
+    the CPU."""
+    from .operators import ELLOperator, default_device
 
-    return ELLOperator.from_scipy(read_mtx(path))
+    device = default_device(device, "load_operator")
+    return ELLOperator.from_scipy(read_mtx(path)).to(device)

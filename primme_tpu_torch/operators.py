@@ -2,8 +2,13 @@
 
 PyTorch port of ``primme_tpu/operators.py``. An operator is an
 ``nn.Module`` holding its arrays as buffers, so ``.to(device)`` moves it,
-with a ``matmat(X)`` on an ``[n, k]`` block; one that holds no array
-(:class:`Stencil3DOperator`, :class:`FunctionOperator`) states its device.
+with a ``matmat(X)`` on an ``[n, k]`` block and ``to_dense()``. As
+PyTorch's modules, an operator built from arrays (the constructors,
+``from_scipy``, ``ELLOperator.from_coo``) lies on the CPU, or where its
+tensors lie, until ``.to(device)``; one that holds no array
+(:class:`Stencil3DOperator`, :class:`FunctionOperator`) states its device,
+the card unless asked. ``solve_eigs`` runs on the card unless asked and
+raises on an operator that lives elsewhere.
 Operators and their products:
 
 * :class:`Stencil3DOperator` and :class:`JacobiPrecond` (``bench.py``'s
@@ -86,6 +91,13 @@ class LinearOperator(nn.Module):
         """Main diagonal if cheaply available (for Jacobi precond)."""
         return None
 
+    def to_dense(self) -> torch.Tensor:
+        """The ``[m, n]`` matrix: ``matmat`` of the ``n x n`` identity on
+        the operator's device, in its dtype, so on the card through the
+        operator's own kernel."""
+        n = self.shape[1]
+        return self.matmat(torch.eye(n, dtype=self.dtype, device=self.device))
+
     @property
     def device(self) -> torch.device:
         for b in self.buffers():
@@ -159,6 +171,9 @@ class DenseOperator(LinearOperator):
 
     def diagonal(self):
         return torch.diagonal(self.A)
+
+    def to_dense(self):
+        return self.A
 
 
 class DiagonalOperator(LinearOperator):
@@ -305,6 +320,8 @@ class WindowedELLOperator(LinearOperator):
 
     @staticmethod
     def from_scipy(A) -> Optional["WindowedELLOperator"]:
+        """Pack a scipy matrix (None where it does not pack): on the CPU
+        until ``.to(device)``."""
         dt = (np.float64 if np.dtype(A.dtype) == np.dtype(np.float64)
               else np.float32)
         packed = WE.pack(A, dtype=dt)
@@ -511,6 +528,8 @@ class BandedOperator(LinearOperator):
 
     @staticmethod
     def from_scipy(A) -> "BandedOperator":
+        """Build from a scipy matrix's diagonals: on the CPU until
+        ``.to(device)``."""
         import scipy.sparse as sp
 
         _value_dtype(A.dtype, "BandedOperator")
@@ -578,6 +597,8 @@ class ELLOperator(LinearOperator):
 
     @staticmethod
     def from_scipy(A) -> "ELLOperator":
+        """Lay out a scipy matrix and its adjoint: on the CPU until
+        ``.to(device)``."""
         import scipy.sparse as sp
 
         dt = _value_dtype(A.dtype, "ELLOperator")
@@ -587,6 +608,18 @@ class ELLOperator(LinearOperator):
         diag[:len(d)] = d
         return ELLOperator(WE.from_csr(A, dt),
                            WE.from_csr(A.conj().T.tocsr(), dt), diag)
+
+    @staticmethod
+    def from_coo(rows, cols, vals, shape) -> "ELLOperator":
+        """Build from COO triplets (``rows``, ``cols``, ``vals``; repeated
+        entries summed) of an ``m x n`` matrix, through
+        :meth:`from_scipy`: on the CPU until ``.to(device)``."""
+        import scipy.sparse as sp
+
+        return ELLOperator.from_scipy(
+            sp.coo_matrix((np.asarray(vals), (np.asarray(rows),
+                                              np.asarray(cols))),
+                          shape=tuple(shape)))
 
 
 class BlockELLOperator(LinearOperator):
@@ -668,6 +701,8 @@ class BlockELLOperator(LinearOperator):
     @staticmethod
     def from_scipy(A, block_size: int = 8,
                    with_transpose: bool = False) -> "BlockELLOperator":
+        """Pack a scipy matrix in ``block_size`` blocks: on the CPU until
+        ``.to(device)``."""
         import scipy.sparse as sp
 
         _value_dtype(A.dtype, "BlockELLOperator")

@@ -349,7 +349,7 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         r1 = solve_eigs(Nop1, p1, K=K1, v0=g0, ortho_const=oc1,
                         inner_solve=inner1, convtest=conv_stage1,
                         monitor=mon1, segment_outer=segment_outer,
-                        comm=comm1)
+                        device=device, comm=comm1)
         r1 = r1._replace(evecs=allgather_rows(r1.evecs, comm1))
         merge_stats(r1.stats, "stage1")
         mv_stage1 = int(r1.stats.num_matvecs)
@@ -497,7 +497,7 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
             r2 = solve_eigs(Aug, p2, K=K2, v0=g2, ortho_const=oc,
                             inner_solve=inner2, convtest=conv_stage2,
                             monitor=mon2, segment_outer=segment_outer,
-                            comm=comm2)
+                            device=device, comm=comm2)
             merge_stats(r2.stats, "stage2")
 
             sv2 = torch.abs(r2.evals)

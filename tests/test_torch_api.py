@@ -145,6 +145,37 @@ def test_eigsh_without_device_needs_a_card(monkeypatch):
     assert w.shape == (2,) and np.all(np.isfinite(w))
 
 
+def test_solve_eigs_without_device_needs_a_card(monkeypatch, tmp_path):
+    # solve_eigs, solve_eigs_dynamic and load_operator run on the card
+    # unless asked otherwise, and no operator is moved quietly
+    import scipy.io as sio
+    from primme_tpu_torch.core.dynamic import solve_eigs_dynamic
+
+    A = _lap1d(300)
+    op = ptt.ELLOperator.from_scipy(A)
+    p = ptt.set_method(ptt.Method.JDQMR_ETol, ptt.PrimmeParams(
+        n=300, num_evals=2, eps=1e-4, max_matvecs=50))
+    path = str(tmp_path / "lap.mtx")
+    sio.mmwrite(path, A)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for solve in (ptt.solve_eigs, solve_eigs_dynamic):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            solve(op, p)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ptt.io.load_operator(path)
+    assert ptt.io.load_operator(path, device="cpu").device.type == "cpu"
+    r = ptt.solve_eigs(op, p, device="cpu")
+    assert r.evals.device.type == "cpu" and np.all(np.isfinite(
+        r.evals.numpy()))
+    # an operator or preconditioner that lives elsewhere raises by name
+    away = ptt.ELLOperator.from_scipy(A).to("meta")
+    with pytest.raises(ValueError, match=r'A\.to\(device\).*device="meta"'):
+        ptt.solve_eigs(away, p, device="cpu")
+    with pytest.raises(ValueError, match=r"K\.to\(device\)"):
+        ptt.solve_eigs(op, p, K=ptt.JacobiPrecond(away.diagonal()),
+                       device="cpu")
+
+
 def test_eigsh_default_method_on_cpu_finds_smallest():
     # GD_Olsen_plusK (the default preset) through the same format
     A, ev = laplacian27_permuted(16)

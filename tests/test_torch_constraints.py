@@ -100,7 +100,7 @@ def test_stencil_constraints_solve_eigs():
     At = ptt.Stencil3DOperator(m, m, m, dtype=torch.float32, device="cpu")
     rt = tsolve(At, params_from_jax(p), K=ptt.JacobiPrecond(At.diagonal()),
                 ortho_const=torch.as_tensor(L, dtype=torch.float32),
-                inner_solve=tinner, dtype=torch.float32)
+                inner_solve=tinner, dtype=torch.float32, device="cpu")
     for ev in (np.asarray(rj.evals), rt.evals.numpy()):
         assert np.abs(np.sort(ev) - lam[len(CS.LOCK_MODES):]).max() <= 1e-4
     assert np.abs(L.T @ rt.evecs.numpy().astype(np.float64)).max() <= 1e-5

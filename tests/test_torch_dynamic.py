@@ -114,8 +114,9 @@ def test_segmented_solve_bit_identical():
     p = ptt.set_method(ptt.Method.GD_Olsen_plusK, ptt.PrimmeParams(**kw),
                        has_precond=False)
     A = ptt.DenseOperator(torch.from_numpy(Ad))
-    r1 = solve_eigs(A, p, dtype=torch.float64)
-    r2 = solve_eigs(A, p, dtype=torch.float64, segment_outer=5)
+    r1 = solve_eigs(A, p, dtype=torch.float64, device="cpu")
+    r2 = solve_eigs(A, p, dtype=torch.float64, segment_outer=5,
+                    device="cpu")
     np.testing.assert_array_equal(r1.evals.numpy(), r2.evals.numpy())
     np.testing.assert_array_equal(r1.resnorms.numpy(), r2.resnorms.numpy())
     np.testing.assert_array_equal(r1.evecs.numpy(), r2.evecs.numpy())

@@ -90,7 +90,7 @@ def test_stencil_jacobi_solve_matches_reference(case):
     launches = (ST.LAUNCHES, JK.LAUNCHES)
     rt = t_solve(At, params_from_jax(p), K=Kt,
                  v0=torch.as_tensor(v0, dtype=torch.float32),
-                 dtype=torch.float32,
+                 dtype=torch.float32, device="cpu",
                  inner_solve=t_jdqmr if jinner is not None else None)
     assert (ST.LAUNCHES, JK.LAUNCHES) == launches   # the CPU: plain versions
     assert rt.evals.device == torch.device("cpu")

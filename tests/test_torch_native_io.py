@@ -82,7 +82,7 @@ def test_ell_pack_matches_reference_and_product(tmp_path, kind):
     assert ec.dtype == np.int32 and ec.shape == ev.shape
     x = np.random.default_rng(0).normal(size=(n, 2)) + 0j
     y_ell = (ev[:, :, None] * x[ec]).sum(axis=1)    # the padded ELL product
-    op = tio.load_operator(path)
+    op = tio.load_operator(path, device="cpu")
     assert isinstance(op, ptt.ELLOperator) and op.shape == (m, n)
     y = op.matmat(torch.as_tensor(x)).numpy()
     assert np.abs(y - y_ell).max() <= 1e-12 * np.abs(y_ell).max()

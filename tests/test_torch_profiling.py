@@ -135,7 +135,8 @@ def test_solver_phases_are_tagged():
     from primme_tpu_torch.core.inner import jdqmr_inner_solve
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        ptt.solve_eigs(A, p, K=K, inner_solve=jdqmr_inner_solve)
+        ptt.solve_eigs(A, p, K=K, inner_solve=jdqmr_inner_solve,
+                       device="cpu")
     evs = prof.events()
     names = {e.name for e in evs}
     assert {"pt_matvec", "pt_precond", "pt_ortho", "pt_dense"} <= names

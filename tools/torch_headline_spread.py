@@ -72,7 +72,7 @@ def run_torch(m, seed):
     v0 = torch.as_tensor(np.random.default_rng(seed).normal(size=(n, 2)),
                          dtype=torch.float32)
     res = ptt.solve_eigs(A, p, K=K, v0=v0, dtype=torch.float32,
-                         inner_solve=jdqmr_inner_solve)
+                         inner_solve=jdqmr_inner_solve, device="cpu")
     return res.evals, res.stats
 
 
