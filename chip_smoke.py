@@ -289,7 +289,7 @@ Phases, each printing its own lines; any failed check raises:
     stat) and with ``monitor_inner=True`` and a counting monitor; the
     solve time with no monitor, with the history, with the inner replay
     and with the profiler scopes forced open as under a profiler (min of
-    EVENT_ROUNDS (2) each, interleaved), and one scope's host cost, opened
+    EVENT_ROUNDS (1) each, interleaved), and one scope's host cost, opened
     and gated off, times the scopes a solve enters;
 34. the config-file driver (``primme_tpu_torch.driver.main``) on a config
     with no method line (DEFAULT_METHOD, so DYNAMIC), the Jacobi
@@ -404,6 +404,38 @@ card; ``debug=True``: a line with the reference's fields a monitor event,
 values and matvecs those of the solve without it; ``PTPU_PROBE_DEBUG=1``
 in a child process: a line a probe round.
 
+Phase 47, half operators (the JAX package's f16 and bf16 operators, the
+reference's half kind): each f16 and bf16 entry point of the stencil,
+Jacobi (shifted and unshifted), DIA and sliced-ELL kernels on its phase's
+64^3 operator at k=2 against its plain version (bit for bit; the sliced
+ELL within one unit in the half's last place, its two paths bit for bit),
+timed as phase 3 times with ``copy_ms``, the bound (2 bytes a value, i32
+indices, X and Y once) and ``library_ms`` where torch computes the same
+function in the half type on the card (``conv3d``, ``torch.div``, a half
+CSR product; none printed where it refuses the type); the mixed entry
+points (half values or diagonal, an f32 or f64 block: what a half basis
+hands a half operator) against their plain versions and the f32 (f64)
+kernels on the widened values, the f32 ones timed
+(:func:`mixed_kernel_rows`); then the solves of ``HALFOP_SOLVES`` at tol
+4 eps(half): ``bench.py``'s 64^3 stencil with its Jacobi in f16 and bf16
+under an f32 solve and in bf16 with ``dtype=None`` (a half basis), phase
+4's matrix as an ``ELLOperator`` and phase 11's as the chooser's
+``BandedOperator``, each in both half types under an f32 solve and, at
+phase 40's k, in f16 (ELL) and bf16 (DIA) over a half basis: true
+residuals (f64) below 16 eps(half) ||A||, each value within its residual
+of the closed form, the probe verified for the f32 solves, the half (over
+a half basis: mixed) kernels launched at least matvecs / 2 times and
+every other entry point (their f32 counterparts too) not at all, matvecs
+within 2x of the JAX package's (``tools/torch_smoke_refs.py --phase
+halfop``); each solve's time and peak device memory beside its f32
+counterpart's.
+
+The kernel tables' shapes at k in ``UNTIMED_K`` (4 and 8) are held
+against the plain versions and not timed, to keep the run within its
+time limit.
+
+The run prints the seconds of phases 1-2 (the build), 3-8, 9-10, 11-14,
+15, 16-18, 1-18, 46, 47 and the whole run (``seconds`` in the record).
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -431,10 +463,10 @@ L2_BYTES = 50e6             # H100 SXM L2 (the same data sheet)
 # Jacobi, JDQMR_ETol; solve_eigs on the CPU, x64 off as bench.py runs)
 REF_HEADLINE_MATVECS = 1710
 REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
-# timed repeats of phase 9's headline and rounds of phase 33's variants
-# (2 each, so that phases 36-40 fit the run's time limit beside them)
+# timed repeats of phase 9's headline (2) and rounds of phase 33's variants
+# (1), so that phases 36-47 fit the run's time limit beside them
 HEADLINE_TIMED = 2
-EVENT_ROUNDS = 2
+EVENT_ROUNDS = 1
 GD_GRID = 16
 REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
 KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi", "dia")
@@ -458,6 +490,11 @@ REF_ELL_EVALS = (-0.02710828066429022, 0.9702542814823517, 1.991720077512685,
 # phase 11: DIA kernel shapes (k, column offset in a SLICE_WIDTH-wide block
 # or None)
 DIA_SHAPES = [(k, None) for k in (1, 2, 4, 8)] + [(2, 1)]
+# the k of the kernel tables (DIA_SHAPES, KERNEL_SHAPES,
+# JACOBI_COMPLEX_SHAPES, compare_kernel's ks) held against the plain
+# version but not timed, so that the run keeps within its time limit:
+# timing depth only, every check kept
+UNTIMED_K = (4, 8)
 # phase 7: a grid past CUDA's 65535 planes, run as two launches
 SPLIT_SHAPES = [((70000, 1, 32), 1)]
 # phases 7-8: (grid side, k, column offset in a SLICE_WIDTH-wide block or
@@ -646,6 +683,31 @@ REF_JACOBI = {"magnetic": 2149, "magnetic_fixed": 1630, "gl": 1638,
 HALF_K = 4
 REF_HALF = {"bfloat16": 252, "float16": 457}
 # phases 41-45: the row-partitioned solve on P ranks sharing the card
+# phase 47: half operators at n = 262,144, each solve name -> (operator,
+# its half type, the working type: None for a half basis over it); each
+# of the four kernels gets a solve in both half types, and the mixed entry
+# points (half values, f32 blocks) the three half-basis solves
+HALFOP_SOLVES = {
+    "stencil_f16": ("stencil", "float16", "float32"),
+    "stencil_bf16_half_basis": ("stencil", "bfloat16", None),
+    "stencil_bf16": ("stencil", "bfloat16", "float32"),
+    "ell_f16": ("ell", "float16", "float32"),
+    "ell_bf16": ("ell", "bfloat16", "float32"),
+    "dia_bf16": ("dia", "bfloat16", "float32"),
+    "dia_f16": ("dia", "float16", "float32"),
+    "ell_f16_half_basis": ("ell", "float16", None),
+    "dia_bf16_half_basis": ("dia", "bfloat16", None),
+}
+# the sparse half-basis solves at phase 40's k: at SOLVE_KWARGS' k the JAX
+# package's own half basis over a half sparse operator fails (a restart's
+# projection mixes half and f32 branches; ROADMAP C12)
+HALFOP_K = {"ell_f16_half_basis": HALF_K, "dia_bf16_half_basis": HALF_K}
+# the JAX package's matvecs for the same calls on the CPU
+# (tools/torch_smoke_refs.py --phase halfop, seed 0)
+REF_HALFOP = {"stencil_f16": 656, "stencil_bf16_half_basis": 352,
+              "stencil_bf16": 352, "ell_f16": 549, "ell_bf16": 352,
+              "dia_bf16": 389, "dia_f16": 620, "ell_f16_half_basis": 457,
+              "dia_bf16_half_basis": 258}
 SHARD_RANKS = (2, 4)
 SHARD_K = 2                   # the product's columns (the headline's block)
 BAND_SCATTER = (GRID ** 3, 150, 3)    # n, half band, entries a row
@@ -1132,7 +1194,8 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
     fastest of three library calls on ``A_csr``, the same matrix (with
     ``copy``, also torch's copy of X, ``copy_ms``); the bound from the
     bytes the product needs: each value and column once, X (the matrix's
-    columns x k) and Y (its rows x k)."""
+    columns x k) and Y (its rows x k). A k of ``UNTIMED_K`` is held to
+    both bars (the plain version's and the two paths') but not timed."""
     import numpy as np
     import torch
 
@@ -1159,6 +1222,26 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
         ymax = float(yref.abs().max())
         as_real = torch.view_as_real if y.is_complex() else (lambda t: t)
         paths_bit = _bitwise(as_real(y), as_real(y_other))
+        bound_ms = 1e3 * (nnz * (size + 4) + (rows + ncols) * k * size) \
+            / HBM_BYTES_PER_S
+        if k in UNTIMED_K:
+            per_k[k] = {"max_abs_err": err, "ymax": ymax, "ms": None,
+                        "nospin_ms": None, "plain_ms": None,
+                        "library_ms": None, "library_call": None,
+                        "library": {}, "bound_ms": bound_ms,
+                        "bound_share": None, "path": path,
+                        "mean_width": width, "other_path": other,
+                        "other_path_ms": None, "paths_bitwise": paths_bit,
+                        "copy_ms": None, "timed": False}
+            print(f"[{tag}] k={k} max|y-yref|={err:.3e} (limit "
+                  f"{rel * ymax:.3e}) on the {path} path, bit for bit with "
+                  f"the {other} path {paths_bit}; held, not timed",
+                  flush=True)
+            check(np.isfinite(err) and err <= rel * ymax,
+                  f"{tag}: kernel disagrees with matmat_reference at k={k}")
+            check(paths_bit,
+                  f"{tag}: the ring and direct paths differ at k={k}")
+            continue
         ms = median_ms(lambda: WE.matmat(*arrays, X, ncols))
         nospin_ms = median_ms(lambda: WE.matmat(*arrays, X, ncols),
                               spin=False)
@@ -1178,8 +1261,6 @@ def compare_kernel(WE, op, A_csr, gen, rel, tag, ks=(1, 2, 4, 8), suffix="",
             lib[call] = {"ms": median_ms(f), "max_abs_err": diff}
         library_call = min(lib, key=lambda c: lib[c]["ms"]) if lib else None
         library_ms = lib[library_call]["ms"] if lib else None
-        bound_ms = 1e3 * (nnz * (size + 4) + (rows + ncols) * k * size) \
-            / HBM_BYTES_PER_S
         per_k[k] = {"max_abs_err": err, "ymax": ymax, "ms": ms,
                     "nospin_ms": nospin_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library_call": library_call,
@@ -1247,7 +1328,27 @@ def _times(kernel, plain, nbytes, copy, library=None, plain_spin=True):
     return out
 
 
+def _untimed(nbytes):
+    """The record of a shape held against its plain version but not timed
+    (``k`` in ``UNTIMED_K``): its bound, and None for each time."""
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"ms": None, "nospin_ms": None, "plain_ms": None, "copy_ms": None,
+            "library_ms": None, "bound_ms": bound_ms, "bound_share": None,
+            "l2_resident": nbytes <= L2_BYTES, "timed": False}
+
+
+def _times_at(k, *args, **kwargs):
+    """:func:`_times`, or :func:`_untimed` at a ``k`` of ``UNTIMED_K``."""
+    if k in UNTIMED_K:
+        return _untimed(args[2])
+    return _times(*args, **kwargs)
+
+
 def _print_times(tag, shape, err, bit, t, plan, extra=""):
+    if t.get("timed") is False:
+        print(f"[{tag}] {shape} max|y-yref|={err:.3e} bit for bit {bit}; "
+              f"plan kc={plan.kc} vw={plan.vw}; held, not timed", flush=True)
+        return
     print(f"[{tag}] {shape} max|y-yref|={err:.3e} bit for bit {bit}; plan "
           f"kc={plan.kc} vw={plan.vw} ({'vector' if plan.vw > 1 else 'scalar'}"
           f" path)" + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}, "
@@ -1324,16 +1425,16 @@ def stencil_phase(ST, dev, gen, scale=1.0):
             bit = _bitwise(y, yref)
             lib_err = float((ylib - yref).abs().max())
             plan = ST.card_plan(X, *grid)
-            t = _times(lambda: ST.matmat(X, *grid, scale),
-                       lambda: ST.matmat_reference(X, *grid, scale),
-                       2 * n * k * size, lambda: Yc.copy_(X), conv)
+            t = _times_at(k, lambda: ST.matmat(X, *grid, scale),
+                          lambda: ST.matmat_reference(X, *grid, scale),
+                          2 * n * k * size, lambda: Yc.copy_(X), conv)
             per_shape[label] = {"max_abs_err": err, "bitwise": bit,
                                 "vector_path": plan.vw > 1,
                                 "plan": plan._asdict(),
                                 "library_call": "conv3d depthwise (cuDNN)",
                                 "library_max_abs_err": lib_err, **t}
             _print_times(name, label, err, bit, t, plan,
-                         f"  library (depthwise conv3d) {t['library_ms']:.5f}"
+                         f"  library (depthwise conv3d) {t['library_ms']}"
                          f" ms (max|diff| {lib_err:.3e})")
             check(bit, f"{name}: kernel differs from its plain version at "
                   f"{label}")
@@ -1405,14 +1506,14 @@ def jacobi_phase(JK, dev, gen):
                 err = float((y - yref).abs().max())
                 bit = _bitwise(y, yref)
                 plan = JK.card_plan(X)
-                t = _times(kern, plain, (2 * n * k + n + nsig) * size,
-                           lambda: Yc.copy_(X), library)
+                t = _times_at(k, kern, plain, (2 * n * k + n + nsig) * size,
+                              lambda: Yc.copy_(X), library)
                 res[name][label] = {"max_abs_err": err, "bitwise": bit,
                                     "vector_path": plan.vw > 1,
                                     "plan": plan._asdict(), **t}
                 _print_times(name, label, err, bit, t, plan,
                              "" if library is None else
-                             f"  library (torch.div) {t['library_ms']:.5f} ms")
+                             f"  library (torch.div) {t['library_ms']} ms")
                 check(bit, f"{name}: kernel differs from its plain version "
                       f"at {label}")
                 check(bool(torch.isfinite(y).all()),
@@ -1745,10 +1846,10 @@ def dia_phase(DK, op, A, dev, gen, entries=DIA_REAL):
             lib_err = (None if ylib is None
                        else float((ylib - yref).abs().max()))
             plan = DK.card_plan(X)
-            t = _times(lambda: DK.matmat(vals, offs, X),
-                       lambda: DK.matmat_reference(vals, offsets, X),
-                       (B * n + 2 * n * k) * size, lambda: Yc.copy_(X),
-                       library, plain_spin=False)
+            t = _times_at(k, lambda: DK.matmat(vals, offs, X),
+                          lambda: DK.matmat_reference(vals, offsets, X),
+                          (B * n + 2 * n * k) * size, lambda: Yc.copy_(X),
+                          library, plain_spin=False)
             per_shape[label] = {"max_abs_err": err, "bitwise": bit,
                                 "vector_path": plan.vw > 1,
                                 "plan": plan._asdict(),
@@ -1756,7 +1857,7 @@ def dia_phase(DK, op, A, dev, gen, entries=DIA_REAL):
                                 "library_max_abs_err": lib_err, **t}
             _print_times(name, label, err, bit, t, plan,
                          "  library (A_csr @ X) none" if ylib is None else
-                         f"  library (A_csr @ X) {t['library_ms']:.5f} ms "
+                         f"  library (A_csr @ X) {t['library_ms']} ms "
                          f"(max|diff| {lib_err:.3e})")
             check(bit, f"{name}: kernel differs from its plain version at "
                   f"{label} (matmat or rmatmat)")
@@ -2804,7 +2905,7 @@ def events_phase(ptt, mods, dev, seed):
     then with ``monitor_inner=True`` and a counting monitor, each gated on
     the event count; then the solve time with no monitor, with the
     history, with the inner replay and with the profiler scopes forced
-    open (min of EVENT_ROUNDS (2) each, interleaved)."""
+    open (min of EVENT_ROUNDS (1) each, interleaved)."""
     import numpy as np
     import torch
     from primme_tpu_torch.core import linalg
@@ -3454,7 +3555,7 @@ def complex_jacobi_phase(JK, dev, gen):
                     p = JK.card_plan(X)
                     rec = {"max_abs_err": err, "bitwise": bit,
                            "plan": p._asdict(), "vector_path": p.vw > 1}
-                    if case == "complex":
+                    if case == "complex" and k not in UNTIMED_K:
                         t = _times(kern, plain,
                                    (4 * n * k + 2 * n + nsig) * size,
                                    lambda: Yc.copy_(X), library)
@@ -4298,6 +4399,563 @@ def surface_phase(ptt, mods, dev, seed):
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 47: half operators (f16, bf16) on the card
+# ---------------------------------------------------------------------------
+
+HALF_SUFFIX = {"float16": "f16", "bfloat16": "bf16"}
+
+
+def _within_ulp(y, yref):
+    """|y - yref| at most one unit in the last place of the half yref."""
+    import torch
+
+    fi = torch.finfo(yref.dtype)
+    mag = yref.float().abs().clamp_min(fi.tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * fi.eps
+    return bool(((y.float() - yref.float()).abs() <= ulp).all())
+
+
+def _half_library(call, fn):
+    """``fn`` if torch computes it in the half type on the card, else None
+    (printed): a yardstick the port never calls."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except RuntimeError as e:
+        print(f"[halfop] library call {call}: none in this type "
+              f"({str(e).splitlines()[0]})", flush=True)
+        return None
+
+
+def half_kernel_rows(ST, JK, DK, WE, dev, gen, dia_op, ell_op, A_ell,
+                     A_dia):
+    """47, the kernel rows: each f16 and bf16 entry point on its phase's
+    64^3 operator at k=2 against its plain version (bit for bit for the
+    stencil, Jacobi and DIA; within one unit in the half's last place for
+    the sliced ELL, whose two paths agree bit for bit), timed as phase 3
+    times, with ``copy_ms``, the bound (2 bytes a value, i32 indices, X and
+    Y once, over 3.35 TB/s) and ``library_ms`` where one PyTorch call
+    computes the same function in the half type on the card: a depthwise
+    ``conv3d`` for the stencil, ``torch.div`` for the unshifted Jacobi,
+    ``A_csr @ X`` on a half CSR tensor for DIA and the sliced ELL (none
+    for the shifted Jacobi, nor where torch refuses the type)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, k = GRID ** 3, 2
+    grid = (GRID,) * 3
+    out = {}
+    for half, sfx in HALF_SUFFIX.items():
+        dtype = getattr(torch, half)
+        X = torch.randn((n, k), generator=gen, device=dev).to(dtype)
+        Yc = torch.empty_like(X)
+
+        def copy():
+            return Yc.copy_(X)
+
+        def row(entry, y, yref, bit, t, plan, call, extra=None):
+            err = float((y.float() - yref.float()).abs().nan_to_num().max())
+            out[entry] = {"max_abs_err": err, "bitwise": bit,
+                          "vector_path": plan.vw > 1 if plan else None,
+                          "library_call": call if t["library_ms"] is not None
+                          else None, **t, **(extra or {})}
+            if plan is not None:
+                _print_times(entry, HEADLINE_SHAPE, err, bit, t, plan,
+                             f"  library ({call}) " + (
+                                 "none" if t["library_ms"] is None
+                                 else f"{t['library_ms']:.5f} ms"))
+        # stencil
+        w = torch.zeros((3, 3, 3), dtype=dtype)
+        w[1, 1, 1] = 6.0
+        for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[c] = -1.0
+        Xc = X.view(1, GRID, GRID, GRID, k).permute(0, 4, 1, 2, 3)
+        wk = w.expand(k, 1, 3, 3, 3).contiguous().to(dev)
+        conv = _half_library("conv3d", lambda: F.conv3d(
+            Xc, wk, padding=1, groups=k))
+        entry = "stencil3d_" + sfx
+        y, yref = ST.matmat(X, *grid), ST.matmat_reference(X, *grid)
+        bit = _bitwise(y, yref)
+        t = _times(lambda: ST.matmat(X, *grid),
+                   lambda: ST.matmat_reference(X, *grid), 2 * n * k * 2,
+                   copy, conv)
+        row(entry, y, yref, bit, t, ST.card_plan(X, *grid),
+            "conv3d depthwise (cuDNN)")
+        check(bit, f"{entry}: kernel differs from its plain version")
+        # Jacobi: one shift equal to a diagonal entry (f16: eps is 0, the
+        # column infinite there; bf16: the guard's 1e-10)
+        d = (torch.rand(n, generator=gen, device=dev) * 3 + 0.5).to(dtype)
+        s = torch.stack([d[5], torch.tensor(0.7, device=dev).to(dtype)])
+        for form in ("shifted", "unshifted"):
+            entry = ("jacobi_shifted_" if form == "shifted" else "jacobi_") \
+                + sfx
+            if form == "shifted":
+                def kern():
+                    return JK.shifted(X, d, s, 1e-10)
+
+                def plain():
+                    return JK.shifted_reference(X, d, s, 1e-10)
+                lib, nbytes = None, (2 * n * k + n + k) * 2
+            else:
+                def kern():
+                    return JK.unshifted(X, d, 1e-10)
+
+                def plain():
+                    return JK.unshifted_reference(X, d, 1e-10)
+                lib = _half_library("torch.div", lambda: torch.div(
+                    X, d[:, None]))
+                nbytes = (2 * n * k + n) * 2
+            y, yref = kern(), plain()
+            bit = _bitwise(y, yref)
+            t = _times(kern, plain, nbytes, copy, lib)
+            row(entry, y, yref, bit, t, JK.card_plan(X),
+                "torch.div(X, d[:, None])" if lib else
+                "none: no single call computes X / guard(d - sigma_j)")
+            check(bit, f"{entry}: kernel differs from its plain version")
+        # DIA: phase 11's 27 diagonals, matmat and rmatmat
+        entry = "dia_" + sfx
+        vals, offs, offsets = dia_op.vals.to(dtype), dia_op.offs, \
+            dia_op.offsets
+        csr = csr_on_card(A_dia, "float32", dev)
+        lib = _half_library("A_csr @ X", lambda: csr.to(dtype) @ X)
+        csr_h = csr.to(dtype) if lib else None
+        y, yref = DK.matmat(vals, offs, X), DK.matmat_reference(vals,
+                                                                offsets, X)
+        yt = DK.matmat(vals, offs, X, adjoint=True)
+        ytref = DK.rmatmat_reference(vals, offsets, X)
+        bit = _bitwise(y, yref) and _bitwise(yt, ytref)
+        t = _times(lambda: DK.matmat(vals, offs, X),
+                   lambda: DK.matmat_reference(vals, offsets, X),
+                   (len(offsets) * n + 2 * n * k) * 2, copy,
+                   (lambda: csr_h @ X) if lib else None, plain_spin=False)
+        row(entry, y, yref, bit, t, DK.card_plan(X), "A_csr @ X (cuSPARSE)")
+        check(bit, f"{entry}: kernel differs from its plain version "
+              "(matmat or rmatmat)")
+        del csr, csr_h
+        # the sliced ELL: phase 4's matrix in the chooser's RCM order
+        entry = "windowed_ell_spmm_" + sfx
+        lay = [ell_op.slice_ptr, ell_op.rowlen, ell_op.cols,
+               ell_op.vals.to(dtype)]
+        path = WE.choose_path(lay[0], lay[2])
+        other = "ring" if path == "direct" else "direct"
+        csr = csr_on_card(A_ell, "float32", dev)
+        lib = _half_library("A_csr @ X", lambda: csr.to(dtype) @ X)
+        csr_h = csr.to(dtype) if lib else None
+        y = WE.matmat(*lay, X)
+        yref = WE.matmat_reference(*lay, X)
+        y_other = WE.matmat(*lay, X, path=other)
+        ok = _within_ulp(y, yref)
+        paths_bit = _bitwise(y, y_other)
+        t = _times(lambda: WE.matmat(*lay, X),
+                   lambda: WE.matmat_reference(*lay, X),
+                   A_ell.nnz * (2 + 4) + 2 * n * k * 2, copy,
+                   (lambda: csr_h @ X) if lib else None, plain_spin=False)
+        other_ms = median_ms(lambda: WE.matmat(*lay, X, path=other))
+        row(entry, y, yref, _bitwise(y, yref), t, None,
+            "A_csr @ X (cuSPARSE)",
+            {"within_one_ulp": ok, "path": path, "other_path": other,
+             "other_path_ms": other_ms, "paths_bitwise": paths_bit,
+             "mean_width": WE.mean_width(lay[0], lay[2])})
+        r = out[entry]
+        print(f"[{entry}] {HEADLINE_SHAPE} max|y-yref|={r['max_abs_err']:.3e}"
+              f" within one ulp {ok}, bit for bit {r['bitwise']}; path "
+              f"{path} (mean width {r['mean_width']:.1f}), {other} "
+              f"{other_ms:.5f} ms, the paths bit for bit {paths_bit}; "
+              f"kernel {t['ms']:.5f} ms (without the spin "
+              f"{t['nospin_ms']:.5f})  plain {t['plain_ms']:.5f} ms  copy "
+              f"{t['copy_ms']:.5f} ms  bound {t['bound_ms']:.5f} ms (bytes; "
+              f"share {t['bound_share']:.3f})  library (A_csr @ X) "
+              + ("none" if t["library_ms"] is None
+                 else f"{t['library_ms']:.5f} ms"), flush=True)
+        check(ok and paths_bit, f"{entry}: kernel not within one ulp of its "
+              f"plain version ({ok}) or its paths differ ({paths_bit})")
+        del X, Yc, csr, csr_h
+    return out
+
+
+def mixed_kernel_rows(JK, DK, WE, dev, gen, dia_op, ell_op, A_ell, A_dia):
+    """47, the mixed rows: the entry points that take half values (or a
+    half diagonal) with a wider real block, as a half basis hands a half
+    operator f32 blocks, on the same 64^3 operators at k=2. With an f32
+    block: Jacobi (shifted, one shift equal to a diagonal entry, and
+    unshifted) and DIA (matmat and rmatmat) bit for bit against their
+    plain versions; the sliced ELL within 1e-5 max|y| of its plain version
+    and, with DIA, bit for bit against the f32 kernel on the widened
+    values (its two paths bit for bit); each timed as the half rows, with
+    ``library_ms`` the f32 call of the same function (``torch.div``, the
+    f32 CSR product: the widened values are exact). With an f64 block, the
+    same checks (1e-13 for the sliced ELL), held and not timed."""
+    import torch
+
+    n, k = GRID ** 3, 2
+    out = {}
+    csr = csr_on_card(A_dia, "float32", dev)
+    csr_ell = csr_on_card(A_ell, "float32", dev)
+    for half, sfx in HALF_SUFFIX.items():
+        hdt = getattr(torch, half)
+        d = (torch.rand(n, generator=gen, device=dev) * 3 + 0.5).to(hdt)
+        vals = dia_op.vals.to(hdt)
+        offs, offsets = dia_op.offs, dia_op.offsets
+        lay = [ell_op.slice_ptr, ell_op.rowlen, ell_op.cols,
+               ell_op.vals.to(hdt)]
+        path = WE.choose_path(lay[0], lay[2])
+        other = "ring" if path == "direct" else "direct"
+        for bdt, bsfx, rel in ((torch.float32, "f32", 1e-5),
+                               (torch.float64, "f64", 1e-13)):
+            timed = bdt == torch.float32
+            size = torch.empty((), dtype=bdt).element_size()
+            X = torch.randn((n, k), generator=gen, device=dev).to(bdt)
+            s = torch.stack([d[5].to(bdt),
+                             torch.tensor(0.7, dtype=bdt, device=dev)])
+            Yc = torch.empty_like(X)
+
+            def copy():
+                return Yc.copy_(X)
+
+            def times(kern, plain, nbytes, lib, plain_spin=True):
+                if not timed:
+                    return _untimed(nbytes)
+                return _times(kern, plain, nbytes, copy, lib,
+                              plain_spin=plain_spin)
+
+            def row(entry, err, bit, t, plan, call, extra=None):
+                out[entry] = {"max_abs_err": err, "bitwise": bit,
+                              "vector_path": plan.vw > 1 if plan else None,
+                              "library_call": call if t["library_ms"]
+                              is not None else None, **t, **(extra or {})}
+                if plan is not None:
+                    _print_times(entry, HEADLINE_SHAPE, err, bit, t, plan,
+                                 "" if t["library_ms"] is None else
+                                 f"  library ({call}) "
+                                 f"{t['library_ms']:.5f} ms")
+
+            # Jacobi, shifted and unshifted, half d
+            for form in ("shifted", "unshifted"):
+                entry = (f"jacobi_shifted_{sfx}_{bsfx}" if form == "shifted"
+                         else f"jacobi_{sfx}_{bsfx}")
+                if form == "shifted":
+                    def kern():
+                        return JK.shifted(X, d, s, 1e-10)
+
+                    def plain():
+                        return JK.shifted_reference(X, d, s, 1e-10)
+                    lib, call = None, None
+                    nbytes = 2 * n * k * size + 2 * n + k * size
+                else:
+                    def kern():
+                        return JK.unshifted(X, d, 1e-10)
+
+                    def plain():
+                        return JK.unshifted_reference(X, d, 1e-10)
+                    dw = d.to(bdt)[:, None]
+
+                    def lib():
+                        return torch.div(X, dw)
+                    call = "torch.div(X, d[:, None])"
+                    nbytes = 2 * n * k * size + 2 * n
+                y, yref = kern(), plain()
+                bit = _bitwise(y, yref) and y.dtype == bdt
+                t = times(kern, plain, nbytes, lib)
+                err = float((y - yref).abs().nan_to_num().max())
+                row(entry, err, bit, t, JK.card_plan(X), call)
+                check(bit, f"{entry}: kernel differs from its plain version")
+            # DIA, matmat and rmatmat, half values
+            entry = f"dia_{sfx}_{bsfx}"
+            y = DK.matmat(vals, offs, X)
+            yt = DK.matmat(vals, offs, X, adjoint=True)
+            bit = (_bitwise(y, DK.matmat_reference(vals, offsets, X))
+                   and _bitwise(yt, DK.rmatmat_reference(vals, offsets, X)))
+            wide = vals.to(bdt)
+            same = (_bitwise(y, DK.matmat(wide, offs, X))
+                    and _bitwise(yt, DK.matmat(wide, offs, X, adjoint=True)))
+            err = float((y - DK.matmat_reference(vals, offsets, X))
+                        .abs().max())
+            t = times(lambda: DK.matmat(vals, offs, X),
+                      lambda: DK.matmat_reference(vals, offsets, X),
+                      len(offsets) * n * 2 + 2 * n * k * size,
+                      (lambda: csr @ X) if timed else None, plain_spin=False)
+            row(entry, err, bit, t, DK.card_plan(X),
+                "A_csr @ X (cuSPARSE, f32 values)",
+                {f"bitwise_with_dia_{bsfx}": same})
+            check(bit and same, f"{entry}: kernel differs from its plain "
+                  f"version ({bit}) or from dia_{bsfx} on the widened "
+                  f"values ({same})")
+            # the sliced ELL, half values
+            entry = f"windowed_ell_spmm_{sfx}_{bsfx}"
+            y = WE.matmat(*lay, X)
+            yref = WE.matmat_reference(*lay, X)
+            y_other = WE.matmat(*lay, X, path=other)
+            y_wide = WE.matmat(*lay[:3], lay[3].to(bdt), X)
+            err = float((y - yref).abs().max())
+            ymax = float(yref.abs().max())
+            ok = err <= rel * ymax and y.dtype == bdt
+            paths_bit, same = _bitwise(y, y_other), _bitwise(y, y_wide)
+            t = times(lambda: WE.matmat(*lay, X),
+                      lambda: WE.matmat_reference(*lay, X),
+                      A_ell.nnz * (2 + 4) + 2 * n * k * size,
+                      (lambda: csr_ell @ X) if timed else None,
+                      plain_spin=False)
+            other_ms = (median_ms(lambda: WE.matmat(*lay, X, path=other))
+                        if timed else None)
+            row(entry, err, _bitwise(y, yref), t, None,
+                "A_csr @ X (cuSPARSE, f32 values)",
+                {"path": path, "other_path": other, "other_path_ms": other_ms,
+                 "paths_bitwise": paths_bit,
+                 f"bitwise_with_windowed_ell_spmm_{bsfx}": same,
+                 "mean_width": WE.mean_width(lay[0], lay[2])})
+            print(f"[{entry}] {HEADLINE_SHAPE} max|y-yref|={err:.3e} (limit "
+                  f"{rel * ymax:.3e}); bit for bit with the {bsfx} kernel on "
+                  f"the widened values {same}, with the {other} path "
+                  f"{paths_bit}; path {path}" + (
+                      "; held, not timed" if not timed else
+                      f"; kernel {t['ms']:.5f} ms (without the spin "
+                      f"{t['nospin_ms']:.5f}), {other} {other_ms:.5f} ms  "
+                      f"plain {t['plain_ms']:.5f} ms  copy "
+                      f"{t['copy_ms']:.5f} ms  bound {t['bound_ms']:.5f} ms "
+                      f"(bytes; share {t['bound_share']:.3f})  library "
+                      f"(A_csr @ X, f32) {t['library_ms']:.5f} ms"),
+                  flush=True)
+            check(ok and paths_bit and same, f"{entry}: not within "
+                  f"{rel} max|y| of its plain version ({err:.3e}), or its "
+                  f"paths differ ({paths_bit}), or it differs from the "
+                  f"{bsfx} kernel on the widened values ({same})")
+            del X, Yc
+    del csr, csr_ell
+    return out
+
+
+def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
+    """47: half operators. The kernel rows (:func:`half_kernel_rows`), then
+    the solves of ``HALFOP_SOLVES`` at n = 262,144, each at ``tol = 4
+    eps(half)``: ``bench.py``'s 64^3 stencil with its shift-aware Jacobi
+    (``jacobi=True``: the diagonal in the half type) under an f32 solve in
+    f16 and bf16 and, in bf16, with ``dtype=None`` (a half basis over the
+    half operator); phase 4's permuted 27-point Laplacian (the chooser's
+    RCM order) as an ``ELLOperator`` and phase 11's grid-order one as the
+    chooser's ``BandedOperator``, each in both half types under an f32
+    solve with ``SOLVE_KWARGS``, and over a half basis (f16 ELL, bf16 DIA,
+    ``k`` of ``HALFOP_K``). Gates: every true residual (f64, the exact
+    matrix) below ``16 eps(half) ||A||``; each value within its own true
+    residual of the closed form; the probe verified and not exhausted for
+    an f32 solve (printed, not held, for the half basis, as phase 40);
+    the half kernels of the solve launched at least matvecs / 2 times (the
+    shifted Jacobi: half the matvecs the probe does not make), every other
+    entry point not at all (over a half basis, given f32 blocks and
+    shifts, the operator computes in f32 as the JAX package's promotes:
+    the mixed entry points, ``*_f16_f32``/``*_bf16_f32``, there); matvecs
+    within 2x of the JAX package's. Each solve's
+    time and peak device memory beside its f32 counterpart's
+    (``f32_runs``: phases 9, 4 and 11; None where not run)."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from primme_tpu_torch.ops import dia as DK
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    t0 = time.perf_counter()
+    A27, ev27 = laplacian27(GRID, seed)
+    perm = np.asarray(reverse_cuthill_mckee(A27, symmetric_mode=True))
+    A_ell = A27[perm][:, perm].tocsr()
+    ell32 = ptt.ELLOperator.from_scipy(A_ell).to(dev)
+    A_dia, ev_dia = laplacian27_grid(GRID)
+    rb = ptt.rcm_banded(A_dia)
+    check(rb is not None and isinstance(rb[0], ptt.BandedOperator)
+          and rb[1] is None, "halfop: the chooser did not take phase 11's "
+          "matrix banded")
+    dia32 = rb[0].to(dev)
+    print(f"[halfop] operators built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    rows = half_kernel_rows(ST, JK, DK, WE, dev, gen, dia32, ell32, A_ell,
+                            A_dia)
+    rows.update(mixed_kernel_rows(JK, DK, WE, dev, gen, dia32, ell32, A_ell,
+                                  A_dia))
+    lam_st, anorm_st = stencil_eigenvalues(GRID, GRID ** 3)
+    host = {"stencil": (_laplacian7(GRID, None), lam_st, anorm_st),
+            "ell": (A_ell, ev27, float(np.abs(ev27).max())),
+            "dia": (A_dia, ev_dia, float(np.abs(ev_dia).max()))}
+    f32_of = {"stencil": "headline", "ell": "solve f32", "dia": "banded"}
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    solves = {}
+    for name, (kind, half, working) in HALFOP_SOLVES.items():
+        hdt = getattr(torch, half)
+        sfx = HALF_SUFFIX[half]
+        heps = float(torch.finfo(hdt).eps)
+        tol = 4 * heps
+        wd = None if working is None else getattr(torch, working)
+        if kind == "stencil":
+            op = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=hdt,
+                                       device=dev)
+            kw = {**_headline_eigsh_kwargs(dev, seed, GRID),
+                  "method": "PRIMME_JDQMR_ETol"}
+            # over a half basis the shifted Jacobi gets f32 blocks and
+            # shifts: its mixed entry point
+            need = allowed = ["stencil3d_" + sfx, "jacobi_shifted_" + sfx
+                              + ("_f32" if wd is None else "")]
+        elif kind == "ell":
+            lays = [WE.SlicedELL(*(getattr(ell32, f + t) for f in
+                                   WE.SlicedELL._fields[:-1]),
+                                 getattr(ell32, "vals" + t).to(hdt))
+                    for t in ("", "_t")]
+            op = ptt.ELLOperator(lays[0], lays[1], ell32.diag.to(hdt))
+            kw = dict(SOLVE_KWARGS, device=dev)
+            need = allowed = ["windowed_ell_spmm_" + sfx
+                              + ("_f32" if wd is None else "")]
+        else:
+            op = ptt.BandedOperator(dia32.offsets, dia32.vals.to(hdt))
+            kw = dict(SOLVE_KWARGS, device=dev)
+            need = allowed = ["dia_" + sfx + ("_f32" if wd is None else "")]
+        if name in HALFOP_K:
+            kw["k"] = HALFOP_K[name]
+        check(op.dtype == hdt, f"halfop {name}: operator {op.dtype}")
+        A, lam, anorm = host[kind]
+        torch.cuda.synchronize()
+        before_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*mods)
+        t1 = time.perf_counter()
+        w, X, st = ptt.eigsh(op, **{**kw, "tol": tol, "seed": seed,
+                                    "dtype": wd,
+                                    "raise_for_unconverged": False})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_counts(mods)
+        peak = torch.cuda.max_memory_allocated()
+        mv, pmv = st["num_matvecs"], st["num_probe_matvecs"]
+        X64 = X.astype(np.float64)
+        w64 = w.astype(np.float64)
+        if kind == "stencil":
+            Xt = torch.as_tensor(X64, device=dev)
+            Rt = ST.matmat_reference(Xt, GRID, GRID, GRID) \
+                - Xt * torch.as_tensor(w64, device=dev)[None, :]
+            rn = torch.linalg.vector_norm(Rt, dim=0).cpu().numpy()
+        else:
+            rn = np.linalg.norm(A.astype(np.float64) @ X64
+                                - X64 * w64[None, :], axis=0)
+        xn = np.linalg.norm(X64, axis=0)
+        dist = np.array([np.abs(lam - v).min() for v in w64])
+        floor = 16 * heps * anorm
+        ref_mv = REF_HALFOP[name]
+        ref32 = (f32_runs or {}).get(f32_of[kind])
+        verify = wd is not None
+        print(f"[halfop {name}] {type(op).__name__} {half}, working "
+              f"{working}: eigsh wall {wall:.3f} s (solve "
+              f"{st['elapsed_time']:.3f} s)  num_matvecs {mv} (JAX package "
+              f"{ref_mv})  num_probe_matvecs {pmv}  probe verified "
+              f"{st['probe_verified']} exhausted {st['probe_exhausted']}"
+              + ("" if verify else " (printed, not held)")
+              + f"  launches { {e: c for e, c in launches.items() if c} }  "
+              f"max true residual {float(rn.max()):.3e} (limit {floor:.3e})"
+              f"  distance to the spectrum / residual "
+              f"{np.round(dist * xn / rn, 4).tolist()}  values "
+              f"{np.sort(w64).tolist()}  peak device memory {peak} B "
+              f"({before_bytes} B before: the phase's operators); its "
+              f"f32 counterpart ({f32_of[kind]}): "
+              + ("not run" if ref32 is None else
+                 f"{ref32['wall_s']:.3f} s, {ref32.get('peak_bytes')} B"),
+              flush=True)
+        check(float(rn.max()) < floor, f"halfop {name}: residual "
+              f"{float(rn.max()):.3e} >= {floor:.3e}")
+        check(bool(np.all(dist <= rn / xn)), f"halfop {name}: a value lies "
+              "farther from the closed form than its residual")
+        check(not verify or (st["probe_verified"] == 1
+                             and st["probe_exhausted"] == 0),
+              f"halfop {name}: spectrum verification did not complete")
+        for entry in need:
+            least = (mv - pmv) / 2 if entry.startswith("jacobi") else mv / 2
+            check(launches[entry] >= least, f"halfop {name}: only "
+                  f"{launches[entry]} {entry} launches for {mv} matvecs")
+        for entry in others:
+            check(entry in allowed or launches[entry] == 0,
+                  f"halfop {name}: {entry} served this solve: {launches}")
+        check(ref_mv / 2 <= mv <= 2 * ref_mv, f"halfop {name}: {mv} "
+              f"matvecs, not within 2x of the JAX package's {ref_mv}")
+        solves[name] = {"operator": type(op).__name__, "half": half,
+                        "working": working, "tol": tol, "wall_s": wall,
+                        "solve_s": st["elapsed_time"], "num_matvecs": mv,
+                        "num_probe_matvecs": pmv,
+                        "probe_verified": st["probe_verified"],
+                        "probe_exhausted": st["probe_exhausted"],
+                        "evals": np.sort(w64).tolist(),
+                        "max_residual": float(rn.max()), "floor": floor,
+                        "launches": launches, "peak_bytes": peak,
+                        "bytes_before": before_bytes, "ref_matvecs": ref_mv,
+                        "f32_counterpart": None if ref32 is None else {
+                            "phase": f32_of[kind], "wall_s": ref32["wall_s"],
+                            "peak_bytes": ref32.get("peak_bytes")}}
+    return {"kernels": rows, "solves": solves,
+            "seconds": time.perf_counter() - t0}
+
+
+# the entry points phase 47 times, what each replaces, and the solve whose
+# launches its record reads (None: no solve runs the unshifted apply)
+HALF_RECORDS = {
+    **{f"stencil3d_{s}": ("primme_tpu/operators.py:379",
+                          "primme_tpu_torch/csrc/stencil3d.cu",
+                          f"stencil_{h}")
+       for h, s in (("f16", "f16"), ("bf16", "bf16"))},
+    **{f"jacobi_shifted_{s}": ("primme_tpu/operators.py:484",
+                               "primme_tpu_torch/csrc/jacobi.cu",
+                               f"stencil_{s}") for s in ("f16", "bf16")},
+    **{f"jacobi_{s}": ("primme_tpu/operators.py:481",
+                       "primme_tpu_torch/csrc/jacobi.cu", None)
+       for s in ("f16", "bf16")},
+    **{f"dia_{s}": ("primme_tpu/operators.py:671",
+                    "primme_tpu_torch/csrc/dia.cu", f"dia_{s}")
+       for s in ("f16", "bf16")},
+    **{f"windowed_ell_spmm_{s}": ("primme_tpu/operators.py:198",
+                                  "primme_tpu_torch/csrc/windowed_ell.cu",
+                                  f"ell_{s}") for s in ("f16", "bf16")},
+    # the mixed entry points (half values, f32 blocks; their f64-block
+    # twins under "entries"), each with the half-basis solve that runs it
+    **{f"jacobi_shifted_{s}_f32": ("primme_tpu/operators.py:484",
+                                   "primme_tpu_torch/csrc/jacobi.cu", path)
+       for s, path in (("f16", None), ("bf16", "stencil_bf16_half_basis"))},
+    **{f"jacobi_{s}_f32": ("primme_tpu/operators.py:481",
+                           "primme_tpu_torch/csrc/jacobi.cu", None)
+       for s in ("f16", "bf16")},
+    **{f"dia_{s}_f32": ("primme_tpu/operators.py:671",
+                        "primme_tpu_torch/csrc/dia.cu", path)
+       for s, path in (("f16", None), ("bf16", "dia_bf16_half_basis"))},
+    **{f"windowed_ell_spmm_{s}_f32": ("primme_tpu/operators.py:198",
+                                      "primme_tpu_torch/csrc/windowed_ell.cu",
+                                      path)
+       for s, path in (("f16", "ell_f16_half_basis"), ("bf16", None))},
+}
+
+
+def half_kernel_record(name, halfop):
+    """The record of a half entry point: phase 47's row at 64^3 k=2, its
+    launches those of the phase 47 solve that runs it."""
+    replaces, source, path = HALF_RECORDS[name]
+    r = halfop["kernels"][name]
+    keys = ("ms", "nospin_ms", "plain_ms", "copy_ms", "library_ms",
+            "library_call", "bound_ms", "bound_share", "max_abs_err",
+            "bitwise", "within_one_ulp", "path", "other_path",
+            "other_path_ms", "paths_bitwise", "mean_width", "vector_path")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": (0 if path is None else
+                         halfop["solves"][path]["launches"][name]),
+            "launches_path": None if path is None else f"halfop {path}",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "shape": HEADLINE_SHAPE,
+            **{key: r.get(key) for key in keys},
+            **({"entries": {twin: {"replaces": replaces,
+                                   **halfop["kernels"][twin]}}}
+               if (twin := name[:-3] + "f64") in halfop["kernels"]
+               and name.endswith("_f32") else {})}
+
+
 def jacobi_complex_record(name, replaces, per_shape, path, launches):
     """The record of a complex Jacobi entry point (phase 38's numbers at
     ``HEADLINE_SHAPE``, complex denominators), its launches those of the
@@ -4417,6 +5075,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_main = time.perf_counter()
+    timers = {}
+
+    def lap(key, since):
+        """Seconds since ``since`` under ``key``, printed."""
+        timers[key] = time.perf_counter() - since
+        print(f"[{key}] {timers[key]:.1f} s", flush=True)
+        return time.perf_counter()
 
     import numpy as np
     import torch
@@ -4465,6 +5131,7 @@ def main():
     print(f"[build] {len(KERNEL_SOURCES)} sources in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     mods = (DK, WE, ST, JK)
+    t_phase = lap("phases 1-2", t_main)
 
     # --- 3. f32 layout and kernel against its plain version -------------
     A, ev = laplacian27(GRID, args.seed)
@@ -4521,6 +5188,7 @@ def main():
 
     # --- 8. Jacobi kernels against their plain versions -------------------
     jac = jacobi_phase(JK, dev, cgen)
+    t_phase = lap("phases 3-8", t_phase)
 
     # --- 9. the headline: bench.py's configuration ----------------------
     headline, hl_run = headline_phase(ptt, dev)
@@ -4540,6 +5208,7 @@ def main():
 
     # --- 10. GD_Olsen_plusK + Jacobi (__graft_entry__.entry's method) ----
     gdk = gdk_phase(ptt, dev)
+    t_phase = lap("phases 9-10", t_phase)
 
     # --- 11-13. the chooser's banded, DIA+ELL and ELL branches ----------
     banded = banded_phase(ptt, mods, DK, WE, dev, cgen, args.seed)
@@ -4548,16 +5217,20 @@ def main():
 
     # --- 14. BlockELL (plain PyTorch) against scipy ----------------------
     block_ell = block_ell_phase(ptt, dev, gen, args.seed)
+    t_phase = lap("phases 11-14", t_phase)
 
     # --- 15. the north star: f32 solve + native FP64 polish --------------
     northstar = northstar_phase(ptt, mods, dev)
     northstar100 = northstar_phase(ptt, mods, dev, k=NS_K_LARGE,
                                    refs=REF_NS_LARGE, split=False)
+    t_phase = lap("phase 15", t_phase)
 
     # --- 16-18. generalized pencil, constraints, interior targets --------
     generalized = generalized_phase(ptt, mods, args.seed)
     constraints = constraints_phase(ptt, mods, ST, dev, args.seed)
     interior = interior_phase(ptt, mods, args.seed)
+    t_phase = lap("phases 16-18", t_phase)
+    lap("phases 1-18", t_main)
 
     # --- 19-22. svds: the kernel on rectangular layouts, three solves ----
     svd = svds_phases(ptt, mods, WE, dev, args.seed)
@@ -4614,7 +5287,17 @@ def main():
     sharded = sharded_phases(ptt, mods, dev, args.seed)
 
     # --- 46. the last surface: to_dense, from_coo, the device rule, debug -
+    t_phase = time.perf_counter()
     surface = surface_phase(ptt, mods, dev, args.seed)
+    t_phase = lap("phase 46", t_phase)
+
+    # --- 47. half operators: the f16 and bf16 entry points and solves -----
+    halfop = half_operator_phase(
+        ptt, mods, dev, cgen, args.seed,
+        {"headline": {**headline,
+                      "peak_bytes": headline["solves"][1].get("peak_bytes")},
+         "solve f32": solve32, "banded": banded["solve"]})
+    lap("phase 47", t_phase)
 
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
@@ -4651,7 +5334,8 @@ def main():
         jacobi_complex_record(
             "jacobi_c128", "primme_tpu/operators.py:481",
             cjac["jacobi_c128"], "jacobi harness",
-            jl["harness"]["jacobi_c128"])],
+            jl["harness"]["jacobi_c128"]),
+        *[half_kernel_record(name, halfop) for name in HALF_RECORDS]],
         "solve": {**solve32, "f64": solve64},
         "headline": headline, "gdk": gdk,
         "banded": {k: v for k, v in banded.items() if k != "kernel"},
@@ -4666,7 +5350,7 @@ def main():
         "events": events, "harness": harness, "profile": profile,
         "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
         "half": half, "seconds_36_40": seconds36, "sharded": sharded,
-        "surface": surface,
+        "surface": surface, "halfop": halfop,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
@@ -4711,12 +5395,16 @@ def main():
                 for name in ("lm", "sm")},
              "nccl headline": sharded["nccl"]["launches"],
              "surface to_dense": surface["to_dense_launches"],
-             "surface solve": surface["solve"]["launches"]}
+             "surface solve": surface["solve"]["launches"],
+             **{f"halfop {name}": r["launches"]
+                for name, r in halfop["solves"].items()}}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:
             r["path_launches"] = {path: counts.get(entry, 0)
                                   for path, counts in paths.items()}
+    lap("total", t_main)
+    rec["seconds"] = dict(timers)
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

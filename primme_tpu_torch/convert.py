@@ -1,8 +1,11 @@
 """Carry objects over from the JAX package, as numpy.
 
 The tests use these so that both packages compute on the same operator
-and configuration; the operators carry real and complex values alike.
-Nothing here imports jax: a JAX array converts through ``np.asarray``.
+and configuration; the operators carry real, complex and half values
+alike. Nothing here imports jax: a JAX array converts through
+``np.asarray``, and a bfloat16 one (numpy's ``bfloat16`` extension type,
+which torch does not read) through the ``uint16`` view of its bits
+(:func:`tensor_from_numpy`), so the bits stay the same.
 """
 
 from __future__ import annotations
@@ -17,6 +20,17 @@ from . import params as prm
 from .operators import (BandedOperator, BlockELLOperator, ChebyshevPrecond,
                         DenseOperator, ELLOperator, JacobiPrecond,
                         Stencil3DOperator, SumOperator, WindowedELLOperator)
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array (or a JAX array, through ``np.asarray``) as a CPU
+    tensor of its type, bit for bit: a ``bfloat16`` array through the
+    ``uint16`` view of its bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 def params_from_jax(p) -> prm.PrimmeParams:
@@ -75,7 +89,8 @@ def stencil_from_jax(op, device=None) -> Stencil3DOperator:
 def jacobi_from_jax(K, device=None) -> JacobiPrecond:
     """A ``primme_tpu`` ``JacobiPrecond`` as the port's: its diagonal as
     numpy, ``eps`` and ``use_shifts``."""
-    out = JacobiPrecond(np.asarray(K.d), eps=K.eps, use_shifts=K.use_shifts)
+    out = JacobiPrecond(tensor_from_numpy(K.d), eps=K.eps,
+                        use_shifts=K.use_shifts)
     return out.to(device) if device is not None else out
 
 
@@ -86,8 +101,8 @@ def _on(op, device):
 def banded_from_jax(op, device=None) -> BandedOperator:
     """A ``primme_tpu`` ``BandedOperator`` as the port's: the same offsets
     in the same order and the same ``vals``."""
-    return _on(BandedOperator(op.offsets, np.asarray(op.vals), op.shape),
-               device)
+    return _on(BandedOperator(op.offsets, tensor_from_numpy(op.vals),
+                              op.shape), device)
 
 
 def ell_from_jax(op, device=None) -> ELLOperator:
@@ -95,20 +110,19 @@ def ell_from_jax(op, device=None) -> ELLOperator:
     padded rows hold (the zero-valued padding dropped), laid out by the
     port's ``from_scipy``. Its ``A^H`` layout is built from that matrix
     with conjugated values, so it equals the reference's ``valsT`` (stored
-    unconjugated, conjugated at each ``rmatmat``) conjugated."""
-    import scipy.sparse as sp
-
+    unconjugated, conjugated at each ``rmatmat``) conjugated. Half values
+    go through ``from_coo``, which keeps their type."""
     cols, vals = np.asarray(op.cols), np.asarray(op.vals)
     keep = vals != 0
-    A = sp.csr_matrix((vals[keep], (np.nonzero(keep)[0], cols[keep])),
-                      shape=op.shape)
-    return _on(ELLOperator.from_scipy(A), device)
+    return _on(ELLOperator.from_coo(np.nonzero(keep)[0], cols[keep],
+                                    tensor_from_numpy(vals[keep]), op.shape),
+               device)
 
 
 def dense_from_jax(op, device=None) -> DenseOperator:
     """A ``primme_tpu`` ``DenseOperator`` as the port's: the same matrix,
     in its type (real or complex)."""
-    return _on(DenseOperator(np.asarray(op.A)), device)
+    return _on(DenseOperator(tensor_from_numpy(op.A)), device)
 
 
 def block_ell_from_jax(op, device=None) -> BlockELLOperator:
@@ -116,9 +130,9 @@ def block_ell_from_jax(op, device=None) -> BlockELLOperator:
     columns and blocks, and the transposed layout where it has one."""
     t = op.bcolsT is not None
     return _on(BlockELLOperator(
-        np.asarray(op.bcols), np.asarray(op.bvals), op.shape,
+        np.asarray(op.bcols), tensor_from_numpy(op.bvals), op.shape,
         np.asarray(op.bcolsT) if t else None,
-        np.asarray(op.bvalsT) if t else None), device)
+        tensor_from_numpy(op.bvalsT) if t else None), device)
 
 
 def sum_from_jax(op, device=None) -> SumOperator:
@@ -156,6 +170,7 @@ def halo_ell_from_jax(op, mesh=None):
 
 
 def block_from_numpy(X, device, dtype=None) -> torch.Tensor:
-    """An ``[n, k]`` numpy block as a tensor on ``device``."""
-    t = torch.from_numpy(np.ascontiguousarray(X))
+    """An ``[n, k]`` numpy block (bfloat16 too) as a tensor on
+    ``device``."""
+    t = tensor_from_numpy(X)
     return t.to(device=device, dtype=dtype or t.dtype)

@@ -1,5 +1,5 @@
-// DIA (diagonal storage) product for Hopper (sm_90a), in f32, f64,
-// complex64 and complex128:
+// DIA (diagonal storage) product for Hopper (sm_90a), in f32, f64, f16,
+// bf16, complex64 and complex128:
 //   matmat   y_i = sum_b vals[b, i] * x_{i + off_b}
 //   rmatmat  y_i = sum_b conj(vals[b, i - off_b]) * x_{i - off_b}   (A^H)
 // on an [n, k] block, a term whose row i + off_b (i - off_b) lies outside
@@ -47,7 +47,26 @@
 // is v * 0 as there, and 0 + -0 is +0 as there). The adjoint conjugates in
 // the kernel (a negation, exact): no pass over vals or X. Addresses are
 // 64-bit: B n passes 2^31 at B = 256 and n >= 8.4M.
+//
+// The 16-bit entry points (dia_f16, dia_bf16) serve a half BandedOperator
+// (the reference's loop in the half type). Each product and each sum is
+// one half operation: taken in f32 on the exact half operands and
+// rounded once to the half type, the correctly rounded half result that
+// torch's and the JAX package's op-by-op half arithmetic give, so the
+// kernel equals its plain version bit for bit here too. A thread loads
+// up to eight halves of X's row (16 bytes) at once; the bytes of vals, X
+// and Y halve, and so does the bound.
+//
+// The mixed entry points (dia_f16_f32, dia_bf16_f32, dia_f16_f64,
+// dia_bf16_f64) serve a half BandedOperator given a wider real block (a
+// half basis hands it f32 blocks), where the reference's product promotes
+// to the block's type: each half value is widened (exactly) as it is
+// loaded and the sum runs in the block's type, so the result equals the
+// f32 (f64) kernel on the widened values bit for bit while vals moves 2
+// bytes a value, not 4 (8).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,6 +91,47 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 }
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
+}
+// a half operation: f32 on the exact values, one rounding to the half type
+__device__ __forceinline__ __half mul_rn(__half a, __half b) {
+  return __float2half_rn(__fmul_rn(__half2float(a), __half2float(b)));
+}
+__device__ __forceinline__ __half add_rn(__half a, __half b) {
+  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 mul_rn(__nv_bfloat16 a,
+                                                __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a,
+                                                __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// a stored value of type V in the block's type T: exact (a half widens)
+template <typename T, typename V>
+__device__ __forceinline__ T widen(V v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float widen<float, __half>(__half v) {
+  return __half2float(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ double widen<double, __half>(__half v) {
+  return static_cast<double>(__half2float(v));
+}
+template <>
+__device__ __forceinline__ double widen<double, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return static_cast<double>(__bfloat162float(v));
 }
 
 // The value types: a real scalar, or a complex one as (x, y) = (re, im).
@@ -106,6 +166,28 @@ template <> struct Vec<double, 2> { using type = double2; };
 template <> struct Vec<float2, 1> { using type = float2; };
 template <> struct Vec<float2, 2> { using type = float4; };
 template <> struct Vec<double2, 1> { using type = double2; };
+template <int W> struct Vec16;  // W halves as raw bits
+template <> struct Vec16<1> { using type = unsigned short; };
+template <> struct Vec16<2> { using type = unsigned int; };
+template <> struct Vec16<4> { using type = uint2; };
+template <> struct Vec16<8> { using type = uint4; };
+template <int W> struct Vec<__half, W> : Vec16<W> {};
+template <int W> struct Vec<__nv_bfloat16, W> : Vec16<W> {};
+
+// one element of T, through the read-only path
+template <typename T>
+__device__ __forceinline__ T ldg1(const T* p) {
+  return __ldg(p);
+}
+template <>
+__device__ __forceinline__ __half ldg1(const __half* p) {
+  return __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 ldg1(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
 
 template <typename T, int W>
 __device__ __forceinline__ void ldg_vec(const T* p, T* out) {
@@ -126,10 +208,11 @@ __device__ __forceinline__ void st_vec(T* p, const T* in) {
 }
 
 // Thread (x, y) of the grid sums row blockIdx.x * kThreads + threadIdx.x,
-// columns [blockIdx.y * KC, + KC), over the B diagonals in stored order.
-template <typename T, int KC, int VW, bool kAdjoint>
+// columns [blockIdx.y * KC, + KC), over the B diagonals in stored order;
+// the values are stored as V (T, or a half type widened to T).
+template <typename T, int KC, int VW, bool kAdjoint, typename V = T>
 __global__ void __launch_bounds__(kThreads)
-    dia_kernel(const T* __restrict__ vals, const long long* __restrict__ offs,
+    dia_kernel(const V* __restrict__ vals, const long long* __restrict__ offs,
                int B, const T* __restrict__ X, long long ldx,
                T* __restrict__ Y, int n, int k) {
   const long long i =
@@ -146,8 +229,8 @@ __global__ void __launch_bounds__(kThreads)
     const long long j = kAdjoint ? i - off : i + off;
     const bool in = j >= 0 && j < n;
     const long long r = in ? j : i;          // an off-edge row reads row i
-    const T v = __ldg(vals + static_cast<long long>(b) * n +
-                      (kAdjoint ? r : i));
+    const T v = widen<T>(ldg1(vals + static_cast<long long>(b) * n +
+                              (kAdjoint ? r : i)));
     const T* x = X + r * ldx + c0;
     T xv[KC];
 #pragma unroll
@@ -163,39 +246,43 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < KC; c += VW) st_vec<T, VW>(y + c, acc + c);
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const long long*, int, const T*, long long,
+template <typename T, typename V = T>
+using Kernel = void (*)(const V*, const long long*, int, const T*, long long,
                         T*, int, int);
 
-template <typename T, int KC, bool A>
-Kernel<T> pick_vw(int vw) {
-  if (vw == 1) return dia_kernel<T, KC, 1, A>;
+template <typename T, int KC, bool A, typename V>
+Kernel<T, V> pick_vw(int vw) {
+  if (vw == 1) return dia_kernel<T, KC, 1, A, V>;
   if constexpr (KC >= 2 && sizeof(T) <= 8) {
-    if (vw == 2) return dia_kernel<T, KC, 2, A>;
+    if (vw == 2) return dia_kernel<T, KC, 2, A, V>;
   }
-  if constexpr (KC >= 4 && sizeof(T) == 4) {
-    if (vw == 4) return dia_kernel<T, KC, 4, A>;
+  if constexpr (KC >= 4 && sizeof(T) <= 4) {
+    if (vw == 4) return dia_kernel<T, KC, 4, A, V>;
+  }
+  if constexpr (KC >= 8 && sizeof(T) == 2) {
+    if (vw == 8) return dia_kernel<T, KC, 8, A, V>;
   }
   return nullptr;
 }
 
-template <typename T, bool A>
-Kernel<T> pick_kc(int kc, int vw) {
+template <typename T, bool A, typename V>
+Kernel<T, V> pick_kc(int kc, int vw) {
   switch (kc) {
-    case 1: return pick_vw<T, 1, A>(vw);
-    case 2: return pick_vw<T, 2, A>(vw);
-    case 4: return pick_vw<T, 4, A>(vw);
-    case 8: return pick_vw<T, 8, A>(vw);
+    case 1: return pick_vw<T, 1, A, V>(vw);
+    case 2: return pick_vw<T, 2, A, V>(vw);
+    case 4: return pick_vw<T, 4, A, V>(vw);
+    case 8: return pick_vw<T, 8, A, V>(vw);
     default: return nullptr;
   }
 }
 
-template <typename T>
-int launch(const T* vals, const long long* offs, int B, const T* X,
+// T: X's and Y's type; V: the values' (T, or a half type)
+template <typename T, typename V = T>
+int launch(const V* vals, const long long* offs, int B, const T* X,
            long long ldx, T* Y, int n, int k, int adjoint, int kc, int vw,
            int gx, int gy, void* stream) {
-  const Kernel<T> fn =
-      adjoint ? pick_kc<T, true>(kc, vw) : pick_kc<T, false>(kc, vw);
+  const Kernel<T, V> fn =
+      adjoint ? pick_kc<T, true, V>(kc, vw) : pick_kc<T, false, V>(kc, vw);
   // the grid is the wrapper's plan; here only what CUDA and the kernel's
   // instances take
   if (fn == nullptr || B < 1 || n < 1 || k % kc != 0 || ldx < k ||
@@ -216,7 +303,8 @@ int launch(const T* vals, const long long* offs, int B, const T* X,
 // by gy = k / kc column groups. adjoint = 1 computes rmatmat (A^T, or
 // A^H for the complex types, whose pointers are to interleaved (re, im)
 // pairs). Each entry point returns the CUDA error of its launch as an int
-// (0: none).
+// (0: none). The mixed entry points (dia_<half>_<block>) take half vals
+// and X and Y in the block's type.
 extern "C" int dia_f32(const float* vals, const long long* offs, int B,
                        const float* X, long long ldx, float* Y, int n, int k,
                        int adjoint, int kc, int vw, int gx, int gy,
@@ -231,6 +319,22 @@ extern "C" int dia_f64(const double* vals, const long long* offs, int B,
                        void* stream) {
   return launch<double>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
                         gy, stream);
+}
+
+extern "C" int dia_f16(const __half* vals, const long long* offs, int B,
+                       const __half* X, long long ldx, __half* Y, int n, int k,
+                       int adjoint, int kc, int vw, int gx, int gy,
+                       void* stream) {
+  return launch<__half>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
+                        gy, stream);
+}
+
+extern "C" int dia_bf16(const __nv_bfloat16* vals, const long long* offs,
+                        int B, const __nv_bfloat16* X, long long ldx,
+                        __nv_bfloat16* Y, int n, int k, int adjoint, int kc,
+                        int vw, int gx, int gy, void* stream) {
+  return launch<__nv_bfloat16>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc,
+                               vw, gx, gy, stream);
 }
 
 extern "C" int dia_c64(const float2* vals, const long long* offs, int B,
@@ -248,3 +352,18 @@ extern "C" int dia_c128(const double2* vals, const long long* offs, int B,
   return launch<double2>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
                          gy, stream);
 }
+
+#define DIA_MIXED(V, T, SUFFIX)                                              \
+  extern "C" int dia_##SUFFIX(const V* vals, const long long* offs, int B,  \
+                              const T* X, long long ldx, T* Y, int n, int k, \
+                              int adjoint, int kc, int vw, int gx, int gy,  \
+                              void* stream) {                               \
+    return launch<T, V>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx, \
+                        gy, stream);                                         \
+  }
+
+DIA_MIXED(__half, float, f16_f32)
+DIA_MIXED(__nv_bfloat16, float, bf16_f32)
+DIA_MIXED(__half, double, f16_f64)
+DIA_MIXED(__nv_bfloat16, double, bf16_f64)
+#undef DIA_MIXED

@@ -1,5 +1,5 @@
 // Shift-aware Jacobi preconditioner apply for Hopper (sm_90a), in f32, f64,
-// complex64 and complex128:
+// f16, bf16, complex64 and complex128:
 //   jacobi_shifted_*:  Y[r, c] = X[r, c] / den,  den = d[r] - sigma[c]
 //   jacobi_*:          Y[r, c] = (1 / den) * X[r, c],  den = d[r]
 // where a den with |den| < eps is replaced by eps (a NaN den stays NaN).
@@ -60,7 +60,30 @@
 // the complex reciprocal of d[row] (two IEEE divisions, most of an
 // element's arithmetic) once for the thread's columns: one reciprocal a
 // row for complex64 at k <= 2, where it was one an element.
+//
+// The 16-bit entry points (jacobi_shifted_f16/_bf16, jacobi_f16/_bf16)
+// serve a half diagonal (the reference's JacobiPrecond over a half
+// operator; CastOperator hands it the shifts rounded to the half type).
+// Every operation of the reference is one half operation: taken in f32
+// on the exact values of its half operands and rounded once to the half
+// type, which is the correctly rounded half result (f32 holds more than
+// twice a half's digits plus two), the one torch's and the JAX package's
+// op-by-op half arithmetic give: den = half(d - s), y = half(x / den);
+// inv = half(1 / den), y = half(inv * x). eps is the half it rounds to:
+// 1e-10 is 0 in f16, so there a den of exactly 0 is kept and x / 0 is
+// an infinity (or NaN), as in the reference; in bf16 it is 1.0e-10. A
+// thread loads up to eight halves (16 bytes) of its row group at once.
+//
+// The mixed entry points (jacobi_shifted_<half>_<block>,
+// jacobi_<half>_<block>, block f32 or f64) serve a half diagonal given a
+// wider real block and shifts (a half basis hands it f32 ones), where the
+// reference's apply promotes: shifted, d widened (exactly) and the rest
+// in the block's type, y = x / guard(d - s); unshifted, the reciprocal in
+// the half type as above (inv = half(1 / guard(d)), eps the half's), then
+// y = inv * x in the block's type. d moves 2 bytes a row.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -99,6 +122,72 @@ __device__ __forceinline__ double guard(double den, double eps) {
   return fabs(den) < eps ? eps : den;
 }
 
+// The 16-bit types: each operation in f32 on the exact operands, one
+// rounding to the half type; eps is the f32 value of a half.
+template <typename H> struct Half;
+template <> struct Half<__half> {
+  static __device__ __forceinline__ float f(__half a) {
+    return __half2float(a);
+  }
+  static __device__ __forceinline__ __half h(float a) {
+    return __float2half_rn(a);
+  }
+};
+template <> struct Half<__nv_bfloat16> {
+  static __device__ __forceinline__ float f(__nv_bfloat16 a) {
+    return __bfloat162float(a);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 h(float a) {
+    return __float2bfloat16_rn(a);
+  }
+};
+#define HALF_OPS(H)                                                       \
+  __device__ __forceinline__ H sub_rn(H a, H b) {                         \
+    return Half<H>::h(__fsub_rn(Half<H>::f(a), Half<H>::f(b)));           \
+  }                                                                       \
+  __device__ __forceinline__ H mul_rn(H a, H b) {                         \
+    return Half<H>::h(__fmul_rn(Half<H>::f(a), Half<H>::f(b)));           \
+  }                                                                       \
+  __device__ __forceinline__ H div_rn(H a, H b) {                         \
+    return Half<H>::h(__fdiv_rn(Half<H>::f(a), Half<H>::f(b)));           \
+  }                                                                       \
+  __device__ __forceinline__ H guard(H den, float eps) {                  \
+    return fabsf(Half<H>::f(den)) < eps ? Half<H>::h(eps) : den;          \
+  }                                                                       \
+  __device__ __forceinline__ H shifted_op(H x, H d, H s, float eps) {     \
+    return div_rn(x, guard(sub_rn(d, s), eps));                           \
+  }                                                                       \
+  __device__ __forceinline__ H reciprocal(H d, float eps) {               \
+    return div_rn(Half<H>::h(1.0f), guard(d, eps));                       \
+  }
+HALF_OPS(__half)
+HALF_OPS(__nv_bfloat16)
+#undef HALF_OPS
+
+// a diagonal entry of type D in the block's type T: exact (a half widens)
+template <typename T, typename D>
+__device__ __forceinline__ T widen(D v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float widen<float, __half>(__half v) {
+  return __half2float(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ double widen<double, __half>(__half v) {
+  return static_cast<double>(__half2float(v));
+}
+template <>
+__device__ __forceinline__ double widen<double, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return static_cast<double>(__bfloat162float(v));
+}
+
 // The real type of an element, and whether it is complex
 template <typename T> struct Real {
   using type = T;
@@ -112,6 +201,15 @@ template <> struct Real<double2> {
   using type = double;
   static constexpr bool kComplex = true;
 };
+// a half's eps and arithmetic are f32's
+template <> struct Real<__half> {
+  using type = float;
+  static constexpr bool kComplex = false;
+};
+template <> struct Real<__nv_bfloat16> {
+  using type = float;
+  static constexpr bool kComplex = false;
+};
 
 template <typename T, int W> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
@@ -122,6 +220,28 @@ template <> struct Vec<double, 2> { using type = double2; };
 template <> struct Vec<float2, 1> { using type = float2; };
 template <> struct Vec<float2, 2> { using type = float4; };
 template <> struct Vec<double2, 1> { using type = double2; };
+template <int W> struct Vec16;  // W halves as raw bits
+template <> struct Vec16<1> { using type = unsigned short; };
+template <> struct Vec16<2> { using type = unsigned int; };
+template <> struct Vec16<4> { using type = uint2; };
+template <> struct Vec16<8> { using type = uint4; };
+template <int W> struct Vec<__half, W> : Vec16<W> {};
+template <int W> struct Vec<__nv_bfloat16, W> : Vec16<W> {};
+
+// one element of T, through the read-only path
+template <typename T>
+__device__ __forceinline__ T ldg1(const T* p) {
+  return __ldg(p);
+}
+template <>
+__device__ __forceinline__ __half ldg1(const __half* p) {
+  return __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 ldg1(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
 
 // W adjacent elements at p (aligned to W elements) into out / from in
 template <typename T, int W>
@@ -259,10 +379,11 @@ struct Shape {
 // a time, so that a warp's loads and stores cover adjacent memory. A
 // block takes ROWS runs of kThreads / kParts adjacent rows; each thread
 // loads its ROWS rows before it computes any, so that as many loads are
-// in flight.
-template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted>
+// in flight. d is stored as D: T, or a half type (the mixed entry points).
+template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted,
+          typename D = T>
 __global__ void __launch_bounds__(kThreads)
-    jacobi_kernel(const T* __restrict__ X, const T* __restrict__ d,
+    jacobi_kernel(const T* __restrict__ X, const D* __restrict__ d,
                   const T* __restrict__ sigma, T* __restrict__ Y, int n, int k,
                   long long ldx, typename Real<T>::type eps) {
   constexpr int kParts = KC / COLS;
@@ -271,12 +392,13 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = blockIdx.x * kRun * ROWS + threadIdx.x / kParts;
   T sg[COLS];
   for (int c0 = 0; c0 < k; c0 += KC) {
-    T xv[ROWS][COLS], dv[ROWS];
+    T xv[ROWS][COLS];
+    D dv[ROWS];
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
       // a row past the last reads the last and stores nothing
       const int r = min(r0 + u * kRun, n - 1);
-      dv[u] = __ldg(d + r);
+      dv[u] = ldg1(d + r);
 #pragma unroll
       for (int v = 0; v < COLS; v += VW) {
         ldg_vec<T, VW>(X + static_cast<long long>(r) * ldx + c0 + c + v,
@@ -285,7 +407,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if constexpr (kShifted) {
 #pragma unroll
-      for (int e = 0; e < COLS; ++e) sg[e] = __ldg(sigma + c0 + c + e);
+      for (int e = 0; e < COLS; ++e) sg[e] = ldg1(sigma + c0 + c + e);
     }
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
@@ -295,10 +417,11 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kShifted) {
 #pragma unroll
         for (int e = 0; e < COLS; ++e) {
-          yv[e] = shifted_op(xv[u][e], dv[u], sg[e], eps);
+          yv[e] = shifted_op(xv[u][e], widen<T>(dv[u]), sg[e], eps);
         }
       } else {
-        const T inv = reciprocal(dv[u], eps);
+        // in D's type: a half reciprocal, then widened
+        const T inv = widen<T>(reciprocal(dv[u], eps));
 #pragma unroll
         for (int e = 0; e < COLS; ++e) yv[e] = scale(inv, xv[u][e]);
       }
@@ -310,20 +433,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, long long,
+template <typename T, typename D = T>
+using Kernel = void (*)(const T*, const D*, const T*, T*, int, int, long long,
                         typename Real<T>::type);
 
 // A kernel instance and the rows a block of it takes
-template <typename T>
+template <typename T, typename D = T>
 struct Launch {
-  Kernel<T> fn;
+  Kernel<T, D> fn;
   int rows;
 };
 
-template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted>
-Launch<T> instance() {
-  return {jacobi_kernel<T, KC, VW, COLS, ROWS, kShifted>,
+template <typename T, int KC, int VW, int COLS, int ROWS, bool kShifted,
+          typename D = T>
+Launch<T, D> instance() {
+  return {jacobi_kernel<T, KC, VW, COLS, ROWS, kShifted, D>,
           kThreads / (KC / COLS) * ROWS};
 }
 
@@ -333,39 +457,42 @@ constexpr bool fits() {
   return KC % VW == 0 && sizeof(T) * VW <= 16;
 }
 
-template <typename T, int KC, int VW, bool kShifted>
-Launch<T> shaped() {
+template <typename T, int KC, int VW, bool kShifted, typename D>
+Launch<T, D> shaped() {
   using S = Shape<T, KC, VW>;
-  return instance<T, KC, VW, S::kCols, S::kRows, kShifted>();
+  return instance<T, KC, VW, S::kCols, S::kRows, kShifted, D>();
 }
 
-template <typename T, int KC, bool kShifted>
-Launch<T> pick_vw(int vw) {
-  if (vw == 1) return shaped<T, KC, 1, kShifted>();
+template <typename T, int KC, bool kShifted, typename D>
+Launch<T, D> pick_vw(int vw) {
+  if (vw == 1) return shaped<T, KC, 1, kShifted, D>();
   if constexpr (fits<T, KC, 2>()) {
-    if (vw == 2) return shaped<T, KC, 2, kShifted>();
+    if (vw == 2) return shaped<T, KC, 2, kShifted, D>();
   }
   if constexpr (fits<T, KC, 4>()) {
-    if (vw == 4) return shaped<T, KC, 4, kShifted>();
+    if (vw == 4) return shaped<T, KC, 4, kShifted, D>();
+  }
+  if constexpr (fits<T, KC, 8>()) {
+    if (vw == 8) return shaped<T, KC, 8, kShifted, D>();
   }
   return {nullptr, 0};
 }
 
 // The instance for row groups of kc columns loaded vw at a time; a null
 // kernel for a pair the wrapper never plans.
-template <typename T, bool kShifted>
-Launch<T> pick(int kc, int vw) {
+template <typename T, bool kShifted, typename D>
+Launch<T, D> pick(int kc, int vw) {
   switch (kc) {
-    case 1: return pick_vw<T, 1, kShifted>(vw);
-    case 2: return pick_vw<T, 2, kShifted>(vw);
-    case 4: return pick_vw<T, 4, kShifted>(vw);
-    case 8: return pick_vw<T, 8, kShifted>(vw);
+    case 1: return pick_vw<T, 1, kShifted, D>(vw);
+    case 2: return pick_vw<T, 2, kShifted, D>(vw);
+    case 4: return pick_vw<T, 4, kShifted, D>(vw);
+    case 8: return pick_vw<T, 8, kShifted, D>(vw);
     default: return {nullptr, 0};
   }
 }
 
-template <typename T>
-int run(Launch<T> L, const T* X, const T* d, const T* sigma, T* Y, int n,
+template <typename T, typename D = T>
+int run(Launch<T, D> L, const T* X, const D* d, const T* sigma, T* Y, int n,
         int k, long long ldx, typename Real<T>::type eps, int kc, int blocks,
         void* stream) {
   // every row once, with row indices in 32 bits
@@ -379,12 +506,13 @@ int run(Launch<T> L, const T* X, const T* d, const T* sigma, T* Y, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kShifted>
-int launch(const T* X, const T* d, const T* sigma, T* Y, int n, int k,
+// T: X's, sigma's and Y's type; D: the diagonal's (T, or a half type)
+template <typename T, bool kShifted, typename D = T>
+int launch(const T* X, const D* d, const T* sigma, T* Y, int n, int k,
            long long ldx, typename Real<T>::type eps, int kc, int vw,
            int blocks, void* stream) {
-  return run<T>(pick<T, kShifted>(kc, vw), X, d, sigma, Y, n, k, ldx, eps,
-                kc, blocks, stream);
+  return run<T, D>(pick<T, kShifted, D>(kc, vw), X, d, sigma, Y, n, k, ldx,
+                   eps, kc, blocks, stream);
 }
 
 }  // namespace
@@ -413,5 +541,31 @@ int launch(const T* X, const T* d, const T* sigma, T* Y, int n, int k,
 
 JACOBI_ENTRIES(float, float, f32)
 JACOBI_ENTRIES(double, double, f64)
+JACOBI_ENTRIES(__half, float, f16)
+JACOBI_ENTRIES(__nv_bfloat16, float, bf16)
 JACOBI_ENTRIES(float2, float, c64)
 JACOBI_ENTRIES(double2, double, c128)
+
+// The mixed entry points: d in the half type D, X, sigma and Y in T (f32
+// or f64), eps in T (the unshifted form's eps the value of the half it
+// rounds to)
+#define JACOBI_MIXED(T, D, SUFFIX)                                           \
+  extern "C" int jacobi_shifted_##SUFFIX(const T* X, const D* d,             \
+                                         const T* sigma, T* Y, int n, int k, \
+                                         long long ldx, T eps, int kc,       \
+                                         int vw, int blocks, void* stream) { \
+    return launch<T, true, D>(X, d, sigma, Y, n, k, ldx, eps, kc, vw,        \
+                              blocks, stream);                               \
+  }                                                                          \
+  extern "C" int jacobi_##SUFFIX(const T* X, const D* d, T* Y, int n, int k, \
+                                 long long ldx, T eps, int kc, int vw,       \
+                                 int blocks, void* stream) {                 \
+    return launch<T, false, D>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,     \
+                               blocks, stream);                              \
+  }
+
+JACOBI_MIXED(float, __half, f16_f32)
+JACOBI_MIXED(float, __nv_bfloat16, bf16_f32)
+JACOBI_MIXED(double, __half, f16_f64)
+JACOBI_MIXED(double, __nv_bfloat16, bf16_f64)
+#undef JACOBI_MIXED

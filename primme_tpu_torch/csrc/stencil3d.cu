@@ -1,6 +1,6 @@
 // 7-point 3-D Laplacian product Y = scale * (6 X - sum of the six neighbours)
-// on an nx x ny x nz grid with Dirichlet edges, for Hopper (sm_90a), in f32
-// and f64.
+// on an nx x ny x nz grid with Dirichlet edges, for Hopper (sm_90a), in f32,
+// f64, f16 and bf16.
 //
 // Replaces the XLA-fused product of primme_tpu/operators.py::
 // Stencil3DOperator.matmat (:379-397; the JAX package has no Pallas kernel
@@ -46,7 +46,20 @@
 //   y = scale * out
 // so the kernel equals its plain PyTorch version bit for bit; a neighbour
 // outside the grid is 0. Addresses are 64-bit.
+//
+// The 16-bit entry points (stencil3d_f16, stencil3d_bf16) serve a half
+// operator (primme_tpu/operators.py::Stencil3DOperator with a half dtype:
+// the block cast to it, every operation in it). Each operation is taken
+// in f32 on the exact f32 values of its half operands and rounded once
+// to the half type (__float2half_rn, __float2bfloat16_rn): f32 holds more
+// than twice a half's digits plus two, so that is the correctly rounded
+// half operation, the one torch's half arithmetic and the JAX package's
+// op-by-op half arithmetic give. A point's columns come in vectors of up
+// to eight halves (16 bytes). The bytes halve, so the bound does: 64^3
+// at k=2 is 2.10 MB, 0.63 us.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,13 +80,38 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
+// a half operation: f32 on the exact values, one rounding to the half type
+__device__ __forceinline__ __half mul_rn(__half a, __half b) {
+  return __float2half_rn(__fmul_rn(__half2float(a), __half2float(b)));
+}
+__device__ __forceinline__ __half sub_rn(__half a, __half b) {
+  return __float2half_rn(__fsub_rn(__half2float(a), __half2float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 mul_rn(__nv_bfloat16 a,
+                                                __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 sub_rn(__nv_bfloat16 a,
+                                                __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fsub_rn(__bfloat162float(a), __bfloat162float(b)));
+}
 
+// W elements of T as one load: the vector type of W * sizeof(T) bytes
 template <typename T, int W> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
 template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<double, 2> { using type = double2; };
+template <int W> struct Vec16;  // W halves as raw bits
+template <> struct Vec16<1> { using type = unsigned short; };
+template <> struct Vec16<2> { using type = unsigned int; };
+template <> struct Vec16<4> { using type = uint2; };
+template <> struct Vec16<8> { using type = uint4; };
+template <int W> struct Vec<__half, W> : Vec16<W> {};
+template <int W> struct Vec<__nv_bfloat16, W> : Vec16<W> {};
 
 // W adjacent elements at p (aligned to W elements) into out / from in
 template <typename T, int W>
@@ -164,8 +202,11 @@ Kernel<T> pick_vw(int vw) {
   if constexpr (KC >= 2) {
     if (vw == 2) return stencil3d_kernel<T, KC, 2>;
   }
-  if constexpr (KC >= 4 && sizeof(T) == 4) {
+  if constexpr (KC >= 4 && sizeof(T) <= 4) {
     if (vw == 4) return stencil3d_kernel<T, KC, 4>;
+  }
+  if constexpr (KC >= 8 && sizeof(T) == 2) {
+    if (vw == 8) return stencil3d_kernel<T, KC, 8>;
   }
   return nullptr;
 }
@@ -223,4 +264,23 @@ extern "C" int stencil3d_f64(const double* X, double* Y, int nx, int ny,
                              int y0, int z0, void* stream) {
   return launch<double>(X, Y, nx, ny, nz, k, ldx, scale, kc, vw, tj, gx, gy,
                         gz, y0, z0, stream);
+}
+
+// The 16-bit entry points take scale as the f32 value of the half it
+// rounds to (the wrapper rounds it), so the conversion here is exact.
+extern "C" int stencil3d_f16(const __half* X, __half* Y, int nx, int ny,
+                             int nz, int k, long long ldx, float scale,
+                             int kc, int vw, int tj, int gx, int gy, int gz,
+                             int y0, int z0, void* stream) {
+  return launch<__half>(X, Y, nx, ny, nz, k, ldx, __float2half_rn(scale), kc,
+                        vw, tj, gx, gy, gz, y0, z0, stream);
+}
+
+extern "C" int stencil3d_bf16(const __nv_bfloat16* X, __nv_bfloat16* Y,
+                              int nx, int ny, int nz, int k, long long ldx,
+                              float scale, int kc, int vw, int tj, int gx,
+                              int gy, int gz, int y0, int z0, void* stream) {
+  return launch<__nv_bfloat16>(X, Y, nx, ny, nz, k, ldx,
+                               __float2bfloat16_rn(scale), kc, vw, tj, gx, gy,
+                               gz, y0, z0, stream);
 }

@@ -1,5 +1,5 @@
-// Sparse product Y = A X for Hopper (sm_90a), in f32, f64, complex64 and
-// complex128, on the warp-sliced ELL layout that
+// Sparse product Y = A X for Hopper (sm_90a), in f32, f64, f16, bf16,
+// complex64 and complex128, on the warp-sliced ELL layout that
 // primme_tpu_torch/ops/windowed_ell.py::compact derives from the
 // windowed-slot ELL packing (and from_csr builds from CSR).
 //
@@ -77,8 +77,30 @@
 // shared memory a block may use, and X (2-4 MB at k=2) stays in the 50 MB
 // L2; the bytes that matter are the matrix's, and the padding slots that
 // were two thirds of them are gone from the layout.
+//
+// The 16-bit entry points (windowed_ell_spmm_f16, _bf16) serve a half
+// ELLOperator on from_csr's layout, the counterpart of the reference's
+// einsum of half vals with the gathered half X (:198-207), which XLA sums
+// in f32 and rounds once to the half type. Here too: each lane's sum is
+// an f32 fma chain over the exact f32 values of its half entries, in
+// slot order, rounded once to the half type when it is stored. The plain
+// version sums the same terms in the same order with a rounded product
+// and sum in f32, so the two differ in f32's last bits and, after the
+// one rounding, by at most one unit in the half's last place. vals and X
+// are 2 bytes an element (cols stay 4): 6 bytes a non-zero against 8 in
+// f32. X rows go in vectors of up to eight halves (16 bytes).
+//
+// The mixed entry points (windowed_ell_spmm_f16_f32, _bf16_f32, _f16_f64,
+// _bf16_f64) serve a half ELLOperator given a wider real block (a half
+// basis hands it f32 blocks), where the reference's einsum promotes to the
+// block's type: the ring and the lanes read the half values (VT), each
+// widened exactly into the fma chain of the block's type (T), so the sum
+// equals the f32 (f64) kernel's on the widened values bit for bit while a
+// non-zero moves 6 bytes, not 8 (12).
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -114,6 +136,46 @@ __device__ __forceinline__ double2 fma_t(double2 a, double2 b, double2 c) {
   c.y = fma(a.x, b.y, c.y);
   c.y = fma(a.y, b.x, c.y);
   return c;
+}
+
+// a half entry's term: its exact f32 values, summed in f32
+__device__ __forceinline__ float fma_t(__half a, __half b, float c) {
+  return fmaf(__half2float(a), __half2float(b), c);
+}
+__device__ __forceinline__ float fma_t(__nv_bfloat16 a, __nv_bfloat16 b,
+                                       float c) {
+  return fmaf(__bfloat162float(a), __bfloat162float(b), c);
+}
+
+// a half value's term in a wider block's sum: its exact value, widened
+__device__ __forceinline__ float fma_t(__half a, float b, float c) {
+  return fmaf(__half2float(a), b, c);
+}
+__device__ __forceinline__ float fma_t(__nv_bfloat16 a, float b, float c) {
+  return fmaf(__bfloat162float(a), b, c);
+}
+__device__ __forceinline__ double fma_t(__half a, double b, double c) {
+  return fma(static_cast<double>(__half2float(a)), b, c);
+}
+__device__ __forceinline__ double fma_t(__nv_bfloat16 a, double b,
+                                        double c) {
+  return fma(static_cast<double>(__bfloat162float(a)), b, c);
+}
+
+// The type a lane sums in: T's own, f32 for a half type
+template <typename T> struct Acc { using type = T; };
+template <> struct Acc<__half> { using type = float; };
+template <> struct Acc<__nv_bfloat16> { using type = float; };
+// a sum as T: one rounding for a half type
+template <typename T>
+__device__ __forceinline__ T to_t(typename Acc<T>::type a) { return a; }
+template <>
+__device__ __forceinline__ __half to_t<__half>(float a) {
+  return __float2half_rn(a);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float a) {
+  return __float2bfloat16_rn(a);
 }
 
 template <typename T> __device__ __forceinline__ T zero() { return T(0); }
@@ -165,25 +227,68 @@ template <> struct Io<double, 2> {
   }
 };
 
+// V halves (V = 2, 4, 8) as one load of 4, 8 or 16 bytes
+template <int V> struct Bits16;
+template <> struct Bits16<2> { using type = unsigned int; };
+template <> struct Bits16<4> { using type = uint2; };
+template <> struct Bits16<8> { using type = uint4; };
+template <typename H, int V> struct IoHalf {
+  using B = typename Bits16<V>::type;
+  static __device__ __forceinline__ void ld(const H* p, H* o) {
+    const B v = __ldg(reinterpret_cast<const B*>(p));
+    const H* e = reinterpret_cast<const H*>(&v);
+#pragma unroll
+    for (int q = 0; q < V; ++q) o[q] = e[q];
+  }
+};
+template <int V> struct Io<__half, V> : IoHalf<__half, V> {};
+template <int V> struct Io<__nv_bfloat16, V> : IoHalf<__nv_bfloat16, V> {};
+
+// one element of T through the read-only path
+template <typename T>
+__device__ __forceinline__ T ldg1(const T* p) {
+  return __ldg(p);
+}
+template <>
+__device__ __forceinline__ __half ldg1(const __half* p) {
+  return __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 ldg1(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
 // KC columns of one X row (kc of them real when V == 1; V > 1 means
 // kc == KC and aligned rows).
 template <typename T, int KC, int V>
 __device__ __forceinline__ void load_row(const T* p, int kc, T* o) {
   if constexpr (V == 1) {
 #pragma unroll
-    for (int q = 0; q < KC; ++q) o[q] = q < kc ? __ldg(p + q) : zero<T>();
+    for (int q = 0; q < KC; ++q) o[q] = q < kc ? ldg1(p + q) : zero<T>();
   } else {
 #pragma unroll
     for (int q = 0; q < KC; q += V) Io<T, V>::ld(p + q, o + q);
   }
 }
 
+// the row's sums as T (one rounding for a half type); V > 1: whole
+// aligned vectors
 template <typename T, int KC, int V>
-__device__ __forceinline__ void store_row(T* p, int kc, const T* v) {
+__device__ __forceinline__ void store_row(T* p, int kc,
+                                          const typename Acc<T>::type* a) {
+  T v[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) v[q] = to_t<T>(a[q]);
   if constexpr (V == 1) {
 #pragma unroll
     for (int q = 0; q < KC; ++q)
       if (q < kc) p[q] = v[q];
+  } else if constexpr (sizeof(T) == 2) {
+    using B = typename Bits16<V>::type;
+#pragma unroll
+    for (int q = 0; q < KC; q += V)
+      *reinterpret_cast<B*>(p + q) = *reinterpret_cast<const B*>(v + q);
   } else {
 #pragma unroll
     for (int q = 0; q < KC; q += V) Io<T, V>::st(p + q, v + q);
@@ -200,12 +305,14 @@ struct Plain {
 };
 
 // U entries at once: their cols/vals first, then U independent gathers of
-// X, then the fmas in slot order.
-template <typename T, int KC, int V, int U, typename Ld>
-__device__ __forceinline__ void step(const int* c, const T* v, const T* X,
-                                     long k, int kc, T* acc) {
+// X, then the fmas in slot order. Values are stored as VT (T, or a half
+// type under a wider block).
+template <typename T, int KC, int V, int U, typename Ld, typename VT>
+__device__ __forceinline__ void step(const int* c, const VT* v, const T* X,
+                                     long k, int kc,
+                                     typename Acc<T>::type* acc) {
   int cc[U];
-  T vv[U];
+  VT vv[U];
   T xx[U][KC];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -225,31 +332,33 @@ __device__ __forceinline__ void step(const int* c, const T* v, const T* X,
 // in steps of U / 2, U / 4, ..., 1, so that a remainder of r entries
 // takes at most log2(U) + 1 rounds of gathers, not r (a step of U held
 // for every remainder would hold its registers and cost occupancy).
-template <typename T, int KC, int V, int U, typename Ld>
-__device__ __forceinline__ void tail(const int* c, const T* v, int r,
-                                     const T* X, long k, int kc, T* acc) {
+template <typename T, int KC, int V, int U, typename Ld, typename VT>
+__device__ __forceinline__ void tail(const int* c, const VT* v, int r,
+                                     const T* X, long k, int kc,
+                                     typename Acc<T>::type* acc) {
   if (r >= U) {
-    step<T, KC, V, U, Ld>(c, v, X, k, kc, acc);
+    step<T, KC, V, U, Ld, VT>(c, v, X, k, kc, acc);
     c += U * kSlice;
     v += U * kSlice;
     r -= U;
   }
-  if constexpr (U > 1) tail<T, KC, V, U / 2, Ld>(c, v, r, X, k, kc, acc);
+  if constexpr (U > 1)
+    tail<T, KC, V, U / 2, Ld, VT>(c, v, r, X, k, kc, acc);
 }
 
 // Adds cnt entries of this lane's row to acc; c and v point at the
 // lane's first entry, the next one kSlice further (slot-major).
-template <typename T, int KC, int V, typename Ld = Plain>
-__device__ __forceinline__ void accumulate(const int* c, const T* v, int cnt,
+template <typename T, int KC, int V, typename Ld = Plain, typename VT = T>
+__device__ __forceinline__ void accumulate(const int* c, const VT* v, int cnt,
                                            const T* X, long k, int kc,
-                                           T* acc) {
+                                           typename Acc<T>::type* acc) {
   constexpr int U = KC <= 2 ? 8 : (KC == 4 ? 4 : 2);   // gathers in flight
   int j = 0;
   for (; j + U <= cnt; j += U)
-    step<T, KC, V, U, Ld>(c + j * kSlice, v + j * kSlice, X, k, kc, acc);
+    step<T, KC, V, U, Ld, VT>(c + j * kSlice, v + j * kSlice, X, k, kc, acc);
   if (j < cnt)
-    tail<T, KC, V, U / 2, Ld>(c + j * kSlice, v + j * kSlice, cnt - j, X, k,
-                              kc, acc);
+    tail<T, KC, V, U / 2, Ld, VT>(c + j * kSlice, v + j * kSlice, cnt - j, X,
+                                  k, kc, acc);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -313,14 +422,14 @@ __device__ __forceinline__ int slice_width(const long long* slice_ptr, int i,
   return i < nslices ? int((slice_ptr[i + 1] - slice_ptr[i]) / kSlice) : 0;
 }
 
-template <typename T, int KC, int V>
+template <typename T, int KC, int V, typename VT = T>
 __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
 sliced_ell_spmm(const long long* __restrict__ slice_ptr,
                 const int* __restrict__ rowlen, const int* __restrict__ cols,
-                const T* __restrict__ vals, const T* __restrict__ X,
+                const VT* __restrict__ vals, const T* __restrict__ X,
                 T* __restrict__ Y, int n, int k, int kc, int ngroups) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using R = Ring<T>;
+  using R = Ring<VT>;
   constexpr int kChunk = R::kChunkT;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * R::kStageBytes);
   uint64_t* empty = full + kStages;
@@ -361,7 +470,7 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
 #pragma unroll
         for (int w = 0; w < kWarps; ++w)
           bytes += uint32_t(max(0, min(kChunk, wd[w] - j0))) * kSlice *
-                   (4 + sizeof(T));
+                   (4 + sizeof(VT));
         mbar_expect_tx(&full[stage], bytes);
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) {
@@ -371,7 +480,8 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
           bulk_load(R::cols(smem, stage, w), cols + e,
                     uint32_t(cnt) * kSlice * 4, &full[stage], policy);
           bulk_load(R::vals(smem, stage, w), vals + e,
-                    uint32_t(cnt) * kSlice * sizeof(T), &full[stage], policy);
+                    uint32_t(cnt) * kSlice * sizeof(VT), &full[stage],
+                    policy);
         }
         if (++stage == kStages) { stage = 0; parity ^= 1; }
       }
@@ -389,14 +499,14 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
     const int wl = lane < kWarps ? slice_width(slice_ptr, g * kWarps + lane,
                                                nslices) : 0;
     const int wmax = __reduce_max_sync(0xffffffffu, wl);
-    T acc[KC];
+    typename Acc<T>::type acc[KC];
 #pragma unroll
-    for (int q = 0; q < KC; ++q) acc[q] = zero<T>();
+    for (int q = 0; q < KC; ++q) acc[q] = zero<typename Acc<T>::type>();
     for (int j0 = 0; j0 < wmax; j0 += kChunk) {
       mbar_wait(&full[stage], parity);
-      accumulate<T, KC, V>(R::cols(smem, stage, warp) + lane,
-                           R::vals(smem, stage, warp) + lane,
-                           min(kChunk, len - j0), X, k, kc, acc);
+      accumulate<T, KC, V, Plain, VT>(R::cols(smem, stage, warp) + lane,
+                                      R::vals(smem, stage, warp) + lane,
+                                      min(kChunk, len - j0), X, k, kc, acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);
       if (++stage == kStages) { stage = 0; parity ^= 1; }
@@ -407,36 +517,37 @@ sliced_ell_spmm(const long long* __restrict__ slice_ptr,
 
 // The direct path: warp `w` of block b sums slice b * kDirectWarps + w,
 // each lane its row, reading cols/vals from device memory through Ld.
-template <typename T, int KC, int V, typename Ld = Plain>
+template <typename T, int KC, int V, typename Ld = Plain, typename VT = T>
 __global__ void __launch_bounds__(kDirectWarps * 32)
 sliced_ell_direct(const long long* __restrict__ slice_ptr,
                   const int* __restrict__ rowlen, const int* __restrict__ cols,
-                  const T* __restrict__ vals, const T* __restrict__ X,
+                  const VT* __restrict__ vals, const T* __restrict__ X,
                   T* __restrict__ Y, int n, int k, int kc) {
   const int i = blockIdx.x * kDirectWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row = i * kSlice + lane;
   if (row >= n) return;
   const long long e = slice_ptr[i] + lane;
-  T acc[KC];
+  typename Acc<T>::type acc[KC];
 #pragma unroll
-  for (int q = 0; q < KC; ++q) acc[q] = zero<T>();
-  accumulate<T, KC, V, Ld>(cols + e, vals + e, rowlen[row], X, k, kc, acc);
+  for (int q = 0; q < KC; ++q) acc[q] = zero<typename Acc<T>::type>();
+  accumulate<T, KC, V, Ld, VT>(cols + e, vals + e, rowlen[row], X, k, kc,
+                               acc);
   store_row<T, KC, V>(Y + (long)row * k, kc, acc);
 }
 
-template <typename T, int KC, int V>
+template <typename T, int KC, int V, typename VT>
 cudaError_t launch(const long long* slice_ptr, const int* rowlen,
-                   const int* cols, const T* vals, const T* X, T* Y, int n,
+                   const int* cols, const VT* vals, const T* X, T* Y, int n,
                    int k, int kc, bool direct, cudaStream_t st) {
   if (direct) {
     const int nslices = (n + kSlice - 1) / kSlice;
-    sliced_ell_direct<T, KC, V>
+    sliced_ell_direct<T, KC, V, Plain, VT>
         <<<(nslices + kDirectWarps - 1) / kDirectWarps, kDirectWarps * 32, 0,
            st>>>(slice_ptr, rowlen, cols, vals, X, Y, n, k, kc);
     return cudaGetLastError();
   }
-  auto kern = sliced_ell_spmm<T, KC, V>;
+  auto kern = sliced_ell_spmm<T, KC, V, VT>;
   constexpr int kThreads = (kWarps + 1) * 32;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -448,10 +559,10 @@ cudaError_t launch(const long long* slice_ptr, const int* rowlen,
   int per_sm = dev < kMaxDevices ? cached[dev] : 0;
   if (per_sm == 0) {
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<T>::kBytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<VT>::kBytes);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, kThreads, Ring<T>::kBytes);
+        &per_sm, kern, kThreads, Ring<VT>::kBytes);
     if (err != cudaSuccess) return err;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
     if (dev < kMaxDevices) cached[dev] = per_sm;
@@ -459,7 +570,7 @@ cudaError_t launch(const long long* slice_ptr, const int* rowlen,
   const int nslices = (n + kSlice - 1) / kSlice;
   const int ngroups = (nslices + kWarps - 1) / kWarps;
   const int grid = ngroups < sms * per_sm ? ngroups : sms * per_sm;
-  kern<<<grid, kThreads, Ring<T>::kBytes, st>>>(
+  kern<<<grid, kThreads, Ring<VT>::kBytes, st>>>(
       slice_ptr, rowlen, cols, vals, X, Y, n, k, kc, ngroups);
   return cudaGetLastError();
 }
@@ -467,13 +578,14 @@ cudaError_t launch(const long long* slice_ptr, const int* rowlen,
 // One launch per chunk of up to kMaxKC columns, on the direct path or the
 // ring; vector gathers (V > 1) where the chunk is whole and every row of X
 // and Y is V-aligned (none for complex128, whose one column is 16 bytes).
-template <typename T>
+template <typename T, typename VT = T>
 int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
-         const T* vals, const T* X, T* Y, int n, int k, int direct,
+         const VT* vals, const T* X, T* Y, int n, int k, int direct,
          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int kVec = 16 / sizeof(T);    // elements in 16 bytes
   constexpr int kV2 = kVec < 2 ? kVec : 2;
+  constexpr int kV4 = kVec < 4 ? kVec : 4;
   const bool d = direct != 0;
   for (int j0 = 0; j0 < k; j0 += kMaxKC) {
     const int kc = k - j0 < kMaxKC ? k - j0 : kMaxKC;
@@ -486,23 +598,23 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
                      reinterpret_cast<uintptr_t>(Yc) % (v * sizeof(T)) == 0;
     cudaError_t err;
     if (kc == 1)
-      err = launch<T, 1, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k, kc,
-                            d, st);
+      err = launch<T, 1, 1, VT>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
+                                kc, d, st);
     else if (kc == 2)
-      err = vec ? launch<T, 2, kV2>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                    k, kc, d, st)
-                : launch<T, 2, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, d, st);
+      err = vec ? launch<T, 2, kV2, VT>(slice_ptr, rowlen, cols, vals, Xc,
+                                        Yc, n, k, kc, d, st)
+                : launch<T, 2, 1, VT>(slice_ptr, rowlen, cols, vals, Xc, Yc,
+                                      n, k, kc, d, st);
     else if (kc <= 4)
-      err = vec ? launch<T, 4, kVec>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                     k, kc, d, st)
-                : launch<T, 4, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, d, st);
+      err = vec ? launch<T, 4, kV4, VT>(slice_ptr, rowlen, cols, vals, Xc,
+                                        Yc, n, k, kc, d, st)
+                : launch<T, 4, 1, VT>(slice_ptr, rowlen, cols, vals, Xc, Yc,
+                                      n, k, kc, d, st);
     else
-      err = vec ? launch<T, 8, kVec>(slice_ptr, rowlen, cols, vals, Xc, Yc, n,
-                                     k, kc, d, st)
-                : launch<T, 8, 1>(slice_ptr, rowlen, cols, vals, Xc, Yc, n, k,
-                                  kc, d, st);
+      err = vec ? launch<T, 8, kVec, VT>(slice_ptr, rowlen, cols, vals, Xc,
+                                         Yc, n, k, kc, d, st)
+                : launch<T, 8, 1, VT>(slice_ptr, rowlen, cols, vals, Xc, Yc,
+                                      n, k, kc, d, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -511,9 +623,10 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
 }  // namespace
 
 // X and Y are row-major [n, k] in the type of vals (complex: interleaved
-// (re, im) pairs); `direct` nonzero runs the direct path, 0 the ring. Each
-// entry point returns the first CUDA error of its launches as an int (0:
-// none).
+// (re, im) pairs; the mixed entry points, <half>_<block>: half vals, X and
+// Y in the block's type); `direct` nonzero runs the direct path, 0 the
+// ring. Each entry point returns the first CUDA error of its launches as
+// an int (0: none).
 #define SPMM_ENTRY(T, SUFFIX)                                                \
   extern "C" int windowed_ell_spmm_##SUFFIX(                                 \
       const long long* slice_ptr, const int* rowlen, const int* cols,        \
@@ -525,5 +638,22 @@ int spmm(const long long* slice_ptr, const int* rowlen, const int* cols,
 
 SPMM_ENTRY(float, f32)
 SPMM_ENTRY(double, f64)
+SPMM_ENTRY(__half, f16)
+SPMM_ENTRY(__nv_bfloat16, bf16)
 SPMM_ENTRY(float2, c64)
 SPMM_ENTRY(double2, c128)
+
+#define SPMM_MIXED(VT, T, SUFFIX)                                            \
+  extern "C" int windowed_ell_spmm_##SUFFIX(                                 \
+      const long long* slice_ptr, const int* rowlen, const int* cols,        \
+      const VT* vals, const T* X, T* Y, int n, int k, int direct,            \
+      void* stream) {                                                        \
+    return spmm<T, VT>(slice_ptr, rowlen, cols, vals, X, Y, n, k, direct,    \
+                       stream);                                              \
+  }
+
+SPMM_MIXED(__half, float, f16_f32)
+SPMM_MIXED(__nv_bfloat16, float, bf16_f32)
+SPMM_MIXED(__half, double, f16_f64)
+SPMM_MIXED(__nv_bfloat16, double, bf16_f64)
+#undef SPMM_MIXED

@@ -434,18 +434,33 @@ class GatheredOperator(LinearOperator):
                                 diag=comm.rows(A.diagonal()))
 
 
+def refuse_half(dtype: torch.dtype) -> None:
+    """Raises for a half operator (f16, bf16) under a mesh: its sharded
+    paths are not yet held to the JAX package's sharded run of a half
+    operator (ROADMAP F5)."""
+    if dtype in (torch.float16, torch.bfloat16):
+        raise NotImplementedError(
+            f"a {dtype} operator under mesh= is not served by "
+            "primme_tpu_torch yet: its sharded paths are not held to the "
+            "JAX package's sharded half run (ROADMAP F5); run it unsharded "
+            "or pass an f32 operator")
+
+
 def shard_operator(op: LinearOperator, comm: RowComm) -> LinearOperator:
     """``op`` (on the solve's device) as an operator on this rank's rows:
     the stencil split over x-planes when ``nx`` divides by the ranks, the
     banded layout with its halo when every rank holds at least ``max
     |offset|`` rows, the Jacobi and diagonal operators on their rows, a
     :class:`HaloELLOperator` as it is, a cast around the sharded operator,
-    and anything else through :class:`GatheredOperator`."""
+    and anything else through :class:`GatheredOperator`. A half operator
+    (not a half basis's cast around another) is refused
+    (:func:`refuse_half`)."""
     if isinstance(op, (HaloELLOperator, ShardedStencil3D, ShardedBanded,
                        GatheredOperator)):
         return op
     if isinstance(op, CastOperator):
         return CastOperator(shard_operator(op.op, comm), op.dtype)
+    refuse_half(op.dtype)
     if isinstance(op, Stencil3DOperator) and op.nx % comm.size == 0:
         return ShardedStencil3D(op, comm)
     if isinstance(op, JacobiPrecond):

@@ -28,12 +28,23 @@ Operators and their products:
 * :class:`ChebyshevPrecond`, a polynomial preconditioner over any of
   them (``degree - 1`` products a block).
 
-The sparse formats hold f32, f64, complex64 or complex128 values (the
-windowed-slot ELL layout real ones only, as the reference's chooser
-decides); other types raise ``NotImplementedError`` naming the format. A
-real operator applied to a complex block multiplies both its parts: the
-block goes through the real product as the ``[n, 2k]`` real block of its
-real and imaginary parts (:func:`_on_parts`), one launch for both.
+The sparse formats hold f32, f64, f16, bf16, complex64 or complex128
+values (the windowed-slot ELL layout f32 and f64 only, as the reference's
+chooser decides); other types raise ``NotImplementedError`` naming the
+format. A half operator (f16, bf16) runs its kernel's half entry point on
+a half block: under an f32 solve :class:`CastOperator` casts the blocks to
+it (the reference's ``internalPrecision`` boundary). Given a wider real
+block (a half basis hands it f32 blocks) it computes as the reference's
+products promote (:func:`_compute_dtype`): the stencil casts the block to
+its type; Jacobi, DIA and the sliced ELL run their kernels' mixed entry
+points, which read the half values and compute in the block's type; the
+plain-PyTorch formats cast their half values once and keep the cast
+(:func:`_promoted`). A real operator applied
+to a complex block multiplies both its parts: the block goes through the
+real product as the ``[n, 2k]`` real block of its real and imaginary parts
+(:func:`_on_parts`), one launch for both; a half operator takes no complex
+block (there is no complex half type, and the reference's cast drops the
+imaginary part: ROADMAP Queue C6).
 """
 
 from __future__ import annotations
@@ -115,6 +126,15 @@ def _as_tensor(a) -> torch.Tensor:
 
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+_HALF = (torch.float16, torch.bfloat16)
+
+
+def _no_complex_half(dtype: torch.dtype, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on a {dtype} operator is not served by primme_tpu_torch: "
+        "there is no complex half type, and the JAX package's cast of the "
+        "block to the operator's type drops its imaginary part (ROADMAP "
+        "Queue C6)")
 
 
 def _on_parts(product: Callable, X: torch.Tensor,
@@ -128,12 +148,45 @@ def _on_parts(product: Callable, X: torch.Tensor,
     promote so (``jnp`` einsums and shifts of a complex block)."""
     if not X.is_complex() or dtype.is_complex:
         return product(X)
+    if dtype in _HALF:
+        raise _no_complex_half(dtype, "a complex block")
     Xc = X.to(_COMPLEX[dtype]).resolve_conj()
     n, k = Xc.shape
     if k > 1 and Xc.stride(1) != 1:
         Xc = Xc.contiguous()
     Y = product(torch.view_as_real(Xc).reshape(n, 2 * k))
     return torch.view_as_complex(Y.contiguous().reshape(Y.shape[0], k, 2))
+
+
+def _compute_dtype(op_dtype: torch.dtype, *blocks: torch.Tensor
+                   ) -> torch.dtype:
+    """The type a product of an operator of type ``op_dtype`` computes in:
+    its own, except that a half operator given wider real blocks (a half
+    basis hands it f32 ones) computes in their promoted type from its half
+    values, as the reference's ``jnp`` products promote (its stencil alone
+    casts the block to its type). The kernels take the half values as they
+    are (their mixed entry points); nothing is cast a product."""
+    out = op_dtype
+    if op_dtype in _HALF:
+        for b in blocks:
+            if not b.is_complex():
+                out = torch.promote_types(out, b.dtype)
+    return out
+
+
+def _promoted(module: nn.Module, name: str, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """Buffer ``name`` of ``module`` in ``dtype``, cast once and kept while
+    the buffer is the same tensor (a ``.to(device)`` replaces it): the
+    plain-PyTorch half formats' values under a wider block."""
+    t = getattr(module, name)
+    if t.dtype == dtype:
+        return t
+    cache = module.__dict__.setdefault("_promoted_cache", {})
+    hit = cache.get((name, dtype))
+    if hit is None or hit[0] is not t:
+        hit = cache[(name, dtype)] = (t, t.to(dtype))
+    return hit[1]
 
 
 def _kernel_block(X: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -162,12 +215,18 @@ class DenseOperator(LinearOperator):
     def dtype(self) -> torch.dtype:
         return self.A.dtype
 
+    def _product(self, X, adjoint):
+        cdt = _compute_dtype(self.dtype, X)
+        A = _promoted(self, "A", cdt)               # cast once, if at all
+        if adjoint:
+            A = A.mH
+        return _on_parts(lambda Z: A @ Z.to(cdt), X, cdt)
+
     def matmat(self, X):
-        return _on_parts(lambda Z: self.A @ Z.to(self.dtype), X, self.dtype)
+        return self._product(X, False)
 
     def rmatmat(self, X):
-        return _on_parts(lambda Z: self.A.mH @ Z.to(self.dtype), X,
-                         self.dtype)
+        return self._product(X, True)
 
     def diagonal(self):
         return torch.diagonal(self.A)
@@ -204,8 +263,11 @@ class Stencil3DOperator(LinearOperator):
     scaled by ``scale``: ``bench.py``'s headline operator. Rows are grid
     points in the reference's order, row ``(i*ny + j)*nz + l``. ``matmat``
     runs the hand-written kernel of ``csrc/stencil3d.cu`` on the card (the
-    plain version on the CPU) in the operator's dtype and returns that
-    dtype, as the reference does; ``rmatmat`` is the same product.
+    plain version on the CPU) in the operator's dtype (f32, f64, f16 or
+    bf16; a complex64 or complex128 one on its real type's kernel, both
+    parts of the block at once, the stencil's coefficients being real) and
+    returns that dtype, as the reference does; ``rmatmat`` is the same
+    product.
 
     The operator holds no array, so it states its device with an empty
     buffer: None means the card, and raises when there is none;
@@ -217,20 +279,21 @@ class Stencil3DOperator(LinearOperator):
         super().__init__()
         self.nx, self.ny, self.nz = int(nx), int(ny), int(nz)
         self.scale = float(scale)
-        self.dtype = dtype
-        if self.dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(f"a stencil of dtype {self.dtype} "
-                                      "(f32 and f64 only)")
+        self.dtype = _value_dtype(dtype, "Stencil3DOperator")
         n = self.nx * self.ny * self.nz
         self.shape = (n, n)
         self.register_buffer("_anchor", torch.empty(
-            0, dtype=dtype, device=default_device(device, "Stencil3DOperator")),
+            0, dtype=self.dtype,
+            device=default_device(device, "Stencil3DOperator")),
             persistent=False)
 
     def matmat(self, X):
+        kdt = real_dtype(self.dtype)
+        if self.dtype.is_complex:
+            X = X.to(self.dtype)
         return _on_parts(
-            lambda Z: ST.matmat(_kernel_block(Z, self.dtype), self.nx,
-                                self.ny, self.nz, self.scale), X, self.dtype)
+            lambda Z: ST.matmat(_kernel_block(Z, kdt), self.nx, self.ny,
+                                self.nz, self.scale), X, kdt)
 
     def diagonal(self):
         return torch.full((self.shape[0],), 6.0 * self.scale,
@@ -239,13 +302,18 @@ class Stencil3DOperator(LinearOperator):
 
 class JacobiPrecond(LinearOperator):
     """Shift-aware Jacobi preconditioner, ``X -> X / (diag(A) - sigma)``
-    (the reference's ``JacobiPrecond``). ``matmat`` applies
+    (the reference's ``JacobiPrecond``), in the diagonal's type (a half
+    one on a half block, the shifts rounded to it as :class:`CastOperator`
+    hands them over; given a wider real block and shifts, as a half basis
+    does, in the block's type from the half diagonal, the kernel's mixed
+    entry points). ``matmat`` applies
     ``safe_inv(d) * X``, ``matmat_shifted`` divides column ``j`` by
     ``d - shifts[j]`` (or is ``matmat`` when ``use_shifts`` is False); a
     denominator under ``eps`` in magnitude becomes ``eps``. Both run the
     hand-written kernel of ``csrc/jacobi.cu`` on the card (the plain
     version on the CPU), each rounding as the reference writes it. The
-    diagonal is real (f32, f64) or complex (complex64, complex128, e.g. a
+    diagonal is real (f32, f64, f16, bf16) or complex (complex64,
+    complex128, e.g. a
     complex Hermitian matrix's, real in value); a real diagonal given
     complex shifts (the Ritz values of ``eigs``) divides by the complex
     ``d - shifts[j]``, as the reference promotes them."""
@@ -268,9 +336,12 @@ class JacobiPrecond(LinearOperator):
         if self.dtype.is_complex:
             return JK.unshifted(_kernel_block(X, self.dtype), self.d,
                                 self.eps)
+        # a half d under a wider block: the mixed entry point (the
+        # reference's safe_inv(d) in the half type, times X in X's type)
+        cdt = _compute_dtype(self.dtype, X)
         return _on_parts(
-            lambda Z: JK.unshifted(_kernel_block(Z, self.dtype), self.d,
-                                   self.eps), X, self.dtype)
+            lambda Z: JK.unshifted(_kernel_block(Z, cdt), self.d, self.eps),
+            X, cdt)
 
     def matmat_shifted(self, X, shifts):
         """Apply with per-column shifts: ``X[:, j] / (d - shifts[j])``. A
@@ -279,17 +350,20 @@ class JacobiPrecond(LinearOperator):
         where they are complex."""
         if not self.use_shifts:
             return self.matmat(X)
+        if self.dtype in _HALF and shifts.is_complex():
+            raise _no_complex_half(self.dtype, "complex shifts")
         if self.dtype.is_complex or shifts.is_complex():
             cdt = _COMPLEX.get(self.dtype, self.dtype)
             return JK.shifted(_kernel_block(X, cdt), self.d.to(cdt),
                               shifts.to(device=self.d.device, dtype=cdt),
                               self.eps)
-        sh = shifts.to(device=self.d.device, dtype=self.dtype)
+        cdt = _compute_dtype(self.dtype, X, shifts)
+        sh = shifts.to(device=self.d.device, dtype=cdt)
         if X.is_complex():
             sh = sh.repeat_interleave(2)
         return _on_parts(
-            lambda Z: JK.shifted(_kernel_block(Z, self.dtype), self.d, sh,
-                                 self.eps), X, self.dtype)
+            lambda Z: JK.shifted(_kernel_block(Z, cdt), self.d, sh, self.eps),
+            X, cdt)
 
 
 class WindowedELLOperator(LinearOperator):
@@ -359,8 +433,9 @@ class CastOperator(LinearOperator):
             raise NotImplementedError(
                 f"a working dtype of {dtype} over an operator of dtype "
                 f"{op.dtype} is not served by primme_tpu_torch (the real and "
-                "the complex types do not mix at the operator boundary; see "
-                "ROADMAP.md)")
+                "the complex types do not mix at the operator boundary: the "
+                "JAX package's cast drops the imaginary part, ROADMAP Queue "
+                "C6)")
         self.op = op
         self.dtype = dtype
         self.shape = op.shape
@@ -392,14 +467,16 @@ class ChebyshevPrecond(LinearOperator):
     recurrence (Saad, alg. 12.1) as a host loop of ``degree - 1`` steps,
     each one block product with ``A``: on the card, ``A``'s own kernel.
     The recurrence's scalars are computed on the host in the operator's
-    real precision, as the reference computes them."""
+    real precision (a half one too), as the reference computes them."""
 
     def __init__(self, A, interval, degree: int = 10, sigma: float = 0.0):
         super().__init__()
         self.A = A if isinstance(A, LinearOperator) else aslinearoperator(A)
-        rdt = np.dtype(str(real_dtype(self.A.dtype)).replace("torch.", ""))
+        rdt = real_dtype(self.A.dtype)
         a, b = interval
-        self._r = rdt.type          # host scalars in the real precision
+        # host scalars in the real precision, each operation rounded to it
+        # (0-d CPU tensors: numpy holds no bf16)
+        self._r = lambda v: torch.tensor(v, dtype=rdt)
         self.a, self.b, self.sigma = (self._r(v) for v in (a, b, sigma))
         self.degree = int(degree)
         self.shape = self.A.shape
@@ -463,16 +540,26 @@ def apply_precond(K: Optional[LinearOperator], X: torch.Tensor,
         return K.matmat(X)
 
 
-def _value_dtype(dtype, fmt: str) -> np.dtype:
-    """The numpy type a sparse format stores, from a numpy or torch dtype:
-    f32, f64, complex64 or complex128 as given; other types are not
-    served."""
+_SERVED = (torch.float32, torch.float64, *_HALF, torch.complex64,
+           torch.complex128)
+
+
+def _value_dtype(dtype, fmt: str) -> torch.dtype:
+    """The torch type an operator stores, from a numpy, torch or named
+    dtype: f32, f64, f16, bf16, complex64 or complex128 as given; other
+    types are not served."""
     name = str(dtype).replace("torch.", "")
-    if name not in ("float32", "float64", "complex64", "complex128"):
+    served = getattr(torch, name, None)
+    if served not in _SERVED:
         raise NotImplementedError(
             f"a {fmt} of dtype {name} is not ported to primme_tpu_torch "
-            "(f32, f64, complex64 and complex128 only)")
-    return np.dtype(name)
+            "(f32, f64, f16, bf16, complex64 and complex128 only)")
+    return served
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type of a torch dtype that numpy holds (not bf16)."""
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 def _result_dtype(op_dtype: torch.dtype, X: torch.Tensor) -> torch.dtype:
@@ -486,8 +573,10 @@ class BandedOperator(LinearOperator):
     ``vals[b, i] = A[i, i + offsets[b]]``. ``matmat`` and ``rmatmat`` run
     the hand-written kernel of ``csrc/dia.cu`` on the card and its plain
     version (the reference's loop) on the CPU, in the operator's type
-    (f32, f64, complex64 or complex128); ``rmatmat`` is ``A^H``, the
-    kernel conjugating the values."""
+    (f32, f64, f16, bf16, complex64 or complex128; a half operator given a
+    wider real block in the block's type, its mixed entry points reading
+    the half values); ``rmatmat`` is ``A^H``, the kernel conjugating the
+    values."""
 
     def __init__(self, offsets, vals, shape=None):
         super().__init__()
@@ -509,9 +598,10 @@ class BandedOperator(LinearOperator):
         return self.vals.dtype
 
     def _product(self, X, adjoint):
+        cdt = _compute_dtype(self.dtype, X)
         Y = _on_parts(lambda Z: DK.matmat(self.vals, self.offs,
-                                          _kernel_block(Z, self.dtype),
-                                          adjoint=adjoint), X, self.dtype)
+                                          _kernel_block(Z, cdt),
+                                          adjoint=adjoint), X, cdt)
         return Y.to(_result_dtype(self.dtype, X))
 
     def matmat(self, X):
@@ -556,7 +646,10 @@ class ELLOperator(LinearOperator):
     (``ops/windowed_ell.py::SlicedELL``, built straight from CSR by
     ``from_csr``): ``matmat`` runs the hand-written kernel of
     ``csrc/windowed_ell.cu`` on the card and its plain version on the CPU,
-    in the operator's f32, f64, complex64 or complex128. ``from_scipy``
+    in the operator's f32, f64, f16, bf16, complex64 or complex128 (a half
+    operator comes from :meth:`from_coo` or its layouts: scipy holds no
+    half sparse matrix; its product sums in f32 and rounds once to the
+    half type, as the reference's einsum). ``from_scipy``
     also lays out ``A^H`` (the reference's ``colsT``/``valsT``; its values
     conjugated when they are laid out, where the reference conjugates
     ``valsT`` at each apply), so ``rmatmat`` runs the same kernel, and
@@ -582,8 +675,9 @@ class ELLOperator(LinearOperator):
 
     def _product(self, suffix, X, ncols):
         arrays = [getattr(self, name + suffix) for name in self._FIELDS]
+        cdt = _compute_dtype(self.dtype, X)
         Y = _on_parts(lambda Z: WE.matmat(
-            *arrays, Z.to(self.dtype).contiguous(), ncols), X, self.dtype)
+            *arrays, Z.to(cdt).contiguous(), ncols), X, cdt)
         return Y.to(_result_dtype(self.dtype, X))
 
     def matmat(self, X):
@@ -602,6 +696,13 @@ class ELLOperator(LinearOperator):
         import scipy.sparse as sp
 
         dt = _value_dtype(A.dtype, "ELLOperator")
+        if dt in _HALF:
+            raise NotImplementedError(
+                f"an ELLOperator of dtype {dt} from a scipy matrix: scipy "
+                "holds no half sparse matrix (nor does the JAX package's "
+                "from_scipy build one); ELLOperator.from_coo takes half "
+                "values")
+        dt = _numpy_dtype(dt)
         A = sp.csr_matrix(A)
         diag = np.zeros(A.shape[0], dt)
         d = A.diagonal()
@@ -613,13 +714,27 @@ class ELLOperator(LinearOperator):
     def from_coo(rows, cols, vals, shape) -> "ELLOperator":
         """Build from COO triplets (``rows``, ``cols``, ``vals``; repeated
         entries summed) of an ``m x n`` matrix, through
-        :meth:`from_scipy`: on the CPU until ``.to(device)``."""
+        :meth:`from_scipy`: on the CPU until ``.to(device)``. Half values
+        (a numpy f16 array, or a torch f16 or bf16 tensor) give a half
+        operator: the layouts are built from their exact f32 values (a
+        repeated entry summed in f32) and hold the half type."""
         import scipy.sparse as sp
 
-        return ELLOperator.from_scipy(
-            sp.coo_matrix((np.asarray(vals), (np.asarray(rows),
-                                              np.asarray(cols))),
+        half = None
+        if isinstance(vals, torch.Tensor):
+            half = vals.dtype if vals.dtype in _HALF else None
+            vals = vals.detach().cpu()
+            vals = (vals.float() if half else vals).numpy()
+        vals = np.asarray(vals)
+        if vals.dtype == np.float16:
+            half, vals = torch.float16, vals.astype(np.float32)
+        op = ELLOperator.from_scipy(
+            sp.coo_matrix((vals, (np.asarray(rows), np.asarray(cols))),
                           shape=tuple(shape)))
+        if half is not None:
+            for name in ("vals", "vals_t", "diag"):
+                setattr(op, name, getattr(op, name).to(half))
+        return op
 
 
 class BlockELLOperator(LinearOperator):
@@ -658,17 +773,23 @@ class BlockELLOperator(LinearOperator):
         Y = torch.einsum("iwab,iwbk->iak", bvals, G)      # batched blocks
         return Y.reshape(nb * b, k)[:nrows]
 
-    def matmat(self, X):
+    def _blocks(self, bcols, vals_name, X, nrows, conj=False):
+        cdt = _compute_dtype(self.dtype, X)
+        bvals = _promoted(self, vals_name, cdt)     # cast once, if at all
+        if conj:
+            bvals = bvals.conj()
         return _on_parts(lambda Z: self._product(
-            self.bcols, self.bvals, Z.to(self.dtype), self.shape[0]),
-            X, self.dtype).to(_result_dtype(self.dtype, X))
+            bcols, bvals, Z.to(cdt), nrows), X, cdt).to(
+            _result_dtype(self.dtype, X))
+
+    def matmat(self, X):
+        return self._blocks(self.bcols, "bvals", X, self.shape[0])
 
     def rmatmat(self, X):
         if self.bcolsT is None:
             return super().rmatmat(X)
-        return _on_parts(lambda Z: self._product(
-            self.bcolsT, self.bvalsT.conj(), Z.to(self.dtype),
-            self.shape[1]), X, self.dtype).to(_result_dtype(self.dtype, X))
+        return self._blocks(self.bcolsT, "bvalsT", X, self.shape[1],
+                            conj=True)
 
     def diagonal(self):
         nb, w, b, _ = self.bvals.shape
@@ -825,10 +946,10 @@ def aslinearoperator(A: Any) -> LinearOperator:
             return DenseOperator(A.toarray())
         return ELLOperator.from_scipy(A)
     if isinstance(A, spla.LinearOperator):
-        dt = _value_dtype(A.dtype, "FunctionOperator")
+        tdt = _value_dtype(A.dtype, "FunctionOperator")
+        dt = _numpy_dtype(tdt)
         return FunctionOperator(_on_host(A.matmat, A.shape[0], dt), A.shape,
-                                getattr(torch, dt.name),
-                                rf=_on_host(A.rmatmat, A.shape[1], dt),
+                                tdt, rf=_on_host(A.rmatmat, A.shape[1], dt),
                                 device="cpu")
     return DenseOperator(A)
 

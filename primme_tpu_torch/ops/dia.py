@@ -8,7 +8,12 @@ offsets[b]]`` (the ends of a diagonal are padding):
   off_b}``;
 
 a term whose row lies outside ``[0, n)`` counting as 0. Values are f32,
-f64, complex64 or complex128, each type with its own entry point.
+f64, f16, bf16, complex64 or complex128, each type with its own entry
+point (in a half type each product and sum rounds to it, as the JAX
+function computed op by op does). Half values with an f32 or f64 block
+(a half basis hands a half operator f32 blocks) take a mixed entry point
+(``dia_f16_f32``, ...): the values widened, the sum in the block's type,
+as the JAX function's product promotes.
 
 * :func:`matmat_reference`, :func:`rmatmat_reference` — plain PyTorch, the
   reference's loop (``primme_tpu/operators.py::BandedOperator``): ``out =
@@ -40,8 +45,13 @@ from .stencil3d import column_group, vector_width
 
 LAUNCHES = 0         # kernel launches made by matmat
 _ENTRY = {torch.float32: "dia_f32", torch.float64: "dia_f64",
+          torch.float16: "dia_f16", torch.bfloat16: "dia_bf16",
           torch.complex64: "dia_c64", torch.complex128: "dia_c128"}
-KERNEL_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
+# half values with a wider real block: (vals dtype, X dtype) -> entry
+_MIXED = {(h, b): f"dia_{hs}_{bs}"
+          for h, hs in ((torch.float16, "f16"), (torch.bfloat16, "bf16"))
+          for b, bs in ((torch.float32, "f32"), (torch.float64, "f64"))}
+KERNEL_LAUNCHES = dict.fromkeys([*_ENTRY.values(), *_MIXED.values()], 0)
 VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 THREADS = 256        # rows of a block: the kernel's kThreads
 MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y: column groups
@@ -79,11 +89,18 @@ def _madd(out, v, x):
                          out.imag + (vr * xi + vi * xr))
 
 
+def _promoted(vals, X):
+    """``vals`` in the type the product computes in: X's for half values and
+    a wider real X (the widening is exact), its own otherwise."""
+    return vals.to(X.dtype) if (vals.dtype, X.dtype) in _MIXED else vals
+
+
 def matmat_reference(vals, offsets: Sequence[int], X):
-    """Plain PyTorch ``Y = A X`` in the type of ``vals``: for each offset in
-    stored order ``out = out + v * shift(X)``, each product and sum rounded
-    once."""
+    """Plain PyTorch ``Y = A X`` in the type of ``vals`` (X's for half values
+    and an f32 or f64 X): for each offset in stored order ``out = out + v *
+    shift(X)``, each product and sum rounded once."""
     _check(vals, offsets, X)
+    vals = _promoted(vals, X)
     X = X.to(vals.dtype)
     out = torch.zeros((X.shape[0], X.shape[1]), dtype=vals.dtype,
                       device=X.device)
@@ -98,6 +115,7 @@ def rmatmat_reference(vals, offsets: Sequence[int], X):
     ``conj(vals[b, i - off]) * x_{i - off}``, both shifted with zeros, for
     each offset in stored order."""
     _check(vals, offsets, X)
+    vals = _promoted(vals, X)
     X = X.to(vals.dtype)
     out = torch.zeros((X.shape[0], X.shape[1]), dtype=vals.dtype,
                       device=X.device)
@@ -156,8 +174,9 @@ def _dia_fn(entry):
 
 def matmat(vals, offs, X, adjoint=False):
     """``Y = A X`` (``adjoint``: ``A^H X``) for an ``[n, k]`` block in the
-    type of ``vals`` (f32, f64, complex64 or complex128), X of the same
-    type, the offsets an i64
+    type of ``vals`` (f32, f64, f16, bf16, complex64 or complex128), X of
+    the same type (or f32 or f64 for half values: Y in X's type), the
+    offsets an i64
     tensor ``offs [B]`` on X's device in stored order. CUDA tensors: the
     hand-written kernel of ``csrc/dia.cu`` on the current stream, launched
     as :func:`plan` says (raises on a bad argument or a refused launch).
@@ -174,8 +193,11 @@ def matmat(vals, offs, X, adjoint=False):
     _check(vals, range(vals.shape[0]), X)
     if vals.dtype not in _ENTRY:
         raise TypeError(f"vals has dtype {vals.dtype}, expected float32, "
-                        "float64, complex64 or complex128")
-    for name, t, dt in (("vals", vals, vals.dtype), ("X", X, vals.dtype),
+                        "float64, float16, bfloat16, complex64 or "
+                        "complex128")
+    mixed = _MIXED.get((vals.dtype, X.dtype))
+    for name, t, dt in (("vals", vals, vals.dtype),
+                        ("X", X, X.dtype if mixed else vals.dtype),
                         ("offs", offs, torch.int64)):
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
@@ -196,7 +218,7 @@ def matmat(vals, offs, X, adjoint=False):
     if vals.shape[0] == 0:
         return Y.zero_()
     p = card_plan(X)
-    entry = _ENTRY[X.dtype]
+    entry = mixed or _ENTRY[X.dtype]
     fn = _dia_fn(entry)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,6 +1,7 @@
 """The shift-aware Jacobi preconditioner apply on an ``[n, k]`` block, with
 the diagonal ``d [n]`` and, for the shifted form, one shift per column
-``sigma [k]``, real (f32, f64) or complex (complex64, complex128):
+``sigma [k]``, real (f32, f64, and the half types f16 and bf16) or complex
+(complex64, complex128):
 
 * shifted: ``Y[:, j] = X[:, j] / den_j`` with ``den_j = d - sigma_j``;
 * unshifted: ``Y = (1 / den)[:, None] * X`` with ``den = d``;
@@ -13,7 +14,15 @@ A complex division is the one of torch's complex type (``c10::complex``'s
 Smith branches), written out on the real and imaginary parts with one
 rounding an operation (:func:`complex_divide`), so that the kernel and its
 plain version agree bit for bit whatever the card's contraction of
-``X / den`` would be.
+``X / den`` would be. In a half type every operation rounds to it (``eps``
+too: 1e-10 is 0 in f16, so a zero ``den`` stays and ``X / 0`` is an
+infinity, as in the reference), as the JAX function computed op by op does.
+A half ``d`` with an f32 or f64 block (and shifts: a half basis hands a
+half operator f32 ones) takes a mixed entry point (``jacobi_f16_f32``,
+...): the JAX function promotes there, so the shifted form is ``d``
+widened and the rest in the block's type, the unshifted one the
+reciprocal in the half type times X in the block's type; the plain
+versions, torch's promotion, compute the same.
 
 * :func:`shifted_reference`, :func:`unshifted_reference` — plain PyTorch;
 * :func:`shifted`, :func:`unshifted` — the kernel wrappers: on a CUDA tensor
@@ -38,15 +47,23 @@ import torch
 from .stencil3d import column_group, vector_width
 
 LAUNCHES = 0         # kernel launches made by shifted and unshifted
-KERNEL_LAUNCHES = {"jacobi_shifted_f32": 0, "jacobi_shifted_f64": 0,
-                   "jacobi_f32": 0, "jacobi_f64": 0,
-                   "jacobi_shifted_c64": 0, "jacobi_shifted_c128": 0,
-                   "jacobi_c64": 0, "jacobi_c128": 0}
-VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
+# each dtype's entry-point suffix and the C type of its eps (a half kernel
+# takes the f32 value of the half eps)
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float),
            torch.float64: ("f64", ctypes.c_double),
+           torch.float16: ("f16", ctypes.c_float),
+           torch.bfloat16: ("bf16", ctypes.c_float),
            torch.complex64: ("c64", ctypes.c_float),
            torch.complex128: ("c128", ctypes.c_double)}
+# a half d with a wider real block: (d dtype, X dtype) -> suffix
+_MIXED = {(h, b): f"{hs}_{_SUFFIX[b][0]}"
+          for h, hs in ((torch.float16, "f16"), (torch.bfloat16, "bf16"))
+          for b in (torch.float32, torch.float64)}
+KERNEL_LAUNCHES = {f"jacobi{form}_{suffix}": 0
+                   for form in ("_shifted", "")
+                   for suffix in [s for s, _ in _SUFFIX.values()]
+                   + list(_MIXED.values())}
+VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 THREADS = 256        # threads a block: the kernel's kThreads
 ROWS = 4             # rows a real thread loads at once (a complex one: 1)
 COMPLEX_BYTES = 16   # bytes of its row group a complex thread holds
@@ -56,6 +73,14 @@ def _eps(eps, dtype):
     # eps rounds to the real dtype first, as the reference's scalar does;
     # as a Python float it then stays exact and needs no copy to the device
     return float(torch.tensor(eps, dtype=dtype))
+
+
+def _kernel_eps(eps, dtype):
+    """eps as the kernel takes it: a half kernel the f32 value of the half
+    it rounds to (1e-10 is 0 in f16); the others round it themselves."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return _eps(eps, dtype)
+    return float(eps)
 
 
 def _guard(den, eps):
@@ -175,18 +200,20 @@ def _launch(X, d, sigma, eps):
                          f"{tuple(d.shape)} do not match ([n, k] and [n])")
     if X.dtype not in _SUFFIX:
         raise TypeError(f"X has dtype {X.dtype}, expected float32, float64, "
-                        "complex64 or complex128")
+                        "float16, bfloat16, complex64 or complex128")
     n, k = X.shape
-    named = [("d", d)]
+    mixed = _MIXED.get((d.dtype, X.dtype))
+    named = [("d", d, d.dtype if mixed else X.dtype)]
     if sigma is not None:
         if sigma.ndim != 1 or sigma.shape[0] != k:
             raise ValueError(f"sigma shape {tuple(sigma.shape)} is not [{k}]")
-        named.append(("sigma", sigma))
-    for name, t in named:
+        named.append(("sigma", sigma, X.dtype))
+    for name, t, dt in named:
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
-        if t.dtype != X.dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, X {X.dtype}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dt} "
+                            f"(X {X.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     ldx = X.stride(0)
@@ -200,6 +227,10 @@ def _launch(X, d, sigma, eps):
         return Y
     suffix, eps_type = _SUFFIX[X.dtype]
     shifted_form = sigma is not None
+    # the guard's type: the block's, but the unshifted form's reciprocal
+    # is taken in d's (a half d's under a wider block)
+    guard_dtype = d.dtype if mixed and not shifted_form else X.dtype
+    suffix = mixed or suffix
     entry = ("jacobi_shifted_" if shifted_form else "jacobi_") + suffix
     fn = _jacobi_fn(entry, eps_type, shifted_form)
     ptrs = [X.data_ptr(), d.data_ptr()] \
@@ -207,8 +238,8 @@ def _launch(X, d, sigma, eps):
     p = card_plan(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*ptrs, n, k, max(ldx, 1), float(eps), p.kc, p.vw, p.blocks,
-                stream)
+        rc = fn(*ptrs, n, k, max(ldx, 1), _kernel_eps(eps, guard_dtype),
+                p.kc, p.vw, p.blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1

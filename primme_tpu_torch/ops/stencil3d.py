@@ -26,10 +26,14 @@ from typing import NamedTuple
 import torch
 
 LAUNCHES = 0         # kernel launches made by matmat
-KERNEL_LAUNCHES = {"stencil3d_f32": 0, "stencil3d_f64": 0}
-VECTOR_LAUNCHES = {"stencil3d_f32": 0, "stencil3d_f64": 0}
+# the entry point of each dtype and the C type of its scale (a half
+# kernel takes the f32 value of the half scale)
 _ENTRY = {torch.float32: ("stencil3d_f32", ctypes.c_float),
-          torch.float64: ("stencil3d_f64", ctypes.c_double)}
+          torch.float64: ("stencil3d_f64", ctypes.c_double),
+          torch.float16: ("stencil3d_f16", ctypes.c_float),
+          torch.bfloat16: ("stencil3d_bf16", ctypes.c_float)}
+KERNEL_LAUNCHES = {e: 0 for e, _ in _ENTRY.values()}
+VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 TILE_L = 32          # threads of a block along l (one warp): the kernel's kTileL
 MAX_TJ = 8           # tile rows along j: the kernel's kMaxTJ
 MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and .z
@@ -46,7 +50,8 @@ def matmat_reference(X, nx, ny, nz, scale=1.0):
     """Plain PyTorch ``Y = scale * (6 g - sum of neighbours)`` in X's dtype:
     ``out = 6 g``, then per axis 0, 1, 2 ``out = out - g(+1) - g(-1)`` with
     0 outside the grid, then ``scale * out``; ``scale`` rounds to X's dtype
-    first, as the reference's weakly typed scalar does."""
+    first, as the reference's weakly typed scalar does. In a half type each
+    operation rounds to it, as the JAX function computed op by op does."""
     _check(X, nx, ny, nz)
     k = X.shape[1]
     g = X.reshape(nx, ny, nz, k)
@@ -69,10 +74,11 @@ def column_group(k):
 
 
 def vector_width(kc, ldx, align, size):
-    """Elements of X per load: the widest of 4, 2, 1 whose bytes (at most
-    16) divide the point's ``kc`` columns, the row stride ``ldx`` and X's
-    address (``align`` = its ``data_ptr() % 16``); 1 is the scalar path."""
-    return next((w for w in (4, 2) if w * size <= 16 and kc % w == 0
+    """Elements of X per load: the widest of 8, 4, 2, 1 whose bytes (at
+    most 16) divide the point's ``kc`` columns, the row stride ``ldx`` and
+    X's address (``align`` = its ``data_ptr() % 16``); 1 is the scalar
+    path. Eight only for a 2-byte (half) type."""
+    return next((w for w in (8, 4, 2) if w * size <= 16 and kc % w == 0
                  and ldx % w == 0 and align % (w * size) == 0), 1)
 
 
@@ -152,6 +158,9 @@ def launch(X, Y, nx, ny, nz, scale, p: Plan):
     refused."""
     entry, scale_type = _ENTRY[X.dtype]
     fn = _stencil_fn(entry, scale_type)
+    if X.dtype in (torch.float16, torch.bfloat16):
+        # the f32 value of the half scale, as the plain version rounds it
+        scale = float(torch.tensor(scale, dtype=X.dtype))
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         for (y0, z0), grid in p.launches:
@@ -164,7 +173,7 @@ def launch(X, Y, nx, ny, nz, scale, p: Plan):
 
 def matmat(X, nx, ny, nz, scale=1.0):
     """``Y = A X`` for the 7-point Laplacian of an ``nx x ny x nz`` grid, in
-    X's dtype (f32 or f64). CUDA tensors: the hand-written kernel of
+    X's dtype (f32, f64, f16 or bf16). CUDA tensors: the hand-written kernel of
     ``csrc/stencil3d.cu`` on the current stream, launched as :func:`plan`
     says (raises on a bad argument, a refused shape or a refused launch).
     CPU tensors: :func:`matmat_reference`. ``LAUNCHES`` counts one a call,
@@ -176,7 +185,8 @@ def matmat(X, nx, ny, nz, scale=1.0):
         raise ValueError(f"stencil3d matmat: unsupported device {X.device}")
     _check(X, nx, ny, nz)
     if X.dtype not in _ENTRY:
-        raise TypeError(f"X has dtype {X.dtype}, expected float32 or float64")
+        raise TypeError(f"X has dtype {X.dtype}, expected float32, float64, "
+                        "float16 or bfloat16")
     k = X.shape[1]
     ldx = X.stride(0)
     if k > 1 and X.stride(1) != 1:

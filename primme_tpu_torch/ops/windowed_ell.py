@@ -28,7 +28,15 @@ an f32x2 hi/lo pair (Mosaic has no 64-bit vectors); here an f64 matrix
 packs one f64 ``vals`` array and its product runs the kernel's native FP64
 entry point. A layout built from CSR (:func:`from_csr`) may also hold
 complex64 or complex128 values, each type with its own entry point (the
-reference computes complex sparse products outside Pallas, in XLA).
+reference computes complex sparse products outside Pallas, in XLA), or the
+half types f16 and bf16 (the reference's half ``ELLOperator``, whose
+einsum XLA sums in f32 and rounds once): the kernel and the plain version
+sum a half layout's terms in f32 and round the row's sum once to the half
+type. A half layout given an f32 or f64 block (a half basis hands a half
+operator f32 blocks) takes a mixed entry point
+(``windowed_ell_spmm_f16_f32``, ...): the reference's einsum promotes
+there, so the half values are
+widened and the sum runs, and stays, in the block's type.
 
 The kernel has two paths (:data:`PATHS`): ``"ring"`` streams each group
 of slices through a shared-memory ring (one block an SM), ``"direct"``
@@ -64,10 +72,17 @@ LAUNCHES = 0         # kernel launches made by matmat
 # the same launches by entry point of csrc/windowed_ell.cu
 _ENTRY = {torch.float32: "windowed_ell_spmm_f32",
           torch.float64: "windowed_ell_spmm_f64",
+          torch.float16: "windowed_ell_spmm_f16",
+          torch.bfloat16: "windowed_ell_spmm_bf16",
           torch.complex64: "windowed_ell_spmm_c64",
           torch.complex128: "windowed_ell_spmm_c128"}
-KERNEL_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
-DIRECT_LAUNCHES = dict.fromkeys(_ENTRY.values(), 0)
+# half values with a wider real block: (vals dtype, X dtype) -> entry
+_MIXED = {(h, b): f"windowed_ell_spmm_{hs}_{bs}"
+          for h, hs in ((torch.float16, "f16"), (torch.bfloat16, "bf16"))
+          for b, bs in ((torch.float32, "f32"), (torch.float64, "f64"))}
+KERNEL_LAUNCHES = dict.fromkeys([*_ENTRY.values(), *_MIXED.values()], 0)
+DIRECT_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
+_HALF = (torch.float16, torch.bfloat16)   # summed in f32
 PATHS = ("ring", "direct")
 # mean slots a slice at or under which a layout takes the direct path: the
 # smoke's layouts up to 17.9 (rows of 1-2, 7, the scatters' 16.7) ran
@@ -301,24 +316,32 @@ def _check_layout(slice_ptr, rowlen, cols, vals, X, ncols):
 
 def matmat_reference(slice_ptr, rowlen, cols, vals, X, ncols=None):
     """Plain PyTorch ``Y = A X`` for an ``[ncols, k]`` block (``ncols``
-    None: a square layout), in the type of ``vals`` (f32, f64, complex64
-    or complex128), ``Y``
+    None: a square layout), in the type of ``vals`` (f32, f64, f16, bf16,
+    complex64 or complex128), ``Y``
     with the layout's rows: slot ``j`` at a time, rows with ``j < rowlen``
-    add ``v * X[col]`` as the kernel does, in the same order. The
-    counterpart of the JAX package's CPU path of ``matmat_ds``."""
+    add ``v * X[col]`` as the kernel does, in the same order; a half
+    layout's terms in f32, the sum rounded once to the half type (given an
+    f32 or f64 X, the terms and the sum in X's type). The counterpart of
+    the JAX package's CPU path of ``matmat_ds``."""
     n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
     k = X.shape[1]
     dev = X.device
-    Xf = X.to(vals.dtype)
+    if (vals.dtype, X.dtype) in _MIXED:
+        acc = out = X.dtype
+    else:
+        acc = torch.float32 if vals.dtype in _HALF else vals.dtype
+        out = vals.dtype
+    Xf = X.to(out).to(acc)
+    va = vals.to(acc)
     rows = torch.arange(n, device=dev)
     first = slice_ptr[rows // SLICE] + rows % SLICE    # entry 0 of each row
-    y = torch.zeros((n, k), dtype=vals.dtype, device=dev)
+    y = torch.zeros((n, k), dtype=acc, device=dev)
     for j in range(int(rowlen.max()) if n else 0):
         on = rowlen > j
         e = torch.where(on, first + SLICE * j, 0)
-        term = vals[e, None] * Xf[cols[e]]
+        term = va[e, None] * Xf[cols[e]]
         y = torch.where(on[:, None], y + term, y)
-    return y
+    return y.to(out)
 
 
 def mean_width(slice_ptr, cols) -> float:
@@ -351,10 +374,12 @@ def _spmm_fn(entry):
 def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None,
            path=None):
     """``Y = A X`` for an ``[ncols, k]`` block of the type of ``vals`` (f32,
-    f64, complex64 or complex128) on the :class:`SlicedELL` arrays of an
-    ``m x ncols`` matrix (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA tensors: the
-    hand-written kernel of ``csrc/windowed_ell.cu`` for that type, launched
-    on the current stream (raises on a bad argument or a refused launch).
+    f64, f16, bf16, complex64 or complex128; f32 or f64 for half values,
+    ``Y`` in X's type) on the :class:`SlicedELL` arrays of an ``m x
+    ncols`` matrix (``ncols`` None: square); ``Y`` is ``[m, k]``. CUDA
+    tensors: the hand-written kernel of ``csrc/windowed_ell.cu`` for that
+    type, launched on the current stream (raises on a bad argument or a
+    refused launch).
     CPU tensors: :func:`matmat_reference`. ``out``: a contiguous ``[m,
     k]`` tensor the product is written into and returned (a row slice of a
     larger block: the halo operator writes its layouts' rows in place).
@@ -371,11 +396,14 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None,
     n, _ = _check_layout(slice_ptr, rowlen, cols, vals, X, ncols)
     if vals.dtype not in _ENTRY:
         raise TypeError(f"vals has dtype {vals.dtype}, expected float32, "
-                        "float64, complex64 or complex128")
+                        "float64, float16, bfloat16, complex64 or "
+                        "complex128")
+    mixed = _MIXED.get((vals.dtype, X.dtype))
     for name, t, dt in (("slice_ptr", slice_ptr, torch.int64),
                         ("rowlen", rowlen, torch.int32),
                         ("cols", cols, torch.int32),
-                        ("vals", vals, vals.dtype), ("X", X, vals.dtype)):
+                        ("vals", vals, vals.dtype),
+                        ("X", X, X.dtype if mixed else vals.dtype)):
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
         if t.dtype != dt:
@@ -399,7 +427,7 @@ def matmat(slice_ptr, rowlen, cols, vals, X, ncols=None, out=None,
         Y = out
     if Y.numel() == 0:
         return Y
-    entry = _ENTRY[X.dtype]
+    entry = mixed or _ENTRY[X.dtype]
     fn = _spmm_fn(entry)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream

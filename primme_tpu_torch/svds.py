@@ -23,8 +23,9 @@ Each stage's solver events reach ``monitor(stage, ...)`` and, with
 ``return_history``, ``stats["hist"]``, on the triplet scale;
 ``segment_outer`` goes to both stages. ``mesh`` (a 1-D ``DeviceMesh``)
 runs both stages row-sharded over the same ranks
-(:mod:`~primme_tpu_torch.distributed`). Not served yet: a half-precision
-(bf16, f16) matrix, refused by name. Complex input
+(:mod:`~primme_tpu_torch.distributed`). A half-precision (f16, bf16)
+operator runs a half basis, as the JAX package's does (not yet under a
+mesh: ROADMAP F5). Complex input
 (complex64 and complex128) runs on ``A^H``: the adjoint layouts hold
 conjugated values, and ``Vh`` is ``V^H``.
 """
@@ -177,9 +178,8 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         raise ValueError(f"k={k} out of range for {m}x{n}")
     use_ata = n <= m
     dt = Aop.dtype
-    if dt in (torch.bfloat16, torch.float16):
-        raise _unported(f"svds of a {dt} matrix (eigsh serves the "
-                        "half-precision basis)")
+    if comm0 is not None:
+        D.refuse_half(dt)
     rdt = real_dtype(dt)
     tiny = float(torch.finfo(rdt).tiny)
     meps = float(torch.finfo(rdt).eps)

@@ -104,14 +104,16 @@ def test_from_scipy_when_the_last_columns_are_empty():
 
 
 def test_banded_refuses_complex_and_shapes():
-    # complex values are served (tests/test_torch_complex.py); half
-    # precision and integers are refused by name
+    # complex and half values are served (tests/test_torch_complex.py,
+    # tests/test_torch_half_ops.py); integers are refused by name
     assert ptt.BandedOperator((0,), np.ones((1, 4), np.complex64)).dtype \
         == torch.complex64
     assert ptt.BandedOperator.from_scipy(
         sp.identity(4, dtype=np.complex128)).dtype == torch.complex128
+    assert ptt.BandedOperator((0,), np.ones((1, 4), np.float16)).dtype \
+        == torch.float16
     with pytest.raises(NotImplementedError, match="BandedOperator"):
-        ptt.BandedOperator((0,), np.ones((1, 4), np.float16))
+        ptt.BandedOperator((0,), np.ones((1, 4), np.int16))
     with pytest.raises(NotImplementedError, match="BandedOperator"):
         ptt.BandedOperator.from_scipy(sp.identity(4, dtype=np.int32))
     with pytest.raises(ValueError, match="vals shape"):

@@ -79,8 +79,8 @@ def test_aslinearoperator_dense_branches(kind):
 def test_aslinearoperator_refuses_what_it_does_not_port():
     # a 1-D array is no operator (the reference's ValueError); a large
     # sparse matrix is an ELLOperator and a scipy LinearOperator a
-    # FunctionOperator, as in the reference, complex values too; a type
-    # the port does not serve (integers, half precision) names the format
+    # FunctionOperator, as in the reference, complex and half values too;
+    # a type the port does not serve (integers) names the format
     import scipy.sparse.linalg as spla
 
     with pytest.raises(ValueError, match="2-D"):
@@ -97,9 +97,14 @@ def test_aslinearoperator_refuses_what_it_does_not_port():
     assert f.dtype == torch.complex128
     assert torch.equal(f.matmat(torch.ones(3, 1, dtype=torch.complex128)),
                        torch.full((3, 1), 1j, dtype=torch.complex128))
+    h = ptt.aslinearoperator(spla.aslinearoperator(
+        np.eye(3, dtype=np.float16)))
+    assert h.dtype == torch.float16
+    assert torch.equal(h.matmat(torch.ones(3, 1, dtype=torch.float16)),
+                       torch.ones(3, 1, dtype=torch.float16))
     with pytest.raises(NotImplementedError, match="FunctionOperator"):
         ptt.aslinearoperator(spla.aslinearoperator(
-            np.eye(3, dtype=np.float16)))
+            np.eye(3, dtype=np.int16)))
 
 
 def test_dense_eigsh_on_cpu_finds_smallest():

@@ -154,7 +154,7 @@ def test_stencil_kernel_column_slice_and_nonfinite(card, dtype):
     with pytest.raises(ValueError, match="adjacent"):
         ST.matmat(W.t().contiguous().t(), *grid)
     with pytest.raises(TypeError, match="dtype"):
-        ST.matmat(W.to(torch.float16), *grid)
+        ST.matmat(W.to(torch.int32), *grid)
 
 
 @pytest.mark.cuda
@@ -224,7 +224,7 @@ def test_jacobi_kernels_column_slice_and_nonfinite(card, dtype):
     with pytest.raises(ValueError, match="sigma"):
         JK.shifted(X, d, s[:3], 1e-10)
     with pytest.raises(TypeError, match="dtype"):
-        JK.shifted(X, d.to(torch.float16), s, 1e-10)
+        JK.shifted(X, d.to(torch.int32), s, 1e-10)
     with pytest.raises(ValueError, match="on"):
         JK.unshifted(X, d.cpu(), 1e-10)
 

@@ -202,12 +202,16 @@ def test_svds_refuses_unported_arguments(rect, kwargs):
 def test_svds_refuses_complex_input():
     # complex input is served now (test_torch_complex.py holds it to the
     # JAX package): the dense and the sparse matrix give numpy's values;
-    # half precision is still refused by name
+    # half precision is served now too (test_torch_half_ops.py holds it to
+    # the JAX package), to the half basis' floor
     A = np.ones((10, 6)) + 1j * np.eye(10, 6)
     sv = np.linalg.svd(A, compute_uv=False)
     for X in (A, sp.csr_matrix(A)):
         U, s, Vh = ptt.svds(X, k=2, tol=1e-10, device="cpu")
         assert U.dtype == Vh.dtype == np.complex128
         assert np.abs(np.sort(s)[::-1] - sv[:2]).max() < 1e-8 * sv[0]
-    with pytest.raises(NotImplementedError, match="float16"):
-        ptt.svds(A.real.astype(np.float16), k=2, device="cpu")
+    eps = float(np.finfo(np.float16).eps)
+    sr = np.linalg.svd(A.real, compute_uv=False)
+    U, s, Vh = ptt.svds(A.real.astype(np.float16), k=2, tol=4 * eps,
+                        device="cpu")
+    assert np.abs(np.sort(s)[::-1] - sr[:2]).max() < 16 * eps * sr[0]

@@ -79,6 +79,17 @@ matrix's type, f32 unless said):
   ``chip_smoke.laplacian27(GRID, 0)`` in the chooser's RCM order (the
   matrix phase 40 hands the solver) at tol 4 eps(half), as the JAX
   package's ``ELLOperator``.
+* ``halfop``: phase 47's solves (``chip_smoke.HALFOP_SOLVES``;
+  ``--halfop-solve`` only the named ones), each with the operator in its
+  half type and ``tol = 4 eps(half)``, under the working type it names
+  (None: a half basis over the half operator): the ``GRID``^3
+  ``Stencil3DOperator`` with ``bench.py``'s headline arguments
+  (``jacobi=True``, ``v0`` from ``default_rng(0)``); the ``ELLOperator``
+  of phase 4's matrix in the chooser's RCM order; the ``BandedOperator``
+  of phase 11's grid-order matrix; the last two with
+  ``chip_smoke.SOLVE_KWARGS`` (``k`` from ``chip_smoke.HALFOP_K`` where it
+  names the solve). Counts, probe verdicts, values against the
+  closed form and the largest true residual (f64, the exact matrix).
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -94,6 +105,7 @@ needed):
         [--mag-grid N]] [--phase normal [--normal-solve ell_f64|ell_c64|
         dia_f32 ...] [--normal-grid N]] [--phase dynamic
         [--dynamic-grid N]] [--phase capi|jacobi|half]
+        [--phase halfop [--halfop-solve NAME ...]]
 """
 
 import argparse
@@ -111,7 +123,7 @@ def main():
                                         "ell_f32", "northstar",
                                         "generalized", "interior", "svds",
                                         "complex", "normal", "dynamic",
-                                        "capi", "jacobi", "half"),
+                                        "capi", "jacobi", "half", "halfop"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
@@ -122,6 +134,7 @@ def main():
     ap.add_argument("--normal-solve", nargs="+")
     ap.add_argument("--normal-grid", type=int)
     ap.add_argument("--dynamic-grid", type=int)
+    ap.add_argument("--halfop-solve", nargs="+")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
@@ -138,7 +151,7 @@ def main():
         t0 = time.perf_counter()
         if phase in ("northstar", "generalized", "interior", "svds",
                      "complex", "normal", "dynamic", "capi", "jacobi",
-                     "half"):
+                     "half", "halfop"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -496,6 +509,62 @@ def _half(CS, pt, np, args):
                "values_dtype": str(w.dtype),
                "max_residual": float(np.linalg.norm(R, axis=0).max()),
                "eval_err": float(np.abs(np.sort(w) - ev[:len(w)]).max()),
+               "solve_s": time.perf_counter() - t0}
+
+
+def _halfop(CS, pt, np, args):
+    import jax.numpy as jnp
+
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from primme_tpu import operators as JO
+
+    for name in args.halfop_solve or CS.HALFOP_SOLVES:
+        kind, half, working = CS.HALFOP_SOLVES[name]
+        t0 = time.perf_counter()
+        hd = jnp.dtype(half)
+        tol = 4 * float(jnp.finfo(hd).eps)
+        wd = None if working is None else jnp.dtype(working)
+        if kind == "stencil":
+            op = JO.Stencil3DOperator(CS.GRID, CS.GRID, CS.GRID, dtype=hd)
+            A = CS._laplacian7(CS.GRID, None)
+            ev = CS.stencil_eigenvalues(CS.GRID, CS.GRID ** 3)[0]
+            v0 = np.random.default_rng(0).normal(size=(CS.GRID ** 3, 2))
+            kw = dict(k=10, which="SA", ncv=24, maxBlockSize=2,
+                      minRestartSize=14, locking=False, jacobi=True,
+                      maxMatvecs=16000, v0=v0.astype(np.float32),
+                      method="PRIMME_JDQMR_ETol")
+        else:
+            if kind == "ell":
+                A, ev = CS.laplacian27(CS.GRID, 0)
+                perm = np.asarray(reverse_cuthill_mckee(
+                    A, symmetric_mode=True))
+                A = A[perm][:, perm].tocsr()
+                cols, vals = JO.ELLOperator._pack(A)
+                op = JO.ELLOperator(cols, jnp.asarray(vals).astype(hd))
+            else:
+                A, ev = CS.laplacian27_grid(CS.GRID)
+                B = JO.BandedOperator.from_scipy(A.todia())
+                op = JO.BandedOperator(B.offsets, B.vals.astype(hd), B.shape)
+            kw = {k: v for k, v in CS.SOLVE_KWARGS.items()
+                  if k != "return_stats"}
+            if name in CS.HALFOP_K:
+                kw["k"] = CS.HALFOP_K[name]
+        w, X, st = pt.eigsh(op, tol=tol, seed=0, dtype=wd,
+                            return_stats=True, raise_for_unconverged=False,
+                            **kw)
+        w, X = np.asarray(w, np.float64), np.asarray(X, np.float64)
+        R = A.astype(np.float64) @ X - X * w[None, :]
+        yield {"solve": name, "operator": type(op).__name__, "half": half,
+               "working": working, "tol": tol,
+               "num_matvecs": int(st["num_matvecs"]),
+               "num_probe_matvecs": int(st["num_probe_matvecs"]),
+               "probe_verified": int(st.get("probe_verified", -1)),
+               "probe_exhausted": int(st["probe_exhausted"]),
+               "max_residual": float(np.linalg.norm(R, axis=0).max()),
+               "eval_err": float(np.abs(
+                   np.asarray(ev)[None, :] - w[:, None]).min(axis=1).max()),
+               "evals": np.sort(w).tolist(),
                "solve_s": time.perf_counter() - t0}
 
 
