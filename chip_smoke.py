@@ -49,8 +49,9 @@ Phases, each printing its own lines; any failed check raises:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them;
 2. build: compiles ``windowed_ell.cu``, ``stencil3d.cu``, ``jacobi.cu``
-   and ``dia.cu`` from the checkout's sources, one ``nvcc`` each, all
-   started together;
+   and ``dia.cu`` from the checkout's sources, and phase 48's
+   ``tools/half_packed_check.cu``, one ``nvcc`` each, all started
+   together;
 3. f32 layout and kernel: ``pack`` and ``compact`` of the permuted
    matrix timed apart and equal to the operator's arrays; the entry count
    E <= 1.1 nnz and the operator's device bytes <= 1.1 nnz (4 + 4) + 8n.
@@ -60,7 +61,8 @@ Phases, each printing its own lines; any failed check raises:
    fastest of ``A_csr @ X``, ``torch.sparse.mm(A_csr, X)`` and
    ``A_csr @ X`` on a column-major copy of X, with ``A_csr`` a
    ``torch.sparse_csr_tensor``: cuSPARSE; the port never calls it),
-   each over 21 samples of 10 back-to-back calls between CUDA events,
+   each over TIMING_REPS (7) samples of 10 back-to-back calls between
+   CUDA events,
    queued behind a spin kernel so that host time does not count (the
    kernel also without the spin; the plain version, which reads its
    longest row to the host each call, only without it); and the bound, the bytes the product
@@ -105,7 +107,7 @@ Phases, each printing its own lines; any failed check raises:
    not act), the shifted one has none (no single PyTorch call computes
    ``X[:, j] / guard(d - sigma_j)``);
 9. the headline: ``bench.py``'s configuration through ``solve_eigs``, one
-   untimed solve and then the minimum of HEADLINE_TIMED (2) timed ones,
+   untimed solve and then the minimum of HEADLINE_TIMED (1) timed ones,
    each printed;
    ``bench.py``'s ``ok`` (max resnorm <= 1.5e-5 * anorm_estimate,
    eigenvalues within 1e-4 of the closed form), every true residual (the
@@ -430,12 +432,23 @@ within 2x of the JAX package's (``tools/torch_smoke_refs.py --phase
 halfop``); each solve's time and peak device memory beside its f32
 counterpart's.
 
-The kernel tables' shapes at k in ``UNTIMED_K`` (4 and 8) are held
+Phase 48, the packed half arithmetic: every pair of 16-bit patterns
+(2^32 pairs) through the packed mul, add and sub of the half kernels
+(``primme_tpu_torch/csrc/half2.cuh``) and through f32 on the exact
+operands rounded once, in f16 and bf16 (``tools/half_packed_check.cu``,
+built here): 0 mismatches for each of the six pairs (two NaN results
+match; all else by bits). Then the half rows at 256^3 and k=2: each f16
+and bf16 entry point of the stencil, Jacobi and DIA and the mixed DIA
+entry points with an f32 block, bit for bit against the plain versions
+and timed as phase 47 (7 samples of 5 calls), the 27-point DIA built on
+the card from its closed form.
+
+The kernel tables' shapes at k in ``UNTIMED_K`` (1, 4 and 8) are held
 against the plain versions and not timed, to keep the run within its
 time limit.
 
 The run prints the seconds of phases 1-2 (the build), 3-8, 9-10, 11-14,
-15, 16-18, 1-18, 46, 47 and the whole run (``seconds`` in the record).
+15, 16-18, 1-18, 46, 47, 48 and the whole run (``seconds`` in the record).
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -465,8 +478,9 @@ REF_HEADLINE_MATVECS = 1710
 REF_HEADLINE_PROBE = (440, 3)        # num_probe_matvecs, num_probe_rounds
 # timed repeats of phase 9's headline (2) and rounds of phase 33's variants
 # (1), so that phases 36-47 fit the run's time limit beside them
-HEADLINE_TIMED = 2
+HEADLINE_TIMED = 1
 EVENT_ROUNDS = 1
+TIMING_REPS = 7      # samples of a median time
 GD_GRID = 16
 REF_GD_MATVECS = 494   # the JAX reference, GD_Olsen_plusK + Jacobi at 16^3
 KERNEL_SOURCES = ("windowed_ell", "stencil3d", "jacobi", "dia")
@@ -494,7 +508,7 @@ DIA_SHAPES = [(k, None) for k in (1, 2, 4, 8)] + [(2, 1)]
 # JACOBI_COMPLEX_SHAPES, compare_kernel's ks) held against the plain
 # version but not timed, so that the run keeps within its time limit:
 # timing depth only, every check kept
-UNTIMED_K = (4, 8)
+UNTIMED_K = (1, 4, 8)
 # phase 7: a grid past CUDA's 65535 planes, run as two launches
 SPLIT_SHAPES = [((70000, 1, 32), 1)]
 # phases 7-8: (grid side, k, column offset in a SLICE_WIDTH-wide block or
@@ -1056,7 +1070,7 @@ def spin_cycles_per_ms():
 _LAST_TIMED = 0.0    # when median_ms last finished (host clock)
 
 
-def median_ms(fn, reps=21, per=10, spin=True):
+def median_ms(fn, reps=TIMING_REPS, per=10, spin=True):
     """Median over ``reps`` samples of the device time of one call. Each
     sample times ``per`` back-to-back calls between two CUDA events. Calls
     run for 0.2 s first, so that the card's clocks have risen, or for 0.02 s
@@ -4931,8 +4945,273 @@ HALF_RECORDS = {
 }
 
 
-def half_kernel_record(name, halfop):
-    """The record of a half entry point: phase 47's row at 64^3 k=2, its
+# ---------------------------------------------------------------------------
+# Phase 48: the packed half operations, exhaustively; the half rows at 256^3
+# ---------------------------------------------------------------------------
+
+HALF_CHECK_SOURCE = os.path.join("tools", "half_packed_check.cu")
+HALF_CHECK_OPS = ("mul", "add", "sub")
+LARGE_GRID = 256              # phase 48's grid: n = 16,777,216
+LARGE_REPS, LARGE_PER = 7, 5  # its timings: 7 samples of 5 calls
+
+
+def half_check_path():
+    """Where :func:`half_check_library` builds ``HALF_CHECK_SOURCE``."""
+    from primme_tpu_torch.ops import build
+
+    return build.hashed_path(half_check_source(), build.NVCC_FLAGS,
+                             "half_packed_check", build.headers())
+
+
+def half_check_source():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        HALF_CHECK_SOURCE)
+
+
+def half_check_library():
+    """``tools/half_packed_check.cu``, built (once) and loaded."""
+    from primme_tpu_torch.ops import build
+
+    return build.load_source(half_check_source(), "half_packed_check")
+
+
+def half_packed_check(dev):
+    """Every pair of 16-bit patterns through the packed half operations of
+    the port's kernels (``primme_tpu_torch/csrc/half2.cuh``) and through
+    f32 on the exact operands rounded once to the half type, in f16 and
+    bf16 (``tools/half_packed_check.cu``, built here). Returns, for each
+    "<type> <operation>", the pairs (2^32), the mismatches (a pair of
+    results matches when both are NaN, else when their bits are equal),
+    the pairs whose results are both NaN and those of them whose NaN bits
+    differ, and the first mismatching pair ``[a, b]`` (or None); and the
+    seconds of the build and of the run."""
+    import ctypes
+
+    import torch
+
+    t0 = time.perf_counter()
+    fn = half_check_library().half_packed_check
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    t1 = time.perf_counter()
+    counts = torch.zeros(2 * 3 * 3, dtype=torch.int64, device=dev)
+    first = torch.full((6,), -1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(counts.data_ptr(), first.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"half_packed_check: launch failed, CUDA error {rc}")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    c = counts.view(2, 3, 3).cpu().tolist()
+    firsts = [v & 0xFFFFFFFF for v in first.cpu().tolist()]
+    out = {}
+    for t, half in enumerate(("float16", "bfloat16")):
+        for o, op in enumerate(HALF_CHECK_OPS):
+            fp = firsts[3 * t + o]
+            out[f"{half} {op}"] = {
+                "pairs": 2 ** 32, "mismatches": c[t][o][0],
+                "both_nan": c[t][o][1], "nan_bits_differ": c[t][o][2],
+                "first_mismatch": (None if fp == 0xFFFFFFFF
+                                   else [fp >> 16, fp & 0xFFFF])}
+    return out, {"build_s": t1 - t0, "run_s": t2 - t1}
+
+
+def laplacian27_dia(m, dtype, dev):
+    """:func:`laplacian27_grid`'s matrix as 27 diagonals on the card, from
+    its closed form: offsets ascending, ``vals[b, i] = A[i, i + off_b]``
+    (26 on the main diagonal, -1 where the neighbour lies in the grid, 0
+    where it does not), in ``dtype``. Returns (vals ``[27, m^3]``, offs as
+    an i64 tensor on the card, offsets)."""
+    import torch
+
+    n = m ** 3
+    i = torch.arange(n, device=dev)
+    coords = (i // (m * m), (i // m) % m, i % m)
+    vals = torch.empty((27, n), dtype=dtype, device=dev)
+    offsets = []
+    for b, (di, dj, dl) in enumerate(
+            (a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+            for c in (-1, 0, 1)):
+        inside = torch.ones(n, dtype=torch.bool, device=dev)
+        for c, d in zip(coords, (di, dj, dl)):
+            inside &= (c + d >= 0) & (c + d < m)
+        off = (di * m + dj) * m + dl
+        vals[b] = torch.where(inside, 26.0 if off == 0 else -1.0, 0.0)
+        offsets.append(off)
+    return vals, torch.tensor(offsets, device=dev), offsets
+
+
+def dia_csr(vals, offsets, dtype):
+    """The CSR tensor (i32 indices, values in ``dtype``) of the DIA matrix
+    ``vals`` (offsets ascending, a zero value off the grid), built on the
+    card: the library call's operand, never the port's."""
+    import torch
+
+    n = vals.shape[1]
+    cols = torch.arange(n, device=vals.device)[:, None] + torch.tensor(
+        offsets, device=vals.device)[None, :]
+    keep = vals.t() != 0                  # the edges' zeros leave
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=vals.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    col = cols[keep].to(torch.int32)
+    del cols
+    with warnings.catch_warnings():     # "beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, col, vals.t()[keep].to(dtype),
+                                       size=(n, n))
+
+
+def _times_large(kernel, plain, nbytes, copy, library, plain_spin=True):
+    """:func:`_times` at ``LARGE_REPS`` samples of ``LARGE_PER`` calls and
+    without the no-spin time: the 256^3 rows."""
+    def med(fn, spin=True):
+        return median_ms(fn, reps=LARGE_REPS, per=LARGE_PER, spin=spin)
+
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    out = {"ms": med(kernel), "nospin_ms": None,
+           "plain_ms": med(plain, plain_spin), "copy_ms": med(copy),
+           "bound_ms": bound_ms, "l2_resident": nbytes <= L2_BYTES,
+           "library_ms": med(library) if library is not None else None}
+    out["bound_share"] = bound_ms / out["ms"]
+    return out
+
+
+def large_half_rows(ST, JK, DK, dev, gen):
+    """48, the 256^3 rows: each half entry point of the stencil, Jacobi
+    (shifted, one shift equal to a diagonal entry, and unshifted) and DIA,
+    and the mixed DIA entry points with an f32 block, at ``LARGE_GRID``^3
+    and k=2 against its plain version bit for bit (DIA: matmat and
+    rmatmat), timed as :func:`_times_large` (with ``copy_ms`` and the
+    library call of phase 47: ``conv3d``, ``torch.div``, cuSPARSE on the
+    same matrix's CSR, half values or f32 for the mixed rows) beside the
+    bound, the bytes once over 3.35 TB/s. The 27-point DIA is built on the
+    card from its closed form (:func:`laplacian27_dia`: 906 MB of half
+    values), and its CSR from it (:func:`dia_csr`)."""
+    import torch
+    import torch.nn.functional as F
+
+    m, k = LARGE_GRID, 2
+    n, grid = m ** 3, (m,) * 3
+    out = {}
+
+    def row(entry, y, yref, bit, t, plan, call):
+        err = float((y.float() - yref.float()).abs().nan_to_num().max())
+        out[entry] = {"shape": f"{m}^3 k={k}", "max_abs_err": err,
+                      "bitwise": bit, "plan": plan._asdict(),
+                      "library_call": call if t["library_ms"] is not None
+                      else None, **t}
+        print(f"[{entry}] {m}^3 k={k} max|y-yref|={err:.3e} bit for bit "
+              f"{bit}; plan {plan._asdict()}; kernel {t['ms']:.5f} ms  "
+              f"plain {t['plain_ms']:.5f} ms  copy {t['copy_ms']:.5f} ms  "
+              f"bound {t['bound_ms']:.5f} ms (bytes; share "
+              f"{t['bound_share']:.3f})  library ({call}) "
+              + ("none" if t["library_ms"] is None
+                 else f"{t['library_ms']:.5f} ms"), flush=True)
+        check(bit, f"{entry} at {m}^3: kernel differs from its plain version")
+
+    for half, sfx in HALF_SUFFIX.items():
+        dtype = getattr(torch, half)
+        X = torch.randn((n, k), generator=gen, device=dev).to(dtype)
+        Yc = torch.empty_like(X)
+
+        def copy():
+            return Yc.copy_(X)
+        # stencil
+        w = torch.zeros((3, 3, 3), dtype=dtype)
+        w[1, 1, 1] = 6.0
+        for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[c] = -1.0
+        Xc = X.view(1, m, m, m, k).permute(0, 4, 1, 2, 3)
+        wk = w.expand(k, 1, 3, 3, 3).contiguous().to(dev)
+        conv = _half_library("conv3d", lambda: F.conv3d(
+            Xc, wk, padding=1, groups=k))
+        y, yref = ST.matmat(X, *grid), ST.matmat_reference(X, *grid)
+        row("stencil3d_" + sfx, y, yref, _bitwise(y, yref),
+            _times_large(lambda: ST.matmat(X, *grid),
+                         lambda: ST.matmat_reference(X, *grid),
+                         2 * n * k * 2, copy, conv),
+            ST.card_plan(X, *grid), "conv3d depthwise (cuDNN)")
+        del y, yref
+        # Jacobi
+        d = (torch.rand(n, generator=gen, device=dev) * 3 + 0.5).to(dtype)
+        s = torch.stack([d[5], torch.tensor(0.7, device=dev).to(dtype)])
+        for entry, kern, plain, lib, nbytes, call in (
+                ("jacobi_shifted_" + sfx,
+                 lambda: JK.shifted(X, d, s, 1e-10),
+                 lambda: JK.shifted_reference(X, d, s, 1e-10), None,
+                 (2 * n * k + n + k) * 2,
+                 "none: no single call computes X / guard(d - sigma_j)"),
+                ("jacobi_" + sfx, lambda: JK.unshifted(X, d, 1e-10),
+                 lambda: JK.unshifted_reference(X, d, 1e-10),
+                 _half_library("torch.div", lambda: torch.div(
+                     X, d[:, None])), (2 * n * k + n) * 2,
+                 "torch.div(X, d[:, None])")):
+            y, yref = kern(), plain()
+            row(entry, y, yref, _bitwise(y, yref),
+                _times_large(kern, plain, nbytes, copy, lib),
+                JK.card_plan(X), call)
+            del y, yref
+        # DIA, half values: a half block, then an f32 one (mixed)
+        vals, offs, offsets = laplacian27_dia(m, dtype, dev)
+        csr = dia_csr(vals, offsets, dtype)
+        for Xb, entry, call, lib_csr in (
+                (X, "dia_" + sfx, "A_csr @ X (cuSPARSE)", csr),
+                (None, f"dia_{sfx}_f32", "A_csr @ X (cuSPARSE, f32 values)",
+                 None)):
+            if Xb is None:
+                del csr
+                Xb = torch.randn((n, k), generator=gen, device=dev)
+                lib_csr = dia_csr(vals, offsets, torch.float32)
+                Yb = torch.empty_like(Xb)
+
+                def copy_b():
+                    return Yb.copy_(Xb)
+            else:
+                copy_b = copy
+            lib = _half_library("A_csr @ X", lambda: lib_csr @ Xb)
+            y = DK.matmat(vals, offs, Xb)
+            yt = DK.matmat(vals, offs, Xb, adjoint=True)
+            yref = DK.matmat_reference(vals, offsets, Xb)
+            bit = _bitwise(y, yref) and _bitwise(
+                yt, DK.rmatmat_reference(vals, offsets, Xb))
+            row(entry, y, yref, bit,
+                _times_large(lambda: DK.matmat(vals, offs, Xb),
+                             lambda: DK.matmat_reference(vals, offsets, Xb),
+                             len(offsets) * n * 2
+                             + 2 * n * k * Xb.element_size(), copy_b,
+                             (lambda: lib_csr @ Xb) if lib else None,
+                             plain_spin=False),
+                DK.card_plan(Xb), call)
+            del y, yt, yref, lib_csr
+        del X, Xb, Yc, vals, d
+        torch.cuda.empty_cache()
+    return out
+
+
+def half_check_phase(ST, JK, DK, dev, gen):
+    """48: :func:`half_packed_check` (0 mismatches for each of the six
+    (type, operation) pairs), then :func:`large_half_rows`."""
+    t0 = time.perf_counter()
+    ops, secs = half_packed_check(dev)
+    for name, r in ops.items():
+        print(f"[halfcheck] {name}: {r['mismatches']} mismatches in "
+              f"{r['pairs']} pairs ({r['both_nan']} both NaN, "
+              f"{r['nan_bits_differ']} of them with other NaN bits); first "
+              f"mismatch {r['first_mismatch']}", flush=True)
+    print(f"[halfcheck] build {secs['build_s']:.2f} s, run "
+          f"{secs['run_s']:.3f} s", flush=True)
+    check(all(r["mismatches"] == 0 for r in ops.values()),
+          "halfcheck: the packed half operations differ from f32 rounded "
+          "once")
+    rows = large_half_rows(ST, JK, DK, dev, gen)
+    return {"ops": ops, **secs, "rows": rows,
+            "seconds": time.perf_counter() - t0}
+
+
+def half_kernel_record(name, halfop, halfcheck):
+    """The record of a half entry point: phase 47's row at 64^3 k=2 (and
+    phase 48's at 256^3 k=2 under ``large``, where it has one), its
     launches those of the phase 47 solve that runs it."""
     replaces, source, path = HALF_RECORDS[name]
     r = halfop["kernels"][name]
@@ -4950,6 +5229,8 @@ def half_kernel_record(name, halfop):
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "shape": HEADLINE_SHAPE,
             **{key: r.get(key) for key in keys},
+            **({"large": halfcheck["rows"][name]}
+               if name in halfcheck["rows"] else {}),
             **({"entries": {twin: {"replaces": replaces,
                                    **halfop["kernels"][twin]}}}
                if (twin := name[:-3] + "f64") in halfop["kernels"]
@@ -5116,10 +5397,15 @@ def main():
     for src in KERNEL_SOURCES:
         if os.path.exists(build.library_path(src)):
             os.remove(build.library_path(src))
+    if os.path.exists(half_check_path()):
+        os.remove(half_check_path())
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) \
+            as pool:
+        check_lib = pool.submit(half_check_library)    # phase 48's
         handles = dict(zip(KERNEL_SOURCES, pool.map(build.load,
                                                     KERNEL_SOURCES)))
+        check_lib.result()
     for src, mod in (("windowed_ell", WE), ("stencil3d", ST),
                      ("jacobi", JK), ("dia", DK)):
         entries = list(mod.KERNEL_LAUNCHES)
@@ -5128,8 +5414,9 @@ def main():
         print(f"[build] {src}.cu -> "
               f"{os.path.relpath(build.library_path(src))}; entry points "
               f"{entries}", flush=True)
-    print(f"[build] {len(KERNEL_SOURCES)} sources in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {len(KERNEL_SOURCES)} sources and "
+          f"{HALF_CHECK_SOURCE} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     mods = (DK, WE, ST, JK)
     t_phase = lap("phases 1-2", t_main)
 
@@ -5297,7 +5584,11 @@ def main():
         {"headline": {**headline,
                       "peak_bytes": headline["solves"][1].get("peak_bytes")},
          "solve f32": solve32, "banded": banded["solve"]})
-    lap("phase 47", t_phase)
+    t_phase = lap("phase 47", t_phase)
+
+    # --- 48. the packed half operations, exhaustively; the 256^3 rows -----
+    halfcheck = half_check_phase(ST, JK, DK, dev, cgen)
+    lap("phase 48", t_phase)
 
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
@@ -5335,7 +5626,8 @@ def main():
             "jacobi_c128", "primme_tpu/operators.py:481",
             cjac["jacobi_c128"], "jacobi harness",
             jl["harness"]["jacobi_c128"]),
-        *[half_kernel_record(name, halfop) for name in HALF_RECORDS]],
+        *[half_kernel_record(name, halfop, halfcheck)
+          for name in HALF_RECORDS]],
         "solve": {**solve32, "f64": solve64},
         "headline": headline, "gdk": gdk,
         "banded": {k: v for k, v in banded.items() if k != "kernel"},
@@ -5350,7 +5642,7 @@ def main():
         "events": events, "harness": harness, "profile": profile,
         "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
         "half": half, "seconds_36_40": seconds36, "sharded": sharded,
-        "surface": surface, "halfop": halfop,
+        "surface": surface, "halfop": halfop, "halfcheck": halfcheck,
         "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],

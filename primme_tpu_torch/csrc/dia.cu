@@ -50,12 +50,30 @@
 //
 // The 16-bit entry points (dia_f16, dia_bf16) serve a half BandedOperator
 // (the reference's loop in the half type). Each product and each sum is
-// one half operation: taken in f32 on the exact half operands and
-// rounded once to the half type, the correctly rounded half result that
-// torch's and the JAX package's op-by-op half arithmetic give, so the
-// kernel equals its plain version bit for bit here too. A thread loads
-// up to eight halves of X's row (16 bytes) at once; the bytes of vals, X
-// and Y halve, and so does the bound.
+// one half operation, and the kernels take it packed: two lanes of one
+// mul.rn / add.rn f16x2 or bf16x2 instruction (half2.cuh), the correctly
+// rounded half result that torch's and the JAX package's op-by-op half
+// arithmetic give, so the kernel equals its plain version bit for bit
+// here too. (Taking each half operation in f32 on the widened operands
+// and narrowing it costs two widenings and one narrowing an operation,
+// the narrowing on the slow conversion pipe: slower than the f32 kernel
+// on half the bytes.) A thread sums two rows
+// 32 apart (dia_half_kernel), so that each load of a row stays one
+// warp-wide run while the offset's load and index arithmetic serve two
+// rows; a packed pair is two columns of a row (kc >= 2: the row's value
+// on both lanes) or, at kc = 1, the thread's two rows. With X one column
+// (ldx = 1) a thread sums four adjacent rows instead (dia_run_kernel):
+// a diagonal's four values and the four shifted rows of X each arrive as
+// one run of halves, one load where the shift keeps the run aligned, and
+// aligned words put together with a byte permute where an odd offset (or
+// vals' rows at an odd n) puts it at an odd half; the arithmetic stays
+// packed, and a thread stages four diagonals' loads before it sums them.
+// On one column of the 27-point Laplacian it runs 1.18x dia_half_kernel
+// at 256^3 and 1.03x at 64^3 (tools/torch_kernel_turns.py, in turns;
+// NVIDIA H100 80GB HBM3, 700.00 W). (Adjacent rows for every shape lost
+// at k >= 2: a thread's rows of X then lie ldx apart, so a warp's load of
+// one row spreads over twice the sectors.) Off the edge both keep the f32
+// kernel's rule: v * 0 for matmat, 0 * 0 for rmatmat.
 //
 // The mixed entry points (dia_f16_f32, dia_bf16_f32, dia_f16_f64,
 // dia_bf16_f64) serve a half BandedOperator given a wider real block (a
@@ -63,15 +81,20 @@
 // to the block's type: each half value is widened (exactly) as it is
 // loaded and the sum runs in the block's type, so the result equals the
 // f32 (f64) kernel on the widened values bit for bit while vals moves 2
-// bytes a value, not 4 (8).
+// bytes a value, not 4 (8). They run dia_kernel, one row a thread: two
+// rows a thread measured no faster there.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "half2.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;        // rows of a block
+constexpr int kThreads = 256;        // threads of a block
 constexpr int kMaxGridY = 65535;     // CUDA's limit on gridDim.y
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -91,23 +114,6 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 }
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
-}
-// a half operation: f32 on the exact values, one rounding to the half type
-__device__ __forceinline__ __half mul_rn(__half a, __half b) {
-  return __float2half_rn(__fmul_rn(__half2float(a), __half2float(b)));
-}
-__device__ __forceinline__ __half add_rn(__half a, __half b) {
-  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
-}
-__device__ __forceinline__ __nv_bfloat16 mul_rn(__nv_bfloat16 a,
-                                                __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a,
-                                                __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
 }
 
 // a stored value of type V in the block's type T: exact (a half widens)
@@ -166,13 +172,6 @@ template <> struct Vec<double, 2> { using type = double2; };
 template <> struct Vec<float2, 1> { using type = float2; };
 template <> struct Vec<float2, 2> { using type = float4; };
 template <> struct Vec<double2, 1> { using type = double2; };
-template <int W> struct Vec16;  // W halves as raw bits
-template <> struct Vec16<1> { using type = unsigned short; };
-template <> struct Vec16<2> { using type = unsigned int; };
-template <> struct Vec16<4> { using type = uint2; };
-template <> struct Vec16<8> { using type = uint4; };
-template <int W> struct Vec<__half, W> : Vec16<W> {};
-template <int W> struct Vec<__nv_bfloat16, W> : Vec16<W> {};
 
 // one element of T, through the read-only path
 template <typename T>
@@ -209,7 +208,8 @@ __device__ __forceinline__ void st_vec(T* p, const T* in) {
 
 // Thread (x, y) of the grid sums row blockIdx.x * kThreads + threadIdx.x,
 // columns [blockIdx.y * KC, + KC), over the B diagonals in stored order;
-// the values are stored as V (T, or a half type widened to T).
+// the values are stored as V (T, or a half type widened to T: the mixed
+// entry points). f32, f64, complex64 and complex128 blocks.
 template <typename T, int KC, int VW, bool kAdjoint, typename V = T>
 __global__ void __launch_bounds__(kThreads)
     dia_kernel(const V* __restrict__ vals, const long long* __restrict__ offs,
@@ -246,11 +246,230 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < KC; c += VW) st_vec<T, VW>(y + c, acc + c);
 }
 
-template <typename T, typename V = T>
+// ---------------------------------------------------------------------------
+// Half values and a half block: packed sums
+// ---------------------------------------------------------------------------
+
+using half2ops::ld_halves;
+using half2ops::ld_row;
+using half2ops::pack;
+using half2ops::st_halves;
+
+// half i of the packed words w
+__device__ __forceinline__ unsigned short half_at(const unsigned* w, int i) {
+  return static_cast<unsigned short>(w[i / 2] >> (16 * (i % 2)));
+}
+
+// Rows 32 apart: thread (x, y) of warp w sums rows i0 + 32 r, r < R, with
+// i0 = (blockIdx.x kThreads + 32 w) R + lane, columns [blockIdx.y KC, +
+// KC), over the B diagonals in stored order, so that a load of one row is
+// one warp-wide run, as in dia_kernel, while the offset and its index
+// arithmetic serve R rows. A packed pair is two columns of a row (KC >= 2:
+// the row's value on both lanes) or, at KC = 1, rows i0 + 64 p and i0 +
+// 64 p + 32.
+template <typename H, int KC, int VW, int R, bool kAdjoint>
+__global__ void __launch_bounds__(kThreads)
+    dia_half_kernel(const H* __restrict__ vals,
+                    const long long* __restrict__ offs, int B,
+                    const H* __restrict__ X, long long ldx, H* __restrict__ Y,
+                    int n, int k) {
+  static_assert(KC >= 2 || R % 2 == 0,
+                "a packed pair is two columns or two rows");
+  constexpr int kAW = KC == 1 ? R / 2 : R * KC / 2;   // words of the sums
+  using P = half2ops::Packed<H>;
+  const int lane = threadIdx.x % 32;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x - lane) *
+          R + lane;
+  if (i0 >= n) return;
+  const int c0 = blockIdx.y * KC;
+  const unsigned short* V = reinterpret_cast<const unsigned short*>(vals);
+  const unsigned short* Xh = reinterpret_cast<const unsigned short*>(X);
+  unsigned acc[kAW];
+#pragma unroll
+  for (int p = 0; p < kAW; ++p) acc[p] = 0u;   // +0 on both lanes
+#pragma unroll 4
+  for (int b = 0; b < B; ++b) {
+    const long long off = __ldg(offs + b);
+    const unsigned short* vb = V + static_cast<long long>(b) * n;
+    unsigned short v[R];
+    unsigned xw[KC >= 2 ? R * KC / 2 : 1];
+    unsigned short xh[KC == 1 ? R : 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // a row past n reads row n - 1 (its sum is not stored)
+      const long long i = i0 + 32 * r < n ? i0 + 32 * r : n - 1;
+      const long long j = kAdjoint ? i - off : i + off;
+      const bool in = i0 + 32 * r < n && j >= 0 && j < n;
+      const long long src = in ? j : i;      // an off-edge row reads row i
+      const unsigned short vv = __ldg(vb + (kAdjoint ? src : i));
+      // matmat: v * 0 off the edge; rmatmat: 0 * 0
+      v[r] = kAdjoint && !in ? 0 : vv;
+      if constexpr (KC >= 2) {
+        ld_row<KC, VW>(Xh + src * ldx + c0, xw + r * (KC / 2));
+#pragma unroll
+        for (int q = 0; q < KC / 2; ++q)
+          xw[r * (KC / 2) + q] = in ? xw[r * (KC / 2) + q] : 0u;
+      } else {
+        const unsigned short x = __ldg(Xh + src * ldx + c0);
+        xh[r] = in ? x : 0;
+      }
+    }
+    if constexpr (KC >= 2) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned v2 = pack(v[r], v[r]);
+#pragma unroll
+        for (int q = 0; q < KC / 2; ++q)
+          acc[r * (KC / 2) + q] = P::add(acc[r * (KC / 2) + q],
+                                         P::mul(v2, xw[r * (KC / 2) + q]));
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < R / 2; ++p)
+        acc[p] = P::add(acc[p], P::mul(pack(v[2 * p], v[2 * p + 1]),
+                                       pack(xh[2 * p], xh[2 * p + 1])));
+    }
+  }
+  unsigned short* y = reinterpret_cast<unsigned short*>(Y);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + 32 * r;
+    if (i >= n) break;
+    if constexpr (KC >= 2) {
+      st_halves<KC>(y + i * k + c0, acc + r * (KC / 2));
+    } else {
+      y[i * k + c0] = half_at(acc, r);
+    }
+  }
+}
+
+// Diagonal b's values for the R adjacent rows i0 .. i0 + R - 1 of a thread
+// of dia_run_kernel, as R / 2 words: vals[b, i] for matmat, vals[b, i -
+// off] for rmatmat, 0 for rmatmat where that row is off the edge. `full`:
+// every row < n and every shifted row inside [0, n): one run; else row by
+// row, a row past n reading row n - 1 (its sum is never stored).
+template <int R, bool kAdjoint>
+__device__ __forceinline__ void stage_vals(const unsigned short* V,
+                                           long long i0, long long j0, int n,
+                                           bool full, unsigned* w) {
+  if (full) {
+    ld_halves<R>(V + (kAdjoint ? j0 : i0), w);
+    return;
+  }
+  unsigned short h[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + r < n ? i0 + r : n - 1;
+    const long long j = j0 + r;
+    const bool in = i0 + r < n && j >= 0 && j < n;
+    const unsigned short v = __ldg(V + (kAdjoint && in ? j : i));
+    h[r] = kAdjoint && !in ? 0 : v;
+  }
+#pragma unroll
+  for (int p = 0; p < R / 2; ++p) w[p] = pack(h[2 * p], h[2 * p + 1]);
+}
+
+// The same rows of X, one column (ldx = 1): one run of R halves; at the
+// edges row by row, an off-edge row 0.
+template <int R>
+__device__ __forceinline__ void stage_x_run(const unsigned short* X,
+                                            long long i0, long long j0,
+                                            int n, bool full, unsigned* w) {
+  if (full) {
+    ld_halves<R>(X + j0, w);
+    return;
+  }
+  unsigned short h[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long j = j0 + r;
+    const bool in = i0 + r < n && j >= 0 && j < n;
+    const unsigned short x = __ldg(X + (in ? j : (i0 + r < n ? i0 + r
+                                                              : n - 1)));
+    h[r] = in ? x : 0;
+  }
+#pragma unroll
+  for (int p = 0; p < R / 2; ++p) w[p] = pack(h[2 * p], h[2 * p + 1]);
+}
+
+// One column of X (ldx = 1): thread t of the grid sums the R adjacent rows
+// [R t, R t + R), the pairs (R t + 2 p, R t + 2 p + 1), so that a
+// diagonal's R values and the R shifted rows of X each arrive as one run
+// (ld_halves: one load where the shift keeps the run aligned, aligned
+// words and a byte permute where it puts it at an odd half). The loads of
+// kU diagonals are staged before any is summed, so that they are in
+// flight at once.
+template <typename H, int R, bool kAdjoint>
+__global__ void __launch_bounds__(kThreads)
+    dia_run_kernel(const H* __restrict__ vals,
+                   const long long* __restrict__ offs, int B,
+                   const H* __restrict__ X, long long ldx, H* __restrict__ Y,
+                   int n, int k) {
+  static_assert(R % 2 == 0, "a packed pair is two rows");
+  constexpr int kU = 4;
+  using P = half2ops::Packed<H>;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  if (i0 >= n) return;
+  const bool rows_in = i0 + R <= n;
+  const unsigned short* V = reinterpret_cast<const unsigned short*>(vals);
+  const unsigned short* Xh = reinterpret_cast<const unsigned short*>(X);
+  unsigned acc[R / 2];
+#pragma unroll
+  for (int p = 0; p < R / 2; ++p) acc[p] = 0u;   // +0 on both lanes
+  for (int b0 = 0; b0 < B; b0 += kU) {
+    unsigned vw[kU][R / 2], xw[kU][R / 2];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (b0 + u < B) {
+        const long long off = __ldg(offs + b0 + u);
+        const long long j0 = kAdjoint ? i0 - off : i0 + off;
+        const bool full = rows_in && j0 >= 0 && j0 + R <= n;
+        stage_vals<R, kAdjoint>(V + static_cast<long long>(b0 + u) * n, i0,
+                                j0, n, full, vw[u]);
+        stage_x_run<R>(Xh, i0, j0, n, full, xw[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (b0 + u < B) {
+#pragma unroll
+        for (int p = 0; p < R / 2; ++p)
+          acc[p] = P::add(acc[p], P::mul(vw[u][p], xw[u][p]));
+      }
+    }
+  }
+  unsigned short* y = reinterpret_cast<unsigned short*>(Y);
+  if (rows_in) {
+    st_halves<R>(y + i0, acc);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (i0 + r < n) y[i0 + r] = half_at(acc, r);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// The kernels, as the wrapper names them (its `kernel` argument)
+enum KernelId : int {
+  kRowKernel = 0,    // dia_kernel: one row a thread (f32, f64, complex, mixed)
+  kHalfKernel = 1,   // dia_half_kernel: kHalfRows rows 32 apart (half block)
+  kRunKernel = 2,    // dia_run_kernel: vw = kRunRows adjacent rows (half
+                     // block, X one column)
+};
+constexpr int kHalfRows = 2;      // rows of a dia_half_kernel thread
+constexpr int kRunRows = 4;       // rows of a dia_run_kernel thread
+
+template <typename T, typename V>
 using Kernel = void (*)(const V*, const long long*, int, const T*, long long,
                         T*, int, int);
 
-template <typename T, int KC, bool A, typename V>
+// the instance of (kc, vw) of dia_kernel (f32, f64, complex; mixed)
+template <typename T, typename V, int KC, bool A>
 Kernel<T, V> pick_vw(int vw) {
   if (vw == 1) return dia_kernel<T, KC, 1, A, V>;
   if constexpr (KC >= 2 && sizeof(T) <= 8) {
@@ -259,19 +478,52 @@ Kernel<T, V> pick_vw(int vw) {
   if constexpr (KC >= 4 && sizeof(T) <= 4) {
     if (vw == 4) return dia_kernel<T, KC, 4, A, V>;
   }
-  if constexpr (KC >= 8 && sizeof(T) == 2) {
-    if (vw == 8) return dia_kernel<T, KC, 8, A, V>;
+  return nullptr;
+}
+
+// the instance of (kc, vw) of dia_half_kernel
+template <typename H, int KC, bool A>
+Kernel<H, H> pick_half_vw(int vw) {
+  if (vw == 1) return dia_half_kernel<H, KC, 1, kHalfRows, A>;
+  if constexpr (KC >= 2) {
+    if (vw == 2) return dia_half_kernel<H, KC, 2, kHalfRows, A>;
+  }
+  if constexpr (KC >= 4) {
+    if (vw == 4) return dia_half_kernel<H, KC, 4, kHalfRows, A>;
+  }
+  if constexpr (KC >= 8) {
+    if (vw == 8) return dia_half_kernel<H, KC, 8, kHalfRows, A>;
   }
   return nullptr;
 }
 
-template <typename T, bool A, typename V>
-Kernel<T, V> pick_kc(int kc, int vw) {
+// The instance of (kernel, kc, vw), nullptr for one that does not exist:
+// dia_kernel for the f32, f64, complex and mixed entry points, the half
+// kernels for a half block.
+template <typename T, typename V, bool A>
+Kernel<T, V> pick(int kernel, int kc, int vw) {
+  constexpr bool kHalf = std::is_same<T, V>::value && sizeof(T) == 2;
+  if constexpr (kHalf) {
+    if (kernel == kRunKernel)
+      return kc == 1 && vw == kRunRows ? dia_run_kernel<T, kRunRows, A>
+                                       : nullptr;
+    if (kernel != kHalfKernel) return nullptr;
+  } else {
+    if (kernel != kRowKernel) return nullptr;
+  }
   switch (kc) {
-    case 1: return pick_vw<T, 1, A, V>(vw);
-    case 2: return pick_vw<T, 2, A, V>(vw);
-    case 4: return pick_vw<T, 4, A, V>(vw);
-    case 8: return pick_vw<T, 8, A, V>(vw);
+    case 1:
+      if constexpr (kHalf) return pick_half_vw<T, 1, A>(vw);
+      else return pick_vw<T, V, 1, A>(vw);
+    case 2:
+      if constexpr (kHalf) return pick_half_vw<T, 2, A>(vw);
+      else return pick_vw<T, V, 2, A>(vw);
+    case 4:
+      if constexpr (kHalf) return pick_half_vw<T, 4, A>(vw);
+      else return pick_vw<T, V, 4, A>(vw);
+    case 8:
+      if constexpr (kHalf) return pick_half_vw<T, 8, A>(vw);
+      else return pick_vw<T, V, 8, A>(vw);
     default: return nullptr;
   }
 }
@@ -279,16 +531,21 @@ Kernel<T, V> pick_kc(int kc, int vw) {
 // T: X's and Y's type; V: the values' (T, or a half type)
 template <typename T, typename V = T>
 int launch(const V* vals, const long long* offs, int B, const T* X,
-           long long ldx, T* Y, int n, int k, int adjoint, int kc, int vw,
-           int gx, int gy, void* stream) {
-  const Kernel<T, V> fn =
-      adjoint ? pick_kc<T, true, V>(kc, vw) : pick_kc<T, false, V>(kc, vw);
+           long long ldx, T* Y, int n, int k, int adjoint, int kernel, int kc,
+           int vw, int gx, int gy, void* stream) {
+  const Kernel<T, V> fn = adjoint ? pick<T, V, true>(kernel, kc, vw)
+                                  : pick<T, V, false>(kernel, kc, vw);
   // the grid is the wrapper's plan; here only what CUDA and the kernel's
-  // instances take
+  // instances take: X's vector loads aligned, the run kernel's X one column
+  const size_t xa = reinterpret_cast<size_t>(X);
+  const bool run = kernel == kRunKernel;
+  const int rows = run ? kRunRows : kernel == kHalfKernel ? kHalfRows : 1;
   if (fn == nullptr || B < 1 || n < 1 || k % kc != 0 || ldx < k ||
       gx < 1 || gy < 1 || gy > kMaxGridY ||
-      static_cast<long long>(gx) * kThreads < n ||
-      static_cast<long long>(gy) * kc != k) {
+      static_cast<long long>(gx) * kThreads * rows < n ||
+      static_cast<long long>(gy) * kc != k ||
+      (run ? ldx != 1
+           : (ldx % vw != 0 || xa % (static_cast<size_t>(vw) * sizeof(T))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fn<<<dim3(gx, gy), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -298,72 +555,34 @@ int launch(const V* vals, const long long* offs, int B, const T* X,
 
 }  // namespace
 
-// The wrapper (primme_tpu_torch/ops/dia.py::plan) plans the launch: kc
-// columns a thread, X loaded vw elements at a time, gx blocks of 256 rows
-// by gy = k / kc column groups. adjoint = 1 computes rmatmat (A^T, or
-// A^H for the complex types, whose pointers are to interleaved (re, im)
-// pairs). Each entry point returns the CUDA error of its launch as an int
-// (0: none). The mixed entry points (dia_<half>_<block>) take half vals
-// and X and Y in the block's type.
-extern "C" int dia_f32(const float* vals, const long long* offs, int B,
-                       const float* X, long long ldx, float* Y, int n, int k,
-                       int adjoint, int kc, int vw, int gx, int gy,
-                       void* stream) {
-  return launch<float>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx, gy,
-                       stream);
-}
-
-extern "C" int dia_f64(const double* vals, const long long* offs, int B,
-                       const double* X, long long ldx, double* Y, int n, int k,
-                       int adjoint, int kc, int vw, int gx, int gy,
-                       void* stream) {
-  return launch<double>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
-                        gy, stream);
-}
-
-extern "C" int dia_f16(const __half* vals, const long long* offs, int B,
-                       const __half* X, long long ldx, __half* Y, int n, int k,
-                       int adjoint, int kc, int vw, int gx, int gy,
-                       void* stream) {
-  return launch<__half>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
-                        gy, stream);
-}
-
-extern "C" int dia_bf16(const __nv_bfloat16* vals, const long long* offs,
-                        int B, const __nv_bfloat16* X, long long ldx,
-                        __nv_bfloat16* Y, int n, int k, int adjoint, int kc,
-                        int vw, int gx, int gy, void* stream) {
-  return launch<__nv_bfloat16>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc,
-                               vw, gx, gy, stream);
-}
-
-extern "C" int dia_c64(const float2* vals, const long long* offs, int B,
-                       const float2* X, long long ldx, float2* Y, int n, int k,
-                       int adjoint, int kc, int vw, int gx, int gy,
-                       void* stream) {
-  return launch<float2>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
-                        gy, stream);
-}
-
-extern "C" int dia_c128(const double2* vals, const long long* offs, int B,
-                        const double2* X, long long ldx, double2* Y, int n,
-                        int k, int adjoint, int kc, int vw, int gx, int gy,
-                        void* stream) {
-  return launch<double2>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx,
-                         gy, stream);
-}
-
-#define DIA_MIXED(V, T, SUFFIX)                                              \
+// The wrapper (primme_tpu_torch/ops/dia.py::plan) plans the launch: the
+// kernel (KernelId: dia_kernel for the f32, f64, complex and mixed entry
+// points; for a half block the run kernel where X is one column, else
+// dia_half_kernel), kc columns a thread, X loaded vw elements at a time
+// (the run kernel: its kRunRows rows as one run), gx blocks of 256
+// threads by gy = k / kc column groups. adjoint = 1 computes rmatmat
+// (A^T, or A^H for the complex types, whose pointers are to interleaved
+// (re, im) pairs). Each entry point returns the CUDA error of its launch
+// as an int (0: none; an instance that does not exist or a grid that
+// misses a row is refused). The mixed entry points (dia_<half>_<block>)
+// take half vals and X and Y in the block's type.
+#define DIA_ENTRY(V, T, SUFFIX)                                              \
   extern "C" int dia_##SUFFIX(const V* vals, const long long* offs, int B,  \
                               const T* X, long long ldx, T* Y, int n, int k, \
-                              int adjoint, int kc, int vw, int gx, int gy,  \
-                              void* stream) {                               \
-    return launch<T, V>(vals, offs, B, X, ldx, Y, n, k, adjoint, kc, vw, gx, \
-                        gy, stream);                                         \
+                              int adjoint, int kernel, int kc, int vw,       \
+                              int gx, int gy, void* stream) {                \
+    return launch<T, V>(vals, offs, B, X, ldx, Y, n, k, adjoint, kernel, kc, \
+                        vw, gx, gy, stream);                                 \
   }
 
-DIA_MIXED(__half, float, f16_f32)
-DIA_MIXED(__nv_bfloat16, float, bf16_f32)
-DIA_MIXED(__half, double, f16_f64)
-DIA_MIXED(__nv_bfloat16, double, bf16_f64)
-#undef DIA_MIXED
+DIA_ENTRY(float, float, f32)
+DIA_ENTRY(double, double, f64)
+DIA_ENTRY(float2, float2, c64)
+DIA_ENTRY(double2, double2, c128)
+DIA_ENTRY(__half, __half, f16)
+DIA_ENTRY(__nv_bfloat16, __nv_bfloat16, bf16)
+DIA_ENTRY(__half, float, f16_f32)
+DIA_ENTRY(__nv_bfloat16, float, bf16_f32)
+DIA_ENTRY(__half, double, f16_f64)
+DIA_ENTRY(__nv_bfloat16, double, bf16_f64)
+#undef DIA_ENTRY

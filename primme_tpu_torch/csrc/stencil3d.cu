@@ -49,18 +49,33 @@
 //
 // The 16-bit entry points (stencil3d_f16, stencil3d_bf16) serve a half
 // operator (primme_tpu/operators.py::Stencil3DOperator with a half dtype:
-// the block cast to it, every operation in it). Each operation is taken
-// in f32 on the exact f32 values of its half operands and rounded once
-// to the half type (__float2half_rn, __float2bfloat16_rn): f32 holds more
-// than twice a half's digits plus two, so that is the correctly rounded
-// half operation, the one torch's half arithmetic and the JAX package's
-// op-by-op half arithmetic give. A point's columns come in vectors of up
-// to eight halves (16 bytes). The bytes halve, so the bound does: 64^3
-// at k=2 is 2.10 MB, 0.63 us.
+// the block cast to it, every operation in it). Each operation is packed:
+// one lane of a mul.rn / sub.rn f16x2 or bf16x2 instruction (half2.cuh),
+// the correctly rounded half operation that torch's half arithmetic and
+// the JAX package's op-by-op half arithmetic give, in the same order, so
+// the kernel equals its plain version bit for bit. (Each one taken in
+// f32 on the widened operands and narrowed would cost eight narrowings a
+// point and column on the slow conversion pipe.) A pair is
+// two adjacent columns of a point, or two adjacent points of one column.
+// Where X's rows are the block's own (ldx = kc <= 4) and nz is even, a
+// thread takes two adjacent points along l, whose 2 kc halves are one
+// aligned run, so that each of the seven taps is one load of 4, 8 or 16
+// bytes for two points (the pair of the l neighbours, one point over, is
+// put together from the run and the points before and after it: words,
+// or at kc = 1 halves with a byte permute). Otherwise a thread takes one
+// point: kc >= 2 columns in vectors of up to eight halves, or one column
+// (a slice of the basis) on both lanes. The bytes halve, so the
+// bound does: 64^3 at k=2 is 2.10 MB, 0.63 us; 256^3 at k=2 134 MB,
+// 40.1 us.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
+#include <type_traits>
+
+#include "half2.cuh"
 
 namespace {
 
@@ -80,24 +95,6 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
-// a half operation: f32 on the exact values, one rounding to the half type
-__device__ __forceinline__ __half mul_rn(__half a, __half b) {
-  return __float2half_rn(__fmul_rn(__half2float(a), __half2float(b)));
-}
-__device__ __forceinline__ __half sub_rn(__half a, __half b) {
-  return __float2half_rn(__fsub_rn(__half2float(a), __half2float(b)));
-}
-__device__ __forceinline__ __nv_bfloat16 mul_rn(__nv_bfloat16 a,
-                                                __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-__device__ __forceinline__ __nv_bfloat16 sub_rn(__nv_bfloat16 a,
-                                                __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fsub_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-
 // W elements of T as one load: the vector type of W * sizeof(T) bytes
 template <typename T, int W> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
@@ -105,13 +102,6 @@ template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<double, 2> { using type = double2; };
-template <int W> struct Vec16;  // W halves as raw bits
-template <> struct Vec16<1> { using type = unsigned short; };
-template <> struct Vec16<2> { using type = unsigned int; };
-template <> struct Vec16<4> { using type = uint2; };
-template <> struct Vec16<8> { using type = uint4; };
-template <int W> struct Vec<__half, W> : Vec16<W> {};
-template <int W> struct Vec<__nv_bfloat16, W> : Vec16<W> {};
 
 // W adjacent elements at p (aligned to W elements) into out / from in
 template <typename T, int W>
@@ -192,6 +182,191 @@ __global__ void __launch_bounds__(kTileL* kMaxTJ)
   }
 }
 
+// Half types. Block (x, y, z) as above; a thread takes the two points l
+// and l + 1 where they are one aligned run of 2 KC halves (VW = 2 KC, KC
+// <= 4: X's rows KC apart, nz even, X's address aligned to 4 KC bytes), so
+// that each tap is one load of 4, 8 or 16 bytes; else one point, of KC >=
+// 2 columns (VW halves a load) or of one column (its value on both lanes).
+// It sums the pairs packed in the reference's order. scale2 is the half
+// scale on both lanes.
+template <typename H, int KC, int VW>
+__global__ void __launch_bounds__(kTileL* kMaxTJ)
+    stencil3d_half_kernel(const H* __restrict__ X, H* __restrict__ Y, int nx,
+                          int ny, int nz, int k, long long ldx,
+                          unsigned scale2, int y0, int z0) {
+  using P = half2ops::Packed<H>;
+  using half2ops::pack;
+  constexpr int kPts = VW > KC ? 2 : 1;          // points along l
+  constexpr int kW = KC * kPts / 2 > 0 ? KC * kPts / 2 : 1;  // words a tap
+  // 6 on both lanes
+  constexpr unsigned kSix =
+      std::is_same<H, __half>::value ? 0x46004600u : 0x40c040c0u;
+  const int l = (blockIdx.x * kTileL + threadIdx.x) * kPts;
+  const int j = (blockIdx.y + y0) * blockDim.y + threadIdx.y;
+  const int z = blockIdx.z + z0;
+  int i = z, c0 = 0;
+  if (k != KC) {  // column groups: z = plane * groups + group
+    const int groups = k / KC;
+    i = z / groups;
+    c0 = (z - i * groups) * KC;
+  }
+  if (l >= nz || j >= ny || i >= nx) return;
+  const long long row = (static_cast<long long>(i) * ny + j) * nz + l;
+  const unsigned short* x =
+      reinterpret_cast<const unsigned short*>(X) + row * ldx + c0;
+  const long long s1 = static_cast<long long>(nz) * ldx;
+  const long long s0 = static_cast<long long>(ny) * s1;
+  // taps in the order of the sum: the point, then i+1, i-1, j+1, j-1, l+1,
+  // l-1; a tap outside the grid reads the point itself and counts as 0
+  unsigned g[kW], a[6][kW];
+  const bool in_ij[4] = {i + 1 < nx, i > 0, j + 1 < ny, j > 0};
+  const long long d_ij[4] = {s0, -s0, s1, -s1};
+  if constexpr (kPts == 2) {
+    // two points, X's rows KC apart (ldx = KC), nz even, l even: the pair
+    // of points is 2 KC adjacent halves, aligned to 4 KC bytes, and so is
+    // every tap's pair; the l neighbours' pairs are the pair one point
+    // over, from the point before it and the one after it
+    constexpr int kEdge = KC == 1 ? 2 : KC;   // halves loaded past an end
+    const bool next_in = l + 2 < nz, prev_in = l > 0;
+    unsigned t[4][kW], next[kEdge / 2], prev[kEdge / 2];
+    half2ops::ld_aligned<VW>(x, g);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      half2ops::ld_aligned<VW>(x + (in_ij[m] ? d_ij[m] : 0), t[m]);
+    half2ops::ld_aligned<kEdge>(x + (next_in ? VW : 0), next);
+    half2ops::ld_aligned<kEdge>(x - (prev_in ? kEdge : 0), prev);
+#pragma unroll
+    for (int q = 0; q < kW; ++q)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m][q] = in_ij[m] ? t[m][q] : 0u;
+#pragma unroll
+    for (int q = 0; q < kEdge / 2; ++q) {
+      next[q] = next_in ? next[q] : 0u;
+      prev[q] = prev_in ? prev[q] : 0u;
+    }
+    if constexpr (KC == 1) {
+      // (x[l+1], x[l+2]) and (x[l-1], x[l])
+      a[4][0] = half2ops::shift_pair(g[0], next[0]);
+      a[5][0] = half2ops::shift_pair(prev[0], g[0]);
+    } else {
+      constexpr int kP = KC / 2;                // words of a point
+#pragma unroll
+      for (int q = 0; q < kW; ++q) {
+        a[4][q] = q + kP < kW ? g[q + kP] : next[q + kP - kW];
+        a[5][q] = q >= kP ? g[q - kP] : prev[q];
+      }
+    }
+  } else if constexpr (KC >= 2) {
+    const bool in_l[2] = {l + 1 < nz, l > 0};
+    half2ops::ld_row<KC, VW>(x, g);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      half2ops::ld_row<KC, VW>(x + (in_ij[m] ? d_ij[m] : 0), a[m]);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      half2ops::ld_row<KC, VW>(x + (in_l[m] ? (m ? -ldx : ldx) : 0),
+                               a[4 + m]);
+#pragma unroll
+    for (int q = 0; q < kW; ++q) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m][q] = in_ij[m] ? a[m][q] : 0u;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) a[4 + m][q] = in_l[m] ? a[4 + m][q] : 0u;
+    }
+  } else {
+    // one point (a slice, or an odd nz), its value on both lanes
+    const bool in_l[2] = {l + 1 < nz, l > 0};
+    const unsigned short g0 = __ldg(x);
+    g[0] = pack(g0, g0);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const unsigned short v = __ldg(x + (in_ij[m] ? d_ij[m] : 0));
+      a[m][0] = in_ij[m] ? pack(v, v) : 0u;
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const unsigned short v =
+          __ldg(x + (in_l[m] ? (m ? -ldx : ldx) : 0));
+      a[4 + m][0] = in_l[m] ? pack(v, v) : 0u;
+    }
+  }
+  unsigned out[kW];
+#pragma unroll
+  for (int q = 0; q < kW; ++q) {
+    out[q] = P::mul(kSix, g[q]);
+#pragma unroll
+    for (int m = 0; m < 6; ++m) out[q] = P::sub(out[q], a[m][q]);
+    out[q] = P::mul(scale2, out[q]);
+  }
+  unsigned short* y = reinterpret_cast<unsigned short*>(Y) + row * k + c0;
+  if constexpr (kPts == 2) {
+    half2ops::st_halves<VW>(y, out);            // k = KC, row even
+  } else if constexpr (KC >= 2) {
+    half2ops::st_halves<KC>(y, out);
+  } else {
+    y[0] = static_cast<unsigned short>(out[0]);
+  }
+}
+
+template <typename H>
+using HalfKernel = void (*)(const H*, H*, int, int, int, int, long long,
+                            unsigned, int, int);
+
+// VW <= KC: one point a thread, VW halves a load; VW = 2 KC (KC <= 4):
+// two points a thread, one load a tap
+template <typename H, int KC>
+HalfKernel<H> pick_half_vw(int vw) {
+  if (vw == 1) return stencil3d_half_kernel<H, KC, 1>;
+  if (vw == 2) return stencil3d_half_kernel<H, KC, 2>;
+  if constexpr (KC >= 2) {
+    if (vw == 4) return stencil3d_half_kernel<H, KC, 4>;
+  }
+  if constexpr (KC >= 4) {
+    if (vw == 8) return stencil3d_half_kernel<H, KC, 8>;
+  }
+  return nullptr;
+}
+
+template <typename H>
+HalfKernel<H> pick_half(int kc, int vw) {
+  switch (kc) {
+    case 1: return pick_half_vw<H, 1>(vw);
+    case 2: return pick_half_vw<H, 2>(vw);
+    case 4: return pick_half_vw<H, 4>(vw);
+    case 8: return pick_half_vw<H, 8>(vw);
+    default: return nullptr;
+  }
+}
+
+// the half kernel's launch; scale is the f32 value of a half (exact)
+template <typename H>
+int launch_half(const H* X, H* Y, int nx, int ny, int nz, int k,
+                long long ldx, float scale, int kc, int vw, int tj, int gx,
+                int gy, int gz, int y0, int z0, void* stream) {
+  const HalfKernel<H> fn = pick_half<H>(kc, vw);
+  const size_t xa = reinterpret_cast<size_t>(X);
+  // vw = 2 kc: two points a thread, X's rows kc apart
+  const bool paired = vw == 2 * kc;
+  if (fn == nullptr || k % kc != 0 || tj < 1 || tj > kMaxTJ || gx < 1 ||
+      gy < 1 || gy > kMaxGridYZ || gz < 1 || gz > kMaxGridYZ || y0 < 0 ||
+      z0 < 0 || xa % (2 * static_cast<size_t>(vw)) != 0 ||
+      (paired ? ldx != kc || nz % 2 != 0 : ldx % vw != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  H half_scale;
+  if constexpr (std::is_same<H, __half>::value) {
+    half_scale = __float2half_rn(scale);
+  } else {
+    half_scale = __float2bfloat16_rn(scale);
+  }
+  unsigned short h;
+  std::memcpy(&h, &half_scale, sizeof(h));
+  fn<<<dim3(gx, gy, gz), dim3(kTileL, tj), 0,
+       static_cast<cudaStream_t>(stream)>>>(X, Y, nx, ny, nz, k, ldx,
+                                            half2ops::pack(h, h), y0, z0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 using Kernel = void (*)(const T*, T*, int, int, int, int, long long, T, int,
                         int);
@@ -204,9 +379,6 @@ Kernel<T> pick_vw(int vw) {
   }
   if constexpr (KC >= 4 && sizeof(T) <= 4) {
     if (vw == 4) return stencil3d_kernel<T, KC, 4>;
-  }
-  if constexpr (KC >= 8 && sizeof(T) == 2) {
-    if (vw == 8) return stencil3d_kernel<T, KC, 8>;
   }
   return nullptr;
 }
@@ -267,20 +439,20 @@ extern "C" int stencil3d_f64(const double* X, double* Y, int nx, int ny,
 }
 
 // The 16-bit entry points take scale as the f32 value of the half it
-// rounds to (the wrapper rounds it), so the conversion here is exact.
+// rounds to (the wrapper rounds it), so the conversion here is exact. At
+// kc = 1 a thread takes two points along l: gx tiles of 64 points.
 extern "C" int stencil3d_f16(const __half* X, __half* Y, int nx, int ny,
                              int nz, int k, long long ldx, float scale,
                              int kc, int vw, int tj, int gx, int gy, int gz,
                              int y0, int z0, void* stream) {
-  return launch<__half>(X, Y, nx, ny, nz, k, ldx, __float2half_rn(scale), kc,
-                        vw, tj, gx, gy, gz, y0, z0, stream);
+  return launch_half<__half>(X, Y, nx, ny, nz, k, ldx, scale, kc, vw, tj, gx,
+                             gy, gz, y0, z0, stream);
 }
 
 extern "C" int stencil3d_bf16(const __nv_bfloat16* X, __nv_bfloat16* Y,
                               int nx, int ny, int nz, int k, long long ldx,
                               float scale, int kc, int vw, int tj, int gx,
                               int gy, int gz, int y0, int z0, void* stream) {
-  return launch<__nv_bfloat16>(X, Y, nx, ny, nz, k, ldx,
-                               __float2bfloat16_rn(scale), kc, vw, tj, gx, gy,
-                               gz, y0, z0, stream);
+  return launch_half<__nv_bfloat16>(X, Y, nx, ny, nz, k, ldx, scale, kc, vw,
+                                    tj, gx, gy, gz, y0, z0, stream);
 }

@@ -42,12 +42,21 @@ def _nvcc() -> str:
     return path
 
 
-def hashed_path(src: str, flags, stem: str) -> str:
-    """``_build/lib<stem>-<hash>.so``, the hash of ``src``'s bytes and the
-    flags it is built with."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+def hashed_path(src: str, flags, stem: str, headers=()) -> str:
+    """``_build/lib<stem>-<hash>.so``, the hash of ``src``'s bytes, those of
+    the ``headers`` it includes and the flags it is built with."""
+    digest = hashlib.sha256()
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def headers() -> list:
+    """The ``csrc/*.cuh`` headers the kernels' sources include."""
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cuh"))
 
 
 def build_once(out: str, command, what: str) -> str:
@@ -74,18 +83,23 @@ def build_once(out: str, command, what: str) -> str:
 
 
 def library_path(name: str) -> str:
-    return hashed_path(os.path.join(CSRC, name + ".cu"), NVCC_FLAGS, name)
+    return hashed_path(os.path.join(CSRC, name + ".cu"), NVCC_FLAGS, name,
+                       headers())
 
 
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
     lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
-    src = os.path.join(CSRC, name + ".cu")
-    out = build_once(library_path(name),
-                     lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                     f"nvcc for {name}.cu")
-    lib = ctypes.CDLL(out)
-    _LOADED[name] = lib
+    if lib is None:
+        lib = _LOADED[name] = load_source(os.path.join(CSRC, name + ".cu"),
+                                          name)
     return lib
+
+
+def load_source(src: str, stem: str) -> ctypes.CDLL:
+    """Compile the CUDA source ``src`` (which may include the ``csrc``
+    headers) into ``_build/lib<stem>-<hash>.so`` if missing, and load it."""
+    out = build_once(hashed_path(src, NVCC_FLAGS, stem, headers()),
+                     lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                     f"nvcc for {os.path.basename(src)}")
+    return ctypes.CDLL(out)

@@ -25,8 +25,8 @@ as the JAX function's product promotes.
   CUDA tensor it launches the hand-written Hopper kernel (``csrc/dia.cu``)
   or raises; on a CPU tensor, where no kernel exists, it runs the plain
   version;
-* :func:`plan` — the kernel's launch: columns of a thread, load width and
-  grid.
+* :func:`plan` — the kernel's launch: which kernel, columns of a thread,
+  load width and grid; :func:`launch` — the kernel under a given plan.
 
 The kernel takes X's row stride, so a column slice of a wider block needs
 no copy; its columns must be adjacent. ``LAUNCHES`` counts the wrapper's
@@ -53,7 +53,7 @@ _MIXED = {(h, b): f"dia_{hs}_{bs}"
           for b, bs in ((torch.float32, "f32"), (torch.float64, "f64"))}
 KERNEL_LAUNCHES = dict.fromkeys([*_ENTRY.values(), *_MIXED.values()], 0)
 VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
-THREADS = 256        # rows of a block: the kernel's kThreads
+THREADS = 256        # threads of a block: the kernel's kThreads
 MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y: column groups
 
 
@@ -128,18 +128,40 @@ def rmatmat_reference(vals, offsets: Sequence[int], X):
     return out
 
 
+# the kernels of csrc/dia.cu (its KernelId)
+ROW_KERNEL = 0   # dia_kernel: one row a thread (f32, f64, complex, mixed)
+HALF_KERNEL = 1  # dia_half_kernel: HALF_ROWS rows a thread, 32 apart
+RUN_KERNEL = 2   # dia_run_kernel: RUN_ROWS adjacent rows, X one column
+HALF_ROWS = 2
+RUN_ROWS = 4
+
+
 class Plan(NamedTuple):
     kc: int        # columns of a thread (divides k)
-    vw: int        # elements of X per load; 1 is the scalar path
-    grid: tuple    # (blocks of THREADS rows, column groups k / kc)
+    vw: int        # elements of X a thread loads at once; 1 is the scalar
+                   # path (RUN_KERNEL: its RUN_ROWS rows, one run)
+    grid: tuple    # (blocks of THREADS threads, column groups k / kc)
+    kernel: int = ROW_KERNEL
+
+    @property
+    def rows(self) -> int:
+        """Rows of a thread."""
+        return {ROW_KERNEL: 1, HALF_KERNEL: HALF_ROWS,
+                RUN_KERNEL: RUN_ROWS}[self.kernel]
 
 
 def plan(n, k, ldx, align, size) -> Plan:
     """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
     elements apart at an address with ``align = data_ptr % 16``, ``size``
-    bytes an element: one thread a (row, group of ``kc`` columns), X loaded
-    :func:`vector_width` at a time, blocks of ``THREADS`` rows. Raises
-    ValueError on a shape the kernel does not take."""
+    bytes an element of X: one thread a row and group of ``kc`` columns, X
+    loaded :func:`vector_width` at a time, blocks of ``THREADS`` threads
+    (``ROW_KERNEL``). A half block (``size`` 2, which holds half values)
+    takes the packed kernels: ``HALF_KERNEL``, two rows a thread 32 apart,
+    or where X is one column (``kc`` 1, ``ldx`` 1) ``RUN_KERNEL``, four
+    adjacent rows whose X is one run; blocks of ``THREADS * rows`` rows.
+    Half values with an f32 or f64 block (the mixed entry points) take
+    ``ROW_KERNEL``. Raises ValueError on a shape the kernels do not
+    take."""
     if n < 1 or k < 1 or n >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"an [{n}, {k}] block is outside the kernel's range "
                          "(1 <= n, k < 2**31)")
@@ -148,8 +170,12 @@ def plan(n, k, ldx, align, size) -> Plan:
     if groups > MAX_GRID_Y:
         raise ValueError(f"{groups} column groups of {kc}: the grid takes "
                          f"{MAX_GRID_Y}")
-    return Plan(kc, vector_width(kc, ldx, align, size),
-                (-(-n // THREADS), groups))
+    p = Plan(kc, vector_width(kc, ldx, align, size), (1, groups))
+    if size == 2 and kc == 1 and ldx == 1:
+        p = p._replace(vw=RUN_ROWS, kernel=RUN_KERNEL)
+    elif size == 2:
+        p = p._replace(kernel=HALF_KERNEL)
+    return p._replace(grid=(-(-n // (THREADS * p.rows)), groups))
 
 
 def card_plan(X) -> Plan:
@@ -163,11 +189,12 @@ def _dia_fn(entry):
     from . import build
     fn = getattr(build.load("dia"), entry)
     if fn.argtypes is None:
-        # vals, offs; B; X; ldx; Y; n, k, adjoint, kc, vw, gx, gy; stream
+        # vals, offs; B; X; ldx; Y; n, k, adjoint, kernel, kc, vw, gx,
+        # gy; stream
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                                ctypes.c_longlong,
                                                ctypes.c_void_p] \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -218,16 +245,26 @@ def matmat(vals, offs, X, adjoint=False):
     if vals.shape[0] == 0:
         return Y.zero_()
     p = card_plan(X)
-    entry = mixed or _ENTRY[X.dtype]
-    fn = _dia_fn(entry)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(vals.data_ptr(), offs.data_ptr(), vals.shape[0], X.data_ptr(),
-                max(ldx, 1), Y.data_ptr(), n, k, int(adjoint), p.kc, p.vw,
-                *p.grid, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    entry = launch(vals, offs, X, Y, adjoint, p)
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
     VECTOR_LAUNCHES[entry] += p.vw > 1
     return Y
+
+
+def launch(vals, offs, X, Y, adjoint, p: Plan):
+    """Launches the entry point of (vals, X)'s types on the current stream
+    under plan ``p``: ``Y = A X`` (``adjoint``: ``A^H X``) into the
+    contiguous ``[n, k]`` Y; returns the entry point's name. Counts
+    nothing (:func:`matmat` does); raises when the launch is refused."""
+    entry = _MIXED.get((vals.dtype, X.dtype)) or _ENTRY[X.dtype]
+    fn = _dia_fn(entry)
+    n, k = X.shape
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(vals.data_ptr(), offs.data_ptr(), vals.shape[0], X.data_ptr(),
+                max(X.stride(0), 1), Y.data_ptr(), n, k, int(adjoint),
+                p.kernel, p.kc, p.vw, *p.grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    return entry

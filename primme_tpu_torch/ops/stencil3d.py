@@ -84,9 +84,11 @@ def vector_width(kc, ldx, align, size):
 
 class Plan(NamedTuple):
     kc: int        # columns of a point (divides k)
-    vw: int        # elements of X per load; 1 is the scalar path
+    vw: int        # elements of X per load; 1 is the scalar path (a half
+                   # type's 2 kc: two points a thread)
     tj: int        # tile rows along j: blocks of 32 x tj threads
-    tl: int        # tile points along l: 32, fewer where threads share one
+    tl: int        # tile points along l: 32, fewer where threads share one,
+                   # 64 where a thread takes two (vw = 2 kc)
     tiles_j: int   # tiles along j
     groups: int    # column groups, k / kc
     grid: tuple    # (tiles along l, tiles along j, planes x groups)
@@ -104,8 +106,11 @@ def plan(nx, ny, nz, k, ldx, align, size, kc=None) -> Plan:
     ``ldx`` elements apart at an address with ``align = data_ptr % 16``,
     ``size`` bytes an element: ``kc`` columns a point (by default
     :func:`column_group`), loaded :func:`vector_width` at a time; a point
-    wider than 16 bytes shared by threads, 16 bytes each; tiles of ``tl x
-    tj`` points; a grid of (l tile, j tile, plane x column group), one
+    wider than 16 bytes shared by threads, 16 bytes each; in a half type
+    (``size`` 2), where two adjacent points along l are one aligned run
+    (X's rows ``kc`` <= 4 apart, ``nz`` even, X aligned to ``4 kc``
+    bytes), two points a thread, one load of ``vw = 2 kc`` halves a tap;
+    tiles of ``tl x tj`` points; a grid of (l tile, j tile, plane x column group), one
     block each. Where the grid's last two extents pass CUDA's 65535, it
     runs as several launches, each over at most 65535 j tiles and 65535
     (plane, column group) pairs from the offsets it is given; otherwise as
@@ -117,9 +122,13 @@ def plan(nx, ny, nz, k, ldx, align, size, kc=None) -> Plan:
     if kc not in (1, 2, 4, 8) or k % kc:
         raise ValueError(f"{kc} columns a point: not 1, 2, 4 or 8 dividing "
                          f"k={k}")
-    vw = vector_width(kc, ldx, align, size)
+    if size == 2 and kc <= 4 and ldx == kc and nz % 2 == 0 \
+            and align % (4 * kc) == 0:   # two points a thread, one run
+        vw, tl = 2 * kc, 2 * TILE_L
+    else:
+        vw = vector_width(kc, ldx, align, size)
+        tl = TILE_L // max(1, kc * size // 16)
     tj = min(MAX_TJ, 1 << (ny - 1).bit_length())
-    tl = TILE_L // max(1, kc * size // 16)
     tiles_l, tiles_j, groups = -(-nz // tl), -(-ny // tj), k // kc
     if nx * groups >= 2 ** 31:
         raise ValueError(f"{nx * groups} (plane, column group) pairs are "

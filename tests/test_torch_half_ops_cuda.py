@@ -8,7 +8,8 @@ them. This file imports no jax, so that it runs where the kernels do:
 Tolerances: none for the stencil, Jacobi and DIA (every operation of
 theirs is one half operation, f32 on the exact operands rounded once to
 the half type, in the plain version's order: bit for bit, NaN for NaN,
-on the vector path and on the scalar one); one unit in the half's last
+on the vector path and on the scalar one, on blocks drawn from edge
+values too); one unit in the half's last
 place for the sliced ELL (an f32 fma chain against the plain version's
 rounded products and sums in f32, the sum rounded once to the half type;
 both paths). The mixed entry points (half values or diagonal, an f32 or
@@ -72,14 +73,55 @@ def _blocks(n, k, dtype, card):
     return out
 
 
+# values at the edges of each half type: signed zeros, subnormals (the
+# least, the largest, and the least normal beside them), the largest finite
+# values, and values whose sums and products fall on a tie of the half
+# grid (1 + eps/2 past 1, 1 - eps/4 below it, 0.5 + eps/4, 3, 1.5)
+EDGE = {torch.float16: [0.0, -0.0, 1.0, -1.0, 1 + 2 ** -10, 1 - 2 ** -11,
+                        2 ** -11, -2 ** -11, 3.0, 1.5, 0.5 + 2 ** -11,
+                        65504.0, -65504.0, 2 ** -24, -2 ** -24,
+                        2 ** -14 - 2 ** -24, 2 ** -14],
+        torch.bfloat16: [0.0, -0.0, 1.0, -1.0, 1 + 2 ** -7, 1 - 2 ** -8,
+                         2 ** -8, -2 ** -8, 3.0, 1.5, 0.5 + 2 ** -8,
+                         3.3895313892515355e38, -3.3895313892515355e38,
+                         2 ** -133, -2 ** -133, 2 ** -126 - 2 ** -133,
+                         2 ** -126]}
+
+
+def _edge(shape, dtype, card, seed):
+    """A tensor of ``shape`` drawn (seeded) from ``EDGE[dtype]``, each value
+    exact in the half type."""
+    pool = torch.tensor(EDGE[dtype], dtype=torch.float32)
+    assert torch.equal(pool.to(dtype).float(), pool)
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(len(pool), shape, generator=g)
+    return pool[idx].to(dtype).to(card)
+
+
+def _edge_blocks(n, k, dtype, card, seed):
+    """:func:`_blocks`' three blocks, drawn from the edge values."""
+    W = _edge((n, 24), dtype, card, seed)
+    out = [_edge((n, k), dtype, card, seed + 1)]
+    for off in (8, 1):
+        if off + k <= 24:
+            out.append(W[:, off:off + k])
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("values", ["randn", "edge"])
 @pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("grid", [(3, 5, 7), (16, 16, 16), (17, 33, 65)])
-def test_half_stencil_matches_plain(card, grid, dtype):
+def test_half_stencil_matches_plain(card, grid, dtype, values):
+    """Every width on contiguous blocks and slices; ``edge``: blocks drawn
+    from ``EDGE`` (a one-column block on an even nz takes the paired
+    path, on an odd nz the scalar pairs)."""
     n = grid[0] * grid[1] * grid[2]
     entry = "stencil3d_" + SUFFIX[dtype]
     for k in WIDTHS:
-        for X in _blocks(n, k, dtype, card):
+        blocks = (_blocks(n, k, dtype, card) if values == "randn"
+                  else _edge_blocks(n, k, dtype, card, k))
+        for X in blocks:
             before = ST.KERNEL_LAUNCHES[entry]
             Y = ST.matmat(X, *grid, scale=0.37)
             assert ST.KERNEL_LAUNCHES[entry] == before + 1
@@ -121,16 +163,28 @@ def test_half_jacobi_matches_plain(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("values", ["randn", "edge"])
 @pytest.mark.parametrize("adjoint", [False, True])
 @pytest.mark.parametrize("dtype", HALVES)
-def test_half_dia_matches_plain(card, dtype, adjoint):
-    n, offsets = 5000, (0, 1, -1, 64, -64, 4095)
-    vals = torch.randn((len(offsets), n), device=card).to(dtype)
+def test_half_dia_matches_plain(card, dtype, adjoint, values):
+    """``randn``: every width on contiguous blocks and slices. ``edge``:
+    values and blocks drawn from ``EDGE``, odd offsets at an odd n (a k=1
+    block's X is one run of rows, which a shift puts at an odd half, as it
+    does the runs of values at odd rows of vals; the other blocks take two
+    rows a thread, 32 apart)."""
+    if values == "randn":
+        n, offsets = 5000, (0, 1, -1, 64, -64, 4095)
+        vals = torch.randn((len(offsets), n), device=card).to(dtype)
+    else:
+        n, offsets = 5001, (0, 1, -1, 3, -5, 63, -65, 4095, -4097)
+        vals = _edge((len(offsets), n), dtype, card, 7)
     offs = torch.tensor(offsets, device=card)
     entry = "dia_" + SUFFIX[dtype]
     ref = DK.rmatmat_reference if adjoint else DK.matmat_reference
     for k in WIDTHS:
-        for X in _blocks(n, k, dtype, card):
+        blocks = (_blocks(n, k, dtype, card) if values == "randn"
+                  else _edge_blocks(n, k, dtype, card, k))
+        for X in blocks:
             before = DK.KERNEL_LAUNCHES[entry]
             Y = DK.matmat(vals, offs, X, adjoint=adjoint)
             assert DK.KERNEL_LAUNCHES[entry] == before + 1
@@ -335,3 +389,34 @@ def test_half_solves_run_their_kernels(card):
     assert DK.KERNEL_LAUNCHES["dia_bf16"] - b0["dia_bf16"] \
         >= st["num_matvecs"] / 2
     assert DK.KERNEL_LAUNCHES["dia_f32"] == b0["dia_f32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALVES)
+def test_half_entry_points_raise_not_fall_back(card, dtype, monkeypatch):
+    """A refused launch of a half entry point raises, and so does a
+    failed build: neither runs the plain version in its place."""
+    from primme_tpu_torch.ops import build
+
+    n, offsets = 300, (0, 1, -1)
+    vals = torch.randn((3, n), device=card).to(dtype)
+    offs = torch.tensor(offsets, device=card)
+    X = torch.randn((n, 2), device=card).to(dtype)
+    Y = torch.empty_like(X)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        DK.launch(vals, offs, X, Y, False,
+                  DK.card_plan(X)._replace(kernel=3))
+    grid = (3, 10, 10)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ST.launch(X, Y, *grid, 1.0, ST.card_plan(X, *grid)._replace(vw=3))
+
+    def broken(name):
+        raise RuntimeError(f"nvcc for {name}.cu failed (1)")
+
+    monkeypatch.setattr(build, "load", broken)
+    before = (dict(DK.KERNEL_LAUNCHES), dict(ST.KERNEL_LAUNCHES))
+    with pytest.raises(RuntimeError, match="nvcc for dia.cu"):
+        DK.matmat(vals, offs, X)
+    with pytest.raises(RuntimeError, match="nvcc for stencil3d.cu"):
+        ST.matmat(X, *grid)
+    assert (dict(DK.KERNEL_LAUNCHES), dict(ST.KERNEL_LAUNCHES)) == before
