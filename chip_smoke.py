@@ -418,7 +418,10 @@ CSR product; none printed where it refuses the type); the mixed entry
 points (half values or diagonal, an f32 or f64 block: what a half basis
 hands a half operator) against their plain versions and the f32 (f64)
 kernels on the widened values, the f32 ones timed
-(:func:`mixed_kernel_rows`); then the solves of ``HALFOP_SOLVES`` at tol
+(:func:`mixed_kernel_rows`); the redesigned Jacobi (half, f32 and f64
+blocks over a half diagonal) and mixed DIA instances held bit for bit at
+n = 64^3 - 1, k in 1, 2, 3, 4, 8 and a k=2 slice at column offset 1, both
+forms (:func:`new_kernel_checks`); then the solves of ``HALFOP_SOLVES`` at tol
 4 eps(half): ``bench.py``'s 64^3 stencil with its Jacobi in f16 and bf16
 under an f32 solve and in bf16 with ``dtype=None`` (a half basis), phase
 4's matrix as an ``ELLOperator`` and phase 11's as the chooser's
@@ -427,7 +430,9 @@ phase 40's k, in f16 (ELL) and bf16 (DIA) over a half basis: true
 residuals (f64) below 16 eps(half) ||A||, each value within its residual
 of the closed form, the probe verified for the f32 solves, the half (over
 a half basis: mixed) kernels launched at least matvecs / 2 times and
-every other entry point (their f32 counterparts too) not at all, matvecs
+every other entry point (their f32 counterparts too) not at all, each
+launch of the shifted half or mixed Jacobi and of the mixed DIA through
+the redesigned kernel (``RUN_LAUNCHES``, ``MIXED_LAUNCHES``), matvecs
 within 2x of the JAX package's (``tools/torch_smoke_refs.py --phase
 halfop``); each solve's time and peak device memory beside its f32
 counterpart's.
@@ -438,10 +443,11 @@ Phase 48, the packed half arithmetic: every pair of 16-bit patterns
 operands rounded once, in f16 and bf16 (``tools/half_packed_check.cu``,
 built here): 0 mismatches for each of the six pairs (two NaN results
 match; all else by bits). Then the half rows at 256^3 and k=2: each f16
-and bf16 entry point of the stencil, Jacobi and DIA and the mixed DIA
-entry points with an f32 block, bit for bit against the plain versions
-and timed as phase 47 (7 samples of 5 calls), the 27-point DIA built on
-the card from its closed form.
+and bf16 entry point of the stencil, Jacobi and DIA and the mixed Jacobi
+and DIA entry points with an f32 block, bit for bit against the plain
+versions and timed as phase 47 (7 samples of 5 calls), the 27-point DIA
+built on the card from its closed form; then the redesigned instances
+held as in phase 47 at n = 256^3 - 1.
 
 The kernel tables' shapes at k in ``UNTIMED_K`` (1, 4 and 8) are held
 against the plain versions and not timed, to keep the run within its
@@ -1130,7 +1136,9 @@ def reset_counts(*mods):
         mod.LAUNCHES = 0
         for counts in (mod.KERNEL_LAUNCHES,
                        getattr(mod, "VECTOR_LAUNCHES", {}),
-                       getattr(mod, "DIRECT_LAUNCHES", {})):
+                       getattr(mod, "DIRECT_LAUNCHES", {}),
+                       getattr(mod, "RUN_LAUNCHES", {}),
+                       getattr(mod, "MIXED_LAUNCHES", {})):
             for name in counts:
                 counts[name] = 0
 
@@ -1138,7 +1146,8 @@ def reset_counts(*mods):
 def read_counts(mods, counts="KERNEL_LAUNCHES"):
     """Every entry point's launches since ``reset_counts`` (with
     ``counts="DIRECT_LAUNCHES"``, those that took the sliced ELL's direct
-    path)."""
+    path; ``"RUN_LAUNCHES"``, Jacobi's run kernel; ``"MIXED_LAUNCHES"``,
+    the mixed DIA kernel)."""
     launches = {}
     for mod in mods:
         launches.update(getattr(mod, counts, {}))
@@ -1365,7 +1374,9 @@ def _print_times(tag, shape, err, bit, t, plan, extra=""):
         return
     print(f"[{tag}] {shape} max|y-yref|={err:.3e} bit for bit {bit}; plan "
           f"kc={plan.kc} vw={plan.vw} ({'vector' if plan.vw > 1 else 'scalar'}"
-          f" path)" + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}, "
+          f" path)" + (f" kernel {plan.kernel}" if hasattr(plan, "kernel")
+                       else "")
+          + (f" tile {plan.tl}x{plan.tj}, grid {plan.grid}, "
                        f"{len(plan.launches)} launch(es)"
                        if hasattr(plan, "tl") else f" grid {plan.grid}"
                        if hasattr(plan, "grid") else f" blocks {plan.blocks}")
@@ -4475,6 +4486,7 @@ def half_kernel_rows(ST, JK, DK, WE, dev, gen, dia_op, ell_op, A_ell,
             err = float((y.float() - yref.float()).abs().nan_to_num().max())
             out[entry] = {"max_abs_err": err, "bitwise": bit,
                           "vector_path": plan.vw > 1 if plan else None,
+                          "plan_kernel": getattr(plan, "kernel", None),
                           "library_call": call if t["library_ms"] is not None
                           else None, **t, **(extra or {})}
             if plan is not None:
@@ -4640,6 +4652,7 @@ def mixed_kernel_rows(JK, DK, WE, dev, gen, dia_op, ell_op, A_ell, A_dia):
             def row(entry, err, bit, t, plan, call, extra=None):
                 out[entry] = {"max_abs_err": err, "bitwise": bit,
                               "vector_path": plan.vw > 1 if plan else None,
+                              "plan_kernel": getattr(plan, "kernel", None),
                               "library_call": call if t["library_ms"]
                               is not None else None, **t, **(extra or {})}
                 if plan is not None:
@@ -4676,7 +4689,7 @@ def mixed_kernel_rows(JK, DK, WE, dev, gen, dia_op, ell_op, A_ell, A_dia):
                 bit = _bitwise(y, yref) and y.dtype == bdt
                 t = times(kern, plain, nbytes, lib)
                 err = float((y - yref).abs().nan_to_num().max())
-                row(entry, err, bit, t, JK.card_plan(X), call)
+                row(entry, err, bit, t, JK.card_plan(X, d), call)
                 check(bit, f"{entry}: kernel differs from its plain version")
             # DIA, matmat and rmatmat, half values
             entry = f"dia_{sfx}_{bsfx}"
@@ -4693,7 +4706,7 @@ def mixed_kernel_rows(JK, DK, WE, dev, gen, dia_op, ell_op, A_ell, A_dia):
                       lambda: DK.matmat_reference(vals, offsets, X),
                       len(offsets) * n * 2 + 2 * n * k * size,
                       (lambda: csr @ X) if timed else None, plain_spin=False)
-            row(entry, err, bit, t, DK.card_plan(X),
+            row(entry, err, bit, t, DK.card_plan(X, vals),
                 "A_csr @ X (cuSPARSE, f32 values)",
                 {f"bitwise_with_dia_{bsfx}": same})
             check(bit and same, f"{entry}: kernel differs from its plain "
@@ -4740,6 +4753,75 @@ def mixed_kernel_rows(JK, DK, WE, dev, gen, dia_op, ell_op, A_ell, A_dia):
                   f"{bsfx} kernel on the widened values ({same})")
             del X, Yc
     del csr, csr_ell
+    return out
+
+
+# the widths phases 47 and 48 hold the redesigned Jacobi and mixed DIA
+# instances at, on contiguous blocks (k = 1, 2, 4 take the new kernels)
+# and a k=2 slice at an odd column offset, n odd
+NEW_KERNEL_K = (1, 2, 3, 4, 8)
+
+
+def new_kernel_checks(JK, DK, dev, gen, vals32, offs, offsets, tag):
+    """The half Jacobi (half, f32 and f64 blocks: shifted with one shift
+    equal to a diagonal entry, and unshifted) and the mixed DIA (f32 and
+    f64 blocks, matmat and rmatmat) in f16 and bf16 against their plain
+    versions bit for bit, at the n = ``vals32.shape[1]`` rows of the DIA
+    values ``vals32`` (f32, ``offsets`` in stored order), on contiguous
+    blocks of each k of ``NEW_KERNEL_K`` and a k=2 slice at column offset
+    1 of a 24-wide block; held, not timed. Returns, by entry point, the
+    cases, how many of them the plan gave the new kernel (Jacobi's run
+    kernel, the mixed DIA kernel) and whether every case matched."""
+    import torch
+
+    n = vals32.shape[1]
+    out = {}
+
+    def note(entry, bit, new):
+        r = out.setdefault(entry, {"cases": 0, "new_kernel": 0,
+                                   "bitwise": True})
+        r["cases"] += 1
+        r["new_kernel"] += new
+        r["bitwise"] &= bit
+        check(bit, f"{tag} {entry}: kernel differs from its plain version")
+
+    for half, sfx in HALF_SUFFIX.items():
+        hdt = getattr(torch, half)
+        d = (torch.rand(n, generator=gen, device=dev) * 3 + 0.5).to(hdt)
+        vals = vals32.to(hdt)
+        for bdt, bsfx in ((hdt, ""), (torch.float32, "_f32"),
+                          (torch.float64, "_f64")):
+            W = torch.randn((n, SLICE_WIDTH), generator=gen,
+                            device=dev).to(bdt)
+            blocks = [torch.randn((n, k), generator=gen, device=dev).to(bdt)
+                      for k in NEW_KERNEL_K] + [W[:, 1:3]]
+            for X in blocks:
+                k = X.shape[1]
+                s = (torch.rand(k, generator=gen, device=dev) * 3
+                     + 0.5).to(bdt)
+                s[0] = d[5]
+                run = JK.card_plan(X, d).kernel == JK.RUN_KERNEL
+                note(f"jacobi_shifted_{sfx}{bsfx}", _bitwise(
+                    JK.shifted(X, d, s, 1e-10),
+                    JK.shifted_reference(X, d, s, 1e-10)), run)
+                note(f"jacobi_{sfx}{bsfx}", _bitwise(
+                    JK.unshifted(X, d, 1e-10),
+                    JK.unshifted_reference(X, d, 1e-10)), run)
+                if bdt == hdt:
+                    continue
+                mixed = DK.card_plan(X, vals).kernel == DK.MIXED_KERNEL
+                note(f"dia_{sfx}{bsfx}", _bitwise(
+                    DK.matmat(vals, offs, X),
+                    DK.matmat_reference(vals, offsets, X)) and _bitwise(
+                    DK.matmat(vals, offs, X, adjoint=True),
+                    DK.rmatmat_reference(vals, offsets, X)), mixed)
+            del W, blocks
+        del d, vals
+    print(f"[{tag}] the redesigned instances at n = {n}, k in "
+          f"{list(NEW_KERNEL_K)} and a k=2 slice at column offset 1, bit "
+          "for bit (cases / on the new kernel): "
+          + ", ".join(f"{e} {r['cases']}/{r['new_kernel']}"
+                      for e, r in out.items()), flush=True)
     return out
 
 
@@ -4791,6 +4873,10 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
                             A_dia)
     rows.update(mixed_kernel_rows(JK, DK, WE, dev, gen, dia32, ell32, A_ell,
                                   A_dia))
+    # n odd: the 27-point operator's first n - 1 rows
+    held = new_kernel_checks(JK, DK, dev, gen,
+                             dia32.vals[:, :-1].contiguous(), dia32.offs,
+                             dia32.offsets, "halfop")
     lam_st, anorm_st = stencil_eigenvalues(GRID, GRID ** 3)
     host = {"stencil": (_laplacian7(GRID, None), lam_st, anorm_st),
             "ell": (A_ell, ev27, float(np.abs(ev27).max())),
@@ -4841,6 +4927,10 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = read_counts(mods)
+        # the launches that ran the redesigned kernels: Jacobi's run
+        # kernel, the mixed DIA kernel
+        new_kernel = {**read_counts(mods, "RUN_LAUNCHES"),
+                      **read_counts(mods, "MIXED_LAUNCHES")}
         peak = torch.cuda.max_memory_allocated()
         mv, pmv = st["num_matvecs"], st["num_probe_matvecs"]
         X64 = X.astype(np.float64)
@@ -4865,7 +4955,9 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
               f"{ref_mv})  num_probe_matvecs {pmv}  probe verified "
               f"{st['probe_verified']} exhausted {st['probe_exhausted']}"
               + ("" if verify else " (printed, not held)")
-              + f"  launches { {e: c for e, c in launches.items() if c} }  "
+              + f"  launches { {e: c for e, c in launches.items() if c} }"
+              f" (on the redesigned kernels "
+              f"{ {e: c for e, c in new_kernel.items() if c} })  "
               f"max true residual {float(rn.max()):.3e} (limit {floor:.3e})"
               f"  distance to the spectrum / residual "
               f"{np.round(dist * xn / rn, 4).tolist()}  values "
@@ -4886,6 +4978,12 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
             least = (mv - pmv) / 2 if entry.startswith("jacobi") else mv / 2
             check(launches[entry] >= least, f"halfop {name}: only "
                   f"{launches[entry]} {entry} launches for {mv} matvecs")
+            if entry.startswith("jacobi_shifted_") or (
+                    entry.startswith("dia_") and entry.endswith("_f32")):
+                check(new_kernel[entry] == launches[entry],
+                      f"halfop {name}: {new_kernel[entry]} of the "
+                      f"{launches[entry]} {entry} launches ran the "
+                      "redesigned kernel")
         for entry in others:
             check(entry in allowed or launches[entry] == 0,
                   f"halfop {name}: {entry} served this solve: {launches}")
@@ -4899,12 +4997,15 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
                         "probe_exhausted": st["probe_exhausted"],
                         "evals": np.sort(w64).tolist(),
                         "max_residual": float(rn.max()), "floor": floor,
-                        "launches": launches, "peak_bytes": peak,
+                        "launches": launches,
+                        "new_kernel_launches": {
+                            e: c for e, c in new_kernel.items() if c},
+                        "peak_bytes": peak,
                         "bytes_before": before_bytes, "ref_matvecs": ref_mv,
                         "f32_counterpart": None if ref32 is None else {
                             "phase": f32_of[kind], "wall_s": ref32["wall_s"],
                             "peak_bytes": ref32.get("peak_bytes")}}
-    return {"kernels": rows, "solves": solves,
+    return {"kernels": rows, "solves": solves, "held": held,
             "seconds": time.perf_counter() - t0}
 
 
@@ -5079,12 +5180,12 @@ def _times_large(kernel, plain, nbytes, copy, library, plain_spin=True):
 def large_half_rows(ST, JK, DK, dev, gen):
     """48, the 256^3 rows: each half entry point of the stencil, Jacobi
     (shifted, one shift equal to a diagonal entry, and unshifted) and DIA,
-    and the mixed DIA entry points with an f32 block, at ``LARGE_GRID``^3
-    and k=2 against its plain version bit for bit (DIA: matmat and
-    rmatmat), timed as :func:`_times_large` (with ``copy_ms`` and the
-    library call of phase 47: ``conv3d``, ``torch.div``, cuSPARSE on the
-    same matrix's CSR, half values or f32 for the mixed rows) beside the
-    bound, the bytes once over 3.35 TB/s. The 27-point DIA is built on the
+    and the mixed Jacobi and DIA entry points with an f32 block, at
+    ``LARGE_GRID``^3 and k=2 against its plain version bit for bit (DIA:
+    matmat and rmatmat), timed as :func:`_times_large` (with ``copy_ms``
+    and the library call of phase 47: ``conv3d``, ``torch.div``, cuSPARSE
+    on the same matrix's CSR, half values or f32 for the mixed rows)
+    beside the bound, the bytes once over 3.35 TB/s. The 27-point DIA is built on the
     card from its closed form (:func:`laplacian27_dia`: 906 MB of half
     values), and its CSR from it (:func:`dia_csr`)."""
     import torch
@@ -5097,7 +5198,9 @@ def large_half_rows(ST, JK, DK, dev, gen):
     def row(entry, y, yref, bit, t, plan, call):
         err = float((y.float() - yref.float()).abs().nan_to_num().max())
         out[entry] = {"shape": f"{m}^3 k={k}", "max_abs_err": err,
-                      "bitwise": bit, "plan": plan._asdict(),
+                      "bitwise": bit, "plan": {
+                          **plan._asdict(),
+                          "rows": getattr(plan, "rows", None)},
                       "library_call": call if t["library_ms"] is not None
                       else None, **t}
         print(f"[{entry}] {m}^3 k={k} max|y-yref|={err:.3e} bit for bit "
@@ -5152,6 +5255,29 @@ def large_half_rows(ST, JK, DK, dev, gen):
                 _times_large(kern, plain, nbytes, copy, lib),
                 JK.card_plan(X), call)
             del y, yref
+        # the mixed Jacobi: the half d, an f32 block and shifts
+        Xf = torch.randn((n, k), generator=gen, device=dev)
+        sf = torch.stack([d[5].float(), torch.tensor(0.7, device=dev)])
+        Yf, dw = torch.empty_like(Xf), d.float()[:, None]
+
+        def copy_f():
+            return Yf.copy_(Xf)
+        for entry, kern, plain, lib, nbytes, call in (
+                (f"jacobi_shifted_{sfx}_f32",
+                 lambda: JK.shifted(Xf, d, sf, 1e-10),
+                 lambda: JK.shifted_reference(Xf, d, sf, 1e-10), None,
+                 2 * n * k * 4 + 2 * n + k * 4,
+                 "none: no single call computes X / guard(d - sigma_j)"),
+                (f"jacobi_{sfx}_f32", lambda: JK.unshifted(Xf, d, 1e-10),
+                 lambda: JK.unshifted_reference(Xf, d, 1e-10),
+                 lambda: torch.div(Xf, dw), 2 * n * k * 4 + 2 * n,
+                 "torch.div(X, d[:, None])")):
+            y, yref = kern(), plain()
+            row(entry, y, yref, _bitwise(y, yref) and y.dtype == Xf.dtype,
+                _times_large(kern, plain, nbytes, copy_f, lib),
+                JK.card_plan(Xf, d), call)
+            del y, yref
+        del Xf, Yf, dw
         # DIA, half values: a half block, then an f32 one (mixed)
         vals, offs, offsets = laplacian27_dia(m, dtype, dev)
         csr = dia_csr(vals, offsets, dtype)
@@ -5182,7 +5308,7 @@ def large_half_rows(ST, JK, DK, dev, gen):
                              + 2 * n * k * Xb.element_size(), copy_b,
                              (lambda: lib_csr @ Xb) if lib else None,
                              plain_spin=False),
-                DK.card_plan(Xb), call)
+                DK.card_plan(Xb, vals), call)
             del y, yt, yref, lib_csr
         del X, Xb, Yc, vals, d
         torch.cuda.empty_cache()
@@ -5191,7 +5317,11 @@ def large_half_rows(ST, JK, DK, dev, gen):
 
 def half_check_phase(ST, JK, DK, dev, gen):
     """48: :func:`half_packed_check` (0 mismatches for each of the six
-    (type, operation) pairs), then :func:`large_half_rows`."""
+    (type, operation) pairs), then :func:`large_half_rows`, then
+    :func:`new_kernel_checks` at n = 256^3 - 1 (the 27-point operator's
+    first n rows)."""
+    import torch
+
     t0 = time.perf_counter()
     ops, secs = half_packed_check(dev)
     for name, r in ops.items():
@@ -5205,7 +5335,12 @@ def half_check_phase(ST, JK, DK, dev, gen):
           "halfcheck: the packed half operations differ from f32 rounded "
           "once")
     rows = large_half_rows(ST, JK, DK, dev, gen)
-    return {"ops": ops, **secs, "rows": rows,
+    vals, offs, offsets = laplacian27_dia(LARGE_GRID, torch.float32, dev)
+    held = new_kernel_checks(JK, DK, dev, gen, vals[:, :-1].contiguous(),
+                             offs, offsets, "halfcheck")
+    del vals
+    torch.cuda.empty_cache()
+    return {"ops": ops, **secs, "rows": rows, "held": held,
             "seconds": time.perf_counter() - t0}
 
 

@@ -81,8 +81,17 @@
 // to the block's type: each half value is widened (exactly) as it is
 // loaded and the sum runs in the block's type, so the result equals the
 // f32 (f64) kernel on the widened values bit for bit while vals moves 2
-// bytes a value, not 4 (8). They run dia_kernel, one row a thread: two
-// rows a thread measured no faster there.
+// bytes a value, not 4 (8). On dia_kernel, that moved 0.57x dia_f32's
+// bytes in 0.97x its time at 64^3 k=2 (27 diagonals): each diagonal and
+// row costs an 8-byte offset load and 64-bit index arithmetic besides its
+// value and row of X. dia_mixed_kernel keeps dia_kernel's thread map (one
+// row a thread, a warp's loads of vals and of X each one run) and its
+// arithmetic, stages the offsets once a block in shared memory as 32-bit
+// row shifts, and issues the loads of nine diagonals (four at kc >= 4)
+// before it sums any of them. (Runs of adjacent rows a thread, their
+// values in one load and their rows of X in 16-byte chunks, measured
+// slower at 64^3, where the solves run, two rows also at 256^3, four rows
+// faster there: tools/torch_mixed_dia_variants.py.)
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -250,15 +259,12 @@ __global__ void __launch_bounds__(kThreads)
 // Half values and a half block: packed sums
 // ---------------------------------------------------------------------------
 
+using half2ops::half_at;
 using half2ops::ld_halves;
 using half2ops::ld_row;
 using half2ops::pack;
 using half2ops::st_halves;
 
-// half i of the packed words w
-__device__ __forceinline__ unsigned short half_at(const unsigned* w, int i) {
-  return static_cast<unsigned short>(w[i / 2] >> (16 * (i % 2)));
-}
 
 // Rows 32 apart: thread (x, y) of warp w sums rows i0 + 32 r, r < R, with
 // i0 = (blockIdx.x kThreads + 32 w) R + lane, columns [blockIdx.y KC, +
@@ -451,16 +457,130 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Half values and a wider block (f32, f64): runs of adjacent rows
+// ---------------------------------------------------------------------------
+
+// the f32 (f64) value of the half bits h
+template <typename T, typename H>
+__device__ __forceinline__ T widen_bits(unsigned short h) {
+  if constexpr (std::is_same<H, __half>::value)
+    return widen<T>(__ushort_as_half(h));
+  else
+    return widen<T>(__ushort_as_bfloat16(h));
+}
+
+// U diagonals of dia_mixed_kernel at once, their row shifts at sh and
+// their values of row i at vt, U * n apart: the U loads of a value and a
+// row of X (rows ld elements apart; kDense: KC), then the U sums. Only the
+// first `left` slots are diagonals (kWhole: all U); a slot past them loads
+// its last diagonal again and adds 0 * 0 = +0, which leaves every sum as
+// it is (a sum is never -0: it starts at +0, and x + -x is +0), so no
+// load waits on a branch.
+template <int U, bool kWhole, bool kDense, typename H, typename T, int KC,
+          int VW, bool kAdjoint>
+__device__ __forceinline__ void mixed_group(const unsigned short* vt,
+                                            const int* sh, int i, int n,
+                                            const T* Xc, int ld, T* acc,
+                                            int left) {
+  T v[U], x[U][KC];
+  bool in[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool real = kWhole || u < left;
+    const int us = kWhole || u < left ? u : left - 1;
+    const int j = kAdjoint ? i - sh[us] : i + sh[us];
+    in[u] = real && static_cast<unsigned>(j) < static_cast<unsigned>(n);
+    const int r = in[u] ? j : i;         // an off-edge row reads row i
+    const T val = widen_bits<T, H>(__ldg(vt + static_cast<long long>(us) * n
+                                         + (kAdjoint ? r - i : 0)));
+    v[u] = real ? val : T(0);
+    const T* xr = Xc + static_cast<long long>(r) * (kDense ? KC : ld);
+#pragma unroll
+    for (int c = 0; c < KC; c += VW) ldg_vec<T, VW>(xr + c, x[u] + c);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    // matmat: v * 0 off the edge; rmatmat: 0 * 0
+    const T vv = kAdjoint && !in[u] ? T(0) : v[u];
+#pragma unroll
+    for (int q = 0; q < KC; ++q)
+      acc[q] = add_rn(acc[q], mul_rn(vv, in[u] ? x[u][q] : T(0)));
+  }
+}
+
+// The mixed kernel's staged diagonals and the most offsets its shared
+// memory takes (48 KB, the default limit of a block's dynamic shared
+// memory)
+template <int KC> struct MixedGroup {
+  static constexpr int kU = KC <= 2 ? 9 : 4;
+};
+constexpr int kMixedMaxB = 12288;
+
+// Half values H and a block in T (f32 or f64): dia_kernel's thread map
+// (thread (x, y) sums row blockIdx.x * kThreads + threadIdx.x, columns
+// [blockIdx.y KC, + KC), loaded VW at a time, so that a warp's loads of
+// vals and of X are each one run), with the B offsets staged once a block
+// in shared memory as 32-bit row shifts clamped to [-n, n] (a shift of n
+// or more leaves every row off the edge, as the 64-bit one does; n < 2^30
+// keeps every row index in 32 bits, and a row stride under 2^31 each
+// row's offset one 32 x 32-bit product; B <= kMixedMaxB), and the loads of
+// kU diagonals (9, or 4 at KC >= 4: a value and a row of X each) issued
+// before any of them is summed (kDense: a contiguous block of one column
+// group, its rows KC apart at compile time). The arithmetic is
+// dia_kernel's: widened values, one rounding an operation in T in stored
+// order, no fma, v * 0 off the edge for matmat and 0 * 0 for rmatmat.
+template <typename H, typename T, int KC, int VW, bool kAdjoint,
+          bool kDense = false>
+__global__ void __launch_bounds__(kThreads)
+    dia_mixed_kernel(const H* __restrict__ vals,
+                     const long long* __restrict__ offs, int B,
+                     const T* __restrict__ X, long long ldx,
+                     T* __restrict__ Y, int n, int k) {
+  constexpr int kU = MixedGroup<KC>::kU;
+  extern __shared__ int shift[];        // B row shifts
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    const long long o = __ldg(offs + b);
+    shift[b] = static_cast<int>(o < -n ? -n : o > n ? n : o);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int ld = static_cast<int>(ldx);          // the launch checks it fits
+  const T* Xc = X + blockIdx.y * KC;
+  // row i of diagonal b: matmat's value (rmatmat's is row j's)
+  const unsigned short* vt = reinterpret_cast<const unsigned short*>(vals) + i;
+  T acc[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) acc[q] = T(0);
+  // kU diagonals at a time; the last group's empty slots add +0
+  int b = 0;
+  for (; b + kU <= B; b += kU)
+    mixed_group<kU, true, kDense, H, T, KC, VW, kAdjoint>(
+        vt + static_cast<long long>(b) * n, shift + b, i, n, Xc, ld, acc, kU);
+  if (b < B)
+    mixed_group<kU, false, kDense, H, T, KC, VW, kAdjoint>(
+        vt + static_cast<long long>(b) * n, shift + b, i, n, Xc, ld, acc,
+        B - b);
+  T* y = Y + static_cast<long long>(i) * k + blockIdx.y * KC;
+#pragma unroll
+  for (int c = 0; c < KC; c += VW) st_vec<T, VW>(y + c, acc + c);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
 // The kernels, as the wrapper names them (its `kernel` argument)
 enum KernelId : int {
-  kRowKernel = 0,    // dia_kernel: one row a thread (f32, f64, complex, mixed)
+  kRowKernel = 0,    // dia_kernel: one row a thread (f32, f64, complex;
+                     // mixed past kMixedMaxN rows)
   kHalfKernel = 1,   // dia_half_kernel: kHalfRows rows 32 apart (half block)
   kRunKernel = 2,    // dia_run_kernel: vw = kRunRows adjacent rows (half
                      // block, X one column)
+  kMixedKernel = 3,  // dia_mixed_kernel: one row a thread, offsets staged
+                     // (half values, f32 or f64 block)
 };
+constexpr int kMixedMaxN = 1 << 30;   // the mixed kernel's 32-bit rows
 constexpr int kHalfRows = 2;      // rows of a dia_half_kernel thread
 constexpr int kRunRows = 4;       // rows of a dia_run_kernel thread
 
@@ -468,7 +588,8 @@ template <typename T, typename V>
 using Kernel = void (*)(const V*, const long long*, int, const T*, long long,
                         T*, int, int);
 
-// the instance of (kc, vw) of dia_kernel (f32, f64, complex; mixed)
+// the instance of (kc, vw) of dia_kernel (f32, f64, complex; mixed past
+// kMixedMaxN rows)
 template <typename T, typename V, int KC, bool A>
 Kernel<T, V> pick_vw(int vw) {
   if (vw == 1) return dia_kernel<T, KC, 1, A, V>;
@@ -497,11 +618,41 @@ Kernel<H, H> pick_half_vw(int vw) {
   return nullptr;
 }
 
+// the instance of (kc, vw) of dia_mixed_kernel (half values, f32 or f64
+// block)
+template <typename T, typename H, int KC, bool A>
+Kernel<T, H> pick_mixed_vw(int vw) {
+  if (vw == 1) return dia_mixed_kernel<H, T, KC, 1, A>;
+  if constexpr (KC >= 2 && sizeof(T) <= 8) {
+    if (vw == 2) return dia_mixed_kernel<H, T, KC, 2, A>;
+  }
+  if constexpr (KC >= 4 && sizeof(T) <= 4) {
+    if (vw == 4) return dia_mixed_kernel<H, T, KC, 4, A>;
+  }
+  return nullptr;
+}
+
+template <typename T, typename H, bool A>
+Kernel<T, H> pick_mixed(int kc, int vw, bool dense) {
+  // a contiguous block of one column group: the rows' stride known here
+  if (dense && kc == 1 && vw == 1)
+    return dia_mixed_kernel<H, T, 1, 1, A, true>;
+  if (dense && kc == 2 && vw == 2)
+    return dia_mixed_kernel<H, T, 2, 2, A, true>;
+  switch (kc) {
+    case 1: return pick_mixed_vw<T, H, 1, A>(vw);
+    case 2: return pick_mixed_vw<T, H, 2, A>(vw);
+    case 4: return pick_mixed_vw<T, H, 4, A>(vw);
+    case 8: return pick_mixed_vw<T, H, 8, A>(vw);
+    default: return nullptr;
+  }
+}
+
 // The instance of (kernel, kc, vw), nullptr for one that does not exist:
-// dia_kernel for the f32, f64, complex and mixed entry points, the half
-// kernels for a half block.
+// dia_kernel for the f32, f64, complex and mixed entry points, the mixed
+// kernel for the mixed ones, the half kernels for a half block.
 template <typename T, typename V, bool A>
-Kernel<T, V> pick(int kernel, int kc, int vw) {
+Kernel<T, V> pick(int kernel, int kc, int vw, bool dense) {
   constexpr bool kHalf = std::is_same<T, V>::value && sizeof(T) == 2;
   if constexpr (kHalf) {
     if (kernel == kRunKernel)
@@ -509,6 +660,10 @@ Kernel<T, V> pick(int kernel, int kc, int vw) {
                                        : nullptr;
     if (kernel != kHalfKernel) return nullptr;
   } else {
+    if constexpr (sizeof(V) == 2 && (std::is_same<T, float>::value ||
+                                     std::is_same<T, double>::value)) {
+      if (kernel == kMixedKernel) return pick_mixed<T, V, A>(kc, vw, dense);
+    }
     if (kernel != kRowKernel) return nullptr;
   }
   switch (kc) {
@@ -533,10 +688,13 @@ template <typename T, typename V = T>
 int launch(const V* vals, const long long* offs, int B, const T* X,
            long long ldx, T* Y, int n, int k, int adjoint, int kernel, int kc,
            int vw, int gx, int gy, void* stream) {
-  const Kernel<T, V> fn = adjoint ? pick<T, V, true>(kernel, kc, vw)
-                                  : pick<T, V, false>(kernel, kc, vw);
+  const bool dense = ldx == k && k == kc;
+  const Kernel<T, V> fn = adjoint ? pick<T, V, true>(kernel, kc, vw, dense)
+                                  : pick<T, V, false>(kernel, kc, vw, dense);
   // the grid is the wrapper's plan; here only what CUDA and the kernel's
-  // instances take: X's vector loads aligned, the run kernel's X one column
+  // instances take: X's vector loads aligned, the run kernel's X one
+  // column, the mixed kernel's rows and row stride in 32 bits and its
+  // offsets in shared memory
   const size_t xa = reinterpret_cast<size_t>(X);
   const bool run = kernel == kRunKernel;
   const int rows = run ? kRunRows : kernel == kHalfKernel ? kHalfRows : 1;
@@ -544,11 +702,15 @@ int launch(const V* vals, const long long* offs, int B, const T* X,
       gx < 1 || gy < 1 || gy > kMaxGridY ||
       static_cast<long long>(gx) * kThreads * rows < n ||
       static_cast<long long>(gy) * kc != k ||
+      (kernel == kMixedKernel &&
+       (n >= kMixedMaxN || ldx > 0x7fffffffLL || B > kMixedMaxB)) ||
       (run ? ldx != 1
            : (ldx % vw != 0 || xa % (static_cast<size_t>(vw) * sizeof(T))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  fn<<<dim3(gx, gy), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // the mixed kernel's row shifts: B ints of dynamic shared memory
+  const size_t smem = kernel == kMixedKernel ? sizeof(int) * B : 0;
+  fn<<<dim3(gx, gy), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       vals, offs, B, X, ldx, Y, n, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -556,10 +718,11 @@ int launch(const V* vals, const long long* offs, int B, const T* X,
 }  // namespace
 
 // The wrapper (primme_tpu_torch/ops/dia.py::plan) plans the launch: the
-// kernel (KernelId: dia_kernel for the f32, f64, complex and mixed entry
-// points; for a half block the run kernel where X is one column, else
-// dia_half_kernel), kc columns a thread, X loaded vw elements at a time
-// (the run kernel: its kRunRows rows as one run), gx blocks of 256
+// kernel (KernelId: dia_kernel for the f32, f64 and complex entry points;
+// dia_mixed_kernel for the mixed ones; for a half block the run kernel
+// where X is one column, else dia_half_kernel), kc columns a thread, X
+// loaded vw elements at a time (the run kernel: its kRunRows rows as one
+// run), gx blocks of 256
 // threads by gy = k / kc column groups. adjoint = 1 computes rmatmat
 // (A^T, or A^H for the complex types, whose pointers are to interleaved
 // (re, im) pairs). Each entry point returns the CUDA error of its launch

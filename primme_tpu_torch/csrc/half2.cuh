@@ -1,5 +1,5 @@
-// Packed half arithmetic for the 16-bit entry points of dia.cu and
-// stencil3d.cu: two f16 (or two bf16) values a 32-bit word, the lower
+// Packed half arithmetic for the 16-bit entry points of dia.cu,
+// stencil3d.cu and jacobi.cu: two f16 (or two bf16) values a 32-bit word, the lower
 // address (a lower row, column or point) in the low 16 bits, as a __half2
 // or __nv_bfloat162 holds them in memory.
 //
@@ -23,7 +23,11 @@
 
 namespace half2ops {
 
-// a * b, a + b, a - b on both lanes of the words of half type H
+// a * b, a + b, a - b on both lanes of the words of half type H; a lane
+// widened to f32 (exact); two f32 values rounded once each to the half
+// type into one word by one cvt.rn.f16x2.f32 / cvt.rn.bf16x2.f32 (the
+// rounding of __float2half_rn / __float2bfloat16_rn, two lanes at once;
+// the first operand of the PTX instruction goes to the high lane)
 template <typename H> struct Packed;
 
 template <> struct Packed<__half> {
@@ -40,6 +44,19 @@ template <> struct Packed<__half> {
   static __device__ __forceinline__ unsigned sub(unsigned a, unsigned b) {
     unsigned d;
     asm("sub.rn.f16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  // the f32 values of the low and the high lane (exact)
+  static __device__ __forceinline__ float lo(unsigned w) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(w)));
+  }
+  static __device__ __forceinline__ float hi(unsigned w) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+  }
+  // the word of lo and hi each rounded once to the half type
+  static __device__ __forceinline__ unsigned narrow(float lo, float hi) {
+    unsigned d;
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
     return d;
   }
 };
@@ -60,12 +77,33 @@ template <> struct Packed<__nv_bfloat16> {
     asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
     return d;
   }
+  static __device__ __forceinline__ float lo(unsigned w) {
+    return __uint_as_float(w << 16);
+  }
+  static __device__ __forceinline__ float hi(unsigned w) {
+    return __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ unsigned narrow(float lo, float hi) {
+    unsigned d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+  }
 };
 
 // the word of two halves lo, hi (raw bits)
 __host__ __device__ __forceinline__ unsigned pack(unsigned short lo,
                                                   unsigned short hi) {
   return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+
+// half i of the packed words w
+__device__ __forceinline__ unsigned short half_at(const unsigned* w, int i) {
+  return static_cast<unsigned short>(w[i / 2] >> (16 * (i % 2)));
+}
+
+// the word holding h on both lanes
+__device__ __forceinline__ unsigned dup(unsigned short h) {
+  return pack(h, h);
 }
 
 // the high half of lo and the low half of hi: the pair one half past lo's

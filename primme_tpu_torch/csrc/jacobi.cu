@@ -71,8 +71,22 @@
 // op-by-op half arithmetic give: den = half(d - s), y = half(x / den);
 // inv = half(1 / den), y = half(inv * x). eps is the half it rounds to:
 // 1e-10 is 0 in f16, so there a den of exactly 0 is kept and x / 0 is
-// an infinity (or NaN), as in the reference; in bf16 it is 1.0e-10. A
-// thread loads up to eight halves (16 bytes) of its row group at once.
+// an infinity (or NaN), as in the reference; in bf16 it is 1.0e-10. On a
+// contiguous block (ldx == k) at a 16-byte aligned address, with k = 1, 2
+// or 4, the block is one run of n k halves, and jacobi_run_kernel takes it
+// 16 bytes a thread: 8, 4 or 2 whole rows in one load, their diagonal
+// entries in one more (half2.cuh's ld_halves), sigma once. It computes two
+// lanes a 32-bit word (half2.cuh): den = d - s by one sub.rn.f16x2 /
+// bf16x2, the guard on the lanes' magnitude bits (exact; a NaN stays), the
+// quotients in f32 by __fdiv_rn on the exact operands and narrowed two at
+// a time by one cvt.rn.f16x2.f32 / bf16x2.f32; the unshifted form one
+// reciprocal a row, narrowed two at a time, and a packed mul.rn. Each lane
+// is the same half operation as before, so the result is unchanged bit
+// for bit. (One f32 operation and one narrowing for each half operation,
+// with k = 2 rows loaded 4 bytes at a time, ran at 0.21 of the bound at
+// 64^3 and 0.78 at 256^3.) A slice (ldx > k), another k or
+// an unaligned block keeps jacobi_kernel, up to eight halves (16 bytes)
+// of a row group a load.
 //
 // The mixed entry points (jacobi_shifted_<half>_<block>,
 // jacobi_<half>_<block>, block f32 or f64) serve a half diagonal given a
@@ -80,11 +94,18 @@
 // reference's apply promotes: shifted, d widened (exactly) and the rest
 // in the block's type, y = x / guard(d - s); unshifted, the reciprocal in
 // the half type as above (inv = half(1 / guard(d)), eps the half's), then
-// y = inv * x in the block's type. d moves 2 bytes a row.
+// y = inv * x in the block's type. d moves 2 bytes a row. Where an f32
+// block has k = 1 or 2, or an f64 block k = 1, on a contiguous, aligned
+// block, jacobi_run_kernel takes 16 bytes of X a thread (4 or 2 rows) and
+// their rows' d in one load, with the same element operations.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "half2.cuh"
 
 namespace {
 
@@ -433,6 +454,168 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Runs of adjacent rows: the half and mixed entry points on a contiguous
+// block (ldx == k), 16 bytes aligned
+// ---------------------------------------------------------------------------
+
+using half2ops::dup;
+using half2ops::half_at;
+using half2ops::ld_halves;
+
+// the bits of v rounded to the half type H
+template <typename H>
+__device__ __forceinline__ unsigned short half_bits(float v) {
+  if constexpr (std::is_same<H, __half>::value)
+    return __half_as_ushort(__float2half_rn(v));
+  else
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the bits of the half eps, 0 where no |den| is below eps (eps <= 0, NaN)
+template <typename H>
+__device__ __forceinline__ unsigned short eps_bits(float eps) {
+  return eps > 0.0f ? half_bits<H>(eps) : 0;
+}
+
+// guard on both lanes of a word: a lane whose magnitude bits are below
+// eb's becomes eb. The bits of a non-negative half order as its values,
+// and a NaN's lie above every finite or infinite eb, so this is |den| <
+// eps exactly, a NaN kept.
+__device__ __forceinline__ unsigned guard2(unsigned den, unsigned short eb) {
+  unsigned short lo = static_cast<unsigned short>(den);
+  unsigned short hi = static_cast<unsigned short>(den >> 16);
+  lo = (lo & 0x7fff) < eb ? eb : lo;
+  hi = (hi & 0x7fff) < eb ? eb : hi;
+  return half2ops::pack(lo, hi);
+}
+
+// x / den on both lanes: each quotient the IEEE f32 one on the exact
+// operands (__fdiv_rn, as HALF_OPS' div_rn), both rounded by one narrowing
+template <typename H>
+__device__ __forceinline__ unsigned div2(unsigned x, unsigned den) {
+  using P = half2ops::Packed<H>;
+  return P::narrow(__fdiv_rn(P::lo(x), P::lo(den)),
+                   __fdiv_rn(P::hi(x), P::hi(den)));
+}
+
+template <typename H>
+__device__ __forceinline__ H as_half(unsigned short b);
+template <>
+__device__ __forceinline__ __half as_half<__half>(unsigned short b) {
+  return __ushort_as_half(b);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 as_half<__nv_bfloat16>(
+    unsigned short b) {
+  return __ushort_as_bfloat16(b);
+}
+
+// Thread t of the grid takes the E = 16 / sizeof(T) elements [E t, E t +
+// E) of X's run of n K elements: R = E / K whole rows r0 = R t .., in one
+// 16-byte load, and their R diagonal entries in one run of halves
+// (ld_halves: one load where r0 keeps it aligned, else aligned words and a
+// byte permute). A half block (T = D) computes two lanes a word: den =
+// d - s by one sub.rn, the guard on the magnitude bits, the quotients in
+// f32 narrowed two at a time (shifted); one reciprocal a row narrowed two
+// at a time and a packed mul.rn (unshifted). A wider block (T f32 or f64,
+// D half) keeps the element operations of jacobi_kernel. The rows of the
+// last thread that pass n are taken element by element, with the scalar
+// operations.
+template <typename T, typename D, int K, bool kShifted>
+__global__ void __launch_bounds__(kThreads)
+    jacobi_run_kernel(const T* __restrict__ X, const D* __restrict__ d,
+                      const T* __restrict__ sigma, T* __restrict__ Y, int n,
+                      int k, long long ldx, typename Real<T>::type eps) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int R = E / K;
+  static_assert(E % K == 0 && R % 2 == 0, "whole rows, an even run of d");
+  const long long r0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  if (r0 >= n) return;
+  const unsigned short* dh = reinterpret_cast<const unsigned short*>(d);
+  if (r0 + R > n) {
+    for (long long r = r0; r < n; ++r) {
+      const D dr = ldg1(d + r);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const T x = ldg1(X + r * K + c);
+        if constexpr (kShifted) {
+          Y[r * K + c] = shifted_op(x, widen<T>(dr), ldg1(sigma + c), eps);
+        } else {
+          Y[r * K + c] = scale(widen<T>(reciprocal(dr, eps)), x);
+        }
+      }
+    }
+    return;
+  }
+  unsigned dw[R / 2];
+  ld_halves<R>(dh + r0, dw);
+  if constexpr (std::is_same<T, D>::value) {
+    using P = half2ops::Packed<T>;
+    const unsigned short eb = eps_bits<T>(eps);
+    unsigned xw[4], yw[4];
+    half2ops::ld_aligned<8>(
+        reinterpret_cast<const unsigned short*>(X) + r0 * K, xw);
+    // k = 1: word w is rows 2 w, 2 w + 1; else columns 2 (w % KW), + 1
+    // of row w / KW
+    constexpr int KW = K == 1 ? 1 : K / 2;
+    if constexpr (kShifted) {
+      const unsigned short* sh =
+          reinterpret_cast<const unsigned short*>(sigma);
+      unsigned sw[KW];
+      if constexpr (K == 1) {
+        sw[0] = dup(__ldg(sh));
+      } else {
+#pragma unroll
+        for (int q = 0; q < KW; ++q)
+          sw[q] = half2ops::pack(__ldg(sh + 2 * q), __ldg(sh + 2 * q + 1));
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        unsigned dd;
+        if constexpr (K == 1) dd = dw[w];
+        else dd = dup(half_at(dw, w / KW));
+        yw[w] = div2<T>(xw[w], guard2(P::sub(dd, sw[w % KW]), eb));
+      }
+    } else {
+      unsigned iw[R / 2];   // the rows' reciprocals, two a word
+      const unsigned one = dup(half_bits<T>(1.0f));
+#pragma unroll
+      for (int p = 0; p < R / 2; ++p) iw[p] = div2<T>(one, guard2(dw[p], eb));
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        unsigned inv;
+        if constexpr (K == 1) inv = iw[w];
+        else inv = dup(half_at(iw, w / KW));
+        yw[w] = P::mul(inv, xw[w]);
+      }
+    }
+    half2ops::st_halves<8>(reinterpret_cast<unsigned short*>(Y) + r0 * K,
+                           yw);
+  } else {
+    T xv[E], yv[E];
+    ldg_vec<T, E>(X + r0 * K, xv);
+    if constexpr (kShifted) {
+      T sg[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) sg[c] = ldg1(sigma + c);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        yv[e] = shifted_op(xv[e], widen<T>(as_half<D>(half_at(dw, e / K))),
+                           sg[e % K], eps);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T inv = widen<T>(reciprocal(as_half<D>(half_at(dw, r)), eps));
+#pragma unroll
+        for (int c = 0; c < K; ++c) yv[r * K + c] = scale(inv, xv[r * K + c]);
+      }
+    }
+    st_vec<T, E>(Y + r0 * K, yv);
+  }
+}
+
 template <typename T, typename D = T>
 using Kernel = void (*)(const T*, const D*, const T*, T*, int, int, long long,
                         typename Real<T>::type);
@@ -491,6 +674,32 @@ Launch<T, D> pick(int kc, int vw) {
   }
 }
 
+// The kernels, as the wrapper names them (its `kernel` argument)
+enum KernelId : int {
+  kRowKernel = 0,   // jacobi_kernel: row groups (every type, any layout)
+  kRunKernel = 1,   // jacobi_run_kernel: runs of adjacent rows (a half d;
+                    // X contiguous and 16 bytes aligned)
+};
+
+// The run instance of k columns, rows 16 / sizeof(T) / k a thread (a null
+// kernel where that is not an even number of whole rows, or d is not half)
+template <typename T, bool kShifted, typename D>
+Launch<T, D> pick_run(int k) {
+  constexpr int E = 16 / sizeof(T);
+  if constexpr (sizeof(D) == 2) {
+    if constexpr (E >= 2 && (E / 2) % 2 == 0) {
+      if (k == 2)
+        return {jacobi_run_kernel<T, D, 2, kShifted>, kThreads * (E / 2)};
+    }
+    if constexpr (E >= 4 && (E / 4) % 2 == 0) {
+      if (k == 4)
+        return {jacobi_run_kernel<T, D, 4, kShifted>, kThreads * (E / 4)};
+    }
+    if (k == 1) return {jacobi_run_kernel<T, D, 1, kShifted>, kThreads * E};
+  }
+  return {nullptr, 0};
+}
+
 template <typename T, typename D = T>
 int run(Launch<T, D> L, const T* X, const D* d, const T* sigma, T* Y, int n,
         int k, long long ldx, typename Real<T>::type eps, int kc, int blocks,
@@ -506,20 +715,32 @@ int run(Launch<T, D> L, const T* X, const D* d, const T* sigma, T* Y, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// T: X's, sigma's and Y's type; D: the diagonal's (T, or a half type)
+// T: X's, sigma's and Y's type; D: the diagonal's (T, or a half type).
+// The run kernel takes a contiguous X (ldx == k == kc) at a 16-byte
+// aligned address.
 template <typename T, bool kShifted, typename D = T>
 int launch(const T* X, const D* d, const T* sigma, T* Y, int n, int k,
-           long long ldx, typename Real<T>::type eps, int kc, int vw,
-           int blocks, void* stream) {
+           long long ldx, typename Real<T>::type eps, int kernel, int kc,
+           int vw, int blocks, void* stream) {
+  if (kernel == kRunKernel) {
+    if (ldx != k || kc != k || reinterpret_cast<size_t>(X) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return run<T, D>(pick_run<T, kShifted, D>(k), X, d, sigma, Y, n, k, ldx,
+                     eps, kc, blocks, stream);
+  }
+  if (kernel != kRowKernel) return static_cast<int>(cudaErrorInvalidValue);
   return run<T, D>(pick<T, kShifted, D>(kc, vw), X, d, sigma, Y, n, k, ldx,
                    eps, kc, blocks, stream);
 }
 
 }  // namespace
 
-// The wrapper (primme_tpu_torch/ops/jacobi.py::plan) plans the launch: kc
-// columns a row group, X loaded vw elements at a time, `blocks` blocks of
-// 256 threads, as many as the rows need; another grid is refused.
+// The wrapper (primme_tpu_torch/ops/jacobi.py::plan) plans the launch: the
+// kernel (KernelId: the run kernel for a half d on a contiguous, aligned
+// block whose k makes an even number of whole rows of 16 bytes, else the
+// row-group kernel), kc columns a row group, X loaded vw elements at a
+// time, `blocks` blocks of 256 threads, as many as the rows need; another
+// grid is refused.
 // X [n, k] with rows ldx elements apart, d [n], sigma [k], Y a new
 // contiguous [n, k], in the entry point's type (complex: (re, im) pairs).
 // Each entry point returns the CUDA error of its launch as an int (0:
@@ -527,16 +748,17 @@ int launch(const T* X, const D* d, const T* sigma, T* Y, int n, int k,
 #define JACOBI_ENTRIES(T, R, SUFFIX)                                         \
   extern "C" int jacobi_shifted_##SUFFIX(const T* X, const T* d,             \
                                          const T* sigma, T* Y, int n, int k, \
-                                         long long ldx, R eps, int kc,       \
-                                         int vw, int blocks, void* stream) { \
-    return launch<T, true>(X, d, sigma, Y, n, k, ldx, eps, kc, vw, blocks,   \
-                           stream);                                          \
+                                         long long ldx, R eps, int kernel,   \
+                                         int kc, int vw, int blocks,         \
+                                         void* stream) {                     \
+    return launch<T, true>(X, d, sigma, Y, n, k, ldx, eps, kernel, kc, vw,   \
+                           blocks, stream);                                  \
   }                                                                          \
   extern "C" int jacobi_##SUFFIX(const T* X, const T* d, T* Y, int n, int k, \
-                                 long long ldx, R eps, int kc, int vw,       \
-                                 int blocks, void* stream) {                 \
-    return launch<T, false>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,        \
-                            blocks, stream);                                 \
+                                 long long ldx, R eps, int kernel, int kc,   \
+                                 int vw, int blocks, void* stream) {         \
+    return launch<T, false>(X, d, nullptr, Y, n, k, ldx, eps, kernel, kc,    \
+                            vw, blocks, stream);                             \
   }
 
 JACOBI_ENTRIES(float, float, f32)
@@ -552,16 +774,17 @@ JACOBI_ENTRIES(double2, double, c128)
 #define JACOBI_MIXED(T, D, SUFFIX)                                           \
   extern "C" int jacobi_shifted_##SUFFIX(const T* X, const D* d,             \
                                          const T* sigma, T* Y, int n, int k, \
-                                         long long ldx, T eps, int kc,       \
-                                         int vw, int blocks, void* stream) { \
-    return launch<T, true, D>(X, d, sigma, Y, n, k, ldx, eps, kc, vw,        \
-                              blocks, stream);                               \
+                                         long long ldx, T eps, int kernel,   \
+                                         int kc, int vw, int blocks,         \
+                                         void* stream) {                     \
+    return launch<T, true, D>(X, d, sigma, Y, n, k, ldx, eps, kernel, kc,    \
+                              vw, blocks, stream);                           \
   }                                                                          \
   extern "C" int jacobi_##SUFFIX(const T* X, const D* d, T* Y, int n, int k, \
-                                 long long ldx, T eps, int kc, int vw,       \
-                                 int blocks, void* stream) {                 \
-    return launch<T, false, D>(X, d, nullptr, Y, n, k, ldx, eps, kc, vw,     \
-                               blocks, stream);                              \
+                                 long long ldx, T eps, int kernel, int kc,   \
+                                 int vw, int blocks, void* stream) {         \
+    return launch<T, false, D>(X, d, nullptr, Y, n, k, ldx, eps, kernel, kc, \
+                               vw, blocks, stream);                          \
   }
 
 JACOBI_MIXED(float, __half, f16_f32)

@@ -26,12 +26,15 @@ as the JAX function's product promotes.
   or raises; on a CPU tensor, where no kernel exists, it runs the plain
   version;
 * :func:`plan` — the kernel's launch: which kernel, columns of a thread,
-  load width and grid; :func:`launch` — the kernel under a given plan.
+  load width (or rows) and grid; :func:`launch` — the kernel under a given
+  plan.
 
 The kernel takes X's row stride, so a column slice of a wider block needs
 no copy; its columns must be adjacent. ``LAUNCHES`` counts the wrapper's
-kernel launches, ``KERNEL_LAUNCHES`` the same by entry point and
-``VECTOR_LAUNCHES`` those of them that loaded X in vectors (``vw > 1``).
+kernel launches, ``KERNEL_LAUNCHES`` the same by entry point,
+``VECTOR_LAUNCHES`` those of them that loaded X in vectors (``vw > 1``)
+and ``MIXED_LAUNCHES`` those that ran the mixed kernel
+(``MIXED_KERNEL``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ _MIXED = {(h, b): f"dia_{hs}_{bs}"
           for b, bs in ((torch.float32, "f32"), (torch.float64, "f64"))}
 KERNEL_LAUNCHES = dict.fromkeys([*_ENTRY.values(), *_MIXED.values()], 0)
 VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
+MIXED_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 THREADS = 256        # threads of a block: the kernel's kThreads
 MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y: column groups
 
@@ -129,11 +133,17 @@ def rmatmat_reference(vals, offsets: Sequence[int], X):
 
 
 # the kernels of csrc/dia.cu (its KernelId)
-ROW_KERNEL = 0   # dia_kernel: one row a thread (f32, f64, complex, mixed)
+ROW_KERNEL = 0   # dia_kernel: one row a thread (f32, f64, complex; mixed
+                 # past MIXED_MAX_N rows)
 HALF_KERNEL = 1  # dia_half_kernel: HALF_ROWS rows a thread, 32 apart
 RUN_KERNEL = 2   # dia_run_kernel: RUN_ROWS adjacent rows, X one column
+MIXED_KERNEL = 3  # dia_mixed_kernel: one row a thread, the offsets staged
+                  # once a block (half values, f32 or f64 block)
 HALF_ROWS = 2
 RUN_ROWS = 4
+MIXED_MAX_N = 2 ** 30   # the mixed kernel's rows are 32-bit with a shift
+MIXED_MAX_B = 12288     # the mixed kernel's offsets fill 48 KB of shared
+                        # memory
 
 
 class Plan(NamedTuple):
@@ -146,20 +156,25 @@ class Plan(NamedTuple):
     @property
     def rows(self) -> int:
         """Rows of a thread."""
-        return {ROW_KERNEL: 1, HALF_KERNEL: HALF_ROWS,
-                RUN_KERNEL: RUN_ROWS}[self.kernel]
+        return {HALF_KERNEL: HALF_ROWS, RUN_KERNEL: RUN_ROWS}.get(
+            self.kernel, 1)
 
 
-def plan(n, k, ldx, align, size) -> Plan:
+def plan(n, k, ldx, align, size, vals_size=None, diagonals=0) -> Plan:
     """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
     elements apart at an address with ``align = data_ptr % 16``, ``size``
-    bytes an element of X: one thread a row and group of ``kc`` columns, X
-    loaded :func:`vector_width` at a time, blocks of ``THREADS`` threads
+    bytes an element of X, ``vals_size`` bytes a value (default ``size``)
+    and ``diagonals`` of them a row:
+    one thread a row and group of ``kc`` columns, X loaded
+    :func:`vector_width` at a time, blocks of ``THREADS`` threads
     (``ROW_KERNEL``). A half block (``size`` 2, which holds half values)
     takes the packed kernels: ``HALF_KERNEL``, two rows a thread 32 apart,
     or where X is one column (``kc`` 1, ``ldx`` 1) ``RUN_KERNEL``, four
     adjacent rows whose X is one run; blocks of ``THREADS * rows`` rows.
     Half values with an f32 or f64 block (the mixed entry points) take
+    ``MIXED_KERNEL`` under the same thread map as ``ROW_KERNEL`` where
+    ``n < MIXED_MAX_N``, ``ldx < 2**31`` (its 32-bit rows and row stride)
+    and ``diagonals <= MIXED_MAX_B`` (its offsets in shared memory), else
     ``ROW_KERNEL``. Raises ValueError on a shape the kernels do not
     take."""
     if n < 1 or k < 1 or n >= 2 ** 31 or k >= 2 ** 31:
@@ -175,13 +190,19 @@ def plan(n, k, ldx, align, size) -> Plan:
         p = p._replace(vw=RUN_ROWS, kernel=RUN_KERNEL)
     elif size == 2:
         p = p._replace(kernel=HALF_KERNEL)
+    elif (vals_size == 2 and n < MIXED_MAX_N and ldx < 2 ** 31
+          and diagonals <= MIXED_MAX_B):
+        p = p._replace(kernel=MIXED_KERNEL)
     return p._replace(grid=(-(-n // (THREADS * p.rows)), groups))
 
 
-def card_plan(X) -> Plan:
-    """The plan :func:`matmat` launches the CUDA tensor X with."""
+def card_plan(X, vals=None) -> Plan:
+    """The plan :func:`matmat` launches the CUDA tensor X with, over the
+    values ``vals`` (default: of X's type)."""
     return plan(X.shape[0], X.shape[1], max(X.stride(0), 1),
-                X.data_ptr() % 16, X.element_size())
+                X.data_ptr() % 16, X.element_size(),
+                *(() if vals is None else (vals.element_size(),
+                                           vals.shape[0])))
 
 
 def _dia_fn(entry):
@@ -244,11 +265,12 @@ def matmat(vals, offs, X, adjoint=False):
         return Y
     if vals.shape[0] == 0:
         return Y.zero_()
-    p = card_plan(X)
+    p = card_plan(X, vals)
     entry = launch(vals, offs, X, Y, adjoint, p)
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
     VECTOR_LAUNCHES[entry] += p.vw > 1
+    MIXED_LAUNCHES[entry] += p.kernel == MIXED_KERNEL
     return Y
 
 

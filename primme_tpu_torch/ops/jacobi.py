@@ -28,13 +28,14 @@ versions, torch's promotion, compute the same.
 * :func:`shifted`, :func:`unshifted` — the kernel wrappers: on a CUDA tensor
   they launch the hand-written Hopper kernel (``csrc/jacobi.cu``) or raise;
   on a CPU tensor, where no kernel exists, they run the plain version;
-* :func:`plan` — the kernel's launch for every type: columns of a row
-  group, load width, columns a thread holds and grid.
+* :func:`plan` — the kernel's launch for every type: which kernel, columns
+  of a row group, load width, columns a thread holds and grid.
 
 The kernels take X's row stride; its columns must be adjacent.
 ``LAUNCHES`` counts the wrappers' kernel launches, ``KERNEL_LAUNCHES`` the
-same by entry point and ``VECTOR_LAUNCHES`` those of them that loaded X in
-vectors (``vw > 1``).
+same by entry point, ``VECTOR_LAUNCHES`` those of them that loaded X in
+vectors (``vw > 1``) and ``RUN_LAUNCHES`` those that ran the run kernel
+(``RUN_KERNEL``).
 """
 
 from __future__ import annotations
@@ -64,9 +65,15 @@ KERNEL_LAUNCHES = {f"jacobi{form}_{suffix}": 0
                    for suffix in [s for s, _ in _SUFFIX.values()]
                    + list(_MIXED.values())}
 VECTOR_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
+RUN_LAUNCHES = dict.fromkeys(KERNEL_LAUNCHES, 0)
 THREADS = 256        # threads a block: the kernel's kThreads
 ROWS = 4             # rows a real thread loads at once (a complex one: 1)
 COMPLEX_BYTES = 16   # bytes of its row group a complex thread holds
+# the kernels of csrc/jacobi.cu (its KernelId)
+ROW_KERNEL = 0       # jacobi_kernel: row groups, any type and layout
+RUN_KERNEL = 1       # jacobi_run_kernel: 16 bytes of a contiguous block a
+                     # thread, whole rows (a half diagonal)
+RUN_BYTES = 16       # bytes of X a run-kernel thread takes
 
 
 def _eps(eps, dtype):
@@ -142,24 +149,49 @@ class Plan(NamedTuple):
     blocks: int    # blocks of THREADS threads, kc / cols of them a row
     cols: int      # columns of its row group a thread holds: vw for a real
                    # type, COMPLEX_BYTES of the group for a complex one
+                   # (RUN_KERNEL: the elements of its RUN_BYTES)
     rows: int      # rows a thread takes: ROWS for a real type, 1 complex
+                   # (RUN_KERNEL: RUN_BYTES / size / k adjacent rows)
+    kernel: int = ROW_KERNEL
 
 
-def plan(n, k, ldx, align, size, is_complex=False) -> Plan:
+def run_rows(k, size):
+    """Rows of a run-kernel thread for ``k`` columns of ``size`` bytes: the
+    whole rows of ``RUN_BYTES``, where they are an even number (their
+    diagonal entries a run of half words), else 0 (no run kernel)."""
+    elems = RUN_BYTES // size
+    rows = elems // k if elems % k == 0 else 0
+    return rows if rows % 2 == 0 else 0
+
+
+def plan(n, k, ldx, align, size, is_complex=False, d_size=None) -> Plan:
     """The launch for ``n`` rows of ``k`` columns, X's rows ``ldx``
     elements apart at an address with ``align = data_ptr % 16``, ``size``
-    bytes an element (4 or 8 real, 8 or 16 complex with ``is_complex``):
-    ``kc / cols`` threads to a row, ``rows`` rows a thread, in one pass
-    over as many blocks as the rows need. A real thread holds one vector
-    of ``vw`` columns in ``ROWS`` rows; a complex one ``COMPLEX_BYTES`` of
-    its group, ``vw`` columns a load, in one row (the kernel's ``Shape``).
-    Raises ValueError on a shape the kernel does not take (its row index
-    is 32-bit; an address must hold whole elements)."""
+    bytes an element (2, 4 or 8 real, 8 or 16 complex with
+    ``is_complex``), the diagonal ``d_size`` bytes an element (default
+    ``size``): ``kc / cols`` threads to a row, ``rows`` rows a thread, in
+    one pass over as many blocks as the rows need. A real thread holds one
+    vector of ``vw`` columns in ``ROWS`` rows; a complex one
+    ``COMPLEX_BYTES`` of its group, ``vw`` columns a load, in one row (the
+    kernel's ``Shape``). A half diagonal (a half block, or an f32 or f64
+    one: the mixed entry points) on a contiguous block (``ldx == k``) at a
+    16-byte aligned address takes ``RUN_KERNEL`` where :func:`run_rows`
+    has rows for k: ``RUN_BYTES`` of the block's run a thread. Raises
+    ValueError on a shape the kernels do not take (their row index is
+    32-bit; an address must hold whole elements)."""
     if n < 1 or k < 1:
         raise ValueError(f"an [{n}, {k}] block has no element to launch for")
     if align % size:
         raise ValueError(f"X's address is {align} bytes past 16, not a "
                          f"multiple of its {size}-byte elements")
+    rows = run_rows(k, size)
+    if ((size if d_size is None else d_size) == 2 and not is_complex
+            and ldx == k and align == 0 and rows):
+        blocks = -(-n // (THREADS * rows))
+        if blocks * THREADS * rows >= 2 ** 31:
+            raise ValueError(f"an [{n}, {k}] block is outside the kernel's "
+                             "range (n < 2**31 rounded up to whole blocks)")
+        return Plan(k, rows * k, blocks, rows * k, rows, RUN_KERNEL)
     kc = column_group(k)
     vw = vector_width(kc, ldx, align, size)
     cols = min(kc, COMPLEX_BYTES // size) if is_complex else vw
@@ -172,10 +204,12 @@ def plan(n, k, ldx, align, size, is_complex=False) -> Plan:
     return Plan(kc, vw, blocks, cols, rows)
 
 
-def card_plan(X) -> Plan:
-    """The plan :func:`shifted` or :func:`unshifted` launches X with."""
+def card_plan(X, d=None) -> Plan:
+    """The plan :func:`shifted` or :func:`unshifted` launches X with, over
+    the diagonal ``d`` (default: one of X's type)."""
     return plan(X.shape[0], X.shape[1], max(X.stride(0), 1),
-                X.data_ptr() % 16, X.element_size(), X.is_complex())
+                X.data_ptr() % 16, X.element_size(), X.is_complex(),
+                None if d is None else d.element_size())
 
 
 def _jacobi_fn(entry, eps_type, shifted_form):
@@ -183,10 +217,10 @@ def _jacobi_fn(entry, eps_type, shifted_form):
     from . import build
     fn = getattr(build.load("jacobi"), entry)
     if fn.argtypes is None:
-        # X, d, [sigma,] Y; n, k; ldx; eps; kc, vw, blocks; stream
+        # X, d, [sigma,] Y; n, k; ldx; eps; kernel, kc, vw, blocks; stream
         fn.argtypes = [ctypes.c_void_p] * (4 if shifted_form else 3) \
             + [ctypes.c_int] * 2 + [ctypes.c_longlong, eps_type] \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -235,16 +269,17 @@ def _launch(X, d, sigma, eps):
     fn = _jacobi_fn(entry, eps_type, shifted_form)
     ptrs = [X.data_ptr(), d.data_ptr()] \
         + ([sigma.data_ptr()] if shifted_form else []) + [Y.data_ptr()]
-    p = card_plan(X)
+    p = card_plan(X, d)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*ptrs, n, k, max(ldx, 1), _kernel_eps(eps, guard_dtype),
-                p.kc, p.vw, p.blocks, stream)
+                p.kernel, p.kc, p.vw, p.blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     KERNEL_LAUNCHES[entry] += 1
     VECTOR_LAUNCHES[entry] += p.vw > 1
+    RUN_LAUNCHES[entry] += p.kernel == RUN_KERNEL
     return Y
 
 

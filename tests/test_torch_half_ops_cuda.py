@@ -135,27 +135,65 @@ def test_half_stencil_matches_plain(card, grid, dtype, values):
     assert ST.VECTOR_LAUNCHES[entry] == v0 + 1
 
 
+def _jacobi_blocks(n, k, dtype, card):
+    """:func:`_blocks`' blocks, and a contiguous block one row past a
+    16-byte boundary (the row-group kernel where the run kernel would take
+    it aligned)."""
+    W = torch.randn((n + 1, k), device=card).to(dtype)
+    return _blocks(n, k, dtype, card) + [W[1:]]
+
+
+def _runs(X, d):
+    """Whether the run kernel takes X over d: a contiguous, 16-byte aligned
+    block of an even number of whole rows in 16 bytes."""
+    return (X.is_contiguous() and X.data_ptr() % 16 == 0
+            and JK.run_rows(X.shape[1], X.element_size()) > 0
+            and d.element_size() == 2)
+
+
+def _check_jacobi(X, d, s, entry_sfx):
+    """Both forms of X over d (shifts s) against their plain versions bit
+    for bit, each launched once, by the run kernel where it takes X."""
+    b0 = dict(JK.KERNEL_LAUNCHES)
+    Y = JK.shifted(X, d, s, 1e-10)
+    Yu = JK.unshifted(X, d, 1e-10)
+    for entry in ("jacobi_shifted_" + entry_sfx, "jacobi_" + entry_sfx):
+        assert JK.KERNEL_LAUNCHES[entry] == b0[entry] + 1
+    assert (JK.card_plan(X, d).kernel == JK.RUN_KERNEL) == _runs(X, d)
+    Xc = X.contiguous()
+    return (_same(Y, JK.shifted_reference(Xc, d, s, 1e-10))
+            and _same(Yu, JK.unshifted_reference(Xc, d, 1e-10)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", HALVES)
 def test_half_jacobi_matches_plain(card, dtype):
     """Shifted and unshifted, a shift equal to a diagonal entry and a zero
     diagonal entry (f16: eps is 0 there, the quotient infinite; bf16: the
-    guard's 1e-10)."""
+    guard's 1e-10), at an odd n (the last thread's rows past n go element
+    by element), on contiguous blocks (k = 1, 2, 4: the run kernel), an
+    unaligned contiguous one and slices; then d and the shifts drawn from
+    ``EDGE`` (subnormals, signed zeros, the largest values, NaN and
+    infinities added), d at an even and an odd half of a wider tensor (the
+    run's diagonal entries aligned, or put together by a byte permute)."""
     n = 4099
     d = (torch.rand(n, device=card) * 3 + 0.5).to(dtype)
     d[3] = 0
     for k in WIDTHS:
         s = (torch.rand(k, device=card) * 3 + 0.5).to(dtype)
         s[0] = d[5]
-        for X in _blocks(n, k, dtype, card):
-            b0 = dict(JK.KERNEL_LAUNCHES)
-            Y = JK.shifted(X, d, s, 1e-10)
-            assert JK.KERNEL_LAUNCHES["jacobi_shifted_" + SUFFIX[dtype]] \
-                == b0["jacobi_shifted_" + SUFFIX[dtype]] + 1
-            assert _same(Y, JK.shifted_reference(X.contiguous(), d, s,
-                                                 1e-10)), k
-            assert _same(JK.unshifted(X, d, 1e-10),
-                         JK.unshifted_reference(X.contiguous(), d, 1e-10)), k
+        for X in _jacobi_blocks(n, k, dtype, card):
+            assert _check_jacobi(X, d, s, SUFFIX[dtype]), k
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           dtype=dtype, device=card)
+    wide = torch.cat([_edge((n + 1,), dtype, card, 3), special])
+    for start in (0, 1):
+        de = wide[start:start + n]
+        for k in WIDTHS:
+            se = _edge((k,), dtype, card, k)
+            se[0] = de[5]
+            for X in _jacobi_blocks(n, k, dtype, card):
+                assert _check_jacobi(X, de, se, SUFFIX[dtype]), (k, start)
     col = JK.shifted(torch.ones((n, 1), device=card, dtype=dtype), d,
                      d[5:6].clone(), 1e-10)[5, 0].item()
     assert (col == float("inf")) if dtype == torch.float16 else \
@@ -210,38 +248,95 @@ def test_mixed_jacobi_matches_plain(card, dtype, block):
     for k in WIDTHS:
         s = (torch.rand(k, device=card) * 3 + 0.5).to(block)
         s[0] = d[5]
-        for X in _blocks(n, k, block, card):
-            b0 = dict(JK.KERNEL_LAUNCHES)
-            Y = JK.shifted(X, d, s, 1e-10)
-            Yu = JK.unshifted(X, d, 1e-10)
-            assert JK.KERNEL_LAUNCHES["jacobi_shifted_" + sfx] \
-                == b0["jacobi_shifted_" + sfx] + 1
-            assert JK.KERNEL_LAUNCHES["jacobi_" + sfx] \
-                == b0["jacobi_" + sfx] + 1
-            assert _same(Y, JK.shifted_reference(X.contiguous(), d, s,
-                                                 1e-10)), k
-            assert _same(Yu, JK.unshifted_reference(X.contiguous(), d,
-                                                    1e-10)), k
+        for X in _jacobi_blocks(n, k, block, card):
+            assert _check_jacobi(X, d, s, sfx), k
+    # d from the edge values (and NaN, infinities) at an odd half of a
+    # wider tensor: the run's diagonal entries put together by a permute
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           dtype=dtype, device=card)
+    de = torch.cat([_edge((n + 1,), dtype, card, 5), special])[1:n + 1]
+    for k in (1, 2, 4):
+        s = (torch.rand(k, device=card) * 3 + 0.5).to(block)
+        s[0] = de[5]
+        X = torch.randn((n, k), device=card).to(block)
+        assert _check_jacobi(X, de, s, sfx), k
+
+
+def _mixed_dia_blocks(n, k, block, card):
+    """:func:`_blocks`' blocks and a contiguous one a row past a 16-byte
+    boundary (its rows of X loaded in narrower vectors, or scalars)."""
+    W = torch.randn((n + 1, k), device=card).to(block)
+    return _blocks(n, k, block, card) + [W[1:]]
+
+
+def _mixed_dia_plan_ok(vals, X):
+    """The plan takes the mixed kernel, with the vector width of the f32
+    and f64 kernels' plan."""
+    p = DK.card_plan(X, vals)
+    return p.kernel == DK.MIXED_KERNEL and p.vw == DK.card_plan(X).vw
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [5000, 5001])
 @pytest.mark.parametrize("block", BLOCKS)
 @pytest.mark.parametrize("dtype", HALVES)
-def test_mixed_dia_matches_plain(card, dtype, block):
-    n, offsets = 5000, (0, 1, -1, 64, -64, 4095)
+def test_mixed_dia_matches_plain(card, dtype, block, n):
+    """Both forms, every width on contiguous blocks, an unaligned
+    contiguous one and slices, at an even and an odd n, odd and even
+    offsets: the mixed kernel bit for bit against the plain version and
+    against the f32 (f64) kernel on the widened values."""
+    offsets = (0, 1, -1, 3, -5, 64, -64, 4095)
     vals = torch.randn((len(offsets), n), device=card).to(dtype)
     offs = torch.tensor(offsets, device=card)
     entry = f"dia_{SUFFIX[dtype]}_{BLOCK_SUFFIX[block]}"
     for adjoint in (False, True):
         ref = DK.rmatmat_reference if adjoint else DK.matmat_reference
         for k in WIDTHS:
-            for X in _blocks(n, k, block, card):
+            for X in _mixed_dia_blocks(n, k, block, card):
                 before = DK.KERNEL_LAUNCHES[entry]
                 Y = DK.matmat(vals, offs, X, adjoint=adjoint)
                 assert DK.KERNEL_LAUNCHES[entry] == before + 1
+                assert _mixed_dia_plan_ok(vals, X), k
                 assert _same(Y, ref(vals, offsets, X.contiguous())), k
                 assert _same(Y, DK.matmat(vals.to(block), offs, X,
                                           adjoint=adjoint)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("dtype", HALVES)
+def test_mixed_dia_matches_wide_kernel(card, dtype, block):
+    """The mixed entry points bit for bit against dia_f32 / dia_f64 on the
+    widened values and against the plain version, both forms: values from
+    ``EDGE`` with NaN and infinities (v * 0 off the edge is NaN for
+    matmat, 0 * 0 for rmatmat), offsets past n either way (every row off
+    the edge), odd offsets at an odd n, and 300 diagonals (the offsets
+    staged in shared memory in two tiles of 256)."""
+    entry = f"dia_{SUFFIX[dtype]}_{BLOCK_SUFFIX[block]}"
+    wide_entry = "dia_" + BLOCK_SUFFIX[block]
+    rng = np.random.default_rng(11)
+    n = 1001
+    cases = [(0, 1, -1, 3, -5, 63, -65, 999, -1000, n, -n, n + 7, -3 * n),
+             tuple(int(o) for o in rng.integers(-n - 2, n + 2, 300))]
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           dtype=dtype, device=card)
+    for offsets in cases:
+        vals = _edge((len(offsets), n), dtype, card, len(offsets))
+        every = torch.arange(0, vals.numel(), 97, device=card)
+        vals.view(-1)[every] = special.repeat(len(every))[:len(every)]
+        offs = torch.tensor(offsets, device=card)
+        for adjoint in (False, True):
+            ref = DK.rmatmat_reference if adjoint else DK.matmat_reference
+            for k in (1, 2, 3, 4, 8):
+                for X in _mixed_dia_blocks(n, k, block, card):
+                    w0 = DK.KERNEL_LAUNCHES[wide_entry]
+                    Y = DK.matmat(vals, offs, X, adjoint=adjoint)
+                    Yw = DK.matmat(vals.to(block), offs, X, adjoint=adjoint)
+                    assert DK.KERNEL_LAUNCHES[wide_entry] == w0 + 1
+                    assert _mixed_dia_plan_ok(vals, X), k
+                    assert _same(Y, Yw), (k, adjoint, len(offsets))
+                    assert _same(Y, ref(vals, offsets, X.contiguous())), k
+    assert DK.KERNEL_LAUNCHES[entry] > 0
 
 
 def _half_ell(m, n, density, seed, dtype, card):

@@ -1,14 +1,18 @@
 """The launch plans of the half kernels (``ops/dia.py::plan`` with half
-values, ``ops/stencil3d.py::plan`` in a half type), checked on the CPU:
+values, ``ops/stencil3d.py::plan`` in a half type, ``ops/jacobi.py::plan``
+over a half diagonal), checked on the CPU:
 
 * every row (grid point) and column is reached exactly once, by the
   kernels' thread maps: two rows 32 apart a DIA thread, or four adjacent
-  rows where X is one column; two adjacent points along l a stencil
-  thread where they are one aligned run;
+  rows where X is one column; one row a mixed DIA thread; two adjacent
+  points along l a stencil thread where they are one aligned run; 16
+  bytes of a contiguous block a Jacobi run-kernel thread;
 * the loads stay aligned: X's vector loads to their width at every row;
-  a run of halves (a DIA thread's values, or its X rows at kc = 1) read by
-  ``csrc/half2.cuh::ld_halves``' rule; the stencil's runs of two points at
-  every tap;
+  a run of halves (a DIA thread's values, or its X rows at kc = 1, a
+  Jacobi thread's diagonal entries) read by ``csrc/half2.cuh::ld_halves``'
+  rule; the stencil's runs of two points at every tap;
+* the mixed DIA kernel's 32-bit row shifts (offsets clamped to [-n, n])
+  put every row on or off the edge as the 64-bit offsets do;
 * the grid stays within CUDA's limits;
 * a shape the kernels do not take raises.
 
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 
 from primme_tpu_torch.ops import dia as DK
+from primme_tpu_torch.ops import jacobi as JK
 from primme_tpu_torch.ops import stencil3d as ST
 
 # (n, k, ldx, align in bytes): contiguous blocks and slices of wider ones,
@@ -237,3 +242,179 @@ def test_half_stencil_plan_within_cuda_limits_and_refuses():
             ST.plan(*args, max(args[3], 1), 0, 2)
     with pytest.raises(ValueError, match="columns a point"):
         ST.plan(4, 4, 4, 6, 6, 0, 2, 4)
+
+
+# Jacobi over a half diagonal: (n, k, ldx, align in bytes) with a half (2),
+# f32 (4) or f64 (8) block
+JACOBI_CASES = [(n, k, ldx, a) for n in (1, 7, 255, 1031, 4099)
+                for k, ldx in ((1, 1), (2, 2), (4, 4), (3, 3), (8, 8),
+                               (2, 24), (1, 24), (6, 6))
+                for a in (0, 4, 8)]
+
+
+def _jacobi_elements(p, n, k):
+    """How often Jacobi plan p reaches each (row, column). The run kernel:
+    thread t of the grid takes the rows [R t, R t + R) below n, every
+    column (R = ``p.rows``, the elements [E t, E t + E) of the block's run
+    of n k, E = ``p.cols``); the row-group kernel: block b, thread t takes
+    vector t % (kc/vw) of rows b S ROWS + u S + t / (kc/vw), u < ROWS, S =
+    THREADS / (kc/vw), in every row group of kc."""
+    seen = np.zeros((n, k), np.int32)
+    if p.kernel == JK.RUN_KERNEL:
+        assert p.cols == p.rows * k and p.kc == k
+        t, r, c = np.meshgrid(np.arange(p.blocks * JK.THREADS),
+                              np.arange(p.rows), np.arange(k), indexing="ij")
+        row = t * p.rows + r
+        keep = row < n
+        np.add.at(seen, (row[keep], c[keep]), 1)
+        return seen
+    parts = p.kc // p.vw
+    run = JK.THREADS // parts
+    b, t, u, g, c = np.meshgrid(np.arange(p.blocks), np.arange(JK.THREADS),
+                                np.arange(p.rows), np.arange(k // p.kc),
+                                np.arange(p.vw), indexing="ij")
+    row = b * run * p.rows + u * run + t // parts
+    col = g * p.kc + (t % parts) * p.vw + c
+    keep = row < n
+    np.add.at(seen, (row[keep], col[keep]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("size", [2, 4, 8])
+def test_half_jacobi_plan_covers_each_element_once(size):
+    """The run kernel exactly where the diagonal is half, the block
+    contiguous (ldx == k) and 16-byte aligned and ``run_rows`` has rows
+    (an even number of whole rows in 16 bytes: k = 1, 2, 4 for a half
+    block, 1 and 2 for f32, 1 for f64); else the row-group kernel as for
+    a diagonal of the block's type."""
+    for n, k, ldx, align in JACOBI_CASES:
+        if align % size:
+            continue
+        p = JK.plan(n, k, ldx, align, size, d_size=2)
+        runs = ldx == k and align == 0 and JK.run_rows(k, size) > 0
+        assert (p.kernel == JK.RUN_KERNEL) == runs, (n, k, ldx, align)
+        if runs:
+            assert p.rows * k * size == JK.RUN_BYTES and p.rows % 2 == 0
+            assert p.blocks == -(-n // (JK.THREADS * p.rows))
+        else:
+            assert p == JK.plan(n, k, ldx, align, size)
+        assert (_jacobi_elements(p, n, k) == 1).all(), (n, k, ldx, align)
+    assert [k for k in range(1, 17) if JK.run_rows(k, 2)] == [1, 2, 4]
+    assert [k for k in range(1, 17) if JK.run_rows(k, 4)] == [1, 2]
+    assert [k for k in range(1, 17) if JK.run_rows(k, 8)] == [1]
+
+
+@pytest.mark.parametrize("size", [2, 4, 8])
+def test_half_jacobi_run_loads_aligned(size):
+    """A run-kernel thread whose rows are all below n loads its 16 bytes of
+    X in one aligned load and its R diagonal entries by ``ld_halves``'
+    rule, at any place of d (an even or odd half); a thread whose rows
+    pass n goes element by element (no vector load)."""
+    for k in (k for k in (1, 2, 4) if JK.run_rows(k, size)):
+        for n in (7, 64, 1031):
+            p = JK.plan(n, k, k, 0, size, d_size=2)
+            assert p.kernel == JK.RUN_KERNEL
+            for t in range(p.blocks * JK.THREADS):
+                r0 = t * p.rows
+                if r0 + p.rows > n:     # the tail, element by element
+                    continue
+                assert (size * r0 * k) % JK.RUN_BYTES == 0
+                for d_align in (0, 2, 4, 6):
+                    for a, w in ld_halves(d_align + 2 * r0, p.rows):
+                        assert a % w == 0 and a >= 0
+
+
+def test_half_jacobi_plan_cases_and_limits():
+    run = JK.RUN_KERNEL
+    # the smoke's half k=2 block at 64^3: four rows a thread, one 16-byte
+    # load of X and one 8-byte run of d
+    assert JK.plan(262144, 2, 2, 0, 2) == JK.Plan(2, 8, 256, 8, 4, run)
+    # the mixed f32 block at k=2 (a half basis): two rows a thread
+    assert JK.plan(262144, 2, 2, 0, 4, d_size=2) == \
+        JK.Plan(2, 4, 512, 4, 2, run)
+    # an f32 diagonal keeps the row-group kernel
+    assert JK.plan(262144, 2, 2, 0, 4).kernel == JK.ROW_KERNEL
+    # a slice, an unaligned block, k = 8: the row-group kernel
+    for args in [(24, 0), (2, 4)]:
+        assert JK.plan(262144, 2, *args, 2).kernel == JK.ROW_KERNEL
+    assert JK.plan(262144, 8, 8, 0, 2).kernel == JK.ROW_KERNEL
+    for n in (1, 2 ** 31 - 2 ** 12):
+        p = JK.plan(n, 1, 1, 0, 2)
+        assert p.kernel == run and 1 <= p.blocks <= 2 ** 31 - 1
+        assert p.blocks * JK.THREADS * p.rows >= n
+    for n, k in [(0, 2), (4, 0), (2 ** 31 - 100, 1)]:
+        with pytest.raises(ValueError, match="outside|no element"):
+            JK.plan(n, k, max(k, 1), 0, 2)
+    with pytest.raises(ValueError, match="not a multiple"):
+        JK.plan(100, 2, 2, 1, 2)
+
+
+@pytest.mark.parametrize("xsize", [4, 8])
+def test_mixed_dia_plan_covers_each_element_once(xsize):
+    """Half values with an f32 or f64 block: the mixed kernel under the
+    f32 and f64 kernels' thread map and load width (one row a thread),
+    every element once, X's vector loads aligned."""
+    for n, k, ldx, align in DIA_CASES:
+        if align % xsize:
+            continue
+        p = DK.plan(n, k, ldx, align, xsize, vals_size=2)
+        assert p == DK.plan(n, k, ldx, align, xsize)._replace(
+            kernel=DK.MIXED_KERNEL), (n, k, ldx, align)
+        assert p.rows == 1 and p.grid[0] == -(-n // DK.THREADS)
+        assert (_dia_threads(p, n, k) == 1).all(), (n, k, ldx)
+        for row, g, c in itertools.product(range(0, n, 97), range(p.grid[1]),
+                                           range(0, p.kc, p.vw)):
+            addr = align + xsize * (row * ldx + g * p.kc + c)
+            assert addr % (p.vw * xsize) == 0, (n, k, ldx, align)
+
+
+def test_mixed_dia_plan_limits():
+    mixed = DK.MIXED_KERNEL
+    assert DK.plan(262144, 2, 2, 0, 4, vals_size=2) == \
+        DK.Plan(2, 2, (1024, 1), mixed)
+    assert DK.plan(262144, 2, 24, 4, 8, vals_size=2) == \
+        DK.Plan(2, 1, (1024, 1), mixed)
+    # rows past 2^30 or a row stride past 2^31: dia_kernel, its 64-bit
+    # rows
+    assert DK.plan(2 ** 30, 1, 1, 0, 4, vals_size=2).kernel == DK.ROW_KERNEL
+    assert DK.plan(2 ** 30 - 1, 1, 1, 0, 4, vals_size=2).kernel == mixed
+    assert DK.plan(3, 1, 2 ** 31, 0, 4, vals_size=2).kernel == DK.ROW_KERNEL
+    assert DK.plan(3, 1, 2 ** 31 - 1, 0, 4, vals_size=2).kernel == mixed
+    # more offsets than 48 KB of shared memory holds: dia_kernel
+    for B, kernel in ((DK.MIXED_MAX_B, mixed),
+                      (DK.MIXED_MAX_B + 1, DK.ROW_KERNEL)):
+        assert DK.plan(300, 2, 2, 0, 4, vals_size=2,
+                       diagonals=B).kernel == kernel
+    assert 4 * DK.MIXED_MAX_B <= 48 * 1024
+    assert DK.plan(5, 65535, 65535, 0, 4, vals_size=2).grid == (1, 65535)
+    with pytest.raises(ValueError, match="grid takes"):
+        DK.plan(5, 65537, 65537, 0, 4, vals_size=2)
+    for args in [(0, 2), (4, 0), (2 ** 31, 1)]:
+        with pytest.raises(ValueError, match="outside"):
+            DK.plan(*args, max(args[1], 1), 0, 4, vals_size=2)
+
+
+def test_mixed_dia_shifts_keep_the_edges():
+    """The mixed kernel's 32-bit row shift c = clamp(off, -n, n): for every
+    row i of [0, n), row i + c (matmat) and i - c (rmatmat) lie in [0, n)
+    exactly when i + off and i - off do, and are then the same row; every
+    index it forms stays in 32 bits for n < 2^30."""
+    rng = np.random.default_rng(5)
+    for n in (1, 2, 7, 1000, DK.MIXED_MAX_N - 1):
+        offs = np.concatenate([
+            np.arange(-3, 4), [n - 1, -(n - 1), n, -n, n + 1, -n - 1,
+                               2 ** 40, -2 ** 40, 2 ** 63 - 1, -2 ** 63],
+            rng.integers(-2 * n, 2 * n + 1, 50)]).astype(np.int64)
+        c = np.clip(offs, -n, n)
+        rows = np.unique(np.concatenate([
+            np.arange(min(n, 50)), n - 1 - np.arange(min(n, 50)),
+            rng.integers(0, n, 50)]))
+        for sign in (1, -1):
+            j64 = rows[:, None].astype(object) + sign * offs[None, :].astype(
+                object)
+            j32 = rows[:, None] + sign * c[None, :]
+            in64 = (j64 >= 0) & (j64 < n)
+            in32 = (j32 >= 0) & (j32 < n)
+            assert (in64 == in32).all()
+            assert (j32[in32] == j64[in64].astype(np.int64)).all()
+            assert np.abs(j32).max() < 2 ** 31

@@ -22,17 +22,21 @@ The cases, each wrapper on its default path:
   scalar paths);
 * on the 27-point Laplacian's 27 diagonals (``chip_smoke.laplacian27_dia``,
   built on the card): the f16 and bf16 DIA entry points and the mixed
-  ones with an f32 block (``dia_f16_f32``, ``dia_bf16_f32``) at 64^3 and
-  256^3, k = 1 and 2, and at 64^3 k = 4 and the k = 2 slice at offset 1;
-  the f32, f64, complex64 and complex128 ones at 64^3 and 256^3, k = 2
-  (matmat timed, rmatmat held bit for bit too); the half rows with their
-  bytes bound (``bound_ms``: vals, X and Y once, at
-  ``chip_smoke.HBM_BYTES_PER_S``);
+  ones with an f32 and an f64 block (``dia_f16_f32``, ``dia_bf16_f64``,
+  ...) at 64^3 and 256^3, k = 1, 2 and 4, and at 64^3 the k = 2 slice at
+  offset 1 (half block: matmat timed, rmatmat held bit for bit too;
+  mixed: both timed); the f32, f64, complex64 and complex128 ones at
+  64^3 and 256^3, k = 2 (matmat timed, rmatmat held bit for bit too);
+  the half rows with their bytes bound (``bound_ms``: vals, X and Y once,
+  at ``chip_smoke.HBM_BYTES_PER_S``), the half k = 1 and the mixed k = 2
+  rows with ``copy_ms`` and cuSPARSE's CSR product in the block's type
+  (``library_ms``, this checkout's call only);
 * this checkout's two half DIA kernels on one column (k = 1) at 64^3 and
   256^3: the run kernel the plan picks against the rows-32-apart kernel,
   the measurement behind that choice;
-* the f16 and bf16 Jacobi entry points, shifted and unshifted, at 64^3
-  and 256^3, k = 2.
+* the Jacobi entry points over a half diagonal with a half, f32 and f64
+  block, shifted and unshifted, at 64^3 and 256^3, k = 1, 2 and 4, with
+  their bytes bound, and at k = 2 ``copy_ms`` and ``library_ms``.
 
 The two versions' outputs on the same input must agree bit for bit (NaN
 for NaN); then each is timed with ``chip_smoke.median_ms`` (behind the
@@ -193,7 +197,9 @@ def sliced_ell(CS, WE, OWE, dev, gen, seed):
 HALF_STENCIL_SHAPES = [(64, 1, None), (64, 2, None), (64, 1, 1), (64, 2, 1),
                        (256, 1, None), (256, 2, None)]
 HALF_DIA_SHAPES = [(64, 1, None), (64, 2, None), (64, 4, None), (64, 2, 1),
-                   (256, 1, None), (256, 2, None)]
+                   (256, 1, None), (256, 2, None), (256, 4, None)]
+HALF_JACOBI_K = (1, 2, 4)
+EXTRA_K = 2          # the k of the rows that also time copy_ms, library_ms
 
 
 def half_block(CS, side, k, off, dtype, dev, gen):
@@ -228,37 +234,68 @@ def half_stencil(CS, ST, OST, dev, gen):
     return rows
 
 
+def extra_times(CS, row, X, library):
+    """This checkout's ``copy_ms`` (torch's copy of X) and ``library_ms``
+    (``library``, a PyTorch call computing the same function, or None)
+    added to ``row``, printed."""
+    import torch
+
+    Y = torch.empty_like(X)
+    row["copy_ms"] = CS.median_ms(lambda: Y.copy_(X))
+    row["library_ms"] = None if library is None else CS.median_ms(library)
+    print(f"[turns] {row['entry']} {row['shape']} ({row.get('form', '')}): "
+          f"copy {row['copy_ms']:.5f} ms, library "
+          + ("none" if library is None else f"{row['library_ms']:.5f} ms"),
+          flush=True)
+    return row
+
+
 def half_dia(CS, DK, ODK, dev, gen):
-    """The f16 and bf16 DIA entry points and the mixed ones with an f32
-    block, of both checkouts, at ``HALF_DIA_SHAPES`` on the 27-point
-    Laplacian's diagonals (matmat timed; rmatmat bit for bit too); each
-    row with its bytes bound."""
+    """The f16 and bf16 DIA entry points and the mixed ones with an f32 and
+    an f64 block, of both checkouts, at ``HALF_DIA_SHAPES`` on the
+    27-point Laplacian's diagonals (half block: matmat timed, rmatmat bit
+    for bit too; mixed: both timed); each row with its bytes bound. The
+    half rows at k = 1 and the mixed rows at ``EXTRA_K`` also time
+    ``copy_ms`` and cuSPARSE's CSR product of the same matrix in the
+    block's type (``library_ms``)."""
     import torch
 
     rows = []
     for half in (torch.float16, torch.bfloat16):
         sfx = CS.HALF_SUFFIX[str(half).removeprefix("torch.")]
         for side in sorted({s for s, _, _ in HALF_DIA_SHAPES}):
-            vals, offs, _ = CS.laplacian27_dia(side, half, dev)
-            for block in (half, torch.float32):
-                entry = "dia_" + sfx + ("" if block == half else "_f32")
+            vals, offs, offsets = CS.laplacian27_dia(side, half, dev)
+            for block in (half, torch.float32, torch.float64):
+                bsfx = str(block).removeprefix("torch.float")
+                entry = "dia_" + sfx + ("" if block == half else "_f" + bsfx)
                 for s, k, off in HALF_DIA_SHAPES:
                     if s != side:
                         continue
                     label = CS.shape_label(side, k, off)
                     X = half_block(CS, side, k, off, block, dev, gen)
-                    same = CS._bitwise(DK.matmat(vals, offs, X, adjoint=True),
-                                       ODK.matmat(vals, offs, X,
-                                                  adjoint=True))
-                    CS.check(same, f"{entry} at {label}: the two checkouts' "
-                             "rmatmat differ")
-                    p = DK.card_plan(X)
-                    rows.append(compare(
-                        entry, label, lambda: DK.matmat(vals, offs, X),
-                        lambda: ODK.matmat(vals, offs, X), CS.median_ms,
-                        CS._bitwise, CS.check,
-                        plan=f"kernel{p.kernel}/kc{p.kc}/vw{p.vw}/"
-                        f"rows{p.rows}", bound_ms=dia_bound_ms(CS, vals, X)))
+                    p = DK.card_plan(X, vals)
+                    forms = (False, True) if block != half else (False,)
+                    if block == half:
+                        same = CS._bitwise(
+                            DK.matmat(vals, offs, X, adjoint=True),
+                            ODK.matmat(vals, offs, X, adjoint=True))
+                        CS.check(same, f"{entry} at {label}: the two "
+                                 "checkouts' rmatmat differ")
+                    for adj in forms:
+                        rows.append(compare(
+                            entry, label,
+                            lambda: DK.matmat(vals, offs, X, adjoint=adj),
+                            lambda: ODK.matmat(vals, offs, X, adjoint=adj),
+                            CS.median_ms, CS._bitwise, CS.check,
+                            form="rmatmat" if adj else "matmat",
+                            plan=f"kernel{p.kernel}/kc{p.kc}/vw{p.vw}/"
+                            f"rows{p.rows}",
+                            bound_ms=dia_bound_ms(CS, vals, X)))
+                        if off is None and not adj and (
+                                k == 1 if block == half else k == EXTRA_K):
+                            csr = CS.dia_csr(vals, offsets, block)
+                            extra_times(CS, rows[-1], X, lambda: csr @ X)
+                            del csr
                     del X
             del vals, offs
     return rows
@@ -306,8 +343,14 @@ def half_dia_kernels(CS, DK, dev, gen):
 
 
 def half_jacobi(CS, JK, OJK, dev, gen):
-    """The f16 and bf16 Jacobi entry points (shifted, unshifted) of both
-    checkouts at 64^3 and 256^3, k = 2, the operands of phase 48."""
+    """The Jacobi entry points over a half diagonal (f16, bf16) with a
+    half, an f32 and an f64 block, shifted and unshifted, of both
+    checkouts at 64^3 and 256^3, k in ``HALF_JACOBI_K`` (contiguous
+    blocks; the first shift equal to a diagonal entry, as phases 47 and 48
+    have them); each row with its bytes bound (X and Y once, d and the
+    shifts), and at ``EXTRA_K`` ``copy_ms`` and ``library_ms``
+    (``torch.div(X, d[:, None])`` for the unshifted form; none for the
+    shifted one)."""
     import torch
 
     rows = []
@@ -315,17 +358,39 @@ def half_jacobi(CS, JK, OJK, dev, gen):
         sfx = CS.HALF_SUFFIX[str(half).removeprefix("torch.")]
         for side in (64, 256):
             n = side ** 3
-            X = half_block(CS, side, 2, None, half, dev, gen)
             d = (torch.rand(n, generator=gen, device=dev) * 3 + 0.5).to(half)
-            s = torch.stack([d[5], torch.tensor(0.7, device=dev).to(half)])
-            for entry, call in (
-                    ("jacobi_shifted_" + sfx,
-                     lambda m: m.shifted(X, d, s, 1e-10)),
-                    ("jacobi_" + sfx, lambda m: m.unshifted(X, d, 1e-10))):
-                rows.append(compare(
-                    entry, CS.shape_label(side, 2, None), lambda: call(JK),
-                    lambda: call(OJK), CS.median_ms, CS._bitwise, CS.check))
-            del X, d
+            for block in (half, torch.float32, torch.float64):
+                bsfx = "" if block == half else \
+                    "_f" + str(block).removeprefix("torch.float")
+                size = torch.empty((), dtype=block).element_size()
+                dw = d.to(block)[:, None]
+                for k in HALF_JACOBI_K:
+                    X = half_block(CS, side, k, None, block, dev, gen)
+                    s = (torch.rand(k, generator=gen, device=dev) * 3
+                         + 0.5).to(block)
+                    s[0] = d[5]
+                    p = JK.card_plan(X, d)
+                    for entry, call, nbytes, lib in (
+                            ("jacobi_shifted_" + sfx + bsfx,
+                             lambda m: m.shifted(X, d, s, 1e-10),
+                             2 * n * k * size + 2 * n + k * size, None),
+                            ("jacobi_" + sfx + bsfx,
+                             lambda m: m.unshifted(X, d, 1e-10),
+                             2 * n * k * size + 2 * n,
+                             lambda: torch.div(X, dw))):
+                        rows.append(compare(
+                            entry, CS.shape_label(side, k, None),
+                            lambda: call(JK), lambda: call(OJK),
+                            CS.median_ms, CS._bitwise, CS.check,
+                            plan=f"kernel{p.kernel}/kc{p.kc}/vw{p.vw}/"
+                            f"rows{p.rows}",
+                            bound_ms=round(1e3 * nbytes / CS.HBM_BYTES_PER_S,
+                                           5)))
+                        if k == EXTRA_K:
+                            extra_times(CS, rows[-1], X, lib)
+                    del X
+                del dw
+            del d
     return rows
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""What the compiler made of the half instances of the DIA and stencil
-kernels: builds ``primme_tpu_torch/csrc/dia.cu`` and ``stencil3d.cu`` of
-one or more checkouts with the package's ``nvcc`` flags plus ``-Xptxas
--v`` (registers, spills), disassembles each library (``cuobjdump -sass``,
+"""What the compiler made of the half instances of the DIA, stencil and
+Jacobi kernels: builds ``primme_tpu_torch/csrc/dia.cu``, ``stencil3d.cu``
+and ``jacobi.cu`` of one or more checkouts with the package's ``nvcc``
+flags plus ``-Xptxas -v`` (registers, spills), disassembles each library
+(``cuobjdump -sass``,
 names demangled with ``cu++filt``) and counts, for every kernel instance
 whose name holds a half type, its instructions by kind: conversions
 (``F2F``, ``F2FP``, ``I2F``, ``F2I``), half widenings (``HADD2.F32``),
@@ -27,7 +28,7 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("dia", "stencil3d")
+SOURCES = ("dia", "stencil3d", "jacobi")
 KINDS = {
     "conversions": re.compile(r"^(F2F|F2FP|I2F|F2I)\b"),
     "half_widenings": re.compile(r"^HADD2\.F32\b"),
