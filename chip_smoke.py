@@ -310,7 +310,7 @@ Phases, each printing its own lines; any failed check raises:
     profiler's post-processing seconds printed;
 36. the C ABI in-process (``capi_inprocess_phase``): the port's
     ``capi_support`` driven with numpy buffer addresses on the 7-point
-    Laplacian of the 64^3 grid in random order (n = 262,144, f64):
+    Laplacian of the 32^3 grid in random order (n = 32,768, f64):
     ``eigsh_csr`` (k=6 smallest, tol 1e-10) and a parameter handle
     (numEvals, eps, jacobi 1, PRIMME_DEFAULT_METHOD) through
     ``eigsh_run``; values within 1e-8 of the closed form, the written
@@ -370,10 +370,11 @@ spawned; the ranks load them. Each world of ranks is spawned once (the
     block of its own; the median host time of a sharded product beside
     the unsharded kernel's device time (P ranks on one card: not a
     scaling number);
-42. the headline (phase 9's settings, probe on) through
+42. the headline (phase 9's settings, probe on) at 32^3 through
     ``eigsh(mesh=)`` on 2 ranks: values within 1e-4 of the closed form,
     true residuals <= 1.5 tol ||A||, probe verified, matvecs within 2x of
-    1710, ``stencil3d_f32`` and ``jacobi_shifted_f32`` launches >=
+    the JAX package's 1181 at that grid, ``stencil3d_f32`` and
+    ``jacobi_shifted_f32`` launches >=
     matvecs / 2 on every rank, both ranks' values equal bit for bit; then
     ``distributed.dryrun_multichip`` inside the 2-rank and the 4-rank
     worlds with its asserts;
@@ -384,12 +385,41 @@ spawned; the ranks load them. Each world of ranks is spawned once (the
     must keep ``BandedOperator`` (``dia_f32`` on the window), gated as
     phase 11;
 44. ``svds(mesh=)`` on 2 ranks: phases 20 and 22's calls on
-    ``grounded_incidence(32)``, their closed-form gates, each stage's
+    ``grounded_incidence(24)``, their closed-form gates, each stage's
     matvecs within 2x of the unsharded port's same call;
 45. NCCL on the card: a one-rank NCCL group (``init_device_mesh("cuda",
     (1,))``, which takes the unsharded path) runs one all-reduce and
     phase 42's call at 32^3; the backend printed, the values against the
     unsharded run's. NCCL with several ranks needs several cards.
+
+Phase 49, half operators (f16, bf16) under ``mesh=``, runs inside phases
+41 and 42's worlds (its own seconds counted apart). The products, at P =
+2 and 4, n = 262,144, k = 2, each with a half block and an f32 one (the
+mixed entry points; the stencil casts the block to its type): the
+sharded 64^3 stencil, phase 11's DIA sharded and the shift-aware Jacobi
+on a rank's rows, each bit for bit against the rows of the unsharded
+product; a half ``HaloELLOperator`` of each of phase 41's matrices within
+one half ulp (half block) or 1e-5 (f32 block) of max|y| of the unsharded
+``ELLOperator`` of the same values, each layout's launch into its
+``out=`` row slice bit for bit against its launch into a block of its
+own; every product one launch of its entry point (a layout's each),
+``h k`` elements sent a neighbour, no all-gather; first, f16 and bf16
+card tensors through gloo's sum, max, all-gather and exchange, each
+exact. The solves, on 2
+ranks, ``eigsh(mesh=)`` with phase 47's settings: the stencil with its
+Jacobi in f16 under f32 and in bf16 over a half basis, phase 11's
+``BandedOperator`` the same way, a half ``HaloELLOperator`` of phase 4's
+matrix (phase 43's pack) in bf16 under f32 and in f16 over a half basis,
+and ``svds(mesh=)`` of the f16 ``ELLOperator.from_coo`` of
+``grounded_incidence(32)`` (k=3, LM, tol 4 eps(f16)): true residuals
+(f64) < 16 eps(half) ||A||, each value within its residual of the closed
+form, the probe verified for the f32 solves, the entry points phase 47's
+unsharded call launches >= matvecs / 2 on every rank and all others 0
+(the shifted Jacobi and the mixed DIA each launch on the redesigned
+kernel), both ranks' values bit for bit, matvecs within 2x of the JAX
+package's under a 2-device CPU mesh (``tools/torch_smoke_refs.py --phase
+shardhalf``) and of phase 47's unsharded count of the same call; each
+call's seconds and sums over ranks printed.
 
 Phase 46, the last surface, at small sizes: ``to_dense()`` of the 8^3
 stencil (f32, f64), a ``BandedOperator`` (f32, f64, complex64),
@@ -454,7 +484,8 @@ against the plain versions and not timed, to keep the run within its
 time limit.
 
 The run prints the seconds of phases 1-2 (the build), 3-8, 9-10, 11-14,
-15, 16-18, 1-18, 46, 47, 48 and the whole run (``seconds`` in the record).
+15, 16-18, 1-18, 46, 47, 48, 49 and the whole run (``seconds`` in the
+record).
 Each solve also prints its peak device memory. The second-to-last line is
 a JSON record of the kernels and the solves (each kernel record also
 lists its launches on every path, ``path_launches``); the last is
@@ -656,14 +687,14 @@ REF_DYNAMIC_GD_MATVECS = 2275
 REF_DYNAMIC = (1773, "GJGGJJGJJGJGJ")
 # phases 36-37: the C ABI. Phase 36 drives primme_tpu_torch.capi_support
 # in-process with numpy buffers on the 7-point Laplacian of the CAPI_GRID^3
-# grid in random order (n = 262,144, f64): eigsh_csr (k = CAPI_K smallest,
+# grid in random order (n = 32,768, f64): eigsh_csr (k = CAPI_K smallest,
 # tol CAPI_TOL) and a parameter handle (numEvals CAPI_K, eps CAPI_TOL,
 # jacobi 1, the default method) through eigsh_run. Phase 37 runs the same
 # calls from the C program primme_tpu_torch/native/capi_smoke.c, with the
 # F77 twin, a host CSR matvec on the CAPI_MATVEC_GRID^3 Laplacian and the
 # svds entry points (CAPI_SVDS_K largest, tol CAPI_TOL) on
 # grounded_incidence(CAPI_SVD_GRID)
-CAPI_GRID = 64
+CAPI_GRID = 32
 CAPI_MATVEC_GRID = 32
 CAPI_SVD_GRID = 32
 CAPI_K = 6
@@ -672,10 +703,10 @@ CAPI_SVDS_K = 4
 # the JAX package's counts for phase 36's two calls, the same solves that
 # its capi_support runs (eigsh, and solve_eigs_dynamic with the Jacobi
 # preconditioner), on the CPU, seed 0 (python3 tools/torch_smoke_refs.py
-# --phase capi, x64 on; 220 s and 76 s, values within 4.8e-15 and
-# 1.2e-15 of the closed form): printed beside the port's, not held
-# (DYNAMIC's switch follows the host's clock)
-REF_CAPI = {"csr": 2142, "run": 2158}
+# --phase capi, x64 on; 32 s and 35 s, values within 5.0e-15 and 4.8e-15
+# of the closed form): printed beside the port's, not held (DYNAMIC's
+# switch follows the host's clock)
+REF_CAPI = {"csr": 978, "run": 1258}
 # phase 39: solves with the complex Jacobi kernel. "magnetic": phase 24's
 # call with jacobi=True; "magnetic_fixed": the same call on the magnetic
 # Laplacian of the JACOBI_NORMAL_GRID^3 grid with OPinv a fixed
@@ -728,10 +759,47 @@ REF_HALFOP = {"stencil_f16": 656, "stencil_bf16_half_basis": 352,
               "stencil_bf16": 352, "ell_f16": 549, "ell_bf16": 352,
               "dia_bf16": 389, "dia_f16": 620, "ell_f16_half_basis": 457,
               "dia_bf16_half_basis": 258}
+# phase 49: half operators under mesh= on 2 ranks sharing the card, each
+# solve name -> (operator, its half type, the working type: None for a
+# half basis over it), through eigsh(mesh=) with phase 47's settings: the
+# 64^3 stencil with its Jacobi on the ranks' rows, phase 11's matrix as
+# the sharded BandedOperator, phase 4's matrix as a half HaloELLOperator in
+# the RCM order its pack takes (phase 43's); and svds(mesh=) of the f16
+# ELLOperator.from_coo of grounded_incidence(SHARDHALF_SVD_GRID),
+# SHARDHALF_SVDS, tol 4 eps(f16), both stages gathered
+SHARDHALF_SOLVES = {
+    "stencil_f16": ("stencil", "float16", "float32"),
+    "stencil_bf16_half_basis": ("stencil", "bfloat16", None),
+    "dia_f16": ("dia", "float16", "float32"),
+    "dia_bf16_half_basis": ("dia", "bfloat16", None),
+    "halo_bf16": ("halo", "bfloat16", "float32"),
+    "halo_f16_half_basis": ("halo", "float16", None),
+}
+SHARDHALF_K = {"dia_bf16_half_basis": HALF_K, "halo_f16_half_basis": HALF_K}
+SHARDHALF_SVDS = dict(k=3, which="LM")
+# the JAX package's matvecs for the same calls under a 2-device CPU mesh,
+# seed 0 (python3 tools/torch_smoke_refs.py --phase shardhalf, x64 on;
+# 5.9-13.7 s a solve; svds all in stage 1)
+REF_SHARDHALF = {"stencil_f16": 674, "stencil_bf16_half_basis": 352,
+                 "dia_f16": 620, "dia_bf16_half_basis": 258,
+                 "halo_bf16": 352, "halo_f16_half_basis": 457,
+                 "svds_f16": 200}
+# phase 47's unsharded solve of the same call (its matvecs gate phase 49's)
+SHARDHALF_UNSHARDED = {"stencil_f16": "stencil_f16",
+                       "stencil_bf16_half_basis": "stencil_bf16_half_basis",
+                       "dia_f16": "dia_f16",
+                       "dia_bf16_half_basis": "dia_bf16_half_basis",
+                       "halo_bf16": "ell_bf16",
+                       "halo_f16_half_basis": "ell_f16_half_basis"}
 SHARD_RANKS = (2, 4)
 SHARD_K = 2                   # the product's columns (the headline's block)
 BAND_SCATTER = (GRID ** 3, 150, 3)    # n, half band, entries a row
-SHARD_SVD_GRID = 32
+SHARD_HEADLINE_GRID = 32      # phase 42's sharded headline: n = 32,768
+# the JAX package's solve_eigs on bench.py's configuration at that grid,
+# seed 0 (python3 tools/torch_headline_spread.py --grids 32 --seeds 0)
+REF_SHARD_HEADLINE_MATVECS = 1181
+SHARD_SVD_GRID = 24           # phase 44's svds: 53,568 x 13,824
+SHARDHALF_SVD_GRID = 32       # phase 49's svds: 128,000 x 32,768
 SHARD_NCCL_GRID = 32
 SURFACE_GRID = 8              # phase 46's to_dense: the 8^3 grid
 SURFACE_SOLVE_GRID = 16       # phase 46's solves: n = 4096
@@ -3903,9 +3971,12 @@ def halo_product(mesh, A, name, seed):
     tag = _rank_tag(mesh, f"41 {name}")
     dev = D.mesh_device(mesh)
     t0 = time.perf_counter()
-    op, perm = D.HaloELLOperator.from_scipy(A, mesh)
+    # HaloELLOperator.from_scipy's steps, the pack kept for phase 49
+    pk = D.pack(A, mesh.size())
+    comm = D.mesh_comm(mesh, A.shape[0])
+    op = D.HaloELLOperator.from_pack(pk, comm).to(dev)
+    perm = pk.perm
     pack_s = time.perf_counter() - t0
-    comm = op.comm
     Ap = A if perm is None else A[perm][:, perm].tocsr()
     X = np.random.default_rng(seed).normal(
         size=(A.shape[0], SHARD_K)).astype(np.float32)
@@ -3983,24 +4054,27 @@ def halo_product(mesh, A, name, seed):
           + (f", unsharded kernel {un_ms:.5f} ms device" if un_ms else "")
           + f" (P ranks on one card: not a scaling number); pack "
           f"{pack_s:.2f} s", flush=True)
-    return rec
+    return rec, pk
 
 
 def world_products(mesh, seed):
     """Phase 41 on this rank, both matrices; then, in the world of the
-    same size, ``dryrun_multichip`` (phase 42's second half)."""
+    same size, ``dryrun_multichip`` (phase 42's second half); then phase
+    49's products (:func:`shardhalf_products`) on the same packs."""
     from primme_tpu_torch import distributed as D
 
-    A, _ = laplacian27(GRID, seed)
-    out = {"laplacian27": halo_product(mesh, A, "laplacian27", seed),
-           "band_scatter": halo_product(mesh, band_scatter(*BAND_SCATTER),
-                                        "band_scatter", seed)}
+    mats = {"laplacian27": laplacian27(GRID, seed)[0],
+            "band_scatter": band_scatter(*BAND_SCATTER)}
+    out, packs = {}, {}
+    for name, A in mats.items():
+        out[name], packs[name] = halo_product(mesh, A, name, seed)
     t0 = time.perf_counter()
     dry = D.dryrun_multichip(mesh.size(), device="cuda")
     out["dryrun"] = {"evals": [float(v) for v in dry["evals"]],
                      "max_resnorm": float(dry["resnorms"].max()),
                      "matvecs": int(dry["matvecs"]),
                      "seconds": time.perf_counter() - t0}
+    out["half"] = shardhalf_products(mesh, seed, mats, packs)
     return out
 
 
@@ -4020,12 +4094,13 @@ def world_solves(mesh, seed, svd_refs):
     dev = D.mesh_device(mesh)
     out = {}
 
-    # --- 42. the headline under eigsh(mesh=) ---
+    # --- 42. the headline under eigsh(mesh=), at SHARD_HEADLINE_GRID ---
     tag = _rank_tag(mesh, "42 headline")
-    lam, anorm = stencil_eigenvalues(GRID, 10)
-    A = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=torch.float32,
+    grid, ref = SHARD_HEADLINE_GRID, REF_SHARD_HEADLINE_MATVECS
+    lam, anorm = stencil_eigenvalues(grid, 10)
+    A = ptt.Stencil3DOperator(grid, grid, grid, dtype=torch.float32,
                               device=dev)
-    kw = _headline_eigsh_kwargs(dev, seed, GRID)
+    kw = _headline_eigsh_kwargs(dev, seed, grid)
     torch.cuda.synchronize()
     reset_counts(*mods)
     t0 = time.perf_counter()
@@ -4035,9 +4110,9 @@ def world_solves(mesh, seed, svd_refs):
     launches = read_counts(mods)
     mv = st["num_matvecs"]
     err = float(np.abs(np.sort(w) - lam).max())
-    res = _true_stencil_residual(GRID, w, V, dev)
-    print(f"[{tag}] wall {wall:.3f} s matvecs {mv} (reference "
-          f"{REF_HEADLINE_MATVECS}) max|eval-analytic| {err:.3e} true "
+    res = _true_stencil_residual(grid, w, V, dev)
+    print(f"[{tag}] {grid}^3: wall {wall:.3f} s matvecs {mv} (reference "
+          f"{ref}) max|eval-analytic| {err:.3e} true "
           f"residual {res:.3e} (limit {1.5e-5 * anorm:.3e}) probe verified "
           f"{st['probe_verified']} exhausted {st['probe_exhausted']} "
           f"global sums {st['num_global_sum']} launches {launches}",
@@ -4046,14 +4121,14 @@ def world_solves(mesh, seed, svd_refs):
     check(res <= 1.5e-5 * anorm, f"{tag}: true residual {res:.3e}")
     check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
           f"{tag}: spectrum verification did not complete")
-    check(REF_HEADLINE_MATVECS / 2 <= mv <= 2 * REF_HEADLINE_MATVECS,
-          f"{tag}: {mv} matvecs")
+    check(ref / 2 <= mv <= 2 * ref, f"{tag}: {mv} matvecs")
     for e in ("stencil3d_f32", "jacobi_shifted_f32"):
         check(launches[e] >= mv / 2, f"{tag}: {launches[e]} {e} launches")
     check(not any(v for e, v in launches.items()
                   if e not in ("stencil3d_f32", "jacobi_shifted_f32")),
           f"{tag}: another kernel served the headline: {launches}")
-    out["headline"] = {"wall_s": wall, "num_matvecs": mv, "eval_err": err,
+    out["headline"] = {"grid": grid, "wall_s": wall, "num_matvecs": mv,
+                       "ref_num_matvecs": ref, "eval_err": err,
                        "max_true_residual": res, "evals": w,
                        "num_global_sum": st["num_global_sum"],
                        "volume_global_sum": st["volume_global_sum"],
@@ -4118,6 +4193,9 @@ def world_solves(mesh, seed, svd_refs):
         out["svds"][name] = {key: r[key] for key in (
             "wall_s", "svals", "eval_err", "max_triplet_residual",
             "num_matvecs", "ref_num_matvecs", "stages", "launches")}
+
+    # --- 49. the half solves under the mesh (phase 43's pack) ---
+    out["half"] = shardhalf_solves(mesh, seed, A27, ev, pk)
     return out
 
 
@@ -4909,7 +4987,8 @@ def half_operator_phase(ptt, mods, dev, gen, seed, f32_runs):
             need = allowed = ["windowed_ell_spmm_" + sfx
                               + ("_f32" if wd is None else "")]
         else:
-            op = ptt.BandedOperator(dia32.offsets, dia32.vals.to(hdt))
+            op = ptt.BandedOperator(dia32.offsets,
+                                    dia32.vals.to(hdt)).to(dev)
             kw = dict(SOLVE_KWARGS, device=dev)
             need = allowed = ["dia_" + sfx + ("_f32" if wd is None else "")]
         if name in HALFOP_K:
@@ -5344,6 +5423,484 @@ def half_check_phase(ST, JK, DK, dev, gen):
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 49: half operators under mesh= (the row-partitioned half paths)
+# ---------------------------------------------------------------------------
+
+def half_pack(pk, dtype):
+    """A halo pack with its values and diagonal rounded to ``dtype`` (CPU
+    tensors): the arrays of a ``HaloELLOperator`` built with half values."""
+    import torch
+
+    return pk._replace(vals=torch.from_numpy(pk.vals).to(dtype),
+                       diag=torch.from_numpy(pk.diag).to(dtype))
+
+
+def _half_ell(ell32, dtype):
+    """The f32 ``ELLOperator`` ``ell32`` with its values narrowed to
+    ``dtype``: what ``ELLOperator.from_coo`` of the half values builds."""
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    lays = [WE.SlicedELL(*(getattr(ell32, f + t)
+                           for f in WE.SlicedELL._fields[:-1]),
+                         getattr(ell32, "vals" + t).to(dtype))
+            for t in ("", "_t")]
+    return ptt.ELLOperator(lays[0], lays[1], ell32.diag.to(dtype))
+
+
+def _sent_and_launches(mods, fn):
+    """``fn()``, the elements this rank sent, the entry points launched
+    (by count) and the run- and mixed-kernel launches among them."""
+    import torch
+    from primme_tpu_torch.core import comm as cm
+
+    sent0 = cm.SENT_ELEMENTS
+    reset_counts(*mods)
+    y = fn()
+    torch.cuda.synchronize()
+    launched = {e: c for e, c in read_counts(mods).items() if c}
+    new = {e: c for e, c in {**read_counts(mods, "RUN_LAUNCHES"),
+                             **read_counts(mods, "MIXED_LAUNCHES")}.items()
+           if c}
+    return y, cm.SENT_ELEMENTS - sent0, launched, new
+
+
+def _gloo_half_check(comm, dev):
+    """f16 and bf16 card tensors through this torch's gloo group, by the
+    row communicator's calls: an all-reduce's sum and max, an all-gather
+    and a halo exchange (point to point), each equal to its value computed
+    here. Returns, by type, whether all four matched."""
+    import torch
+    import torch.distributed as dist
+    from primme_tpu_torch import distributed as D
+
+    P, r = comm.size, comm.rank
+    small = D.RowComm(comm.group, 2 * P, dev)      # two rows a rank
+    out = {}
+    for half in HALF_SUFFIX:
+        dt = getattr(torch, half)
+        t = torch.tensor([1.0 + r, 0.5], dtype=dt, device=dev)
+        total = small.all_reduce(t).cpu()
+        top = small.all_reduce(t, op=dist.ReduceOp.MAX).cpu()
+        rows = torch.tensor([[2.0 * r], [2.0 * r + 1]], dtype=dt, device=dev)
+        every = small.all_gather_rows(rows).cpu()
+        left, right = small.halo_exchange_start(rows, 1).wait()
+        want = [float(sum(range(1, P + 1))), 0.5 * P], [float(P), 0.5]
+        ok = (total.tolist() == want[0] and top.tolist() == want[1]
+              and every[:, 0].tolist() == [float(i) for i in range(2 * P)]
+              and left.item() == (2.0 * r - 1 if r > 0 else 0.0)
+              and right.item() == (2.0 * r + 2 if r < P - 1 else 0.0)
+              and total.dtype == every.dtype == left.dtype == dt)
+        out[half] = ok
+        check(ok, f"49 gloo {half}: sum {total.tolist()}, max "
+              f"{top.tolist()}, gathered {every[:, 0].tolist()}, exchanged "
+              f"{left.item()}, {right.item()} on rank {r} of {P}")
+    return out
+
+
+def shardhalf_products(mesh, seed, mats, packs):
+    """Phase 49's products on this rank of P = ``mesh.size()``, after
+    :func:`_gloo_half_check`: n = 262,144, k = ``SHARD_K``, in f16 and
+    bf16, each with a half block and
+    an f32 one (the mixed entry points; the stencil casts it to its type):
+    the sharded 64^3 stencil, phase 11's 27-point DIA sharded, the
+    shift-aware Jacobi on this rank's rows (one shift equal to a diagonal
+    entry), each equal bit for bit to this rank's rows of the unsharded
+    port's product of the same operator and block; a half
+    ``HaloELLOperator`` of each of phase 41's matrices (``mats``, their
+    packs ``packs``) within one half ulp of ``max|y|`` (half block) or 1e-5
+    ``max|y|`` (f32 block) of the unsharded ``ELLOperator`` of the same
+    half values, each of its layouts' launches into its ``out=`` row slice
+    equal bit for bit to its launch into a block of its own. Each product
+    launches its entry point once (the halo: once a layout), sends ``h k``
+    elements to each neighbour and all-gathers nothing."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch import distributed as D
+    from primme_tpu_torch.ops import dia as DK
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    mods = (DK, WE, ST, JK)
+    t0 = time.perf_counter()
+    tag = _rank_tag(mesh, "49 products")
+    dev = D.mesh_device(mesh)
+    n, k = GRID ** 3, SHARD_K
+    comm = D.mesh_comm(mesh, n)
+    lo, hi = comm.lo, comm.hi
+    n_nb = (comm.rank > 0) + (comm.rank < comm.size - 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A_dia, _ = laplacian27_grid(GRID)
+    dia32 = ptt.rcm_banded(A_dia)[0].to(dev)
+    hb = max(abs(o) for o in dia32.offsets)
+    # the unsharded ELLOperator of each halo matrix in its pack's order
+    # (symmetric: one layout serves A and A^T)
+    gloo = _gloo_half_check(comm, dev)
+    ells = {}
+    for name, A in mats.items():
+        pk = packs[name]
+        Ap = A if pk.perm is None else A[pk.perm][:, pk.perm].tocsr()
+        lay = WE.from_csr(Ap, np.float32)
+        diag = np.asarray(Ap.diagonal(), np.float32)
+        ells[name] = ptt.ELLOperator(lay, lay, diag).to(dev)
+    out = {}
+    gathers = []
+    orig = dist.all_gather
+    dist.all_gather = lambda *a, **kw: gathers.append(1) or orig(*a, **kw)
+    try:
+        for half, sfx in HALF_SUFFIX.items():
+            hdt = getattr(torch, half)
+            sten = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=hdt,
+                                         device=dev)
+            band = ptt.BandedOperator(dia32.offsets,
+                                      dia32.vals.to(hdt)).to(dev)
+            d = (torch.rand(n, generator=gen, device=dev) * 3
+                 + 0.5).to(hdt)
+            K = ptt.JacobiPrecond(d)
+            forms = {"stencil": (D.shard_operator(sten, comm), sten,
+                                 GRID * GRID),
+                     "dia": (D.shard_operator(band, comm), band, hb)}
+            halos = {name: D.HaloELLOperator.from_pack(
+                half_pack(packs[name], hdt), comm).to(dev)
+                for name in mats}
+            Ks = D.shard_operator(K, comm)
+            for bdt, bsfx in ((hdt, ""), (torch.float32, "_f32")):
+                X = torch.randn((n, k), generator=gen, device=dev).to(bdt)
+                x = comm.rows(X)
+                for name, (sop, uop, width) in forms.items():
+                    key = f"{name}_{half}_{'half' if bdt == hdt else 'f32'}"
+                    entry = (f"stencil3d_{sfx}" if name == "stencil"
+                             else f"dia_{sfx}{bsfx}")
+                    yu = uop.matmat(X)[lo:hi]
+                    y, sent, launched, new = _sent_and_launches(
+                        mods, lambda: sop.matmat(x))
+                    bit = _bitwise(y, yu)
+                    out[key] = {"bitwise": bit, "sent": sent,
+                                "launches": launched, "new_kernel": new,
+                                "dtype": str(y.dtype)}
+                    check(bit, f"{tag} {key}: the sharded product differs "
+                          "from the unsharded one's rows")
+                    check(launched == {entry: 1}, f"{tag} {key}: launches "
+                          f"{launched}, expected {entry} once")
+                    check(sent == n_nb * width * k, f"{tag} {key}: sent "
+                          f"{sent} elements, expected {n_nb} x {width} x {k}")
+                # the Jacobi rows: one shift equal to a diagonal entry
+                key = f"jacobi_{half}_{'half' if bdt == hdt else 'f32'}"
+                entry = f"jacobi_shifted_{sfx}{bsfx}"
+                sh = torch.stack([d[5].to(bdt),
+                                  torch.tensor(0.7, dtype=bdt, device=dev)])
+                yu = K.matmat_shifted(X, sh)[lo:hi]
+                y, sent, launched, new = _sent_and_launches(
+                    mods, lambda: Ks.matmat_shifted(x, sh))
+                bit = _bitwise(y, yu)
+                out[key] = {"bitwise": bit, "sent": sent,
+                            "launches": launched, "new_kernel": new,
+                            "d_offset_bytes": Ks.d.data_ptr() % 16,
+                            "dtype": str(y.dtype)}
+                check(bit and sent == 0, f"{tag} {key}: the rows differ "
+                      f"from the unsharded apply's ({bit}) or sent {sent}")
+                check(launched == {entry: 1} and new == {entry: 1},
+                      f"{tag} {key}: launches {launched}, on the run kernel "
+                      f"{new}")
+                # the half halo operators of phase 41's matrices
+                for name, hop in halos.items():
+                    key = f"halo_{name}_{half}_" + (
+                        "half" if bdt == hdt else "f32")
+                    entry = f"windowed_ell_spmm_{sfx}{bsfx}"
+                    yu = _half_ell(ells[name], hdt).matmat(X)[lo:hi]
+                    y, sent, launched, new = _sent_and_launches(
+                        mods, lambda: hop.matmat(x))
+                    ymax = float(yu.float().abs().max())
+                    err = float((y.float() - yu.float()).abs().max())
+                    bar = (float(2.0 ** np.floor(np.log2(ymax)))
+                           * torch.finfo(hdt).eps if bdt == hdt
+                           else 1e-5 * ymax)
+                    hr, nl = hop.hrows, hop.nl
+                    slices = True
+                    if hop.split:
+                        Ys = torch.full_like(y, float("nan"))
+                        pend = hop.comm.halo_exchange_start(x, hop.halo)
+                        hop.interior(x, Ys)
+                        left, right = pend.wait()
+                        hop.boundary(x, left, right, Ys)
+                        xw = torch.cat([left, x, right])
+                        slices = (_bitwise(Ys, y)
+                                  and _bitwise(Ys[hr:nl - hr],
+                                               hop._run("int", x, None))
+                                  and _bitwise(Ys[:hr],
+                                               hop._run("top", xw, None))
+                                  and _bitwise(Ys[nl - hr:],
+                                               hop._run("bot", xw, None)))
+                    out[key] = {"max_err": err, "bar": bar, "max_abs_y": ymax,
+                                "out_slices_bitwise": slices, "sent": sent,
+                                "halo": hop.halo, "hrows": hr,
+                                "split": hop.split, "launches": launched,
+                                "dtype": str(y.dtype)}
+                    check(err <= bar, f"{tag} {key}: max|y - unsharded ELL| "
+                          f"{err:.3e} > {bar:.3e}")
+                    check(slices, f"{tag} {key}: a layout's launch into its "
+                          "row slice differs from its launch into its own "
+                          "block")
+                    check(launched == {entry: 3 if hop.split else 1},
+                          f"{tag} {key}: launches {launched}")
+                    check(sent == n_nb * hop.halo * k, f"{tag} {key}: sent "
+                          f"{sent}, expected {n_nb} x {hop.halo} x {k}")
+            del X, x, halos, forms
+    finally:
+        dist.all_gather = orig
+    check(not gathers, f"{tag}: {len(gathers)} all-gathers")
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] gloo carries f16 and bf16 (sum, max, all-gather, "
+          f"exchange): {gloo}; {len(out)} products bit for bit (halo: within "
+          f"their bars, out= slices bit for bit), no all-gather, in "
+          f"{secs:.1f} s", flush=True)
+    return {"products": out, "gloo_half": gloo, "seconds": secs}
+
+
+def shardhalf_solves(mesh, seed, A27, ev27, pack27):
+    """Phase 49's solves on this rank (2 ranks): ``SHARDHALF_SOLVES``
+    through ``eigsh(mesh=)`` with phase 47's settings (the halo solves on
+    a half ``HaloELLOperator`` of phase 4's matrix ``A27`` from
+    ``pack27``, its pack in the RCM order; ``ev27`` its closed-form
+    spectrum), then ``svds(mesh=)`` of the f16
+    ``ELLOperator.from_coo`` of ``grounded_incidence(SHARDHALF_SVD_GRID)``.
+    Each solve's launches (the counts set to 0 just before it), matvecs,
+    seconds and sums over ranks on every rank; its gates on rank 0, whose
+    values rank 1's must equal bit for bit (held by the caller): true
+    residuals (f64, the exact matrix) below ``16 eps(half) ||A||``, each
+    value within its residual of the closed form, the probe verified for
+    an f32 solve, the kernels phase 47's unsharded call launches at least
+    matvecs / 2 times (the shifted Jacobi: half the matvecs the probe does
+    not make) and every other entry point not at all, every shifted half
+    or mixed Jacobi and mixed DIA launch on the redesigned kernel."""
+    import numpy as np
+    import torch
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch import distributed as D
+    from primme_tpu_torch.ops import dia as DK
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    mods = (DK, WE, ST, JK)
+    t_all = time.perf_counter()
+    dev = D.mesh_device(mesh)
+    rank0 = mesh.get_rank() == 0
+    n = GRID ** 3
+    comm = D.mesh_comm(mesh, n)
+    Ap = A27[pack27.perm][:, pack27.perm].tocsr()
+    A_dia, ev_dia = laplacian27_grid(GRID)
+    dia32 = ptt.rcm_banded(A_dia)[0].to(dev)
+    lam_st, anorm_st = stencil_eigenvalues(GRID, GRID ** 3)
+    host = {"stencil": (None, lam_st, anorm_st),
+            "dia": (A_dia, ev_dia, float(np.abs(ev_dia).max())),
+            "halo": (Ap, ev27, float(np.abs(ev27).max()))}
+    others = [e for mod in mods for e in mod.KERNEL_LAUNCHES]
+    out = {}
+    for name, (kind, half, working) in SHARDHALF_SOLVES.items():
+        tag = _rank_tag(mesh, f"49 {name}")
+        hdt = getattr(torch, half)
+        sfx = HALF_SUFFIX[half]
+        heps = float(torch.finfo(hdt).eps)
+        wd = None if working is None else getattr(torch, working)
+        mixed = "_f32" if wd is None else ""
+        if kind == "stencil":
+            op = ptt.Stencil3DOperator(GRID, GRID, GRID, dtype=hdt,
+                                       device=dev)
+            kw = {**_headline_eigsh_kwargs(dev, seed, GRID),
+                  "method": "PRIMME_JDQMR_ETol"}
+            need = ["stencil3d_" + sfx, "jacobi_shifted_" + sfx + mixed]
+        elif kind == "dia":
+            op = ptt.BandedOperator(dia32.offsets,
+                                    dia32.vals.to(hdt)).to(dev)
+            kw = dict(SOLVE_KWARGS, device=dev)
+            need = ["dia_" + sfx + mixed]
+        else:
+            op = D.HaloELLOperator.from_pack(half_pack(pack27, hdt),
+                                             comm).to(dev)
+            kw = dict(SOLVE_KWARGS, device=dev)
+            need = ["windowed_ell_spmm_" + sfx + mixed]
+        if name in SHARDHALF_K:
+            kw["k"] = SHARDHALF_K[name]
+        torch.cuda.synchronize()
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        w, X, st = ptt.eigsh(op, mesh=mesh, **{
+            **kw, "tol": 4 * heps, "seed": seed, "dtype": wd,
+            "raise_for_unconverged": False})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(mods)
+        new_kernel = {**read_counts(mods, "RUN_LAUNCHES"),
+                      **read_counts(mods, "MIXED_LAUNCHES")}
+        mv, pmv = st["num_matvecs"], st["num_probe_matvecs"]
+        rec = {"operator": type(op).__name__, "half": half,
+               "working": working, "wall_s": wall, "num_matvecs": mv,
+               "num_probe_matvecs": pmv,
+               "num_global_sum": st["num_global_sum"],
+               "volume_global_sum": st["volume_global_sum"],
+               "probe_verified": st["probe_verified"],
+               "probe_exhausted": st["probe_exhausted"],
+               "evals": w, "launches": launches,
+               "new_kernel_launches": {e: c for e, c in new_kernel.items()
+                                       if c}}
+        for entry in need:
+            least = (mv - pmv) / 2 if entry.startswith("jacobi") else mv / 2
+            check(launches[entry] >= least, f"{tag}: only "
+                  f"{launches[entry]} {entry} launches for {mv} matvecs")
+            if entry.startswith("jacobi_shifted_") or (
+                    entry.startswith("dia_") and entry.endswith("_f32")):
+                check(new_kernel[entry] == launches[entry],
+                      f"{tag}: {new_kernel[entry]} of the {launches[entry]} "
+                      f"{entry} launches ran the redesigned kernel")
+        for entry in others:
+            check(entry in need or launches[entry] == 0,
+                  f"{tag}: {entry} served this solve: {launches}")
+        if wd is not None:
+            check(st["probe_verified"] == 1 and st["probe_exhausted"] == 0,
+                  f"{tag}: spectrum verification did not complete")
+        if rank0:
+            A, lam, anorm = host[kind]
+            X64, w64 = X.astype(np.float64), w.astype(np.float64)
+            if A is None:
+                Xt = torch.as_tensor(X64, device=dev)
+                rn = torch.linalg.vector_norm(
+                    ST.matmat_reference(Xt, GRID, GRID, GRID)
+                    - Xt * torch.as_tensor(w64, device=dev)[None, :],
+                    dim=0).cpu().numpy()
+            else:
+                rn = np.linalg.norm(A.astype(np.float64) @ X64
+                                    - X64 * w64[None, :], axis=0)
+            xn = np.linalg.norm(X64, axis=0)
+            dist_ = np.array([np.abs(lam - v).min() for v in w64])
+            floor = 16 * heps * anorm
+            rec.update(max_residual=float(rn.max()), floor=floor)
+            check(float(rn.max()) < floor, f"{tag}: residual "
+                  f"{float(rn.max()):.3e} >= {floor:.3e}")
+            check(bool(np.all(dist_ <= rn / xn)), f"{tag}: a value lies "
+                  "farther from the closed form than its residual")
+        print(f"[{tag}] {rec['operator']} {half}, working {working}: "
+              f"{wall:.3f} s, matvecs {mv} (probe {pmv}), sums over ranks "
+              f"{st['num_global_sum']}, probe verified "
+              f"{st['probe_verified']}, launches "
+              f"{ {e: c for e, c in launches.items() if c} } (redesigned "
+              f"{rec['new_kernel_launches']})"
+              + (f", max true residual {rec['max_residual']:.3e} (limit "
+                 f"{rec['floor']:.3e})" if rank0 else ""), flush=True)
+        out[name] = rec
+        del op
+    # svds of the f16 incidence, both stages gathered
+    tag = _rank_tag(mesh, "49 svds_f16")
+    d16 = float(np.float16(np.float32(SVD_DELTA)))
+    A32, _ = grounded_incidence(SHARDHALF_SVD_GRID, dtype="float32")
+    Ah, sv = grounded_incidence(SHARDHALF_SVD_GRID, delta=d16)  # f16 values
+    C = A32.tocoo()
+    op = ptt.ELLOperator.from_coo(C.row, C.col,
+                                  torch.from_numpy(C.data).to(torch.float16),
+                                  A32.shape)
+    heps = float(torch.finfo(torch.float16).eps)
+    torch.cuda.synchronize()
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    U, s, Vh, st = ptt.svds(op, mesh=mesh, tol=4 * heps, seed=seed,
+                            return_stats=True, raise_for_unconverged=False,
+                            **SHARDHALF_SVDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(mods)
+    mv = st["stage1_num_matvecs"] + st.get("stage2_num_matvecs", 0)
+    need = ["windowed_ell_spmm_f16_f32"]
+    allowed = need + ["windowed_ell_spmm_f16"]
+    rec = {"wall_s": wall, "num_matvecs": mv, "svals": s,
+           "stage1_num_matvecs": st["stage1_num_matvecs"],
+           "stage2_num_matvecs": st.get("stage2_num_matvecs", 0),
+           "num_global_sum": st.get("stage1_num_global_sum", 0)
+           + st.get("stage2_num_global_sum", 0), "launches": launches}
+    check(launches[need[0]] >= mv / 2, f"{tag}: only {launches[need[0]]} "
+          f"{need[0]} launches for {mv} matvecs")
+    for entry in others:
+        check(entry in allowed or launches[entry] == 0,
+              f"{tag}: {entry} served this solve: {launches}")
+    if rank0:
+        V = Vh.T.astype(np.float64)
+        U64, s64 = U.astype(np.float64), s.astype(np.float64)
+        rn = np.hypot(np.linalg.norm(Ah @ V - U64 * s64, axis=0),
+                      np.linalg.norm(Ah.T @ U64 - V * s64, axis=0))
+        top = sv[::-1]
+        dist_ = np.array([np.abs(top - v).min() for v in s64])
+        floor = 16 * heps * float(sv[-1])
+        rec.update(max_residual=float(rn.max()), floor=floor)
+        check(float(rn.max()) < floor, f"{tag}: triplet residual "
+              f"{float(rn.max()):.3e} >= {floor:.3e}")
+        check(bool(np.all(dist_ <= rn)), f"{tag}: a singular value lies "
+              "farther from the closed form than its residual")
+        check(np.abs(np.sort(s64)[::-1] - top[:len(s64)]).max() < floor,
+              f"{tag}: values {np.sort(s64)[::-1]} against {top[:3]}")
+    print(f"[{tag}] {wall:.3f} s, matvecs {mv} (stages "
+          f"{rec['stage1_num_matvecs']} + {rec['stage2_num_matvecs']}), "
+          f"sums over ranks {rec['num_global_sum']}, launches "
+          f"{ {e: c for e, c in launches.items() if c} }"
+          + (f", max triplet residual {rec['max_residual']:.3e} (limit "
+             f"{rec['floor']:.3e})" if rank0 else ""), flush=True)
+    out["svds_f16"] = rec
+    return {"solves": out, "seconds": time.perf_counter() - t_all}
+
+
+def shardhalf_phase(sharded, halfop):
+    """49, the parent's part: phase 49's products ran in phase 41's worlds
+    (P = 2 and 4) and its solves in phase 42's (2 ranks), each gated on
+    its ranks; here both ranks' values equal bit for bit, each solve's
+    matvecs within 2x of the JAX package's for the same call under a
+    2-device CPU mesh (``REF_SHARDHALF``) and of phase 47's unsharded
+    count (``halfop``), and the phase's seconds (rank 0's own timers:
+    the worlds' start-up is phases 41-42's)."""
+    import numpy as np
+
+    # taken out of phases 41-45's records, which the JSON line keeps
+    solves = [r.pop("half") for r in sharded["solves"]]
+    prods = {P: [rec.pop("half") for rec in recs_]
+             for P, recs_ in sharded["products"].items()}
+    recs = {}
+    for name in [*SHARDHALF_SOLVES, "svds_f16"]:
+        rs = [r["solves"][name] for r in solves]
+        key = "svals" if name == "svds_f16" else "evals"
+        same = all(np.array_equal(r[key], rs[0][key]) for r in rs[1:])
+        check(same, f"49 {name}: the ranks' values differ")
+        rec = dict(rs[0])
+        rec[key] = [float(v) for v in np.sort(np.asarray(rs[0][key]))]
+        rec["ranks_bitwise"] = same
+        rec["launches_by_rank"] = [r["launches"] for r in rs]
+        mv, ref = rec["num_matvecs"], REF_SHARDHALF[name]
+        check(ref / 2 <= mv <= 2 * ref, f"49 {name}: {mv} matvecs, not "
+              f"within 2x of the JAX package's {ref}")
+        un = SHARDHALF_UNSHARDED.get(name)
+        if un is not None:
+            umv = halfop["solves"][un]["num_matvecs"]
+            rec["unsharded"] = {"solve": un, "num_matvecs": umv}
+            check(umv / 2 <= mv <= 2 * umv, f"49 {name}: {mv} matvecs, not "
+                  f"within 2x of phase 47's unsharded {un} ({umv})")
+        rec["ref_matvecs"] = ref
+        recs[name] = rec
+        print(f"[49 {name}] {rec['wall_s']:.3f} s, matvecs {mv} (JAX "
+              f"package under a 2-device mesh {ref}"
+              + ("" if un is None else f"; phase 47 unsharded "
+                 f"{rec['unsharded']['num_matvecs']}")
+              + f"), sums over ranks {rec['num_global_sum']}; both ranks' "
+              f"values bit for bit (2 ranks on one card over gloo: not a "
+              f"scaling number)", flush=True)
+    products = {P: [r["products"] for r in rs] for P, rs in prods.items()}
+    secs = {f"products P={P}": rs[0]["seconds"] for P, rs in prods.items()}
+    secs["solves"] = solves[0]["seconds"]
+    secs["total"] = sum(secs.values())
+    print("[phase 49] " + ", ".join(f"{key} {v:.1f} s"
+                                    for key, v in secs.items()), flush=True)
+    return {"products": products, "solves": recs, "seconds": secs}
+
+
 def half_kernel_record(name, halfop, halfcheck):
     """The record of a half entry point: phase 47's row at 64^3 k=2 (and
     phase 48's at 256^3 k=2 under ``large``, where it has one), its
@@ -5725,6 +6282,11 @@ def main():
     halfcheck = half_check_phase(ST, JK, DK, dev, cgen)
     lap("phase 48", t_phase)
 
+    # --- 49. half operators under mesh= (run in phases 41-42's worlds) ----
+    shardhalf = shardhalf_phase(sharded, halfop)
+    # its work's seconds, inside phases 41-45's lap
+    timers["phase 49"] = shardhalf["seconds"]["total"]
+
     rec = {"kernels": [
         kernel_record("windowed_ell_spmm_f32",
                       "primme_tpu/ops/pallas_windowed.py:228", solve32,
@@ -5778,7 +6340,7 @@ def main():
         "capi": capi, "capi_c": capi_c, "jacobi_solves": jsolves,
         "half": half, "seconds_36_40": seconds36, "sharded": sharded,
         "surface": surface, "halfop": halfop, "halfcheck": halfcheck,
-        "spin_cycles_per_ms": spin_cycles_per_ms()}
+        "shardhalf": shardhalf, "spin_cycles_per_ms": spin_cycles_per_ms()}
     # every path's launches, each counted from 0 just before it ran
     paths = {"solve f32": solve32["launches"],
              "solve f64": solve64["launches"],
@@ -5824,7 +6386,10 @@ def main():
              "surface to_dense": surface["to_dense_launches"],
              "surface solve": surface["solve"]["launches"],
              **{f"halfop {name}": r["launches"]
-                for name, r in halfop["solves"].items()}}
+                for name, r in halfop["solves"].items()},
+             **{f"sharded half {name} rank {r}": counts
+                for name, rec in shardhalf["solves"].items()
+                for r, counts in enumerate(rec["launches_by_rank"])}}
     for kern in rec["kernels"]:
         for entry, r in [(kern["name"], kern),
                          *kern.get("entries", {}).items()]:

@@ -156,14 +156,17 @@ def chebyshev_from_jax(K, A, device=None) -> ChebyshevPrecond:
 def halo_ell_from_jax(op, mesh=None):
     """A ``primme_tpu.distributed.HaloELLOperator`` as the port's on this
     rank of ``mesh`` (a 1-D ``DeviceMesh``; None: one rank): its global
-    arrays carried across as numpy, this rank's rows kept, on the mesh's
-    device. The partition is the port's (``mesh``), which must have as
-    many ranks as the operator was packed for."""
+    arrays carried across (the values and the diagonal through
+    :func:`tensor_from_numpy`, bit for bit: f16 and bf16 too), this rank's
+    rows kept, on the mesh's device. The partition is the port's
+    (``mesh``), which must have as many ranks as the operator was packed
+    for."""
     from .distributed import HaloELLOperator, HaloPack, mesh_comm
 
     cols = np.asarray(op.cols)
-    pk = HaloPack(cols, np.asarray(op.vals), np.asarray(op.diag),
-                  int(op.halo), int(op.hrows or 0), None)
+    pk = HaloPack(cols, tensor_from_numpy(op.vals),
+                  tensor_from_numpy(op.diag), int(op.halo),
+                  int(op.hrows or 0), None)
     comm = None if mesh is None else mesh_comm(mesh, cols.shape[0])
     out = HaloELLOperator.from_pack(pk, comm)
     return out if comm is None else out.to(comm.device)

@@ -20,7 +20,16 @@ same on every rank, and the projected problem is solved on every rank from
 the same summed matrices, so the ranks take the same branches.
 
 A gloo group moves CUDA tensors through host copies (its point-to-point
-calls take host memory); NCCL moves device tensors."""
+calls take host memory); NCCL moves device tensors.
+
+The type of each sum over ranks is the type the unsharded solve computes
+that reduction in. A Gram of single-precision blocks (f32, complex64, a
+half basis) is summed in f64 (``linalg.gram``); the dots and norms of f32
+and f64 blocks in their type; those of a half block (f16, bf16: what a
+half operator returns) in f32, as torch sums a half tensor, and rounded
+once to the half type after the sum (:func:`col_dots`, :func:`dot`,
+:func:`norm`, :func:`col_norms`). No sum over ranks runs in a half type.
+The halo exchanges carry a block in its own type."""
 
 from __future__ import annotations
 
@@ -183,9 +192,24 @@ def global_rows(nl: int) -> int:
     return nl if _ACTIVE is None else _ACTIVE.n
 
 
+_HALF = (torch.float16, torch.bfloat16)
+
+
 def global_sum(t: torch.Tensor) -> torch.Tensor:
     """``t``, a sum over this rank's rows, summed over the ranks."""
     return t if _ACTIVE is None else _ACTIVE.all_reduce(t)
+
+
+def _row_sum(P: torch.Tensor, dims) -> torch.Tensor:
+    """The sum of ``P`` (a product of row-sharded blocks) over ``dims``
+    and over the ranks: a half ``P`` summed in f32, as torch sums it
+    unsharded, and rounded once to its type after the sum over ranks."""
+    if _ACTIVE is None:
+        return torch.sum(P, dim=dims)
+    if P.dtype in _HALF:
+        return global_sum(torch.sum(P, dim=dims, dtype=torch.float32)
+                          ).to(P.dtype)
+    return global_sum(torch.sum(P, dim=dims))
 
 
 def global_max(t: torch.Tensor) -> torch.Tensor:
@@ -208,26 +232,34 @@ def all_finite(X: torch.Tensor) -> torch.Tensor:
 def col_dots(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Per-column ``x_j^H y_j`` of two row-sharded blocks (complex where
     they are)."""
-    return global_sum(torch.sum(X.conj() * Y, dim=0))
+    return _row_sum(X.conj() * Y, 0)
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x^H y`` over every entry of two row-sharded blocks (a scalar)."""
-    return global_sum(torch.sum(x.conj() * y))
+    return _row_sum(x.conj() * y, None)
+
+
+def _norm_of(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    # the square root of a summed square in f32 for a half x (as torch's
+    # vector_norm of a half tensor), rounded once to x's real type
+    return torch.sqrt(torch.clamp(s.real, min=0.0)).to(x.real.dtype)
 
 
 def norm(x: torch.Tensor) -> torch.Tensor:
     """The 2-norm of every entry of a row-sharded block (a scalar)."""
     if _ACTIVE is None:
         return torch.linalg.vector_norm(x)
-    return torch.sqrt(torch.clamp(dot(x, x).real, min=0.0))
+    xa = x.float() if x.dtype in _HALF else x
+    return _norm_of(dot(xa, xa), x)
 
 
 def col_norms(X: torch.Tensor) -> torch.Tensor:
     """Per-column 2-norms of a row-sharded block (real)."""
     if _ACTIVE is None:
         return torch.linalg.vector_norm(X, dim=0)
-    return torch.sqrt(torch.clamp(col_dots(X, X).real, min=0.0))
+    Xa = X.float() if X.dtype in _HALF else X
+    return _norm_of(col_dots(Xa, Xa), X)
 
 
 def allgather_rows(X: torch.Tensor, comm: Optional[RowComm] = None

@@ -27,7 +27,13 @@ plane exchanged with each neighbour, the stencil kernel on the window),
 the banded layout (a halo of ``max |offset|`` rows, the DIA kernel on the
 window), the Jacobi and diagonal operators on their own rows, and every
 other operator through an all-gather of the block (what GSPMD does to the
-JAX package's global-gather formats).
+JAX package's global-gather formats). Every one of them takes f16 and bf16
+operators as the unsharded operators do: a half operator given a half
+block runs its kernel's half entry point, given a wider real block (a half
+basis hands it f32 ones) the mixed entry point from its half values, as
+the JAX package's products promote; the stencil alone casts the block to
+its own type, in both packages. The exchanges carry the block in its own
+type.
 """
 
 from __future__ import annotations
@@ -46,11 +52,12 @@ from .core.comm import (RowComm, allgather_rows, global_sum,  # noqa: F401
 from .ops import dia as DK
 from .ops import stencil3d as ST
 from .ops import windowed_ell as WE
-from .operators import (BandedOperator, CastOperator, DenseOperator,
+from .convert import tensor_from_numpy
+from .operators import (_HALF, BandedOperator, CastOperator, DenseOperator,
                         DiagonalOperator, ELLOperator, JacobiPrecond,
                         LinearOperator, Stencil3DOperator,
-                        _as_tensor, _kernel_block, _on_parts, _result_dtype,
-                        densified)
+                        _as_tensor, _compute_dtype, _kernel_block, _on_parts,
+                        _result_dtype, densified)
 
 # a desync (a rank that branches differently) fails a collective after
 # this long instead of hanging
@@ -106,9 +113,9 @@ def mesh_comm(mesh, n: int, device: Any = None) -> Optional[RowComm]:
 class HaloPack(NamedTuple):
     """The JAX package's ``HaloELLOperator`` arrays for a ``P``-rank
     partition, global: window-relative ``cols`` ``[n, w]`` (padding holds
-    index ``h``, value 0), ``vals`` ``[n, w]``, ``diag`` ``[n]``, the halo
-    width ``h``, the boundary-row thickness ``hrows`` and the RCM
-    permutation ``perm`` (or None)."""
+    index ``h``, value 0), ``vals`` ``[n, w]``, ``diag`` ``[n]`` (numpy, or
+    CPU tensors: half values), the halo width ``h``, the boundary-row
+    thickness ``hrows`` and the RCM permutation ``perm`` (or None)."""
     cols: np.ndarray
     vals: np.ndarray
     diag: np.ndarray
@@ -171,6 +178,14 @@ def pack(A, nsh: int, try_rcm: bool = True) -> Optional[HaloPack]:
     return HaloPack(cols, vals, A.diagonal(), h, hrows, perm)
 
 
+def _cpu_tensor(a) -> torch.Tensor:
+    """A CPU tensor of ``a`` (a tensor, or a numpy array, bf16 too), bit for
+    bit."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return tensor_from_numpy(a)
+
+
 def _layout(cols, vals, shift: int):
     """The sliced-ELL layout of ELL rows ``cols``/``vals`` (window-relative
     columns moved by ``shift``); slots of value 0, the padding, are not
@@ -203,8 +218,12 @@ class HaloELLOperator(LinearOperator):
     onto the block itself (only padding slots, which the layout does not
     store, point into the pad).
 
-    ``cols``/``vals``/``diag`` (numpy) are this rank's rows of the JAX
-    package's arrays; ``shape`` is the global ``(n, n)``. Hermitian
+    ``cols``/``vals``/``diag`` are this rank's rows of the JAX package's
+    arrays (numpy, or tensors on the CPU); ``shape`` is the global ``(n,
+    n)``. Values of any served type, f16 and bf16 too (a numpy bf16 array
+    through the bits of its ``uint16`` view): scipy holds no half matrix,
+    so the layouts of half values are built from their exact f32 values
+    and hold the half type, the same values bit for bit. Hermitian
     operators (``rmatmat`` is ``matmat``), which is what ``eigsh``
     needs."""
 
@@ -212,8 +231,10 @@ class HaloELLOperator(LinearOperator):
                  comm: Optional[RowComm] = None, hrows: Optional[int] = None):
         super().__init__()
         cols = np.asarray(cols, np.int32)
-        vals = np.asarray(vals)
         self.cols, self.vals = cols, vals
+        vals = _cpu_tensor(vals)
+        half = vals.dtype if vals.dtype in _HALF else None
+        v = (vals.float() if half else vals).numpy()
         self.shape = tuple(int(s) for s in shape)
         self.halo = int(halo)
         self.hrows = 0 if hrows is None else int(hrows)
@@ -221,24 +242,26 @@ class HaloELLOperator(LinearOperator):
         nl = cols.shape[0]
         self.nl = nl
         h, hr = self.halo, self.hrows
-        self.register_buffer("diag", _as_tensor(np.ascontiguousarray(diag)))
+        self.register_buffer("diag", _cpu_tensor(diag).contiguous())
         self.sharded = comm is not None and comm.size > 1
         self.split = self.sharded and h > 0 and 0 < hr and 2 * hr < nl
         if not self.sharded or h == 0:
-            parts = {"all": (_layout(cols, vals, -h), nl)}
+            parts = {"all": (_layout(cols, v, -h), nl)}
         elif self.split:
-            parts = {"int": (_layout(cols[hr:nl - hr], vals[hr:nl - hr], -h),
+            parts = {"int": (_layout(cols[hr:nl - hr], v[hr:nl - hr], -h),
                              nl),
-                     "top": (_layout(cols[:hr], vals[:hr], 0), nl + 2 * h),
-                     "bot": (_layout(cols[nl - hr:], vals[nl - hr:], 0),
+                     "top": (_layout(cols[:hr], v[:hr], 0), nl + 2 * h),
+                     "bot": (_layout(cols[nl - hr:], v[nl - hr:], 0),
                              nl + 2 * h)}
         else:
-            parts = {"all": (_layout(cols, vals, 0), nl + 2 * h)}
+            parts = {"all": (_layout(cols, v, 0), nl + 2 * h)}
         self._ncols = {}
         for key, (lay, ncols) in parts.items():
             for name in WE.SlicedELL._fields:
-                self.register_buffer(f"{key}_{name}",
-                                     _as_tensor(getattr(lay, name)))
+                t = _as_tensor(getattr(lay, name))
+                if name == "vals" and half:
+                    t = t.to(half)          # exact: the values were half
+                self.register_buffer(f"{key}_{name}", t)
             self._ncols[key] = ncols
 
     @property
@@ -281,8 +304,10 @@ class HaloELLOperator(LinearOperator):
         return Y
 
     def matmat(self, X):
-        Y = _on_parts(lambda Z: self._local(Z.to(self.dtype).contiguous()),
-                      X, self.dtype)
+        # a half operator computes in a wider block's type (the mixed
+        # entry points), as the unsharded ELLOperator does
+        cdt = _compute_dtype(self.dtype, X)
+        Y = _on_parts(lambda Z: self._local(Z.to(cdt).contiguous()), X, cdt)
         return Y.to(_result_dtype(self.dtype, X))
 
     def diagonal(self):
@@ -361,7 +386,11 @@ class ShardedBanded(LinearOperator):
     """A :class:`BandedOperator` on this rank's rows: a product exchanges
     ``max |offset|`` rows with each neighbour and runs the DIA kernel of
     ``csrc/dia.cu`` on the window, whose rows outside this rank's hold
-    zero diagonals, keeping the middle rows."""
+    zero diagonals, keeping the middle rows. The values (and the diagonal)
+    keep the operator's type; the block's type is chosen as the unsharded
+    operator chooses it (a half operator under a wider real block: the
+    mixed entry points), so each row's arithmetic is the unsharded
+    product's."""
 
     def __init__(self, op: BandedOperator, comm: RowComm):
         super().__init__()
@@ -386,8 +415,9 @@ class ShardedBanded(LinearOperator):
         return DK.matmat(self.vals, self.offs, xw)[hb:hb + x.shape[0]]
 
     def matmat(self, X):
-        Y = _on_parts(lambda Z: self._local(_kernel_block(Z, self.dtype)
-                                            .contiguous()), X, self.dtype)
+        cdt = _compute_dtype(self.dtype, X)
+        Y = _on_parts(lambda Z: self._local(_kernel_block(Z, cdt)
+                                            .contiguous()), X, cdt)
         return Y.to(_result_dtype(self.dtype, X))
 
     def diagonal(self):
@@ -434,33 +464,20 @@ class GatheredOperator(LinearOperator):
                                 diag=comm.rows(A.diagonal()))
 
 
-def refuse_half(dtype: torch.dtype) -> None:
-    """Raises for a half operator (f16, bf16) under a mesh: its sharded
-    paths are not yet held to the JAX package's sharded run of a half
-    operator (ROADMAP F5)."""
-    if dtype in (torch.float16, torch.bfloat16):
-        raise NotImplementedError(
-            f"a {dtype} operator under mesh= is not served by "
-            "primme_tpu_torch yet: its sharded paths are not held to the "
-            "JAX package's sharded half run (ROADMAP F5); run it unsharded "
-            "or pass an f32 operator")
-
-
 def shard_operator(op: LinearOperator, comm: RowComm) -> LinearOperator:
     """``op`` (on the solve's device) as an operator on this rank's rows:
     the stencil split over x-planes when ``nx`` divides by the ranks, the
     banded layout with its halo when every rank holds at least ``max
     |offset|`` rows, the Jacobi and diagonal operators on their rows, a
     :class:`HaloELLOperator` as it is, a cast around the sharded operator,
-    and anything else through :class:`GatheredOperator`. A half operator
-    (not a half basis's cast around another) is refused
-    (:func:`refuse_half`)."""
+    and anything else through :class:`GatheredOperator`; of any served
+    type, f16 and bf16 included (each form computes as its unsharded
+    operator does)."""
     if isinstance(op, (HaloELLOperator, ShardedStencil3D, ShardedBanded,
                        GatheredOperator)):
         return op
     if isinstance(op, CastOperator):
         return CastOperator(shard_operator(op.op, comm), op.dtype)
-    refuse_half(op.dtype)
     if isinstance(op, Stencil3DOperator) and op.nx % comm.size == 0:
         return ShardedStencil3D(op, comm)
     if isinstance(op, JacobiPrecond):

@@ -24,8 +24,9 @@ Each stage's solver events reach ``monitor(stage, ...)`` and, with
 ``segment_outer`` goes to both stages. ``mesh`` (a 1-D ``DeviceMesh``)
 runs both stages row-sharded over the same ranks
 (:mod:`~primme_tpu_torch.distributed`). A half-precision (f16, bf16)
-operator runs a half basis, as the JAX package's does (not yet under a
-mesh: ROADMAP F5). Complex input
+operator runs a half basis, as the JAX package's does, under a mesh too
+(each stage's operator gathered, its products on the half operator's
+mixed entry points). Complex input
 (complex64 and complex128) runs on ``A^H``: the adjoint layouts hold
 conjugated values, and ``Vh`` is ``V^H``.
 """
@@ -178,8 +179,6 @@ def svds(A: Any, k: int = 6, ncv: Optional[int] = None, tol: float = 0.0,
         raise ValueError(f"k={k} out of range for {m}x{n}")
     use_ata = n <= m
     dt = Aop.dtype
-    if comm0 is not None:
-        D.refuse_half(dt)
     rdt = real_dtype(dt)
     tiny = float(torch.finfo(rdt).tiny)
     meps = float(torch.finfo(rdt).eps)

@@ -544,8 +544,11 @@ def test_half_refusals_name_their_reason(half):
     """A complex block or complex shifts on a half operator and a complex
     working type over one (no complex half type; the reference's cast
     drops the imaginary part: Queue C6); a half ELLOperator from a scipy
-    matrix (scipy holds none: from_coo takes half values); a half operator
-    under a mesh (ROADMAP F5)."""
+    matrix (scipy holds none: from_coo takes half values). A half operator
+    under a mesh is served (it was refused until its sharded forms were
+    held to the JAX package's, ``tests/test_torch_sharded_half.py``):
+    ``shard_operator`` splits a half stencil over x-planes in its type,
+    and a cast around one keeps the cast around the split stencil."""
     dt = getattr(torch, half)
     op = ptt.Stencil3DOperator(4, 4, 4, dtype=dt, device="cpu")
     K = ptt.JacobiPrecond(op.diagonal())
@@ -559,8 +562,13 @@ def test_half_refusals_name_their_reason(half):
         ptt.CastOperator(op, torch.complex64)
     with pytest.raises(NotImplementedError, match="from_coo"):
         ptt.ELLOperator.from_scipy(sp.identity(10, dtype=np.float16))
+    from types import SimpleNamespace
     from primme_tpu_torch import distributed as D
-    with pytest.raises(NotImplementedError, match="F5"):
-        D.shard_operator(op, None)
-    with pytest.raises(NotImplementedError, match="F5"):
-        D.shard_operator(ptt.CastOperator(op, torch.float32), None)
+    # what shard_operator reads of a 2-rank partition of the 64 rows
+    comm = SimpleNamespace(size=2, rank=0, n=64, nl=32, lo=0, hi=32)
+    sop = D.shard_operator(op, comm)
+    assert isinstance(sop, D.ShardedStencil3D) and sop.dtype == dt
+    assert sop.planes == 2 and sop.diagonal().dtype == dt
+    cop = D.shard_operator(ptt.CastOperator(op, torch.float32), comm)
+    assert isinstance(cop, ptt.CastOperator) and cop.dtype == torch.float32
+    assert isinstance(cop.op, D.ShardedStencil3D) and cop.op.dtype == dt

@@ -274,6 +274,294 @@ def world_card(mesh):
     return {"halo": halo, "w": w, "V": V}
 
 
+# --- half operators under a mesh ---------------------------------------------
+
+HALVES = ("float16", "bfloat16")
+HALF_GRID = (16, 8, 8)          # the half stencil's grid (x split over ranks)
+HALF_BAND = (1024, 3, 3)        # band_matrix's n, half band, entries a row
+HALF_K = 2                      # the products' columns
+
+
+def incidence(m=200, n=120, seed=3):
+    """The weighted incidence matrix of a random graph, f32: ``m`` edges
+    over ``n`` nodes, edge ``i`` the row ``w_i (e_u - e_v)`` with ``w_i`` in
+    {0.5, 1, 1.5, 2} (every entry exact in f16 and bf16)."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, m)
+    v = (u + rng.integers(1, n, m)) % n
+    w = rng.integers(1, 5, m) / 2
+    return sp.csr_matrix((np.stack([w, -w], 1).ravel(),
+                          (np.repeat(np.arange(m), 2),
+                           np.stack([u, v], 1).ravel())),
+                         shape=(m, n)).astype(np.float32)
+
+
+class _Blocks:
+    """Records the type of every block the kernels' wrappers are handed
+    (``stencil3d.matmat``, ``dia.matmat``, ``windowed_ell.matmat``,
+    ``jacobi.shifted``, ``jacobi.unshifted``) while it is entered."""
+
+    def __init__(self):
+        from primme_tpu_torch.ops import dia, jacobi, stencil3d
+        from primme_tpu_torch.ops import windowed_ell
+        # (module, function, the position of its block argument)
+        self.where = [(stencil3d, "matmat", 0), (dia, "matmat", 2),
+                      (windowed_ell, "matmat", 4), (jacobi, "shifted", 0),
+                      (jacobi, "unshifted", 0)]
+        self.seen = set()
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.where]
+        for (mod, name, arg), fn in zip(self.where, self.saved):
+            tag = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+
+            def rec(*a, _fn=fn, _arg=arg, _tag=tag, **k):
+                self.seen.add((_tag, str(a[_arg].dtype)))
+                return _fn(*a, **k)
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.where, self.saved):
+            setattr(mod, name, fn)
+
+
+def _half_product(fn, x, unsharded, rows):
+    """One sharded product ``fn(x)`` on this rank's rows ``x``: its rows
+    (f32 numpy: exact for a half result), type, the wrappers' block types,
+    the elements sent, the all-gathers, and whether its rows equal those
+    of ``unsharded`` (the unsharded operator's product of the global
+    block; None: not compared) bit for bit."""
+    from primme_tpu_torch.core import comm as cm
+
+    sent0 = cm.SENT_ELEMENTS
+    with _Counting() as c, _Blocks() as b:
+        Y = fn(x)
+    return {"Y": Y.float().numpy(), "dtype": str(Y.dtype),
+            "blocks": sorted(b.seen), "gathers": c.gathers,
+            "sent": cm.SENT_ELEMENTS - sent0,
+            "bitwise": None if unsharded is None
+            else bool(torch.equal(unsharded[rows], Y))}
+
+
+def world_sharded_half(mesh, ops, halo):
+    """The half operators' sharded products and solves on this rank
+    (``tests/test_torch_sharded_half.py``): ``ops`` the port's operators
+    carried across from the JAX package's by ``convert.py``, by half type
+    (``stencil``, ``banded``, ``jacobi``: a ``JacobiPrecond`` of the band's
+    diagonal, ``ell``: the band's ``ELLOperator``, ``svd``: the incidence's
+    f16 ``ELLOperator``); ``halo`` the JAX package's ``HaloELLOperator``
+    arrays of the band with half values, by half type. Products on
+    ``HALF_K`` columns in the half type and in f32 (each against the
+    unsharded operator's, bit for bit where each row's arithmetic is the
+    same); then the solves."""
+    from primme_tpu_torch import convert
+    from primme_tpu_torch import distributed as D
+
+    out = {"products": {}}
+    rng = np.random.default_rng(11)
+    n_st = int(np.prod(HALF_GRID))
+    n = HALF_BAND[0]
+    X = {"stencil": rng.standard_normal((n_st, HALF_K)).astype(np.float32),
+         "band": rng.standard_normal((n, HALF_K)).astype(np.float32)}
+    for half in HALVES:
+        dt = getattr(torch, half)
+        o = ops[half]
+        comm = D.mesh_comm(mesh, n)
+        comm_st = D.mesh_comm(mesh, n_st)
+        hop = convert.halo_ell_from_jax(halo[half], mesh)
+        sharded = {"stencil": (D.shard_operator(o["stencil"], comm_st),
+                               o["stencil"], comm_st),
+                   "banded": (D.shard_operator(o["banded"], comm),
+                              o["banded"], comm),
+                   "halo": (hop, None, comm),
+                   "ell": (D.shard_operator(o["ell"], comm), o["ell"],
+                           comm)}
+        res = out["products"][half] = {
+            "types": {k: type(v[0]).__name__ for k, v in sharded.items()}}
+        for name, (sop, uop, cm_) in sharded.items():
+            Xg = X["stencil" if name == "stencil" else "band"]
+            for bt, bname in ((dt, "half"), (torch.float32, "f32")):
+                Xb = torch.as_tensor(Xg).to(bt)
+                ref = None if uop is None else uop.matmat(Xb)
+                res[f"{name}_{bname}"] = _half_product(
+                    sop.matmat, cm_.rows(Xb), ref, slice(cm_.lo, cm_.hi))
+        # the shift-aware Jacobi on this rank's rows: half block and
+        # shifts, then f32 ones (a half basis'), against the unsharded
+        K = o["jacobi"]
+        Ks = D.shard_operator(K, comm)
+        res["types"]["jacobi"] = type(Ks).__name__
+        for bt, bname in ((dt, "half"), (torch.float32, "f32")):
+            Xb = torch.as_tensor(X["band"]).to(bt)
+            sh = torch.stack([K.d[5].to(bt), torch.tensor(0.7, dtype=bt)])
+            res[f"jacobi_{bname}"] = _half_product(
+                lambda x, _s=sh: Ks.matmat_shifted(x, _s), comm.rows(Xb),
+                K.matmat_shifted(Xb, sh), slice(comm.lo, comm.hi))
+    out["solves"] = _half_solves(mesh, ops, halo)
+    out["digest"] = digest(*[a for case in out["solves"].values()
+                             for a in case.values()
+                             if isinstance(a, np.ndarray)])
+    return out
+
+
+# the solves of the half operators under a mesh: name -> (operator, half
+# type, working type: None for a half basis over the half operator)
+HALF_SOLVES = {"stencil_f16": ("stencil", "float16", "float32"),
+               "stencil_bf16_half_basis": ("stencil", "bfloat16", None),
+               "dia_f16": ("banded", "float16", "float32"),
+               "dia_bf16_half_basis": ("banded", "bfloat16", None),
+               "halo_bf16": ("halo", "bfloat16", "float32"),
+               "halo_f16_half_basis": ("halo", "float16", None)}
+HALF_SOLVE_KW = dict(k=4, which="SA", method="PRIMME_JDQMR_ETol",
+                     maxBlockSize=2, return_stats=True,
+                     raise_for_unconverged=False)
+
+
+def half_tol(half):
+    return 4 * float(torch.finfo(getattr(torch, half)).eps)
+
+
+def _half_solves(mesh, ops, halo):
+    """``HALF_SOLVES`` through ``eigsh(mesh=)`` and ``svds(mesh=)`` of the
+    incidence's f16 ``ELLOperator`` (k=3, LM), on this rank."""
+    import primme_tpu_torch as ptt
+    from primme_tpu_torch import convert
+
+    out = {}
+    for name, (kind, half, working) in HALF_SOLVES.items():
+        wd = None if working is None else getattr(torch, working)
+        kw = dict(HALF_SOLVE_KW, tol=half_tol(half), dtype=wd, mesh=mesh)
+        if kind == "stencil":
+            A = ops[half]["stencil"]
+            kw["OPinv"] = ptt.JacobiPrecond(A.diagonal())
+        elif kind == "banded":
+            A = ops[half]["banded"]
+        else:
+            A = convert.halo_ell_from_jax(halo[half], mesh)
+        w, V, st = ptt.eigsh(A, **kw)
+        out[name] = {"w": w, "V": V, "mv": st["num_matvecs"],
+                     "gsum": st["num_global_sum"]}
+    U, s, Vh, st = ptt.svds(ops["float16"]["svd"], k=3, which="LM",
+                            tol=half_tol("float16"), mesh=mesh,
+                            return_stats=True, raise_for_unconverged=False)
+    out["svds_f16"] = {"U": U, "s": s, "Vh": Vh,
+                       "mv": st["stage1_num_matvecs"]
+                       + st.get("stage2_num_matvecs", 0)}
+    return out
+
+
+def _launched(mods):
+    """Every wrapper's launch count by entry point, of ``mods``."""
+    return {e: c for m in mods for e, c in m.KERNEL_LAUNCHES.items()}
+
+
+def world_sharded_half_card(mesh):
+    """Each half and mixed entry point on its sharded layout on this rank
+    of a ``"cuda"`` mesh, against its unsharded launch
+    (``tests/test_torch_sharded_half_cuda.py``): the stencil's window of
+    x-planes, the DIA window, the Jacobi row slice at a 16-byte aligned
+    start (n = 2048) and at an unaligned one (n = 2002), and the halo
+    operator's three layouts each launched into its ``out=`` row slice and
+    into a block of its own; every product in f16 and bf16 with a half
+    and an f32 block. Returns, by case, whether it matched bit for bit and
+    the entry points it launched."""
+    import primme_tpu_torch as ptt
+    from chip_smoke import half_pack
+    from primme_tpu_torch import distributed as D
+    from primme_tpu_torch.ops import dia as DK
+    from primme_tpu_torch.ops import jacobi as JK
+    from primme_tpu_torch.ops import stencil3d as ST
+    from primme_tpu_torch.ops import windowed_ell as WE
+
+    mods = (ST, DK, JK, WE)
+    dev = D.mesh_device(mesh)
+    rng = np.random.default_rng(12)
+    out = {}
+
+    def case(name, fn):
+        l0 = _launched(mods)
+        ok = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = {"bitwise": bool(ok), "launches": {
+            e: c - l0[e] for e, c in _launched(mods).items() if c > l0[e]}}
+
+    A = band_matrix(*HALF_BAND).astype(np.float32)
+    n_st = int(np.prod(HALF_GRID))
+    for half in HALVES:
+        dt = getattr(torch, half)
+        sten = ptt.Stencil3DOperator(*HALF_GRID, dtype=dt, device=dev)
+        band = ptt.BandedOperator.from_scipy(A)
+        band = ptt.BandedOperator(band.offsets, band.vals.to(dt)).to(dev)
+        comm_st = D.mesh_comm(mesh, n_st)
+        comm = D.mesh_comm(mesh, A.shape[0])
+        forms = {"stencil": (D.shard_operator(sten, comm_st), sten, comm_st,
+                             n_st),
+                 "dia": (D.shard_operator(band, comm), band, comm,
+                         A.shape[0])}
+        for bt, bname in ((dt, "half"), (torch.float32, "f32")):
+            for name, (sop, uop, c, n) in forms.items():
+                X = torch.as_tensor(rng.standard_normal((n, HALF_K))
+                                    ).to(device=dev, dtype=bt)
+                Yu = uop.matmat(X)[c.lo:c.hi]
+                case(f"{name}_{half}_{bname}",
+                     lambda: torch.equal(sop.matmat(c.rows(X)), Yu))
+            # the Jacobi rows at an aligned and an unaligned start
+            for n in (2048, 2002):
+                cj = D.mesh_comm(mesh, n)
+                d = torch.as_tensor(rng.uniform(0.5, 4, n)).to(device=dev,
+                                                                dtype=dt)
+                K = ptt.JacobiPrecond(d)
+                Ks = D.shard_operator(K, cj)
+                X = torch.as_tensor(rng.standard_normal((n, HALF_K))
+                                    ).to(device=dev, dtype=bt)
+                sh = torch.stack([d[5].to(bt),
+                                  torch.tensor(0.7, dtype=bt, device=dev)])
+                Yu = K.matmat_shifted(X, sh)[cj.lo:cj.hi]
+                Yv = K.matmat(X)[cj.lo:cj.hi]
+                x = cj.rows(X).clone()
+                case(f"jacobi_{n}_{half}_{bname}", lambda: (
+                    torch.equal(Ks.matmat_shifted(x, sh), Yu)
+                    and torch.equal(Ks.matmat(x), Yv)))
+                out[f"jacobi_{n}_{half}_{bname}"].update(
+                    d_offset_bytes=Ks.d.data_ptr() % 16,
+                    run_kernel=JK.card_plan(x, Ks.d).kernel == JK.RUN_KERNEL)
+            # the halo operator's layouts into their row slices
+            pk = half_pack(D.pack(A, mesh.size(), try_rcm=False), dt)
+            hop = D.HaloELLOperator.from_pack(pk, comm).to(dev)
+            X = torch.as_tensor(rng.standard_normal((A.shape[0], HALF_K))
+                                ).to(device=dev, dtype=bt)
+            x = comm.rows(X).contiguous()
+            y = hop.matmat(x)
+            hr, nl = hop.hrows, hop.nl
+            left = torch.as_tensor(rng.standard_normal((hop.halo, HALF_K))
+                                   ).to(device=dev, dtype=bt)
+            right = torch.as_tensor(rng.standard_normal((hop.halo, HALF_K))
+                                    ).to(device=dev, dtype=bt)
+            xw = torch.cat([left, x, right])
+
+            def layouts():
+                Ys = torch.full_like(y, float("nan"))
+                hop.interior(x, Ys)
+                hop.boundary(x, left, right, Ys)
+                return (torch.equal(Ys[hr:nl - hr], hop._run("int", x, None))
+                        and torch.equal(Ys[:hr], hop._run("top", xw, None))
+                        and torch.equal(Ys[nl - hr:],
+                                        hop._run("bot", xw, None)))
+            case(f"halo_layouts_{half}_{bname}", layouts)
+            out[f"halo_layouts_{half}_{bname}"]["split"] = hop.split
+            # the whole sharded product, gathered, and the unsharded ELL
+            C = A.tocoo()
+            ell = ptt.ELLOperator.from_coo(
+                C.row, C.col, torch.from_numpy(C.data).to(dt), A.shape
+            ).to(dev)
+            out[f"halo_{half}_{bname}"] = {
+                "Y": comm.all_gather_rows(y).float().cpu().numpy(),
+                "Y_ell": ell.matmat(X).float().cpu().numpy(),
+                "dtype": str(y.dtype)}
+    return out
+
+
 # --- the unsharded operator, in one process ---------------------------------
 
 @pytest.mark.parametrize("case", ["band", "blockdiag", "rcm"])

@@ -90,6 +90,16 @@ matrix's type, f32 unless said):
   ``chip_smoke.SOLVE_KWARGS`` (``k`` from ``chip_smoke.HALFOP_K`` where it
   names the solve). Counts, probe verdicts, values against the
   closed form and the largest true residual (f64, the exact matrix).
+* ``shardhalf``: phase 49's calls (``chip_smoke.SHARDHALF_SOLVES``;
+  ``--shardhalf-solve`` only the named ones, ``svds`` for the svds call)
+  under a 2-device CPU mesh (``--xla_force_host_platform_device_count=2``
+  is set before JAX starts): ``eigsh(mesh=)`` of the half ``GRID``^3
+  stencil as ``halfop``'s, the half ``BandedOperator`` of phase 11's
+  matrix, and a ``HaloELLOperator`` of phase 4's matrix (its pack for the
+  mesh, in its RCM order) built with half values, each with ``halfop``'s
+  arguments (``k`` from ``chip_smoke.SHARDHALF_K``); then ``svds(mesh=)``
+  of the f16 ``ELLOperator`` of ``grounded_incidence(SHARDHALF_SVD_GRID)``
+  with ``chip_smoke.SHARDHALF_SVDS`` at ``tol = 4 eps(f16)``.
 
 Prints one JSON object per phase (``num_matvecs``, the eigenvalues and
 their largest distance from the closed form or scipy where there is one,
@@ -106,6 +116,7 @@ needed):
         dia_f32 ...] [--normal-grid N]] [--phase dynamic
         [--dynamic-grid N]] [--phase capi|jacobi|half]
         [--phase halfop [--halfop-solve NAME ...]]
+        [--phase shardhalf [--shardhalf-solve NAME ...]]
 """
 
 import argparse
@@ -123,7 +134,8 @@ def main():
                                         "ell_f32", "northstar",
                                         "generalized", "interior", "svds",
                                         "complex", "normal", "dynamic",
-                                        "capi", "jacobi", "half", "halfop"),
+                                        "capi", "jacobi", "half", "halfop",
+                                        "shardhalf"),
                     action="append")
     ap.add_argument("--interior-n", type=int, nargs="+")
     ap.add_argument("--interior-solve", nargs="+")
@@ -135,8 +147,14 @@ def main():
     ap.add_argument("--normal-grid", type=int)
     ap.add_argument("--dynamic-grid", type=int)
     ap.add_argument("--halfop-solve", nargs="+")
+    ap.add_argument("--shardhalf-solve", nargs="+")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
+    if "shardhalf" in (args.phase or ()):
+        # phase 49's mesh: two CPU devices (before JAX starts)
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count"
+                                   "=2").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -151,7 +169,7 @@ def main():
         t0 = time.perf_counter()
         if phase in ("northstar", "generalized", "interior", "svds",
                      "complex", "normal", "dynamic", "capi", "jacobi",
-                     "half", "halfop"):
+                     "half", "halfop", "shardhalf"):
             for rec in globals()["_" + phase](CS, pt, np, args):
                 rec.update(phase=phase, seconds=time.perf_counter() - t0)
                 print(json.dumps(rec), flush=True)
@@ -560,6 +578,90 @@ def _halfop(CS, pt, np, args):
                "num_matvecs": int(st["num_matvecs"]),
                "num_probe_matvecs": int(st["num_probe_matvecs"]),
                "probe_verified": int(st.get("probe_verified", -1)),
+               "probe_exhausted": int(st["probe_exhausted"]),
+               "max_residual": float(np.linalg.norm(R, axis=0).max()),
+               "eval_err": float(np.abs(
+                   np.asarray(ev)[None, :] - w[:, None]).min(axis=1).max()),
+               "evals": np.sort(w).tolist(),
+               "solve_s": time.perf_counter() - t0}
+
+
+
+def _shardhalf(CS, pt, np, args):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from primme_tpu import operators as JO
+    from primme_tpu.distributed import HaloELLOperator as JaxHalo
+
+    mesh = Mesh(np.array(jax.devices()[:2]), ("rows",))
+    names = args.shardhalf_solve or [*CS.SHARDHALF_SOLVES, "svds"]
+    for name in names:
+        t0 = time.perf_counter()
+        if name == "svds":
+            hd = jnp.float16
+            A, _ = CS.grounded_incidence(CS.SHARDHALF_SVD_GRID,
+                                         dtype="float32")
+            cols, vals = JO.ELLOperator._pack(A)
+            colsT, valsT = JO.ELLOperator._pack(A.T.tocsr())
+            op = JO.ELLOperator(cols, jnp.asarray(vals).astype(hd),
+                                shape=A.shape, colsT=colsT,
+                                valsT=jnp.asarray(valsT).astype(hd))
+            tol = 4 * float(jnp.finfo(hd).eps)
+            with mesh:
+                _, s, _, st = pt.svds(op, tol=tol, seed=0, mesh=mesh,
+                                      return_stats=True,
+                                      raise_for_unconverged=False,
+                                      **CS.SHARDHALF_SVDS)
+            yield {"solve": name, "tol": tol,
+                   "num_matvecs": int(st["stage1_num_matvecs"]
+                                      + st.get("stage2_num_matvecs", 0)),
+                   "stage1_num_matvecs": int(st["stage1_num_matvecs"]),
+                   "stage2_num_matvecs": int(st.get("stage2_num_matvecs",
+                                                    0)),
+                   "svals": np.sort(np.asarray(s, np.float64)).tolist(),
+                   "solve_s": time.perf_counter() - t0}
+            continue
+        kind, half, working = CS.SHARDHALF_SOLVES[name]
+        hd = jnp.dtype(half)
+        tol = 4 * float(jnp.finfo(hd).eps)
+        wd = None if working is None else jnp.dtype(working)
+        perm = None
+        if kind == "stencil":
+            op = JO.Stencil3DOperator(CS.GRID, CS.GRID, CS.GRID, dtype=hd)
+            A = CS._laplacian7(CS.GRID, None)
+            ev = CS.stencil_eigenvalues(CS.GRID, CS.GRID ** 3)[0]
+            v0 = np.random.default_rng(0).normal(size=(CS.GRID ** 3, 2))
+            kw = dict(k=10, which="SA", ncv=24, maxBlockSize=2,
+                      minRestartSize=14, locking=False, jacobi=True,
+                      maxMatvecs=16000, v0=v0.astype(np.float32),
+                      method="PRIMME_JDQMR_ETol")
+        else:
+            if kind == "dia":
+                A, ev = CS.laplacian27_grid(CS.GRID)
+                B = JO.BandedOperator.from_scipy(A.todia())
+                op = JO.BandedOperator(B.offsets, B.vals.astype(hd), B.shape)
+            else:
+                A, ev = CS.laplacian27(CS.GRID, 0)
+                h0, perm = JaxHalo.from_scipy(A, mesh)
+                op = JaxHalo(h0.cols, h0.vals.astype(hd), h0.diag.astype(hd),
+                             h0.shape, h0.halo, mesh=mesh, hrows=h0.hrows)
+                A = A[perm][:, perm].tocsr()
+            kw = {k: v for k, v in CS.SOLVE_KWARGS.items()
+                  if k != "return_stats"}
+            if name in CS.SHARDHALF_K:
+                kw["k"] = CS.SHARDHALF_K[name]
+        with mesh:
+            w, X, st = pt.eigsh(op, tol=tol, seed=0, dtype=wd, mesh=mesh,
+                                return_stats=True,
+                                raise_for_unconverged=False, **kw)
+        w, X = np.asarray(w, np.float64), np.asarray(X, np.float64)
+        R = A.astype(np.float64) @ X - X * w[None, :]
+        yield {"solve": name, "operator": type(op).__name__, "half": half,
+               "working": working, "tol": tol, "rcm": perm is not None,
+               "num_matvecs": int(st["num_matvecs"]),
+               "num_probe_matvecs": int(st["num_probe_matvecs"]),
                "probe_exhausted": int(st["probe_exhausted"]),
                "max_residual": float(np.linalg.norm(R, axis=0).max()),
                "eval_err": float(np.abs(
