@@ -41,7 +41,7 @@ from .params import PrimmeParams, Target, Method, set_method
 from .operators import (CastOperator, JacobiPrecond, aslinearoperator,
                         default_device)
 from .core.comm import allgather_rows
-from .core.linalg import real_dtype
+from .core.linalg import host_read, host_reads, real_dtype, scope, scoped
 from .core.solver import solve_eigs
 
 _WHICH_TO_TARGET = {
@@ -79,6 +79,7 @@ def _working_dtype(dtype: Any) -> Optional[torch.dtype]:
     return dtype
 
 
+@scoped("pt_eigsh")
 def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
           which: str = "LM", v0: Any = None, ncv: Optional[int] = None,
           maxiter: Optional[int] = None, tol: float = 0.0,
@@ -108,7 +109,9 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     with the same arguments, the mesh's device type places the blocks,
     and every rank returns the same arrays
     (:mod:`~primme_tpu_torch.distributed`). Returns numpy arrays, like the
-    reference."""
+    reference; ``stats["num_host_reads"]`` counts the call's waits for the
+    card (:func:`~.core.linalg.host_read`)."""
+    reads0 = host_reads()
     if mode != "normal":
         raise ValueError(f"only mode='normal' is supported (got {mode!r})")
     if Minv is not None:
@@ -247,8 +250,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
             v0n = v0n[perm, :]
         if comm is not None:
             v0n = comm.rows(v0n)
-        v0t = torch.as_tensor(np.ascontiguousarray(v0n)).to(
-            device=device, dtype=Aop.dtype)
+        v0t = host_read(torch.as_tensor(np.ascontiguousarray(v0n)).to,
+                        device=device, dtype=Aop.dtype)
     oc = None
     if lock is not None:
         ocn = np.asarray(lock)
@@ -263,8 +266,8 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
                 f"Got shape {np.shape(lock)}")
         if perm is not None:
             ocn = ocn[perm, :]
-        oc = torch.as_tensor(np.ascontiguousarray(
-            ocn if comm is None else comm.rows(ocn))).to(
+        oc = host_read(torch.as_tensor(np.ascontiguousarray(
+            ocn if comm is None else comm.rows(ocn))).to,
             device=device, dtype=Aop.dtype)
         p = prm.resolve_defaults(p.with_(num_ortho_const=int(ocn.shape[1])))
 
@@ -327,7 +330,7 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
 
-    resnorms = res.resnorms.cpu().numpy()
+    resnorms = host_read(res.resnorms.cpu).numpy()
     anorm = float(res.stats.anorm_estimate)
     eps_eff = p.eps if p.eps > 0 else 1e4 * float(
         torch.finfo(res.evals.dtype).eps)
@@ -379,13 +382,15 @@ def eigsh(A: Any, k: int = 6, M: Any = None, sigma: Optional[float] = None,
     if return_history:
         stats["hist"] = {k_: (np.asarray(v_) if v_ and not isinstance(
             v_[0], np.ndarray) else v_) for k_, v_ in history.items()}
-    out = [res.evals.cpu().numpy()]
-    if return_eigenvectors:
-        ev = allgather_rows(res.evecs, comm).cpu().numpy()
-        if perm is not None:
-            ev = ev[np.argsort(perm), :]
-        out.append(ev)
+    with scope("pt_to_host"):
+        out = [host_read(res.evals.cpu).numpy()]
+        if return_eigenvectors:
+            ev = host_read(allgather_rows(res.evecs, comm).cpu).numpy()
+            if perm is not None:
+                ev = ev[np.argsort(perm), :]
+            out.append(ev)
     if return_stats:
+        stats["num_host_reads"] = host_reads() - reads0
         out.append(stats)
     return tuple(out) if len(out) > 1 else out[0]
 
@@ -538,8 +543,8 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
         t = np.array(x)
         if t.ndim == 1:
             t = t[:, None]
-        return torch.from_numpy(np.ascontiguousarray(t)).to(device=device,
-                                                            dtype=cdt)
+        return host_read(torch.from_numpy(np.ascontiguousarray(t)).to,
+                         device=device, dtype=cdt)
 
     v0t = block(v0) if v0 is not None else None
     oc = None
@@ -559,7 +564,7 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
 
-    resnorms = res.resnorms.cpu().numpy()
+    resnorms = host_read(res.resnorms.cpu).numpy()
     if raise_for_unconverged:
         anorm = float(res.stats.anorm_estimate)
         eps_eff = p.eps if p.eps > 0 else 1e4 * float(
@@ -570,9 +575,10 @@ def eigs(A: Any, k: int = 6, which: str = "LM",
                               f"(resnorms={resnorms})")
     stats = dataclasses.asdict(res.stats)
     stats["elapsed_time"] = elapsed
-    out = [res.evals.cpu().numpy()]
-    if return_eigenvectors:
-        out.append(res.evecs.cpu().numpy())
+    with scope("pt_to_host"):
+        out = [host_read(res.evals.cpu).numpy()]
+        if return_eigenvectors:
+            out.append(host_read(res.evecs.cpu).numpy())
     if return_stats:
         out.append(stats)
     return tuple(out) if len(out) > 1 else out[0]

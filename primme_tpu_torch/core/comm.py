@@ -86,7 +86,11 @@ class RowComm:
         return dist.get_global_rank(self.group, rank)
 
     def _host(self, t):
-        return t.cpu() if self.staged else t
+        return _wait(t.cpu) if self.staged else t
+
+    def _back(self, h, device):
+        """``h.to(device)``: a staged block's copy back to the card."""
+        return _wait(h.to, device) if self.staged else h.to(device)
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
@@ -96,7 +100,7 @@ class RowComm:
         dist.all_reduce(h, op=op, group=self.group)
         self.num_global_sum += 1
         self.volume_global_sum += t.numel()
-        return h.to(t.device)
+        return self._back(h, t.device)
 
     def all_gather_rows(self, X: torch.Tensor) -> torch.Tensor:
         """The global ``[n, ...]`` block from every rank's rows."""
@@ -106,15 +110,15 @@ class RowComm:
             h = torch.cat([h, h.new_zeros((pad,) + tuple(h.shape[1:]))])
         parts = [torch.empty_like(h) for _ in range(self.size)]
         dist.all_gather(parts, h, group=self.group)
-        return torch.cat(parts)[:self.n].to(X.device)
+        return self._back(torch.cat(parts)[:self.n], X.device)
 
     def broadcast_int(self, value: int, src: int = 0) -> int:
         """Rank ``src``'s integer on every rank."""
         t = torch.tensor([int(value)], dtype=torch.int64)
         if self.backend == "nccl":
-            t = t.to(self.device)
+            t = _wait(t.to, self.device)
         dist.broadcast(t, self._peer(src), group=self.group)
-        return int(t.item())
+        return _wait(int, t) if self.backend == "nccl" else int(t.item())
 
     def halo_exchange_start(self, X: torch.Tensor, h: int):
         """Post the exchange of ``h`` boundary rows with the two
@@ -144,13 +148,21 @@ class RowComm:
         for seg, peer in sends:
             buf = seg.contiguous()
             if self.staged:
-                buf = buf.to("cpu")
+                buf = _wait(buf.to, "cpu")
             ops.append(dist.P2POp(dist.isend, buf, self._peer(peer),
                                   self.group))
             SENT_ELEMENTS += buf.numel()
         EXCHANGES += 1
         reqs = dist.batch_isend_irecv(ops) if ops else []
         return _Pending(reqs, left, right, X.device)
+
+
+def _wait(fn, *args):
+    """``fn(*args)``, a wait for the card, through
+    :func:`~.linalg.host_read` (imported here: ``linalg`` imports this
+    module)."""
+    from .linalg import host_read
+    return host_read(fn, *args)
 
 
 class _Pending:

@@ -24,7 +24,7 @@ import torch
 
 from ..params import PrimmeParams, Method, set_method
 from . import comm as cm
-from .linalg import block_ortho
+from .linalg import block_ortho, host_read
 from .solver import (EigsResult, counted_sums, setup_solver, extract_result,
                      make_config, prepare_window, run_segment)
 
@@ -140,7 +140,7 @@ def _solve_dynamic(A, p, B, K, v0, ortho_const, generator, dtype, device,
 
     def snapshot(s):
         win, _ = prepare_window(cfg_gd, s, shifts)
-        return (win.cands.resnorms.cpu().numpy(), int(s.num_locked),
+        return (host_read(win.cands.resnorms.cpu).numpy(), int(s.num_locked),
                 float(s.stats.anorm_estimate))
 
     rates = {"gd": None, "jd": None}

@@ -27,8 +27,8 @@ import torch
 
 from ..params import ConvTest, Target
 from .comm import col_dots, global_sum
-from .linalg import (bcomb, gram, real_dtype, machine_eps, prefix_project,
-                     scoped_mv)
+from .linalg import (bcomb, gram, host_read, real_dtype, machine_eps,
+                     prefix_project, scoped, scoped_mv)
 
 
 def _dots(X, Y):
@@ -37,6 +37,7 @@ def _dots(X, Y):
     return col_dots(X, Y).real
 
 
+@scoped("pt_inner")
 def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
                       evals=None):
     """Solve the block correction equation with projected sQMR.
@@ -85,7 +86,7 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         qmask = torch.arange(Q.shape[1], device=dev) < nlockq
         Qhat = apply_precond(K, BQ, None) * qmask.to(dtype)[None, :]
         Mq = gram(Q, Qhat) + torch.diag((~qmask).to(dtype))
-        skew_lu = torch.linalg.lu_factor(Mq)
+        skew_lu = host_read(torch.linalg.lu_factor, Mq)
 
     def apply_A_proj(D):
         W = scoped_mv(A, D)
@@ -167,7 +168,7 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     eval_prev = lam
     eres_prev = zr()
     its = nmv = nprec = 0
-    n_alive = int(alive.sum())
+    n_alive = host_read(int, alive.sum())
     tcap = cfg.inner_trace_cap
     trace = (torch.zeros((tcap, blk, 3), dtype=rdt, device=dev)
              if tcap > 0 else None)
@@ -268,7 +269,8 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         annf = 1.0 - anf
 
         # one host read per step: the loop condition and the counters
-        n_am, n_alive = torch.stack((am.sum(), alive_next.sum())).tolist()
+        n_am, n_alive = host_read(torch.Tensor.tolist,
+                                  torch.stack((am.sum(), alive_next.sum())))
         nmv += n_am
         nprec += n_alive
         rho_prev = rho * anf + rho_prev * annf
@@ -282,10 +284,11 @@ def jdqmr_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     # so the outer basis still gets an expansion direction.
     solnorm = torch.sqrt(_dots(sol, sol))
     sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)
-    n_prec0 = int(valid.sum()) if K is not None else 0
+    n_prec0 = host_read(int, valid.sum()) if K is not None else 0
     return sol, its, nmv, nprec + n_prec0, trace
 
 
+@scoped("pt_inner")
 def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
                        evals=None):
     """Inner correction solver for normal (non-Hermitian) operators
@@ -341,8 +344,8 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
 
     # the host side: per-column state in double
     hdt = torch.complex128
-    valid_h = valid.cpu()
-    itol = torch.clamp(0.1 * res.detach().to("cpu", torch.float64),
+    valid_h = host_read(valid.cpu)
+    itol = torch.clamp(0.1 * host_read(res.detach().to, "cpu", torch.float64),
                        min=0.33 * float(tol))
 
     V0 = project(-R * vmaskf)
@@ -352,7 +355,7 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
                      .to(dtype), 0)
     Vk = torch.zeros((m + 1, n, blk), dtype=dtype, device=dev)
     Vk[0] = V0
-    beta_h, ok_h = beta.cpu().to(torch.float64), ok.cpu()
+    beta_h, ok_h = host_read(beta.cpu).to(torch.float64), host_read(ok.cpu)
 
     Rm = torch.zeros((m, m, blk), dtype=hdt)
     g = torch.zeros((m + 1, blk), dtype=hdt)
@@ -374,7 +377,8 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
             h = h + hp
         hnorm = torch.sqrt(torch.clamp(_dots(w, w), min=0.0))
         # one transfer a step: the Hessenberg column and its norm
-        hh = torch.cat([h, hnorm[None, :].to(dtype)]).cpu().to(hdt)
+        hh = host_read(torch.Tensor.cpu,
+                       torch.cat([h, hnorm[None, :].to(dtype)])).to(hdt)
         h_h, hn_h = hh[:i + 1], hh[i + 1].real
         good = (hn_h > tiny) & alive
         wn = torch.where((hnorm > tiny)[None, :],
@@ -408,7 +412,8 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
         Rm[i, i, :] = torch.where(alive, ci * a + si * bb, Rm[i, i, :])
         cs[i] = torch.where(alive, ci, cs[i])
         sn[i] = torch.where(alive, si, sn[i])
-        Vk[i + 1] = torch.where(alive.to(dev)[None, :], wn, Vk[i + 1])
+        Vk[i + 1] = torch.where(host_read(alive.to, dev)[None, :], wn,
+                                Vk[i + 1])
         steps = steps + alive.to(torch.int64)
         alive = alive & good & (torch.abs(g[i + 1]) > itol)
 
@@ -423,7 +428,8 @@ def normal_inner_solve(cfg, A, B, K, s, X, BX, R, sigma, res, valid, tol,
     y = torch.linalg.solve_triangular(Rsolve.permute(2, 0, 1),
                                       gm.T[:, :, None], upper=True)
     y = torch.where(used, y[:, :, 0].T, 0)
-    sol = torch.einsum("jnb,jb->nb", Vk[:m], y.to(device=dev, dtype=dtype))
+    sol = torch.einsum("jnb,jb->nb", Vk[:m],
+                       host_read(y.to, device=dev, dtype=dtype))
     sol = prec(sol) * vmaskf
     solnorm = torch.sqrt(_dots(sol, sol))
     sol = torch.where((solnorm < tiny)[None, :] & (vmaskf != 0), R, sol)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,15 +34,46 @@ from .comm import col_dots, col_norms
 
 
 def scope(name: str):
-    """A ``torch.profiler`` scope named as the reference's phase scopes
-    (``pt_matvec``, ``pt_precond``, ``pt_ortho``, ``pt_dense``):
+    """A ``torch.profiler`` scope: one of the reference's phase scopes
+    (``pt_matvec``, ``pt_precond``, ``pt_ortho``, ``pt_dense``), to which
     :func:`primme_tpu_torch.profiling.measure_breakdown` attributes the
-    device time of the kernels launched inside it to the phase. Opened
-    only while a profiler records: a solve that nobody traces pays no
-    scope."""
+    device time of the kernels launched inside it, or a layer's span
+    (``pt_eigsh``, ``pt_outer``, ``pt_inner``, ``pt_refine``, ...; README
+    lists them). Opened only while a profiler records: a solve that
+    nobody traces pays no scope."""
     if torch.autograd._profiler_enabled():
         return record_function(name)
     return contextlib.nullcontext()
+
+
+class _Reads(threading.local):
+    n = 0
+
+
+_READS = _Reads()
+
+
+def host_reads() -> int:
+    """The reads this thread has made through :func:`host_read`, a running
+    count: a call's reads are the difference across it."""
+    return _READS.n
+
+
+def host_read(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a call at which the host waits for the
+    card: a read back (``.cpu()``, ``.tolist()``, ``int``, ``float`` or
+    ``bool`` of a device tensor), a blocking copy to the card, or a
+    ``torch.linalg`` call that checks its result on the host (``eigh``,
+    ``cholesky``, ``lu_factor``, ``svd``). Counted (:func:`host_reads`)
+    and, while a profiler records, under the ``pt_read`` scope, so that
+    the card's idle time at the wait is put down to the read. Pass the
+    tensor computed already: a kernel that makes it belongs outside the
+    read."""
+    _READS.n += 1
+    if torch.autograd._profiler_enabled():
+        with record_function("pt_read"):
+            return fn(*args, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def scoped_mv(Op, X):
@@ -51,14 +83,19 @@ def scoped_mv(Op, X):
         return Op.matmat(X)
 
 
-def _dense_scope(fn):
-    """Run ``fn`` under the ``pt_dense`` scope (the reference's
-    ``timeDense`` attribution of the projected solves)."""
-    @functools.wraps(fn)
-    def wrapped(*a, **k):
-        with scope("pt_dense"):
-            return fn(*a, **k)
-    return wrapped
+def scoped(name: str):
+    """A decorator: the function runs under the ``name`` scope (``pt_dense``
+    on the projected solves is the reference's ``timeDense``
+    attribution). The wrapper holds the arguments until the function
+    returns, so a function that frees a large argument early (by
+    rebinding its name) is scoped by its caller instead."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapped(*a, **k):
+            with scope(name):
+                return fn(*a, **k)
+        return wrapped
+    return wrap
 
 
 def real_dtype(dtype) -> torch.dtype:
@@ -185,7 +222,7 @@ def rand_block(gen: torch.Generator, n: int, bs: int, dtype, device):
     X = torch.randn((n, bs), generator=gen, dtype=rdt)
     if dtype.is_complex:
         X = torch.complex(X, torch.randn((n, bs), generator=gen, dtype=rdt))
-    return cm.rows_of(X).to(device=device, dtype=dtype)
+    return host_read(cm.rows_of(X).to, device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +306,7 @@ def _block_ortho(X, V, Q, active_bs: int, gen: torch.Generator,
         X, BX = project_out(X, BX)
         X, BX, bad = _chol_qr(X, BX, active_bs, thresh2)
         if it == 0:
-            nbad = int(bad.sum())
+            nbad = host_read(int, bad.sum())
             total_bad += nbad
             if nbad:
                 rnd = rand_block(gen, n, X.shape[1], X.dtype, X.device)
@@ -365,12 +402,12 @@ def projected_eigh(M):
     matrix is at most mmax x mmax."""
     wide = _WIDE.get(M.dtype)
     if wide is None:
-        return torch.linalg.eigh(M)
-    w, Z = torch.linalg.eigh(M.to(wide))
+        return host_read(torch.linalg.eigh, M)
+    w, Z = host_read(torch.linalg.eigh, M.to(wide))
     return w.to(real_dtype(M.dtype)), Z.to(M.dtype)
 
 
-@_dense_scope
+@scoped("pt_dense")
 def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int,
                G=None) -> ProjectedSolution:
     """Rayleigh-Ritz on the active ``b x b`` block of ``H`` (reference
@@ -392,10 +429,10 @@ def solve_H_rr(H, b: int, target: Target, shifts, shift_idx: int,
     if G is not None:
         wide = _WIDE.get(H.dtype, H.dtype)
         Gb = G[:b, :b].to(wide)
-        L = torch.linalg.cholesky(0.5 * (Gb + Gb.mH))
+        L = host_read(torch.linalg.cholesky, 0.5 * (Gb + Gb.mH))
         Hm = torch.linalg.solve_triangular(L, H[:b, :b].to(wide), upper=False)
         Hm = torch.linalg.solve_triangular(L, Hm.mH, upper=False).mH
-        w, Z = torch.linalg.eigh(0.5 * (Hm + Hm.mH))
+        w, Z = host_read(torch.linalg.eigh, 0.5 * (Hm + Hm.mH))
         Z = torch.linalg.solve_triangular(L.mH, Z, upper=True)
         w, Z = w.to(rdt), Z.to(H.dtype)
         keys = target_sort_keys(w, target, shifts.to(w.dtype), shift_idx)
@@ -413,7 +450,7 @@ def complex_dtype(dtype) -> torch.dtype:
             torch.float64: torch.complex128}.get(dtype, dtype)
 
 
-@_dense_scope
+@scoped("pt_dense")
 def solve_H_normal(H, b: int, target: Target, shifts, shift_idx: int
                    ) -> ProjectedSolution:
     """Projected solve for a normal operator (reference
@@ -434,7 +471,7 @@ def solve_H_normal(H, b: int, target: Target, shifts, shift_idx: int
     cdt = complex_dtype(rdt)
     amask = col_mask(mmax, b)
     Hm = torch.where(amask[:, None] & amask[None, :],
-                     H.detach().to("cpu", torch.complex128), 0)
+                     host_read(H.detach().to, "cpu", torch.complex128), 0)
     scale = 2.0 * torch.max(torch.abs(Hm)) + 1.0
     ramp = (1.0 + torch.arange(mmax, dtype=torch.float64)) * scale
     Hm = Hm + torch.diag(torch.where(amask, 0.0, ramp).to(torch.complex128))
@@ -445,18 +482,17 @@ def solve_H_normal(H, b: int, target: Target, shifts, shift_idx: int
     nrm2 = torch.clamp(torch.sum(mass, dim=0),
                        min=torch.finfo(torch.float64).tiny)
     is_pad = (support_inactive / nrm2) > 0.5
-    keys = target_sort_keys(w, target, shifts.detach().to("cpu",
-                                                          torch.float64),
-                            shift_idx)
+    keys = target_sort_keys(w, target, host_read(shifts.detach().to, "cpu",
+                                                 torch.float64), shift_idx)
     keys = torch.where(is_pad, torch.finfo(torch.float64).max, keys)
     order = torch.argsort(keys, stable=True)
     w, Z, is_pad = w[order], Z[:, order], is_pad[order]
     keep = (~is_pad).to(Z.dtype)[None, :]
     Z = torch.linalg.qr(Z * keep).Q * keep
     w = torch.where(is_pad, torch.finfo(rdt).max, w)
-    return ProjectedSolution(hvals=w.to(device=dev, dtype=cdt),
-                             hvecs=Z.to(device=dev, dtype=cdt),
-                             active=(~is_pad).to(dev))
+    return ProjectedSolution(hvals=host_read(w.to, device=dev, dtype=cdt),
+                             hvecs=host_read(Z.to, device=dev, dtype=cdt),
+                             active=host_read((~is_pad).to, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -562,16 +598,16 @@ def smallest_right_svecs(C):
     ``C``'s type, values ``[pairs]`` in its real type."""
     wide = _WIDE.get(C.dtype)
     if wide is None:
-        _, sv, Vh = torch.linalg.svd(C, full_matrices=False)
+        _, sv, Vh = host_read(torch.linalg.svd, C, full_matrices=False)
         return Vh[:, -1, :].conj().T, sv[:, -1]
     Cw = C.to(wide)
-    _, Z = torch.linalg.eigh(Cw.mH @ Cw)
+    _, Z = host_read(torch.linalg.eigh, Cw.mH @ Cw)
     y = Z[:, :, 0]                                       # [pairs, b]
     smin = torch.linalg.vector_norm(Cw @ y[:, :, None], dim=(1, 2))
     return y.T.to(C.dtype), smin.to(real_dtype(C.dtype))
 
 
-@_dense_scope
+@scoped("pt_dense")
 def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
                     anorm=None, conv_eps=None) -> ProjectedSolution:
     """Refined extraction (reference ``solve_H_refined``) on the active
@@ -621,7 +657,7 @@ def solve_H_refined(H, G, b: int, target: Target, shifts, shift_idx: int,
     return _embed(w[order], bcomb(hv, Z)[:, order], mmax, rdt)
 
 
-@_dense_scope
+@scoped("pt_dense")
 def solve_H_harmonic(H, R, b: int, target: Target, shifts,
                      shift_idx: int) -> ProjectedSolution:
     """Harmonic Rayleigh-Ritz (reference ``solve_H_harmonic``) on the
@@ -668,7 +704,7 @@ def orthonormalize_coeffs(C, valid, dtype_eps: float):
     extraction). Returns ``(Q, ok)``."""
     C = C * valid.to(C.dtype)[None, :]
     G = small_gram(C, C)
-    w, U = torch.linalg.eigh(G)
+    w, U = host_read(torch.linalg.eigh, G)
     wmax = torch.clamp(torch.max(w), min=1.0)
     ok = w > 64.0 * dtype_eps * wmax
     inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, w, 1.0)), 0.0)

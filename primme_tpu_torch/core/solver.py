@@ -15,7 +15,10 @@ one to one: the basis is ``[n, mmax]`` with a basis size ``b`` whose
 inactive columns are exactly zero. Its ``lax.while_loop``/``cond``/
 ``fori_loop`` become host Python loops and branches: integer state
 (``b``, counts) and the scalars that steer branches live on the host, the
-arrays on the device, and each branch reads back what it needs. Where the
+arrays on the device, and each branch reads back what it needs, through
+:func:`~.linalg.host_read` (counted; a ``pt_read`` span under a profiler,
+beside the ``pt_init``, ``pt_outer``, ``pt_window``, ``pt_probe`` and
+``pt_restart`` spans of the loop's layers). Where the
 reference rebuilt an ``[n, mmax]`` array to change a few columns, the port
 writes those columns in place. Random numbers come from one CPU
 ``torch.Generator``, the caller's or one seeded from ``rng_seed``, and
@@ -45,7 +48,8 @@ from .linalg import (Candidates, ProjectedSolution, bcomb, col_mask,
                      compute_residuals, target_sort_keys, prefix_project,
                      rand_block, shifted_qr_R, complement_qr_R,
                      solve_H_refined, solve_H_harmonic, solve_H_normal,
-                     orthonormalize_coeffs, scope, scoped_mv)
+                     orthonormalize_coeffs, scope, scoped, scoped_mv,
+                     host_read)
 
 _BIG = 1 << 20  # stable-sort priority offset
 
@@ -242,7 +246,7 @@ def _host_with(xs, vecs):
     for v in vecs:
         parts.append((torch.view_as_real(v) if v.is_complex() else v)
                      .reshape(-1).to(torch.float64))
-    h = torch.cat(parts).cpu().numpy()
+    h = host_read(torch.Tensor.cpu, torch.cat(parts)).numpy()
     out, off = [], len(xs)
     for v in vecs:
         m = v.numel() * (2 if v.is_complex() else 1)
@@ -373,6 +377,7 @@ def _tolerance(cfg: SolveConfig, anorm: float, rdt) -> float:
     return max(eps, 2 * meps) * anorm
 
 
+@scoped("pt_window")
 def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
     """Projected solve + residuals + convergence flags for the current
     candidate window (reference ``prepare_window``). Returns
@@ -434,7 +439,8 @@ def prepare_window(cfg: SolveConfig, s: SolverState, shifts, convtest=None):
             lmask = torch.arange(lkeys.shape[0], device=dev) < s.num_locked
             worst_locked = torch.max(torch.where(lmask, lkeys, -fmax))
             wkeys = target_sort_keys(hl_c, cfg.target, shifts, sidx)
-            n_intr = int((active & (wkeys < worst_locked - tol)).sum())
+            n_intr = host_read(int, (active & (wkeys < worst_locked - tol))
+                               .sum())
         n_needed = min(max(n_needed + n_intr, 0), c)
     if convtest is not None:
         passes = torch.as_tensor(
@@ -498,7 +504,7 @@ def _kth_best_key(cfg: SolveConfig, s: SolverState, win: Window,
     wk = target_sort_keys(win.sol.hvals[:cfg.cwin], cfg.target, shifts, sidx)
     wk = torch.where(win.passes, wk, big)
     allk = torch.sort(torch.cat([lk, wk])).values
-    return float(allk[cfg.ne - 1])
+    return host_read(float, allk[cfg.ne - 1])
 
 
 # Probe subsolve budget: iterations of the out-of-band deflated Davidson.
@@ -567,7 +573,7 @@ def _power_extreme(A, gen, n, dtype, device, shift=None) -> float:
             w = shift * v - w
         nw = norm(w).real
         v = w / torch.clamp(nw, min=tiny)
-    return float(nw)
+    return host_read(float, nw)
 
 
 def _deg(need: float, cut: float, width: float) -> int:
@@ -579,6 +585,7 @@ def _deg(need: float, cut: float, width: float) -> int:
     return min(max(int(need / ac) + 1, 8), 512)
 
 
+@scoped("pt_probe")
 def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                     shifts, bar: float, margin: float) -> ProbeResult:
     """Out-of-band spectrum-verification probe (reference
@@ -609,7 +616,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
     if has_B:
         Z0, mv0 = rand_block(gen, n, blk, cdt, dev), 0
     elif cfg.target == Target.largest_abs:
-        sctr = float(shifts[sidx]) if shifts.shape[0] else 0.0
+        sctr = host_read(float, shifts[sidx]) if shifts.shape[0] else 0.0
         cut = max(8.0 * margin, 1e-3 * max(-2.0 * bar, 0.0))
         s_lo = sctr + bar + cut
         s_hi = sctr + (-bar) - cut
@@ -618,7 +625,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
         Z0 = (_filtered_rand_block(cfg, A, gen, cdt, dev, s_lo, s_hi, deg)
               if okf else rand_block(gen, n, blk, cdt, dev))
         mv0 = deg if okf else 0
-        valid0 = bool(all_finite(Z0))
+        valid0 = host_read(bool, all_finite(Z0))
         fast_start = okf and deg < 512
     else:
         emin, emax = s.stats.est_min_eval, s.stats.est_max_eval
@@ -726,7 +733,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
                            n_iters=1, Bop=B, BV=BP, BQ=BQ)
         # count only columns certified to live in the complement of
         # span(V) and the locked set, compacted to the front
-        if ores.n_random > 0 or bool(defl_shrunk):
+        if ores.n_random > 0 or host_read(bool, defl_shrunk):
             cert = ores.X - bcomb(V, gram(BVd, ores.X))
             if Q is not None:
                 cert = prefix_project(BQ, Q, cert, lcount)
@@ -735,7 +742,7 @@ def _probe_subsolve(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
             cn2p = col_dots(ores.X, ores.X).real
         okp = cn2p >= 0.25                      # NaN -> dropped
         srtp = torch.argsort(ar + _BIG * (~okp).to(ar.dtype), stable=True)
-        srvp = int(okp.sum())
+        srvp = host_read(int, okp.sum())
         keepp = (ar < srvp)[None, :]
         Xs = torch.where(keepp, ores.X[:, srtp], 0)
         P[:, w:w + blk] = Xs
@@ -878,7 +885,7 @@ def _robust_shifts(cfg: SolveConfig, s: SolverState, win: Window,
     hl = win.sol.hvals[:c].to(rdt)
     act = win.live
     hv = torch.where(act, torch.where(torch.isfinite(hl), hl, 0), big)
-    n_act = int(act.sum())
+    n_act = host_read(int, act.sum())
 
     prev2 = s.prev_ritz.clone()
     prev2[s.num_locked:s.num_locked + c] = hv
@@ -938,7 +945,7 @@ def _ortho_span_coeff(P, C, tol):
     P = P - bcomb(C, small_gram(C, P))
     P = P - bcomb(C, small_gram(C, P))
     G = small_gram(P, P)
-    w, U = torch.linalg.eigh(G)
+    w, U = host_read(torch.linalg.eigh, G)
     wmax = torch.clamp(torch.max(w), min=1.0)
     valid = w > tol * wmax
     inv = torch.where(valid, 1.0 / torch.sqrt(torch.where(valid, w, 1.0)),
@@ -946,6 +953,7 @@ def _ortho_span_coeff(P, C, tol):
     return bcomb(P, U * inv[None, :].to(P.dtype)), valid
 
 
+@scoped("pt_restart")
 def do_restart(cfg: SolveConfig, A, B, s: SolverState,
                win: Window) -> SolverState:
     """Thick restart with +k retention and (optional) hard locking."""
@@ -961,7 +969,7 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
         lock = win.conv & (torch.cumsum(win.conv.to(idx.dtype), 0) <= cap)
         lockorder = torch.argsort(idx[:c] + _BIG * (~lock).to(idx.dtype),
                                   stable=True)
-        nl = int(lock.sum())
+        nl = host_read(int, lock.sum())
         lvalid = idx[:c] < nl
         Xl = win.cands.X[:, lockorder] * lvalid.to(s.V.dtype)[None, :]
         laml = torch.where(lvalid, win.sol.hvals[:c][lockorder], 0)
@@ -999,7 +1007,7 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
         + 2 * _BIG * locked_now.to(idx.dtype) \
         + 4 * _BIG * (~active).to(idx.dtype)
     keep_order = torch.argsort(keep_key, stable=True)[:keepW]
-    nkeep = min(max(mrs, int(conv_keep.sum())), keepW)
+    nkeep = min(max(mrs, host_read(int, conv_keep.sum())), keepW)
     keep_ok = (active[keep_order] & ~locked_now[keep_order]
                & (idx[:keepW] < nkeep))
     Ckeep = win.sol.hvecs[:, keep_order] * keep_ok.to(s.H.dtype)[None, :]
@@ -1028,7 +1036,7 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
     order3 = torch.argsort(idx[:ncol] + _BIG * (~colvalid).to(idx.dtype),
                            stable=True)
     C = C[:, order3]
-    b_new = int(colvalid.sum())
+    b_new = host_read(int, colvalid.sum())
     Cfull = torch.zeros((mmax, mmax), dtype=s.H.dtype, device=dev)
     Cfull[:, :ncol] = C
 
@@ -1050,7 +1058,7 @@ def do_restart(cfg: SolveConfig, A, B, s: SolverState,
         drift = drift / math.sqrt(cfg.b_norm)
     mct = max(s.stats.max_conv_tol, drift)
     if cfg.locking and num_locked > 0:
-        mct = max(mct, float(torch.max(locked_res[:num_locked])))
+        mct = max(mct, host_read(float, torch.max(locked_res[:num_locked])))
     stats = _replace(s.stats, num_restarts=nres,
                      num_locked=s.stats.num_locked + nl, max_conv_tol=mct,
                      estimate_resid_error=drift,
@@ -1100,7 +1108,7 @@ def _survivors(o):
     ok = col_dots(X, X).real >= 0.25
     srt = torch.argsort(ar + _BIG * (~ok).to(ar.dtype), stable=True)
     Xc = X[:, srt]
-    return (Xc, Xc if o.BX is X else o.BX[:, srt]), int(ok.sum())
+    return (Xc, Xc if o.BX is X else o.BX[:, srt]), host_read(int, ok.sum())
 
 
 def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
@@ -1111,7 +1119,7 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
     blk, c, kmax = cfg.blk, cfg.cwin, cfg.kmax
     dev = s.V.device
     order = _unconverged_order(win)
-    n_unconv = int((~win.conv & win.live & win.is_target).sum())
+    n_unconv = host_read(int, (~win.conv & win.live & win.is_target).sum())
     nc = blk if force_random else min(blk, n_unconv)
     cand_idx = order[:blk]
     ar = torch.arange(blk, device=dev)
@@ -1127,7 +1135,7 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
 
     if kmax > 0:
         pidx = order[:kmax]
-        nlive = int(win.live.sum())
+        nlive = host_read(int, win.live.sum())
         pvalid = torch.arange(kmax, device=dev) < min(kmax, nlive)
         prev = win.sol.hvecs[:, :c][:, pidx] * pvalid.to(s.H.dtype)[None, :]
     else:
@@ -1191,6 +1199,7 @@ def do_expand(cfg: SolveConfig, A, B, K, s: SolverState, win: Window,
 # Reset (main_iter.c:853-896)
 # ---------------------------------------------------------------------------
 
+@scoped("pt_restart")
 def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     """Rebuild W = A V from a re-orthonormalized basis (rank-revealing
     symmetric whitening in the B inner product after two passes against
@@ -1204,7 +1213,7 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     G = gram(V, Bv)
     G = 0.5 * (G + G.mH)
     meps = machine_eps(s.V.dtype)
-    lam, U = torch.linalg.eigh(G)
+    lam, U = host_read(torch.linalg.eigh, G)
     lam = torch.flip(lam, (0,)).real          # descending: good first
     U = torch.flip(U, (1,))
     lmax = torch.clamp(lam[0], min=meps)
@@ -1217,7 +1226,7 @@ def do_reset(cfg: SolveConfig, A, B, s: SolverState) -> SolverState:
     H = gram(V, W)
     if cfg.hermitian:
         H = 0.5 * (H + H.mH)
-    nkeep = int(good.sum())
+    nkeep = host_read(int, good.sum())
     has_locked = cfg.locking or cfg.noc > 0
     st = s.stats
     stats = _replace(
@@ -1272,6 +1281,7 @@ def _check_operator_devices(device: torch.device, **ops) -> None:
                 "runs on the card unless device=\"cpu\" is asked)")
 
 
+@scoped("pt_init")
 def setup_solver(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                  ortho_const=None, dtype=None, device=None,
                  inner_trace_cap: int = 0,
@@ -1314,7 +1324,7 @@ def setup_solver(A, p: PrimmeParams, *, B=None, K=None, v0=None,
                            eps_floor=4.0 * machine_eps(dtype))
     rdt = real_dtype(cdt)
     ts = p.target_shifts if p.target_shifts else (0.0,)
-    shifts = torch.tensor(ts, dtype=rdt, device=device)
+    shifts = host_read(torch.tensor, ts, dtype=rdt, device=device)
     gen = (generator if generator is not None
            else torch.Generator().manual_seed(int(p.rng_seed)))
     s0 = _build_state(cfg, A, B, v0, ortho_const, gen, dtype, device)
@@ -1409,112 +1419,120 @@ def run_segment(cfg: SolveConfig, A, B, K, inner_solve, shifts,
     while (not s.done and not s.give_up
            and s.stats.num_outer_iterations < end
            and s.stats.num_matvecs < cfg.max_matvecs):
-        win, stats = prepare_window(cfg, s, shifts, convtest)
-        s = _replace(s, stats=stats)
-        locked = s.num_locked
-        n_base = min(max(ne - locked, 0), c)
-        pos = torch.arange(c, device=s.V.device)
-        unconv_t = ~win.conv & win.live & win.is_target
-        scalars = ((win.conv & (pos < n_base)).sum(), unconv_t.sum(),
-                   torch.min(torch.where(unconv_t, win.cands.resnorms, fmax)))
-        shown = (() if monitor is None else
-                 (win.sol.hvals[:kshow], win.cands.resnorms[:kshow]))
-        (nconv_base, n_unconv, cur_res), shown = _host_with(scalars, shown)
-        n_unconv = int(n_unconv)
-        done_cand = (locked + nconv_base) >= ne and n_unconv == 0
+        with scope("pt_outer"):
+            win, stats = prepare_window(cfg, s, shifts, convtest)
+            s = _replace(s, stats=stats)
+            locked = s.num_locked
+            n_base = min(max(ne - locked, 0), c)
+            pos = torch.arange(c, device=s.V.device)
+            unconv_t = ~win.conv & win.live & win.is_target
+            scalars = ((win.conv & (pos < n_base)).sum(), unconv_t.sum(),
+                       torch.min(torch.where(unconv_t, win.cands.resnorms,
+                                             fmax)))
+            shown = (() if monitor is None else
+                     (win.sol.hvals[:kshow], win.cands.resnorms[:kshow]))
+            (nconv_base, n_unconv, cur_res), shown = _host_with(scalars, shown)
+            n_unconv = int(n_unconv)
+            done_cand = (locked + nconv_base) >= ne and n_unconv == 0
 
-        # --- spectrum verification -----------------------------------------
-        b_pre = s.b
-        if cfg.probe_extra > 0:
-            margin = win.tol
-            newkth = _kth_best_key(cfg, s, win, shifts)
-            reopen = s.verified and newkth < s.probe_ref - margin
-            verified = s.verified and not reopen
-            clean = 0 if reopen else s.probe_clean
-            want = done_cand and not verified
-            cap_hit = want and s.stats.num_probe_rounds >= cfg.max_probe_rounds
-            verified = verified or cap_hit
-            do_probe = (want and not cap_hit and s.b + cfg.blk <= mmax
-                        and s.stats.num_matvecs < cfg.max_matvecs)
-            s = _replace(s, verified=verified, probe_clean=clean)
-            if cap_hit:
-                s.stats = _replace(s.stats, probe_exhausted=1)
-            if do_probe:
-                pr = _probe_subsolve(cfg, A, B, K, s, win, shifts, newkth,
-                                     margin)
-                st = s.stats
-                clean2 = 0 if pr.found else (
-                    s.probe_clean + 1 if pr.valid else s.probe_clean)
-                now_verified = (not pr.found) and pr.valid and clean2 >= 2
-                st = _replace(
-                    st, num_matvecs=st.num_matvecs + pr.num_matvecs,
-                    num_probe_matvecs=st.num_probe_matvecs + pr.num_matvecs,
-                    num_preconds=st.num_preconds + pr.num_preconds,
-                    num_probe_rounds=st.num_probe_rounds + 1,
-                    probe_exhausted=0 if now_verified else st.probe_exhausted)
-                if os.environ.get("PTPU_PROBE_DEBUG"):
-                    print(f"probe round {st.num_probe_rounds}: "
-                          f"found={pr.found} valid={pr.valid} clean={clean2} "
-                          f"mv={pr.num_matvecs} bar={newkth}", flush=True)
-                s = _replace(s, stats=st, probe_clean=clean2,
-                             probe_ref=newkth, probe_bnd_hi=pr.bnd_hi,
-                             probe_bnd_lo=pr.bnd_lo,
-                             probe_bnds_set=pr.bnds_set,
-                             verified=now_verified)
-                if pr.found:
-                    s = _append_probe_block(cfg, A, B, s, pr.X)
-        probe_injected = s.b > b_pre
-        done = done_cand and s.verified
+            # --- spectrum verification -------------------------------------
+            b_pre = s.b
+            if cfg.probe_extra > 0:
+                margin = win.tol
+                newkth = _kth_best_key(cfg, s, win, shifts)
+                reopen = s.verified and newkth < s.probe_ref - margin
+                verified = s.verified and not reopen
+                clean = 0 if reopen else s.probe_clean
+                want = done_cand and not verified
+                cap_hit = (want and s.stats.num_probe_rounds
+                           >= cfg.max_probe_rounds)
+                verified = verified or cap_hit
+                do_probe = (want and not cap_hit and s.b + cfg.blk <= mmax
+                            and s.stats.num_matvecs < cfg.max_matvecs)
+                s = _replace(s, verified=verified, probe_clean=clean)
+                if cap_hit:
+                    s.stats = _replace(s.stats, probe_exhausted=1)
+                if do_probe:
+                    pr = _probe_subsolve(cfg, A, B, K, s, win, shifts, newkth,
+                                         margin)
+                    st = s.stats
+                    clean2 = 0 if pr.found else (
+                        s.probe_clean + 1 if pr.valid else s.probe_clean)
+                    now_verified = (not pr.found) and pr.valid and clean2 >= 2
+                    st = _replace(
+                        st, num_matvecs=st.num_matvecs + pr.num_matvecs,
+                        num_probe_matvecs=(st.num_probe_matvecs
+                                           + pr.num_matvecs),
+                        num_preconds=st.num_preconds + pr.num_preconds,
+                        num_probe_rounds=st.num_probe_rounds + 1,
+                        probe_exhausted=(0 if now_verified
+                                         else st.probe_exhausted))
+                    if os.environ.get("PTPU_PROBE_DEBUG"):
+                        print(f"probe round {st.num_probe_rounds}: "
+                              f"found={pr.found} valid={pr.valid} "
+                              f"clean={clean2} "
+                              f"mv={pr.num_matvecs} bar={newkth}", flush=True)
+                    s = _replace(s, stats=st, probe_clean=clean2,
+                                 probe_ref=newkth, probe_bnd_hi=pr.bnd_hi,
+                                 probe_bnd_lo=pr.bnd_lo,
+                                 probe_bnds_set=pr.bnds_set,
+                                 verified=now_verified)
+                    if pr.found:
+                        s = _append_probe_block(cfg, A, B, s, pr.X)
+            probe_injected = s.b > b_pre
+            done = done_cand and s.verified
 
-        # --- stagnation detection ------------------------------------------
-        improved = cur_res < 0.999 * s.best_res
-        best_res = min(s.best_res, cur_res)
-        stall = 0 if improved else s.stall_restarts
-        full = s.b + cfg.blk > mmax
-        need_reset = full and stall >= 12
-        give_up = s.stats.num_resets >= 30 or stall >= 500
+            # --- stagnation detection --------------------------------------
+            improved = cur_res < 0.999 * s.best_res
+            best_res = min(s.best_res, cur_res)
+            stall = 0 if improved else s.stall_restarts
+            full = s.b + cfg.blk > mmax
+            need_reset = full and stall >= 12
+            give_up = s.stats.num_resets >= 30 or stall >= 500
 
-        lockable = (win.nconv > 0 and locked < ne) if cfg.locking else False
-        inject = n_unconv == 0 and not done and not full and not lockable
-        need_restart = full or (n_unconv == 0 and not inject)
+            lockable = ((win.nconv > 0 and locked < ne) if cfg.locking
+                        else False)
+            inject = n_unconv == 0 and not done and not full and not lockable
+            need_restart = full or (n_unconv == 0 and not inject)
 
-        if debug:
-            _debug_line(cfg, s, win, n_unconv)
-        s = _replace(s, best_res=best_res, stall_restarts=stall)
-        s2 = s
-        if not (done or probe_injected):
-            if need_restart:
-                s2 = do_restart(cfg, A, B, s2, win)
-                s2 = _replace(s2, stall_restarts=s2.stall_restarts + 1)
-                if need_reset:
-                    s2 = do_reset(cfg, A, B, s2)
-            else:
-                s2 = do_expand(cfg, A, B, K, s2, win, shifts,
-                               inner_solve=inner_solve, force_random=inject)
-                if s2.stats.num_matvecs <= s.stats.num_matvecs:
+            if debug:
+                _debug_line(cfg, s, win, n_unconv)
+            s = _replace(s, best_res=best_res, stall_restarts=stall)
+            s2 = s
+            if not (done or probe_injected):
+                if need_restart:
+                    s2 = do_restart(cfg, A, B, s2, win)
                     s2 = _replace(s2, stall_restarts=s2.stall_restarts + 1)
-        if monitor is not None:
-            inner_delta = (s2.stats.num_inner_iterations
-                           - s.stats.num_inner_iterations)
-            if need_reset:
-                ev = 3
-            elif s2.num_locked > s.num_locked:
-                ev = 5
-            elif need_restart and not done:
-                ev = 2
-            elif win.nconv > 0:
-                ev = 4
-            else:
-                ev = 1 if inner_delta > 0 else 0
-            kw = {}
-            if s2.inner_trace is not None:
-                kw["inner_trace"] = s2.inner_trace.cpu().numpy()
-            monitor(event=ev, num_outer=s.stats.num_outer_iterations,
-                    num_matvecs=s2.stats.num_matvecs,
-                    num_locked=s2.num_locked, num_converged=win.nconv,
-                    basis_size=s2.b, num_inner=inner_delta, hvals=shown[0],
-                    resnorms=shown[1], **kw)
-        s = _replace(s2, done=done, give_up=give_up)
+                    if need_reset:
+                        s2 = do_reset(cfg, A, B, s2)
+                else:
+                    s2 = do_expand(cfg, A, B, K, s2, win, shifts,
+                                   inner_solve=inner_solve,
+                                   force_random=inject)
+                    if s2.stats.num_matvecs <= s.stats.num_matvecs:
+                        s2 = _replace(s2, stall_restarts=s2.stall_restarts + 1)
+            if monitor is not None:
+                inner_delta = (s2.stats.num_inner_iterations
+                               - s.stats.num_inner_iterations)
+                if need_reset:
+                    ev = 3
+                elif s2.num_locked > s.num_locked:
+                    ev = 5
+                elif need_restart and not done:
+                    ev = 2
+                elif win.nconv > 0:
+                    ev = 4
+                else:
+                    ev = 1 if inner_delta > 0 else 0
+                kw = {}
+                if s2.inner_trace is not None:
+                    kw["inner_trace"] = host_read(s2.inner_trace.cpu).numpy()
+                monitor(event=ev, num_outer=s.stats.num_outer_iterations,
+                        num_matvecs=s2.stats.num_matvecs,
+                        num_locked=s2.num_locked, num_converged=win.nconv,
+                        basis_size=s2.b, num_inner=inner_delta, hvals=shown[0],
+                        resnorms=shown[1], **kw)
+            s = _replace(s2, done=done, give_up=give_up)
     return s
 
 
@@ -1526,7 +1544,8 @@ def _debug_line(cfg: SolveConfig, s: SolverState, win: Window,
     the constraint and locked columns and of the converged candidates;
     computed on the device and read in one transfer."""
     dev = s.V.device
-    big = torch.tensor(1e9, dtype=real_dtype(s.H.dtype), device=dev)
+    big = host_read(torch.tensor, 1e9, dtype=real_dtype(s.H.dtype),
+                    device=dev)
     cn = col_norms(s.V)
     mincn = torch.min(torch.where(torch.arange(cfg.mmax, device=dev) < s.b,
                                   cn, big))
@@ -1575,8 +1594,9 @@ def extract_result(cfg: SolveConfig, s: SolverState, shifts) -> EigsResult:
     keys = torch.clamp(torch.cat([lkeys, wkeys]), -big / 16, big / 16)
     # tensor operands: two Python scalars would make an f32 result, and
     # an f64 big / 8 overflows f32
-    keys = keys + torch.where(passing, 0.0, keys.new_tensor(big / 8)) \
-        + torch.where(valid, 0.0, keys.new_tensor(big / 4))
+    keys = keys + torch.where(passing, 0.0,
+                              host_read(keys.new_tensor, big / 8)) \
+        + torch.where(valid, 0.0, host_read(keys.new_tensor, big / 4))
     order = torch.argsort(keys, stable=True)[:ne]
 
     from_locked = order < Lw
