@@ -122,6 +122,36 @@ def _anorm_power(Aop, n: int, device, iters: int = 12) -> float:
     return host_read(float, nrm)
 
 
+# bytes of a chunk of rows in the results' copy to the host
+_CHUNK_BYTES = 64 << 20
+
+
+def _columns_to_host(X, order: np.ndarray):
+    """``X.cpu().numpy()[:, order]`` of a card's ``X`` in one pass:
+    a chunk of rows at a time, the columns ordered on the card, copied
+    into one pinned staging buffer (from torch's caching allocator, so a
+    later call reuses it) and from there into a fresh C-ordered array by
+    torch's CPU copy, which spreads the first touch of its pages over the
+    intra-op threads. Each chunk's wait is a counted read. Returns
+    ``(array, chunks)``."""
+    n, k = X.shape
+    rows = max(1, _CHUNK_BYTES // (X.element_size() * k))
+    idx = host_read(torch.as_tensor(order).to, X.device)
+    out = np.empty((n, k), np.float64)
+    dest = torch.from_numpy(out)
+    stage = torch.empty((min(rows, n), k), dtype=X.dtype, pin_memory=True)
+    stream = torch.cuda.current_stream(X.device)
+    chunks = 0
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        part = stage[:r1 - r0]
+        part.copy_(X[r0:r1].index_select(1, idx), non_blocking=True)
+        host_read(stream.synchronize)
+        dest[r0:r1].copy_(part)
+        chunks += 1
+    return out, chunks
+
+
 @scoped("pt_refine")
 def refine_eigsh(A: Any, X0: Any, *, tol: float, OPinv: Any = None,
                  which: str = "SA", maxiter: int = 300, aNorm: float = 0.0,
@@ -135,7 +165,9 @@ def refine_eigsh(A: Any, X0: Any, *, tol: float, OPinv: Any = None,
     port operator such as :class:`~primme_tpu_torch.ChebyshevPrecond`).
     Returns numpy ``(evals, evecs)`` (+ ``stats``: ``num_refine_iters``,
     ``resnorms``, ``anorm_estimate``, ``num_host_reads``: the call's
-    waits for the card, :func:`~.core.linalg.host_read`) with every true
+    waits for the card, :func:`~.core.linalg.host_read`;
+    ``to_host_chunks``: the chunks of rows the vectors crossed to the host
+    in, 0 on the CPU) with every true
     f64 residual norm ``<= tol * ||A||``, or the best reached at
     ``maxiter``. ``device``:
     None (or ``"auto"``) is the card, and raises without one; ``"cpu"``
@@ -174,11 +206,16 @@ def refine_eigsh(A: Any, X0: Any, *, tol: float, OPinv: Any = None,
     with scope("pt_to_host"):
         lam_h = host_read(lam.cpu).numpy()
         order = np.argsort(sgn * lam_h)
-        out = (lam_h[order], host_read(X.cpu).numpy()[:, order])
+        if X.device.type == "cuda":
+            X_h, chunks = _columns_to_host(X, order)
+        else:
+            X_h, chunks = host_read(X.cpu).numpy()[:, order], 0
+        out = (lam_h[order], X_h)
         if return_stats:
             res_h = host_read(res.cpu).numpy()[order]
     if return_stats:
         out = out + ({"num_refine_iters": it, "resnorms": res_h,
                       "anorm_estimate": anorm,
-                      "num_host_reads": host_reads() - reads0},)
+                      "num_host_reads": host_reads() - reads0,
+                      "to_host_chunks": chunks},)
     return out

@@ -126,6 +126,31 @@ def test_chebyshev_matmat(prec, k):
     assert np.abs(zt.numpy() - zj).max() <= tol * np.abs(zj).max()
 
 
+@pytest.mark.parametrize("which", ["SA", "LA"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_refine_results_on_the_cpu_are_the_last_step_ordered(monkeypatch, k,
+                                                             which):
+    """On the CPU the results are the last LOBPCG step's values and
+    vectors in ``np.argsort``'s order, bit for bit ``X.numpy()[:, order]``,
+    and no chunk of rows goes through a staging buffer."""
+    from primme_tpu_torch import refine
+    last = []
+    step = refine.refine_step
+    monkeypatch.setattr(refine, "refine_step",
+                        lambda *a: last.append(step(*a)) or last[-1])
+    A = ptt.Stencil3DOperator(8, 8, 8, dtype=torch.float64, device="cpu")
+    X0 = np.random.default_rng(k).standard_normal((512, k))
+    ev, X, st = ptt.refine_eigsh(A, X0, tol=1e-10, which=which, maxiter=20,
+                                 return_stats=True, device="cpu")
+    X_l, _, lam, res = (t.numpy() for t in last[-1])
+    order = np.argsort((1.0 if which == "SA" else -1.0) * lam)
+    assert st["to_host_chunks"] == 0
+    assert st["num_refine_iters"] == len(last)
+    assert ev.tobytes() == lam[order].tobytes()
+    assert X.shape == (512, k) and X.tobytes() == X_l[:, order].tobytes()
+    assert st["resnorms"].tobytes() == res[order].tobytes()
+
+
 def test_refine_needs_a_card_unless_asked(monkeypatch):
     # an entry point of the port runs on the card unless asked otherwise
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -2,7 +2,8 @@
 f64 stencil kernel and ``refine_eigsh`` in native FP64, each against the
 same call on the CPU (the stencil's plain version there); and the refined
 extraction's batch (``smallest_right_svecs``) on the card against the
-CPU, on both sides of 32 pairs (f32: the Gram's f64 ``eigh``, cuSOLVER's
+CPU, and the polish's results crossing to the host in chunks of rows (bit
+for bit the old single copy's ordered columns), on both sides of 32 pairs (f32: the Gram's f64 ``eigh``, cuSOLVER's
 batched Jacobi ``eigh`` below, its looped ``syevd`` above; f64: the SVD;
 LAPACK on the CPU). This file
 imports no jax, so that it runs where the kernels do:
@@ -75,6 +76,46 @@ def test_refine_on_the_card_matches_cpu(card):
     R = ST.matmat_reference(Xt, nx, nx, nx) - Xt * torch.as_tensor(
         ev_g, device=card)
     assert float(torch.linalg.vector_norm(R, dim=0).max()) <= 1e-11 * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_bytes", [24000, None])
+@pytest.mark.parametrize("which", ["SA", "LA"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_refine_results_cross_in_chunks(card, monkeypatch, k, which,
+                                        chunk_bytes):
+    """The polish's vectors reach the host a chunk of rows at a time
+    (3000 or 750 rows of 4096 under the small chunk, one chunk under the
+    module's), bit for bit the old ``X.cpu().numpy()[:, order]`` of the
+    last step, in a fresh array that a later call leaves alone."""
+    from primme_tpu_torch import refine
+    if chunk_bytes is not None:
+        monkeypatch.setattr(refine, "_CHUNK_BYTES", chunk_bytes)
+    last = []
+    step = refine.refine_step
+    monkeypatch.setattr(refine, "refine_step",
+                        lambda *a: last.append(step(*a)) or last[-1])
+    nx = 16
+    n = nx ** 3
+    rows = refine._CHUNK_BYTES // (8 * k)
+    assert chunk_bytes is None or n % rows
+    A64 = ptt.Stencil3DOperator(nx, nx, nx, dtype=torch.float64,
+                                device=card)
+    X0 = np.random.default_rng(k).standard_normal((n, k)).astype(np.float32)
+    ev, X, st = ptt.refine_eigsh(A64, X0, tol=1e-11, which=which,
+                                 maxiter=30, return_stats=True, device=card)
+    X_l, _, lam, res = (t.cpu().numpy() for t in last[-1])
+    order = np.argsort((1.0 if which == "SA" else -1.0) * lam)
+    assert ev.tobytes() == lam[order].tobytes()
+    assert X.dtype == np.float64 and X.shape == (n, k)
+    assert X.tobytes() == X_l[:, order].tobytes()
+    assert st["resnorms"].tobytes() == res[order].tobytes()
+    assert X.flags.c_contiguous and X.flags.writeable and X.flags.owndata
+    assert st["to_host_chunks"] == -(-n // rows)
+    kept = X.copy()
+    ptt.refine_eigsh(A64, X0[::-1].copy(), tol=1e-11, which=which,
+                     maxiter=30, device=card)
+    assert X.tobytes() == kept.tobytes()
 
 
 @pytest.mark.cuda

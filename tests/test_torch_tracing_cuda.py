@@ -8,7 +8,9 @@ during the call number exactly ``stats["num_host_reads"]``: every
 implicit read (``int``, ``float``, ``bool`` of a device tensor), every
 blocking copy to the card and every ``torch.linalg`` call that checks its
 result on the host goes through ``core.linalg.host_read``, and each of
-them waits once. The operators are built before the call. This file
+them waits once; so does each chunk of rows of the polish's results on
+their way to the host, at one chunk and at five. The operators are built
+before the call. This file
 imports no jax, so that it runs where the kernels do:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_tracing_cuda.py
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 import primme_tpu_torch as ptt
+from primme_tpu_torch import refine
 
 
 @pytest.fixture
@@ -47,7 +50,7 @@ def _syncs(fn):
 
 
 @pytest.mark.cuda
-def test_host_reads_count_every_synchronisation(card):
+def test_host_reads_count_every_synchronisation(card, monkeypatch):
     nx = 16
     A32 = ptt.Stencil3DOperator(nx, nx, nx, dtype=torch.float32, device=card)
     A64 = ptt.Stencil3DOperator(nx, nx, nx, dtype=torch.float64, device=card)
@@ -73,3 +76,37 @@ def test_host_reads_count_every_synchronisation(card):
     assert n == st["num_host_reads"] > 0
     (_, _, rst), n = _syncs(lambda: f64(X))
     assert n == rst["num_host_reads"] > 0
+    assert rst["to_host_chunks"] == 1
+    # 1000 rows a chunk: the 4096 rows of the results cross in five
+    monkeypatch.setattr(refine, "_CHUNK_BYTES", 8 * 4 * 1000)
+    (_, _, rst5), n = _syncs(lambda: f64(X))
+    assert rst5["to_host_chunks"] == 5 and n == rst5["num_host_reads"]
+    # two reads a step; the copy's four more chunks, four more reads
+    assert (rst5["num_host_reads"] - 2 * rst5["num_refine_iters"]
+            == rst["num_host_reads"] - 2 * rst["num_refine_iters"] + 4)
+
+
+@pytest.mark.cuda
+def test_each_chunk_waits_in_a_read_under_pt_to_host(card, monkeypatch):
+    """The results' copy stays under ``pt_to_host``: the values' read, the
+    order's copy to the card, one read a chunk of rows and the residuals'
+    read, each a ``pt_read`` inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(refine, "_CHUNK_BYTES", 8 * 4 * 1000)
+    nx = 16
+    A64 = ptt.Stencil3DOperator(nx, nx, nx, dtype=torch.float64, device=card)
+    X0 = np.random.default_rng(0).standard_normal((nx ** 3, 4))
+    ptt.refine_eigsh(A64, X0, tol=1e-10, maxiter=5, device=card)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, st = ptt.refine_eigsh(A64, X0, tol=1e-10, maxiter=5,
+                                    return_stats=True, device=card)
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.is_user_annotation()]
+    (top,) = [s for s in spans if s[0] == "pt_to_host"]
+    reads = [s for s in spans if s[0] == "pt_read"]
+    inside = [s for s in reads if top[1] <= s[1] and s[2] <= top[2]]
+    assert st["to_host_chunks"] == 5
+    assert len(inside) == 3 + 5
+    assert len(reads) == st["num_host_reads"]
